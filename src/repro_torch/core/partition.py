@@ -1,0 +1,239 @@
+"""Graph → CE partitioning, host-side numpy (twin of `repro.core.partition`).
+
+The port keeps its own copy of the functions that the blocked-adjacency
+path needs: `bfs_traversal_order` (the default locality permutation) and
+`partition_graph` with its BFS region growing and boundary refinement (the
+``method="partition"`` permutation). Outputs are array-equal to the
+reference's.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+__all__ = [
+    "Partition",
+    "partition_graph",
+    "refine_partition",
+    "bfs_traversal_order",
+]
+
+
+@dataclasses.dataclass
+class Partition:
+    """A node→CE assignment plus its CE-to-CE edge counts."""
+
+    assignment: np.ndarray          # (N,) int32 CE id per node
+    k: int
+    part_sizes: np.ndarray          # (k,) nodes per CE
+    edge_counts: np.ndarray         # (k, k) directed edge counts between CEs
+    n_nodes: int
+    n_edges: int
+
+
+def _edge_count_matrix(assignment: np.ndarray, k: int, src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+    pair = assignment[src].astype(np.int64) * k + assignment[dst].astype(np.int64)
+    counts = np.bincount(pair, minlength=k * k)
+    return counts.reshape(k, k).astype(np.int64)
+
+
+def _csr_from_edges(n: int, src: np.ndarray, dst: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    order = np.argsort(src, kind="stable")
+    s, d = src[order], dst[order]
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(indptr, s + 1, 1)
+    np.cumsum(indptr, out=indptr)
+    return indptr, d
+
+
+def _gather_ranges(indices: np.ndarray, starts: np.ndarray, ends: np.ndarray) -> np.ndarray:
+    """Vectorized np.concatenate([indices[s:e] ...]) for large frontiers."""
+    counts = (ends - starts).astype(np.int64)
+    total = int(counts.sum())
+    out_off = np.zeros(len(starts) + 1, dtype=np.int64)
+    np.cumsum(counts, out=out_off[1:])
+    idx = np.arange(total, dtype=np.int64)
+    seg = np.searchsorted(out_off[1:], idx, side="right")
+    return indices[starts[seg] + (idx - out_off[seg])]
+
+
+def _bfs_assignment(n: int, src: np.ndarray, dst: np.ndarray, k: int, seed: int) -> np.ndarray:
+    """Multi-source BFS region growing with balance caps."""
+    rng = np.random.default_rng(seed)
+    indptr, indices = _csr_from_edges(n, src, dst)
+    cap = int(np.ceil(n / k) * 1.03) + 1
+    assignment = np.full(n, -1, dtype=np.int32)
+    sizes = np.zeros(k, dtype=np.int64)
+    seeds = rng.choice(n, size=k, replace=False)
+    assignment[seeds] = np.arange(k, dtype=np.int32)
+    sizes += 1
+    frontier = seeds
+    while frontier.size:
+        # Expand all frontier nodes one level, vectorized over their edges.
+        starts, ends = indptr[frontier], indptr[frontier + 1]
+        counts = (ends - starts).astype(np.int64)
+        if counts.sum() == 0:
+            break
+        owner = np.repeat(assignment[frontier], counts)
+        if frontier.size < 4096:
+            flat = np.concatenate([indices[s:e] for s, e in zip(starts, ends)])
+        else:
+            flat = _gather_ranges(indices, starts, ends)
+        unas = assignment[flat] == -1
+        flat, owner = flat[unas], owner[unas]
+        if flat.size == 0:
+            break
+        # First-come wins among duplicates; respect capacity.
+        uniq, first = np.unique(flat, return_index=True)
+        owner = owner[first]
+        room = sizes[owner] < cap
+        uniq, owner = uniq[room], owner[room]
+        still = assignment[uniq] == -1
+        uniq, owner = uniq[still], owner[still]
+        assignment[uniq] = owner
+        np.add.at(sizes, owner, 1)
+        frontier = uniq
+    # Orphans (disconnected or capacity-blocked) → fill underfull parts.
+    orphans = np.flatnonzero(assignment == -1)
+    if orphans.size:
+        deficit = np.maximum(cap - sizes, 0)
+        fill = np.repeat(np.arange(k), deficit)[: orphans.size]
+        if fill.size < orphans.size:  # pathological: round-robin the rest
+            extra = np.arange(orphans.size - fill.size) % k
+            fill = np.concatenate([fill, extra])
+        assignment[orphans] = fill.astype(np.int32)
+    return assignment
+
+
+def bfs_traversal_order(n_nodes: int, src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+    """Parent-ordered BFS traversal order — I-GCN-style islandization.
+
+    Returns ``order`` (position → node id): nodes in BFS discovery order over
+    the symmetrized graph, each frontier sorted by its PARENT's position
+    (first discoverer wins), so a community's members pack contiguously.
+    Disconnected components are traversed in node-id order.
+    """
+    src = np.asarray(src, dtype=np.int64)
+    dst = np.asarray(dst, dtype=np.int64)
+    both_s = np.concatenate([src, dst])
+    both_d = np.concatenate([dst, src])
+    indptr, indices = _csr_from_edges(n_nodes, both_s, both_d)
+    order = np.empty(n_nodes, np.int64)
+    seen = np.zeros(n_nodes, bool)
+    pos, next_root = 0, 0
+    while pos < n_nodes:
+        while next_root < n_nodes and seen[next_root]:
+            next_root += 1
+        frontier = np.array([next_root], np.int64)
+        seen[next_root] = True
+        while frontier.size:
+            order[pos:pos + frontier.size] = frontier
+            pos += frontier.size
+            starts, ends = indptr[frontier], indptr[frontier + 1]
+            counts = (ends - starts).astype(np.int64)
+            if counts.sum() == 0:
+                break
+            flat = _gather_ranges(indices, starts, ends)
+            flat = flat[~seen[flat]]
+            if flat.size == 0:
+                break
+            # Dedupe keeping FIRST discovery, then sort by that discovery
+            # position — children group under their (community-mate) parent.
+            uniq, first = np.unique(flat, return_index=True)
+            frontier = uniq[np.argsort(first, kind="stable")]
+            seen[frontier] = True
+    return order
+
+
+def refine_partition(
+    assignment: np.ndarray,
+    k: int,
+    src: np.ndarray,
+    dst: np.ndarray,
+    passes: int = 3,
+    balance_slack: float = 0.05,
+    seed: int = 0,
+) -> np.ndarray:
+    """Greedy single-move boundary refinement with balance caps.
+
+    Each pass moves every node whose strongest-pulling CE beats its own (and
+    has room) there, in gain order; a pass that worsens the cut is reverted
+    and refinement stops, so the cut never grows across passes.
+    """
+    rng = np.random.default_rng(seed)
+    n = assignment.shape[0]
+    assignment = assignment.astype(np.int32).copy()
+    cap = int(np.ceil(n / k) * (1.0 + balance_slack)) + 1
+    cut_before = int((assignment[src] != assignment[dst]).sum())
+    for _ in range(passes):
+        prev = assignment.copy()
+        # pull[v, c] = #edges from v into CE c (treat graph as undirected).
+        pull = np.zeros((n, k), dtype=np.int32)
+        np.add.at(pull, (src, assignment[dst]), 1)
+        np.add.at(pull, (dst, assignment[src]), 1)
+        cur = pull[np.arange(n), assignment]
+        best_part = np.argmax(pull, axis=1).astype(np.int32)
+        best = pull[np.arange(n), best_part]
+        gain = best - cur
+        movers = np.flatnonzero((gain > 0) & (best_part != assignment))
+        if movers.size == 0:
+            break
+        movers = movers[np.argsort(-gain[movers], kind="stable")]
+        sizes = np.bincount(assignment, minlength=k).astype(np.int64)
+        rng.shuffle(movers[: movers.size // 2])  # break pathological orderings
+        tgt = best_part[movers]
+        moved = 0
+        for v, t in zip(movers, tgt):
+            if sizes[t] < cap:
+                sizes[assignment[v]] -= 1
+                sizes[t] += 1
+                assignment[v] = t
+                moved += 1
+        if moved == 0:
+            break
+        cut_after = int((assignment[src] != assignment[dst]).sum())
+        if cut_after > cut_before:
+            assignment = prev
+            break
+        cut_before = cut_after
+    return assignment
+
+
+def partition_graph(
+    n_nodes: int,
+    edge_index: np.ndarray,
+    k: int,
+    method: str = "block",
+    seed: int = 0,
+    refine: bool = False,
+) -> Partition:
+    """Produce a node→CE :class:`Partition` of the given graph.
+
+    edge_index: (2, E) int array of directed edges (src, dst).
+    """
+    src = np.asarray(edge_index[0], dtype=np.int64)
+    dst = np.asarray(edge_index[1], dtype=np.int64)
+    if method == "block":
+        # Paper-faithful: adjacency sliced "as is" into N×(N/k) column bands.
+        bounds = np.linspace(0, n_nodes, k + 1).astype(np.int64)
+        assignment = (np.searchsorted(bounds, np.arange(n_nodes), side="right") - 1).astype(np.int32)
+        assignment = np.clip(assignment, 0, k - 1)
+    elif method == "random":
+        rng = np.random.default_rng(seed)
+        assignment = (rng.permutation(n_nodes) % k).astype(np.int32)
+    elif method == "bfs":
+        assignment = _bfs_assignment(n_nodes, src, dst, k, seed)
+    else:
+        raise ValueError(f"unknown partition method: {method!r}")
+    if refine:
+        assignment = refine_partition(assignment, k, src, dst, seed=seed)
+    counts = _edge_count_matrix(assignment, k, src, dst)
+    return Partition(
+        assignment=assignment,
+        k=k,
+        part_sizes=np.bincount(assignment, minlength=k).astype(np.int64),
+        edge_counts=counts,
+        n_nodes=int(n_nodes),
+        n_edges=int(src.shape[0]),
+    )

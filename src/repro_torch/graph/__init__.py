@@ -1,0 +1,1 @@
+"""Graph substrate: host-side containers and blocking, synthetic Table I datasets, segment ops."""

@@ -1,0 +1,305 @@
+"""The CUDA source of the fused GCN layer, run on the CPU.
+
+A CUDA kernel has no interpret mode, so this compiles the device code of
+`src/repro_torch/kernels/csrc/fused_gcn_kernels.cuh` with the host C++
+compiler through the stand-ins in `SHIM` below (one host thread per CUDA
+thread, a barrier per `__syncthreads`, asynchronous copies that land only
+when a wait retires them) and holds its output against the plain PyTorch
+versions of `repro_torch.kernels.fused_gcn`: the kernels' indexing, staging,
+copy pipeline, ragged skip and epilogues are checked here; their speed and
+the card's own rounding only on the card.
+"""
+import ctypes
+import pathlib
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.graph.structure import blocked_adjacency
+from repro_torch.kernels.fused_gcn import (
+    FF_F_TILE,
+    af_layer_plain,
+    ff_aggregate_plain,
+    ff_transform_plain,
+    layer_smem_bytes,
+)
+from repro_torch.kernels.ref import poison_padding
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+
+SHIM = r"""
+// Host-compiler stand-ins for the CUDA built-ins the port's kernels use, so
+// that their device code compiles with g++ and runs on the CPU: one
+// std::thread per CUDA thread, std::barrier for __syncthreads(), blocks run
+// one after another (so a namespace-scope array can stand in for shared
+// memory). Slow and only for small shapes; it checks indexing, staging and
+// synchronisation, not speed or the GPU's own floating-point behaviour.
+#pragma once
+
+#include <barrier>
+#include <cmath>
+#include <cstddef>
+#include <cstring>
+#include <deque>
+#include <thread>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __shared__
+#define __launch_bounds__(...)
+
+struct dim3 {
+    unsigned x, y, z;
+    dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
+};
+
+struct alignas(16) float4 {
+    float x, y, z, w;
+};
+
+inline thread_local dim3 threadIdx;
+inline dim3 blockIdx, blockDim, gridDim;
+inline std::barrier<>* emu_block_barrier = nullptr;
+
+inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
+
+// The asynchronous copy primitives of <cuda_pipeline.h>. A copy lands only
+// when a wait retires its commit group, so a kernel that reads a stage
+// before waiting for it reads stale data here too.
+struct EmuCopy {
+    void* dst;
+    const void* src;
+    std::size_t size;
+};
+inline thread_local std::vector<EmuCopy> emu_open_group;
+inline thread_local std::deque<std::vector<EmuCopy>> emu_committed;
+
+inline void __pipeline_memcpy_async(void* dst, const void* src, std::size_t size) {
+    emu_open_group.push_back({dst, src, size});
+}
+inline void __pipeline_commit() {
+    emu_committed.push_back(std::move(emu_open_group));
+    emu_open_group.clear();
+}
+inline void __pipeline_wait_prior(std::size_t prior) {
+    while (emu_committed.size() > prior) {
+        for (const EmuCopy& c : emu_committed.front()) std::memcpy(c.dst, c.src, c.size);
+        emu_committed.pop_front();
+    }
+}
+
+// Run `body` as a grid of blocks of `threads` threads each.
+template <typename Body>
+void emu_launch(dim3 grid, int threads, Body body) {
+    blockDim = dim3(threads);
+    gridDim = grid;
+    for (unsigned by = 0; by < grid.y; ++by) {
+        for (unsigned bx = 0; bx < grid.x; ++bx) {
+            blockIdx = dim3(bx, by);
+            std::barrier<> bar(threads);
+            emu_block_barrier = &bar;
+            std::vector<std::thread> pool;
+            pool.reserve(threads);
+            for (int t = 0; t < threads; ++t)
+                pool.emplace_back([&body, t] { threadIdx = dim3(t); body(); });
+            for (auto& th : pool) th.join();
+        }
+    }
+}
+"""
+
+# The kernels compiled through SHIM, with the launch geometry of
+# fused_gcn.cu, behind a C interface for ctypes.
+HARNESS = r"""
+// The fused GCN layer kernels (src/repro_torch/kernels/csrc/fused_gcn_kernels.cuh)
+// compiled by the host compiler through shim.h, with the launch geometry of
+// fused_gcn.cu, behind a C interface for ctypes. Returns 0, or 1 when a launch
+// would need more shared memory than the stand-in holds.
+#include "shim.h"
+
+#include "fused_gcn_kernels.cuh"
+
+namespace k2 {
+alignas(16) float smem[232448 / sizeof(float)];
+}
+
+extern "C" {
+
+int emu_ff_transform(const float* x, const float* w, float* z, int M, int K, int N) {
+    if (k2::xw_smem_bytes() > (long long)sizeof(k2::smem)) return 1;
+    dim3 grid((M + k2::TILE - 1) / k2::TILE, (N + k2::NC - 1) / k2::NC);
+    emu_launch(grid, k2::THREADS, [&] { k2::xw_kernel(x, w, z, M, K, N); });
+    return 0;
+}
+
+int emu_ff_aggregate(const float* vals, const int* cols, const int* lens, int R, int T,
+                     int n_src_blocks, const float* z, const float* b, float* out,
+                     int f_out, int ft, int relu) {
+    if (k2::layer_smem_bytes(ft) > (long long)sizeof(k2::smem)) return 1;
+    dim3 grid(R, (f_out + ft - 1) / ft);
+    emu_launch(grid, k2::THREADS, [&] {
+        k2::ragged_layer_kernel<0>(vals, cols, lens, T, n_src_blocks, z, f_out, ft,
+                                   nullptr, b, out, f_out, relu);
+    });
+    return 0;
+}
+
+int emu_af_layer(const float* vals, const int* cols, const int* lens, int R, int T,
+                 int n_src_blocks, const float* x, int f_in, const float* w,
+                 const float* b, float* out, int f_out, int relu) {
+    if (k2::layer_smem_bytes(f_in) > (long long)sizeof(k2::smem)) return 1;
+    emu_launch(dim3(R, 1), k2::THREADS, [&] {
+        k2::ragged_layer_kernel<1>(vals, cols, lens, T, n_src_blocks, x, f_in, f_in,
+                                   w, b, out, f_out, relu);
+    });
+    return 0;
+}
+
+long long emu_layer_smem_bytes(int ft) { return k2::layer_smem_bytes(ft); }
+
+}  // extern "C"
+"""
+
+
+@pytest.fixture(scope="module")
+def emu(tmp_path_factory):
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs a host C++20 compiler (g++) to emulate the CUDA source")
+    work = tmp_path_factory.mktemp("emu")
+    (work / "shim.h").write_text(SHIM)
+    (work / "fused_gcn_emu.cpp").write_text(HARNESS)
+    lib_path = work / "libfused_gcn_emu.so"
+    subprocess.run(
+        [cxx, "-std=c++20", "-O1", "-Wno-unknown-pragmas", "-shared", "-fPIC", "-pthread",
+         f"-I{CSRC}", f"-I{work}", str(work / "fused_gcn_emu.cpp"), "-o", str(lib_path)],
+        check=True, capture_output=True, text=True,
+    )
+    lib = ctypes.CDLL(str(lib_path))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.emu_ff_transform.argtypes = [P, P, P, I, I, I]
+    lib.emu_ff_aggregate.argtypes = [P, P, P, I, I, I, P, P, P, I, I, I]
+    lib.emu_af_layer.argtypes = [P, P, P, I, I, I, P, I, P, P, P, I, I]
+    lib.emu_layer_smem_bytes.argtypes = [I]
+    lib.emu_layer_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def _p(t: torch.Tensor) -> int:
+    assert t.is_contiguous()
+    return t.data_ptr()
+
+
+def _ff_transform(lib, x, w):
+    z = torch.empty((x.shape[0], w.shape[1]), dtype=torch.float32)
+    assert lib.emu_ff_transform(_p(x), _p(w), _p(z), x.shape[0], x.shape[1], w.shape[1]) == 0
+    return z
+
+
+def _ff_aggregate(lib, vals, cols, lens, z, b, relu):
+    R, T = cols.shape
+    f_out = z.shape[1]
+    out = torch.full((R * 128, f_out), float("nan"))
+    rc = lib.emu_ff_aggregate(_p(vals), _p(cols), _p(lens), R, T, z.shape[0] // 128, _p(z),
+                              _p(b), _p(out), f_out, min(f_out, FF_F_TILE), int(relu))
+    assert rc == 0
+    return out
+
+
+def _af_layer(lib, vals, cols, lens, x, w, b, relu):
+    R, T = cols.shape
+    f_in, f_out = w.shape
+    out = torch.full((R * 128, f_out), float("nan"))
+    rc = lib.emu_af_layer(_p(vals), _p(cols), _p(lens), R, T, x.shape[0] // 128, _p(x), f_in,
+                          _p(w), _p(b), _p(out), f_out, int(relu))
+    assert rc == 0
+    return out
+
+
+def _layer_inputs(n, e, d_in, d_out, seed):
+    r = np.random.default_rng(seed)
+    ei = r.integers(0, n, size=(2, e)).astype(np.int32)
+    ba = blocked_adjacency(n, ei, r.standard_normal(e).astype(np.float32))
+    vals, cols, lens = ba.arrays(device="cpu")
+    x = torch.zeros((ba.n_col_padded, d_in))
+    x[:n] = torch.from_numpy(r.standard_normal((n, d_in)).astype(np.float32))
+    w = torch.from_numpy((r.standard_normal((d_in, d_out)) * 0.2).astype(np.float32))
+    b = torch.from_numpy(r.standard_normal(d_out).astype(np.float32))
+    return vals, cols, lens, x, w, b
+
+
+def _close(out, ref, tol=1e-5):
+    scale = float(ref.abs().max()) + 1e-9
+    np.testing.assert_allclose(out.numpy() / scale, ref.numpy() / scale, rtol=tol, atol=tol)
+
+
+def test_emulated_smem_formula_matches_python(emu):
+    for ft in (1, 7, 16, 17, 50, 210, 336):
+        assert emu.emu_layer_smem_bytes(ft) == layer_smem_bytes(ft)
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 50, 7), (128, 5, 16), (384, 70, 33)])
+def test_emulated_ff_transform_matches_plain(emu, m, k, n):
+    r = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(r.standard_normal((m, k)).astype(np.float32))
+    w = torch.from_numpy(r.standard_normal((k, n)).astype(np.float32))
+    _close(_ff_transform(emu, x, w), ff_transform_plain(x, w))
+
+
+@pytest.mark.parametrize("order", ["feature_first", "aggregation_first"])
+@pytest.mark.parametrize("relu", [True, False])
+def test_emulated_layer_matches_plain(emu, order, relu):
+    """n=300 (a tail block of 44 rows), 50 → 7, as the reference's kernel test."""
+    vals, cols, lens, x, w, b = _layer_inputs(300, 1500, 50, 7, seed=1)
+    if order == "feature_first":
+        out = _ff_aggregate(emu, vals, cols, lens, _ff_transform(emu, x, w), b, relu)
+        ref = ff_aggregate_plain(vals, cols, lens, ff_transform_plain(x, w), b, relu)
+    else:
+        out = _af_layer(emu, vals, cols, lens, x, w, b, relu)
+        ref = af_layer_plain(vals, cols, lens, x, w, b, relu)
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("d_out", [70, 129])
+def test_emulated_ff_aggregate_covers_several_feature_tiles(emu, d_out):
+    """More output columns than one aggregation block covers (grid.y > 1)."""
+    vals, cols, lens, _, _, _ = _layer_inputs(260, 900, 8, 1, seed=2)
+    r = np.random.default_rng(d_out)
+    z = torch.from_numpy(r.standard_normal((vals.shape[0] * 128, d_out)).astype(np.float32))
+    b = torch.from_numpy(r.standard_normal(d_out).astype(np.float32))
+    _close(_ff_aggregate(emu, vals, cols, lens, z, b, True),
+           ff_aggregate_plain(vals, cols, lens, z, b, True))
+
+
+@pytest.mark.parametrize("d_in", [20, 24, 50])
+def test_emulated_af_layer_widths(emu, d_in):
+    vals, cols, lens, x, w, b = _layer_inputs(300, 1500, d_in, 24, seed=d_in)
+    _close(_af_layer(emu, vals, cols, lens, x, w, b, True),
+           af_layer_plain(vals, cols, lens, x, w, b, True))
+
+
+@pytest.mark.parametrize("order", ["feature_first", "aggregation_first"])
+def test_emulated_ragged_skip_and_empty_row(emu, order):
+    """Padding tiles are NaN and one block-row has no tile: the output stays
+    finite, equals the clean plain version, and the empty row is act(b)."""
+    vals, cols, lens, x, w, b = _layer_inputs(384, 2500, 20, 9, seed=4)
+    lens = lens.clone()
+    lens[1] = 0
+    lens[2] = max(int(lens[2]) - 1, 1)
+    poisoned = poison_padding(vals, lens)
+    assert torch.isnan(poisoned).any()
+    if order == "feature_first":
+        out = _ff_aggregate(emu, poisoned, cols, lens, _ff_transform(emu, x, w), b, True)
+        ref = ff_aggregate_plain(vals, cols, lens, ff_transform_plain(x, w), b, True)
+    else:
+        out = _af_layer(emu, poisoned, cols, lens, x, w, b, True)
+        ref = af_layer_plain(vals, cols, lens, x, w, b, True)
+    assert torch.isfinite(out).all()
+    _close(out, ref)
+    torch.testing.assert_close(out[128:256], b.clamp_min(0).expand(128, -1), rtol=0, atol=1e-6)
