@@ -8,12 +8,15 @@ file). It needs one CUDA card and exits non-zero without one, or without
 the package, before printing any result. It imports nothing of JAX and
 nothing of the JAX package `repro`.
 
-The path is full-graph inference of the paper's GCN (``coin_gcn``) at the
-widths of Nell (Table I: 65,755 nodes, 5,414 → 16 → 210, 4-bit fake quant)
-with the blocked (bsr) backend, whose two layers run the hand-written CUDA
-kernels of `repro_torch.kernels.fused_gcn`: layer 1 feature-first
+Two paths of the paper's GCN (``coin_gcn``) run at the widths of Nell
+(Table I: 65,755 nodes, 5,414 → 16 → 210, 4-bit fake quant) with the
+blocked (bsr) backend: full-graph inference and full-graph training. The
+forward of each layer runs the hand-written CUDA kernels of
+`repro_torch.kernels.fused_gcn` (K2): layer 1 feature-first
 (``k2_ff_transform`` then ``k2_ff_aggregate``), layer 2 aggregation-first
-(``k2_af_layer``). Weights are random, from a seed.
+(``k2_af_layer``). The backward of layer 2 recomputes Ã·h1 through
+`repro_torch.kernels.bsr_spmm` (K1, ``k1_bsr_spmm``). Weights are random,
+from a seed.
 
 Phases, one JSON line each; any failed check ends the run with exit code 1:
 
@@ -22,13 +25,23 @@ Phases, one JSON line each; any failed check ends the run with exit code 1:
            locality_block_order → blocked_adjacency → the card
   kernels  each kernel against its plain PyTorch version on the card at
            Nell's layer shapes: relu on and off, NaN-poisoned padding tiles,
-           an empty block-row, the 91-row tail block
-  main     gcn_forward(backend="bsr") three times under inference_mode with
-           the launch counts zeroed just before and read just after; the
-           quant-off logits against the segment (index_add_) path on the
-           card, the quant-on argmax agreement, the test accuracy
+           an empty block-row, the 91-row tail block; K1 also on a
+           rectangular Z with extra source block-rows
+  main     inference: gcn_forward(backend="bsr") three times under
+           inference_mode with the launch counts zeroed just before and read
+           just after; the quant-off logits against the segment (index_add_)
+           path on the card, the quant-on argmax agreement, the test accuracy
+  train    training: one quant-off gcn_loss gradient with bsr and with
+           segment; a Trainer taking five AdamW steps, quant on, with the
+           launch counts zeroed just before and read just after (one launch
+           of each kernel per step); five quant-off steps with bsr and with
+           segment, loss against loss
   times    CUDA-event medians: each kernel, its plain version, the library
-           call where one computes the same function, the whole forward
+           call where one computes the same function, the whole forward, the
+           backward's torch parts; host-clock medians of the training step;
+           peak device memory
+  profile  torch.profiler over three training steps (bsr, quant on): device
+           time by kernel and the device's idle share of the window
 
 then the card's name and power limit (nvidia-smi), the ``{"kernels": [...]}``
 line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -52,7 +65,10 @@ SRC = ROOT / "src"
 DATASET = "nell"
 SEED = 0
 PASSES = 3                     # main-path forwards
+TRAIN_STEPS = 5                # Trainer steps of the train phase
 KERNEL_RTOL = 1e-4             # kernel vs plain: max |diff| ≤ KERNEL_RTOL · max |plain|
+GRAD_RTOL = 1e-4               # bsr vs segment gradients, same rule per parameter
+LOSS_RTOL = 1e-4               # bsr vs segment quant-off losses, relative, every step
 LOGIT_RTOL = 1e-4              # quant-off logits, bsr kernels vs segment path, same rule
 ARGMAX_AGREEMENT = 0.999       # quant on: a 4-bit bucket may flip on a rounding difference;
                                # ties within LOGIT_RTOL count as agreement
@@ -63,7 +79,9 @@ REPLACES = {
     "k2_ff_transform": "src/repro/kernels/fused_gcn.py:45",
     "k2_ff_aggregate": "src/repro/kernels/fused_gcn.py:45",
     "k2_af_layer": "src/repro/kernels/fused_gcn.py:70",
+    "k1_bsr_spmm": "src/repro/kernels/bsr_spmm.py:87",
 }
+K2 = ("k2_ff_transform", "k2_ff_aggregate", "k2_af_layer")
 
 
 def emit(phase: str, **fields) -> None:
@@ -97,6 +115,21 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def wall_ms(fn, reps: int = 5, warmup: int = 2) -> float:
+    """Median milliseconds of ``fn`` on the host clock, each run ending in
+    ``torch.cuda.synchronize()``, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
 def bound(n_bytes: float, n_flop: float) -> tuple[float, str]:
     """Least time on the card (ms): bytes over the HBM rate or fp32
     operations over the CUDA-core rate, whichever is larger."""
@@ -119,7 +152,7 @@ def build_kernels() -> None:
 
     t0 = time.perf_counter()
     reports = _build.build(["fused_gcn"])
-    lib = fg._lib()
+    lib = fg._lib()          # binds every launcher of LAUNCHES: a missing symbol raises
     seconds = time.perf_counter() - t0
     smem_ok = all(lib.k2_layer_smem_bytes(f) == fg.layer_smem_bytes(f) for f in (7, 16, 50, 210, fg.AF_MAX_F_IN))
     ptxas = [ln.strip() for rep in reports.values() for ln in rep.splitlines()
@@ -183,10 +216,12 @@ def layer_operands(data: dict, generator: torch.Generator) -> dict:
 
 def check_kernels(data: dict, ops: dict) -> dict:
     """Each kernel against its plain version; returns the worst error per kernel."""
+    from repro_torch.kernels import bsr_spmm as k1
     from repro_torch.kernels import fused_gcn as fg
     from repro_torch.kernels.ref import poison_padding
 
     vals, cols, lens = data["vals"], data["cols"], data["lens"]
+    h1 = ops["h1"]
     worst = {name: 0.0 for name in fg.LAUNCHES}
     cases = []
 
@@ -206,9 +241,19 @@ def check_kernels(data: dict, ops: dict) -> dict:
             hold("k2_af_layer", f"relu={relu}",
                  fg.af_layer(vals, cols, lens, ops["h1"], ops["w2"], ops["b2"], relu),
                  fg.af_layer_plain(vals, cols, lens, ops["h1"], ops["w2"], ops["b2"], relu))
+        hold("k1_bsr_spmm", "nell recompute Ã·h1 (F=16)", k1.bsr_spmm(vals, cols, lens, h1),
+             k1.bsr_spmm_plain(vals, cols, lens, h1))
+        # Rectangular Z: twice the block-rows of the output, every other
+        # tile pointing into the second half, which holds other values.
+        R, T = cols.shape
+        cols_rect = (cols + R * (torch.arange(T, dtype=torch.int32, device=cols.device) % 2)).contiguous()
+        z_rect = torch.cat([h1, 2.0 * h1 + 1.0])
+        hold("k1_bsr_spmm", "rectangular Z (2R block-rows)", k1.bsr_spmm(vals, cols_rect, lens, z_rect),
+             k1.bsr_spmm_plain(vals, cols_rect, lens, z_rect))
+        del cols_rect, z_rect
         # NaN in every padding tile, and block-row 1 emptied (its tiles are
         # padding now, so NaN too): finite output, equal to the clean plain
-        # version, and act(b) on the empty row.
+        # version, and act(b) on the empty row (zeros for K1).
         empty = 1
         lens_e = lens.clone()
         lens_e[empty] = 0
@@ -219,6 +264,8 @@ def check_kernels(data: dict, ops: dict) -> dict:
              fg.ff_aggregate_plain(vals, cols, lens_e, z, ops["b1"], True), ops["b1"]),
             ("k2_af_layer", fg.af_layer(poisoned, cols, lens_e, ops["h1"], ops["w2"], ops["b2"], True),
              fg.af_layer_plain(vals, cols, lens_e, ops["h1"], ops["w2"], ops["b2"], True), ops["b2"]),
+            ("k1_bsr_spmm", k1.bsr_spmm(poisoned, cols, lens_e, h1),
+             k1.bsr_spmm_plain(vals, cols, lens_e, h1), torch.zeros_like(h1[0])),
         ):
             finite = bool(torch.isfinite(out).all())
             empty_ok = bool(torch.equal(out[rows], b.clamp_min(0).expand(128, -1)))
@@ -258,7 +305,7 @@ def run_main_path(data: dict) -> dict:
         quant_off = dataclasses.replace(cfg, quant=QuantConfig(enabled=False))
         err, scale = max_err(forward(quant_off), forward(dataclasses.replace(quant_off, backend="segment")))
         ref_q = forward(dataclasses.replace(cfg, backend="segment"))
-    expected = {name: PASSES for name in fg.LAUNCHES}
+    expected = {name: PASSES if name in K2 else 0 for name in fg.LAUNCHES}   # K1 runs in training only
     # Agreement up to ties: a node agrees when the class the kernel path
     # picks is a top logit of the plain path within the logit tolerance.
     # Quantized activations are often all zero on a node, and then every
@@ -288,9 +335,80 @@ def run_main_path(data: dict) -> dict:
     return dict(launches=launches, forward=forward, cfg=cfg)
 
 
-def time_everything(data: dict, ops: dict, main: dict) -> dict:
-    from repro_torch.core.quant import fake_quant
+def run_training(data: dict) -> dict:
+    """The training path: one quant-off gradient on each backend, five
+    quant-on AdamW steps of a `Trainer` with the launch counts zeroed just
+    before and read just after, five quant-off steps on each backend."""
+    from repro_torch.configs.coin_gcn import make_config
+    from repro_torch.core.quant import QuantConfig
     from repro_torch.kernels import fused_gcn as fg
+    from repro_torch.models.gcn import gcn_init, gcn_loss
+    from repro_torch.train.loop import Trainer, TrainerConfig, value_and_grad
+    from repro_torch.train.optimizer import adamw
+
+    device = data["x"].device
+    pg = data["pg"]
+    cfg = dataclasses.replace(make_config(dataset=DATASET), backend="bsr")
+    quant_off = dataclasses.replace(cfg, quant=QuantConfig(enabled=False))
+    adjacency = (data["vals"], data["cols"], data["lens"])
+    batch = dict(x=data["x"], labels=data["labels"], mask=(~data["test"]).float())
+
+    def loss_fn(c):
+        kw = {"adjacency": adjacency} if c.backend == "bsr" else {}
+
+        def loss(p, b):
+            return gcn_loss(p, b["x"], pg.senders, pg.receivers, pg.edge_weight, b["labels"], b["mask"],
+                            c, **kw)
+        return loss
+
+    def trainer(c):
+        params = gcn_init(torch.Generator().manual_seed(SEED), c, device=device)
+        return Trainer(loss_fn(c), adamw(), params, TrainerConfig(log_every=TRAIN_STEPS + 1))
+
+    def fit(tr):
+        return tr.fit(iter(lambda: batch, None), max_steps=TRAIN_STEPS)
+
+    # One quant-off gradient through the kernels and the reference's VJP,
+    # against autograd through the segment path.
+    grads = {}
+    for backend in ("bsr", "segment"):
+        c = dataclasses.replace(quant_off, backend=backend)
+        params = gcn_init(torch.Generator().manual_seed(SEED), c, device=device)
+        _, grads[backend] = value_and_grad(loss_fn(c), params, batch)
+    grad_err = {k: max_err(grads["bsr"][k], grads["segment"][k]) for k in grads["bsr"]}
+    del grads
+
+    tr = trainer(cfg)
+    torch.cuda.synchronize()
+    fg.reset_launch_counts()
+    losses = fit(tr)
+    torch.cuda.synchronize()
+    launches = dict(fg.LAUNCHES)
+    del tr
+
+    trajectory = {b: fit(trainer(dataclasses.replace(quant_off, backend=b))) for b in ("bsr", "segment")}
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(trajectory["bsr"], trajectory["segment"])]
+    expected = {name: TRAIN_STEPS for name in fg.LAUNCHES}
+    checks = dict(
+        launches=launches == expected,
+        gradients=all(err <= GRAD_RTOL * scale for err, scale in grad_err.values()),
+        finite_losses=len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+        quant_off_trajectory=len(loss_rel) == TRAIN_STEPS and max(loss_rel) <= LOSS_RTOL,
+    )
+    emit("train", ok=all(checks.values()), checks=checks, steps=TRAIN_STEPS, optimizer="adamw(lr=1e-3)",
+         launches=launches, expected_launches=expected, losses_bsr_quant_on=losses,
+         grad_max_abs_err={k: e for k, (e, _) in grad_err.items()},
+         grad_max_abs={k: s for k, (_, s) in grad_err.items()}, grad_rtol=GRAD_RTOL,
+         losses_quant_off=trajectory, loss_max_rel_diff=max(loss_rel), loss_rtol=LOSS_RTOL)
+    require(all(checks.values()), "train", f"checks {checks}")
+    return dict(launches=launches, trainer=trainer, batch=batch, cfg=cfg, quant_off=quant_off)
+
+
+def time_everything(data: dict, ops: dict, main: dict, train: dict) -> dict:
+    from repro_torch.core.quant import fake_quant
+    from repro_torch.kernels import bsr_spmm as k1
+    from repro_torch.kernels import fused_gcn as fg
+    from repro_torch.kernels.ops import _bsr_t_apply, _tile_mask
 
     vals, cols, lens = data["vals"], data["cols"], data["lens"]
     nnz = int(lens.sum())
@@ -319,7 +437,23 @@ def time_everything(data: dict, ops: dict, main: dict) -> dict:
                 library_ms=None,
                 bound=bound(tiles + idx + 4.0 * (h1.numel() + w2.numel() + f_out + R * B * f_out),
                             2.0 * nnz * B * B * hidden + 2.0 * R * B * hidden * f_out)),
+            "k1_bsr_spmm": dict(
+                ms=cuda_ms(lambda: k1.bsr_spmm(vals, cols, lens, h1)),
+                plain_ms=cuda_ms(lambda: k1.bsr_spmm_plain(vals, cols, lens, h1)),
+                library_ms=None,
+                bound=bound(tiles + idx + 4.0 * (h1.numel() + R * B * hidden), 2.0 * nnz * B * B * hidden)),
         }
+        # The backward's torch parts at Nell's shapes: both layers' blocked
+        # transposes take a 16-wide cotangent (layer 1's dpre, layer 2's
+        # dm = g·W2ᵀ), and layer 1's dw = Xᵀ·dz is the one large matmul.
+        pairs = _tile_mask(cols, lens).nonzero(as_tuple=True)
+        g1, g2 = torch.randn_like(h1), torch.randn_like(h1)
+        backward = dict(
+            bsr_t_apply_layer1_ms=cuda_ms(lambda: _bsr_t_apply(vals, cols, pairs, g1, M)),
+            bsr_t_apply_layer2_ms=cuda_ms(lambda: _bsr_t_apply(vals, cols, pairs, g2, M)),
+            dw_xt_dz_ms=cuda_ms(lambda: x.T @ g1),
+        )
+        del pairs, g1, g2
         forward, cfg = main["forward"], main["cfg"]
         seg = dataclasses.replace(cfg, backend="segment")
         torch.cuda.reset_peak_memory_stats()
@@ -330,11 +464,68 @@ def time_everything(data: dict, ops: dict, main: dict) -> dict:
                 reps=5),
             forward_segment_quant_ms=cuda_ms(lambda: forward(seg), reps=5),
             fake_quant_x_ms=cuda_ms(lambda: fake_quant(data["x"], 4, percentile=99.9), reps=5),
-            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            peak_memory_forward_gb=torch.cuda.max_memory_allocated() / 1e9,
         )
-    emit("times", ok=True, reps=dict(kernel=10, forward=5), **totals,
+
+    def step_ms(c):
+        tr = train["trainer"](c)
+
+        def one():
+            tr.params, tr.opt_state, tr.residual, loss = tr._step_fn(
+                tr.params, tr.opt_state, tr.residual, train["batch"])
+            float(loss)
+        return wall_ms(one)
+
+    cfg, quant_off = train["cfg"], train["quant_off"]
+    torch.cuda.reset_peak_memory_stats()
+    totals["train_step_bsr_quant_ms"] = step_ms(cfg)
+    totals["peak_memory_train_step_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    totals["train_step_bsr_noquant_ms"] = step_ms(quant_off)
+    totals["train_step_segment_quant_ms"] = step_ms(dataclasses.replace(cfg, backend="segment"))
+    emit("times", ok=True, reps=dict(kernel=10, forward=5, train_step=5), **totals, backward=backward,
+         resident_tile_table_gb=vals.numel() * 4 / 1e9,
          kernels={k: {**v, "bound": list(v["bound"])} for k, v in rows.items()})
     return rows
+
+
+def profile_train_steps(train: dict, steps: int = 3) -> None:
+    """Device time by kernel name and the idle share of the card over
+    ``steps`` bsr quant-on training steps, from torch.profiler's CUDA events
+    (their union is the busy time; the window spans every recorded event)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tr = train["trainer"](train["cfg"])
+
+    def one():
+        tr.params, tr.opt_state, tr.residual, loss = tr._step_fn(
+            tr.params, tr.opt_state, tr.residual, train["batch"])
+        float(loss)
+
+    one()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            one()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy, last = 0.0, float("-inf")
+    for start, end in sorted((e.time_range.start, e.time_range.end) for e in kernels):
+        busy += max(0.0, end - max(start, last))
+        last = max(last, end)
+    window = (max(e.time_range.end for e in events) - min(e.time_range.start for e in events)) if events else 0.0
+    by_name: dict[str, list] = {}          # kernel name → [µs, launches]
+    for e in kernels:
+        entry = by_name.setdefault(e.name, [0.0, 0])
+        entry[0] += e.time_range.elapsed_us()
+        entry[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
+    emit("profile", ok=True, steps=steps, device_kernel_events=len(kernels),
+         window_ms_per_step=window / steps / 1e3, device_busy_ms_per_step=busy / steps / 1e3,
+         device_idle_share=(1.0 - busy / window) if kernels and window > 0 else "not measured",
+         top_kernels=[dict(name=name[:160], ms_per_step=us / steps / 1e3, launches_per_step=n / steps)
+                      for name, (us, n) in top],
+         note="profiler overhead lengthens the host side of the window")
 
 
 def main() -> int:
@@ -359,12 +550,15 @@ def main() -> int:
     ops = layer_operands(data, torch.Generator().manual_seed(SEED + 1))
     worst = check_kernels(data, ops)
     main_run = run_main_path(data)
-    rows = time_everything(data, ops, main_run)
+    train_run = run_training(data)
+    rows = time_everything(data, ops, main_run, train_run)
+    profile_train_steps(train_run)
 
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNEL_SOURCE, replaces=REPLACES[name],
-             launches=main_run["launches"][name], max_abs_err=worst[name], ms=row["ms"],
+             launches=train_run["launches"][name], launches_per_train_step=train_run["launches"][name] / TRAIN_STEPS,
+             launches_inference=main_run["launches"][name], max_abs_err=worst[name], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound"][0], bound_by=row["bound"][1],
              library_ms=row["library_ms"])
         for name, row in rows.items()

@@ -1,9 +1,10 @@
 """Graph → CE partitioning, host-side numpy (twin of `repro.core.partition`).
 
 The port keeps its own copy of the functions that the blocked-adjacency
-path needs: `bfs_traversal_order` (the default locality permutation) and
-`partition_graph` with its BFS region growing and boundary refinement (the
-``method="partition"`` permutation). Outputs are array-equal to the
+path and the quickstart need: `bfs_traversal_order` (the default locality
+permutation), `partition_graph` with its BFS region growing and boundary
+refinement (the ``method="partition"`` permutation), the `Partition`
+statistics and `measured_probabilities`. Outputs are array-equal to the
 reference's.
 """
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 __all__ = [
     "Partition",
     "partition_graph",
+    "measured_probabilities",
     "refine_partition",
     "bfs_traversal_order",
 ]
@@ -22,7 +24,7 @@ __all__ = [
 
 @dataclasses.dataclass
 class Partition:
-    """A node→CE assignment plus its CE-to-CE edge counts."""
+    """A node→CE assignment plus the edge statistics COIN's model needs."""
 
     assignment: np.ndarray          # (N,) int32 CE id per node
     k: int
@@ -30,6 +32,42 @@ class Partition:
     edge_counts: np.ndarray         # (k, k) directed edge counts between CEs
     n_nodes: int
     n_edges: int
+
+    @property
+    def intra_edges(self) -> int:
+        return int(np.trace(self.edge_counts))
+
+    @property
+    def cut_edges(self) -> int:
+        return int(self.edge_counts.sum() - np.trace(self.edge_counts))
+
+    @property
+    def cut_fraction(self) -> float:
+        tot = int(self.edge_counts.sum())
+        return self.cut_edges / max(tot, 1)
+
+    def inter_ce_traffic_bits(self, act_bits_per_node: float, broadcast: bool = True) -> np.ndarray:
+        """(k,k) inter-CE traffic in bits for ONE layer's output exchange.
+
+        broadcast=True  — paper-faithful dataflow (Fig. 5c): each CE sends its
+          full layer output (n_m · a bits) to every other CE.
+        broadcast=False — beyond-paper halo exchange: CE i sends to CE j only
+          the activations of nodes that j's aggregation actually reads, i.e.
+          the distinct source nodes of cut edges i→j (upper-bounded here by
+          the edge count, exact when sources are distinct).
+        """
+        k = self.k
+        if broadcast:
+            out = np.repeat(self.part_sizes[:, None] * float(act_bits_per_node), k, axis=1)
+            np.fill_diagonal(out, 0.0)
+            return out
+        out = self.edge_counts.astype(np.float64) * float(act_bits_per_node)
+        np.fill_diagonal(out, 0.0)
+        return out
+
+    def intra_ce_traffic_bits(self, act_bits_per_node: float) -> np.ndarray:
+        """(k,) intra-CE traffic in bits per layer (local edge messages)."""
+        return np.diag(self.edge_counts).astype(np.float64) * float(act_bits_per_node)
 
 
 def _edge_count_matrix(assignment: np.ndarray, k: int, src: np.ndarray, dst: np.ndarray) -> np.ndarray:
@@ -237,3 +275,20 @@ def partition_graph(
         n_nodes=int(n_nodes),
         n_edges=int(src.shape[0]),
     )
+
+
+def measured_probabilities(p: Partition) -> tuple[np.ndarray, np.ndarray]:
+    """Measured p⁽¹⁾_m (k,) and p⁽²⁾_ij (k,k) from a partition (paper §IV-B2).
+
+    p⁽¹⁾_m  = intra-CE edges / ordered node pairs n_m(n_m−1)
+    p⁽²⁾_ij = edges between i and j / (n_i · n_j), i ≠ j
+    (directed-edge convention, matching the (N/k)(N/k−1) and (N/k)² pair
+    counts used in Eqs. 1–2).
+    """
+    sizes = p.part_sizes.astype(np.float64)
+    pairs_in = np.maximum(sizes * (sizes - 1.0), 1.0)
+    p1 = np.diag(p.edge_counts) / pairs_in
+    pairs_between = np.maximum(np.outer(sizes, sizes), 1.0)
+    p2 = p.edge_counts / pairs_between
+    np.fill_diagonal(p2, 0.0)
+    return p1, p2

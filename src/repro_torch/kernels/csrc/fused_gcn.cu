@@ -1,5 +1,6 @@
-// Host launchers of the fused GCN layer kernels, with a plain C interface for
-// ctypes (no PyTorch headers, so nvcc builds this in seconds):
+// Host launchers of the graph kernels (K2, the fused GCN layer, and K1, the
+// ragged block-sparse product), with a plain C interface for ctypes (no
+// PyTorch headers, so nvcc builds this in seconds):
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libfused_gcn.so fused_gcn.cu
@@ -65,6 +66,15 @@ int k2_af_layer(const float* vals, const int* cols, const int* lens, int R, int 
                 const float* b, float* out, int f_out, int relu, void* stream) {
     return launch_layer<1>(vals, cols, lens, R, T, n_src_blocks, x, f_in, f_in, 1,
                            w, b, out, f_out, relu, stream);
+}
+
+// out (R·128, f) = Ã · Z, Z (n_src_blocks·128, f) — may hold more block-rows
+// than the output; each block covers ft output columns.
+int k1_bsr_spmm(const float* vals, const int* cols, const int* lens, int R, int T,
+                int n_src_blocks, const float* z, float* out, int f, int ft, void* stream) {
+    const int grid_y = (f + ft - 1) / ft;
+    return launch_layer<2>(vals, cols, lens, R, T, n_src_blocks, z, f, ft, grid_y,
+                           nullptr, nullptr, out, f, 0, stream);
 }
 
 // Shared memory one ragged-layer block needs for an accumulator of width ft.

@@ -1,9 +1,12 @@
-// Device code of the fused GCN layer (K2) for Hopper: three kernels that
-// replace `repro/kernels/fused_gcn.py::fused_gcn_layer_pallas`.
+// Device code of the graph kernels for Hopper: the fused GCN layer (K2),
+// which replaces `repro/kernels/fused_gcn.py::fused_gcn_layer_pallas`, and
+// the ragged block-sparse product (K1), which replaces
+// `repro/kernels/bsr_spmm.py::bsr_spmm_pallas`.
 //
-//   xw_kernel                 Z = X · W            (feature-first, launch 1 of 2)
-//   ragged_layer_kernel<0>    act(Ã · Z + b)        (feature-first, launch 2 of 2)
-//   ragged_layer_kernel<1>    act((Ã · X) · W + b)  (aggregation-first, one launch)
+//   xw_kernel                 Z = X · W            (K2 feature-first, launch 1 of 2)
+//   ragged_layer_kernel<0>    act(Ã · Z + b)        (K2 feature-first, launch 2 of 2)
+//   ragged_layer_kernel<1>    act((Ã · X) · W + b)  (K2 aggregation-first, one launch)
+//   ragged_layer_kernel<2>    Ã · Z                 (K1, one launch)
 //
 // Ã is the ragged 128×128 blocked adjacency: vals (R, T, 128, 128) fp32,
 // cols (R, T) int32 block-column ids, lens (R,) int32 valid tiles per
@@ -150,11 +153,13 @@ __device__ inline void layer_copy_chunk(const float* __restrict__ vals, const in
 // t < lens[r] — the sequential grid axis of the TPU kernel becomes this loop,
 // so nothing crosses blocks — and accumulates Ã[r, t] · src[cols[r, t]] in
 // shared memory, thread i owning accumulator row i. A block-row with no tile
-// still runs the epilogue and writes act(b).
+// still runs the epilogue and writes act(b) (zeros in MODE 2).
 //
 // MODE 0 (feature-first): src = Z (width f_src = f_out); out = act(acc + b).
 // MODE 1 (aggregation-first): src = X (width f_src = ft = f_in);
 //                             out = act(acc · W + b), W (f_in, f_out).
+// MODE 2 (K1, the plain product): src = Z (width f_src = f_out); out = acc,
+//                             with no bias and no activation (w, b unused).
 //
 // Column ids outside [0, n_src_blocks) are clamped and lens to [0, T], so a
 // malformed table cannot read outside the operands; the host side
@@ -223,7 +228,10 @@ ragged_layer_kernel(const float* __restrict__ vals, const int* __restrict__ cols
     }
 
     float* o = out + ((long long)r * TILE + tid) * f_out;
-    if (MODE == 0) {
+    if (MODE == 2) {
+        for (int c = 0; c < ft; ++c)
+            if (f0 + c < f_out) o[f0 + c] = crow[c];
+    } else if (MODE == 0) {
         for (int c = 0; c < ft; ++c) {
             const int f = f0 + c;
             if (f < f_out) {

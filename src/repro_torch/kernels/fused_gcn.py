@@ -77,7 +77,8 @@ _KC, _NC, _STAGES = 32, 16, 2   # staged chunk depth, accumulator chunk, pipelin
 FF_F_TILE = 64              # output columns one feature-first aggregation block covers
 SMEM_LIMIT = 232_448        # bytes of shared memory one H100 block may opt into
 
-LAUNCHES = {"k2_ff_transform": 0, "k2_ff_aggregate": 0, "k2_af_layer": 0}
+# Launches of every kernel of the library (K2 here, K1 in `kernels.bsr_spmm`).
+LAUNCHES = {"k2_ff_transform": 0, "k2_ff_aggregate": 0, "k2_af_layer": 0, "k1_bsr_spmm": 0}
 
 
 def reset_launch_counts() -> None:
@@ -143,6 +144,7 @@ def _lib() -> ctypes.CDLL:
         "k2_ff_transform": [P, P, P, I, I, I, P],
         "k2_ff_aggregate": [P, P, P, I, I, I, P, P, P, I, I, I, P],
         "k2_af_layer": [P, P, P, I, I, I, P, I, P, P, P, I, I, P],
+        "k1_bsr_spmm": [P, P, P, I, I, I, P, P, I, I, P],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -190,7 +192,7 @@ def _require_cuda(kernel: str, device: torch.device) -> None:
         raise ValueError(f"{kernel} launches a CUDA kernel and takes CUDA tensors, got {device}")
 
 
-def _check_table(kernel: str, vals, cols, lens, src, f_out: int, b) -> None:
+def _check_table(kernel: str, vals, cols, lens, src, f_out: int, b=None) -> None:
     R, T, B, B2 = vals.shape
     if B != TILE or B2 != TILE:
         raise ValueError(f"{kernel}: the kernels take {TILE}×{TILE} tiles, got {B}×{B2}")
@@ -200,7 +202,9 @@ def _check_table(kernel: str, vals, cols, lens, src, f_out: int, b) -> None:
         raise ValueError(f"{kernel}: vals must be 16-byte aligned (the kernels copy it in 16-byte pieces)")
     if src.shape[0] % TILE or src.shape[0] == 0:
         raise ValueError(f"{kernel}: feature rows must be a positive multiple of {TILE}, got {src.shape[0]}")
-    if f_out < 1 or tuple(b.shape) != (f_out,):
+    if f_out < 1:
+        raise ValueError(f"{kernel}: the output needs at least one column, got {f_out}")
+    if b is not None and tuple(b.shape) != (f_out,):
         raise ValueError(f"{kernel}: b must have shape ({f_out},), got {tuple(b.shape)}")
 
 

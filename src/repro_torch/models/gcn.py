@@ -1,5 +1,5 @@
 """The paper's GCN (Kipf–Welling [11]) with the COIN dataflow (§IV-C) — twin
-of `repro.models.gcn`, unsharded and forward-only.
+of `repro.models.gcn`, unsharded.
 
 Each layer computes O = Ã · X · W with the multiplication order chosen by
 the COIN rule (feature extraction first when d_out < d_in), optional fake
@@ -10,11 +10,15 @@ backends:
   * "bsr"     — the ragged 128×128 blocked path: each layer is one
                 `repro_torch.kernels.ops.fused_gcn_layer` call (transform,
                 aggregation, bias and ReLU in the CUDA kernels of
-                `repro_torch.kernels.fused_gcn` on the card), and the
-                dataflow chooser sees the blocked cost model,
+                `repro_torch.kernels.fused_gcn` on the card; its backward
+                is the reference's custom VJP), and the dataflow chooser
+                sees the blocked cost model,
   * "dense"   — dense Ã matmul (small graphs only).
 
-The halo (sharded) path and training arrive in later slices.
+Every backend is differentiable, fake quantization through its
+straight-through estimator, so `gcn_loss` trains under autograd
+(`repro_torch.train.loop.Trainer`). The halo (sharded) path arrives in a
+later slice.
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, no `repro`, no silent move to the host.
 
 * Importing every `repro_torch` module and `chip_smoke` loads neither `jax`
-  nor `repro` (whose `__init__` installs JAX shims).
+  nor `repro` (whose `__init__` installs JAX shims), nor `msgpack`, which the
+  card's machine lacks (the reference's checkpoints use it).
 * With CUDA absent, ``device=None`` raises instead of running on the CPU.
 * `chip_smoke.py` exits non-zero, printing no result, without a card and
   when it is alone in a directory.
@@ -41,14 +42,13 @@ def test_port_imports_neither_jax_nor_repro():
         for name in names:
             importlib.import_module(name)
         import chip_smoke
-        bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
-                     or m == "repro" or m.startswith("repro."))
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro", "msgpack"))
         assert not bad, bad
         print("OK", len(names))
     """)
     out = _run(code)
     assert out.returncode == 0 and out.stdout.startswith("OK"), out.stderr[-3000:]
-    assert int(out.stdout.split()[1]) >= 14
+    assert int(out.stdout.split()[1]) >= 27
 
 
 def test_device_none_raises_without_cuda(monkeypatch):

@@ -1,11 +1,13 @@
-"""The CUDA source of the fused GCN layer, run on the CPU.
+"""The CUDA source of the graph kernels (the fused GCN layer, K2, and the
+ragged block-sparse product, K1), run on the CPU.
 
 A CUDA kernel has no interpret mode, so this compiles the device code of
 `src/repro_torch/kernels/csrc/fused_gcn_kernels.cuh` with the host C++
 compiler through the stand-ins in `SHIM` below (one host thread per CUDA
 thread, a barrier per `__syncthreads`, asynchronous copies that land only
 when a wait retires them) and holds its output against the plain PyTorch
-versions of `repro_torch.kernels.fused_gcn`: the kernels' indexing, staging,
+versions of `repro_torch.kernels.fused_gcn` and `repro_torch.kernels.bsr_spmm`:
+the kernels' indexing, staging,
 copy pipeline, ragged skip and epilogues are checked here; their speed and
 the card's own rounding only on the card.
 """
@@ -19,6 +21,7 @@ import pytest
 import torch
 
 from repro_torch.graph.structure import blocked_adjacency
+from repro_torch.kernels.bsr_spmm import bsr_spmm_plain
 from repro_torch.kernels.fused_gcn import (
     FF_F_TILE,
     af_layer_plain,
@@ -117,7 +120,7 @@ void emu_launch(dim3 grid, int threads, Body body) {
 # The kernels compiled through SHIM, with the launch geometry of
 # fused_gcn.cu, behind a C interface for ctypes.
 HARNESS = r"""
-// The fused GCN layer kernels (src/repro_torch/kernels/csrc/fused_gcn_kernels.cuh)
+// The graph kernels (src/repro_torch/kernels/csrc/fused_gcn_kernels.cuh)
 // compiled by the host compiler through shim.h, with the launch geometry of
 // fused_gcn.cu, behind a C interface for ctypes. Returns 0, or 1 when a launch
 // would need more shared memory than the stand-in holds.
@@ -161,6 +164,17 @@ int emu_af_layer(const float* vals, const int* cols, const int* lens, int R, int
     return 0;
 }
 
+int emu_bsr_spmm(const float* vals, const int* cols, const int* lens, int R, int T,
+                 int n_src_blocks, const float* z, float* out, int f, int ft) {
+    if (k2::layer_smem_bytes(ft) > (long long)sizeof(k2::smem)) return 1;
+    dim3 grid(R, (f + ft - 1) / ft);
+    emu_launch(grid, k2::THREADS, [&] {
+        k2::ragged_layer_kernel<2>(vals, cols, lens, T, n_src_blocks, z, f, ft,
+                                   nullptr, nullptr, out, f, 0);
+    });
+    return 0;
+}
+
 long long emu_layer_smem_bytes(int ft) { return k2::layer_smem_bytes(ft); }
 
 }  // extern "C"
@@ -186,6 +200,7 @@ def emu(tmp_path_factory):
     lib.emu_ff_transform.argtypes = [P, P, P, I, I, I]
     lib.emu_ff_aggregate.argtypes = [P, P, P, I, I, I, P, P, P, I, I, I]
     lib.emu_af_layer.argtypes = [P, P, P, I, I, I, P, I, P, P, P, I, I]
+    lib.emu_bsr_spmm.argtypes = [P, P, P, I, I, I, P, P, I, I]
     lib.emu_layer_smem_bytes.argtypes = [I]
     lib.emu_layer_smem_bytes.restype = ctypes.c_longlong
     return lib
@@ -218,6 +233,16 @@ def _af_layer(lib, vals, cols, lens, x, w, b, relu):
     out = torch.full((R * 128, f_out), float("nan"))
     rc = lib.emu_af_layer(_p(vals), _p(cols), _p(lens), R, T, x.shape[0] // 128, _p(x), f_in,
                           _p(w), _p(b), _p(out), f_out, int(relu))
+    assert rc == 0
+    return out
+
+
+def _bsr_spmm(lib, vals, cols, lens, z):
+    R, T = cols.shape
+    f = z.shape[1]
+    out = torch.full((R * 128, f), float("nan"))
+    rc = lib.emu_bsr_spmm(_p(vals), _p(cols), _p(lens), R, T, z.shape[0] // 128, _p(z), _p(out),
+                          f, min(f, FF_F_TILE))
     assert rc == 0
     return out
 
@@ -303,3 +328,43 @@ def test_emulated_ragged_skip_and_empty_row(emu, order):
     assert torch.isfinite(out).all()
     _close(out, ref)
     torch.testing.assert_close(out[128:256], b.clamp_min(0).expand(128, -1), rtol=0, atol=1e-6)
+
+
+# ------------------------------------------------------------------------- K1
+@pytest.mark.parametrize("f", [7, 16, 50])
+def test_emulated_bsr_spmm_matches_plain(emu, f):
+    """Ã·Z at several widths, a 44-row tail block, every output row written."""
+    vals, cols, lens, _, _, _ = _layer_inputs(300, 1500, 1, 1, seed=f)
+    z = torch.from_numpy(np.random.default_rng(f).standard_normal((vals.shape[0] * 128, f)).astype(np.float32))
+    _close(_bsr_spmm(emu, vals, cols, lens, z), bsr_spmm_plain(vals, cols, lens, z))
+
+
+def test_emulated_bsr_spmm_covers_several_feature_tiles(emu):
+    vals, cols, lens, _, _, _ = _layer_inputs(260, 900, 1, 1, seed=7)
+    z = torch.from_numpy(np.random.default_rng(7).standard_normal((vals.shape[0] * 128, 70)).astype(np.float32))
+    _close(_bsr_spmm(emu, vals, cols, lens, z), bsr_spmm_plain(vals, cols, lens, z))
+
+
+def test_emulated_bsr_spmm_rectangular_z(emu):
+    """Z holds more block-rows than the output (the halo tables): tiles
+    point into the extra blocks, and those rows are read from there."""
+    vals, cols, lens, _, _, _ = _layer_inputs(384, 2500, 1, 1, seed=8)
+    R, T = cols.shape
+    cols = (cols + R * (torch.arange(T, dtype=torch.int32) % 2)).contiguous()
+    z = torch.from_numpy(np.random.default_rng(8).standard_normal((2 * R * 128, 16)).astype(np.float32))
+    out = _bsr_spmm(emu, vals, cols, lens, z)
+    assert out.shape == (R * 128, 16)
+    _close(out, bsr_spmm_plain(vals, cols, lens, z))
+
+
+def test_emulated_bsr_spmm_ragged_skip_and_empty_row(emu):
+    """NaN in every padding tile and one empty block-row: finite output,
+    equal to the clean plain version, zeros on the empty row."""
+    vals, cols, lens, _, _, _ = _layer_inputs(384, 2500, 1, 1, seed=9)
+    lens = lens.clone()
+    lens[1] = 0
+    z = torch.from_numpy(np.random.default_rng(9).standard_normal((vals.shape[0] * 128, 16)).astype(np.float32))
+    out = _bsr_spmm(emu, poison_padding(vals, lens), cols, lens, z)
+    assert torch.isfinite(out).all()
+    _close(out, bsr_spmm_plain(vals, cols, lens, z))
+    assert torch.equal(out[128:256], torch.zeros(128, 16))

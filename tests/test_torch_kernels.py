@@ -1,13 +1,14 @@
-"""The port's fused GCN layer (`repro_torch.kernels`) against the JAX
+"""The port's graph kernels (`repro_torch.kernels`) against the JAX
 package's, and its CUDA kernels against their plain versions.
 
 On the CPU `repro_torch.kernels.ops.fused_gcn_layer` runs the plain PyTorch
 version; it is held against the reference's `fused_gcn_layer` (Pallas in
 interpret mode) at the reference suite's bsr tolerance, 3e-4. The tests
-marked ``cuda`` hold the hand-written kernels against the plain version on
-the card at the same tolerance (summation order differs); they skip without
-a card. JAX is imported inside fixtures, so the ``cuda`` tests also run on a
-machine without JAX:
+marked ``cuda`` hold the hand-written kernels (K2, the fused layer, and K1,
+`bsr_spmm`) against the plain versions on the card at the same tolerance
+(summation order differs), and one training step on the card against the
+same step on the CPU; they skip without a card. JAX is imported inside
+fixtures, so the ``cuda`` tests also run on a machine without JAX:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels.py
 """
@@ -19,8 +20,9 @@ import pytest
 import torch
 
 from repro_torch.graph.structure import blocked_adjacency
+from repro_torch.kernels import bsr_spmm as k1
 from repro_torch.kernels import fused_gcn as fg
-from repro_torch.kernels.ops import fused_gcn_layer
+from repro_torch.kernels.ops import bsr_spmm, fused_gcn_layer
 from repro_torch.kernels.ref import bsr_spmm_ref, fused_gcn_layer_ref, poison_padding
 
 TOL = 3e-4
@@ -192,6 +194,7 @@ def test_cuda_layer_matches_plain(cuda, order, relu):
     launched = {k: fg.LAUNCHES[k] - before[k] for k in before}
     want = ({"k2_ff_transform": 1, "k2_ff_aggregate": 1, "k2_af_layer": 0} if order == "feature_first"
             else {"k2_ff_transform": 0, "k2_ff_aggregate": 0, "k2_af_layer": 1})
+    want["k1_bsr_spmm"] = 0
     assert launched == want
 
 
@@ -221,9 +224,95 @@ def test_cuda_feature_first_widths(cuda, d_out):
     _close(out.cpu(), fused_gcn_layer(*_torch_args(ba, x, w, b), order="feature_first"))
 
 
+def _layer_grads(args, order, relu):
+    """Gradients in w, b and x of Σ out² through `fused_gcn_layer`."""
+    vals, cols, lens, x, w, b = args
+    x, w, b = (t.clone().requires_grad_() for t in (x, w, b))
+    out = fused_gcn_layer(vals, cols, lens, x, w, b, order=order, relu=relu)[:300]
+    return torch.autograd.grad((out ** 2).sum(), (w, b, x))
+
+
 @pytest.mark.cuda
-def test_cuda_layer_is_forward_only(cuda):
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("relu", [True, False])
+def test_cuda_layer_backward_matches_cpu(cuda, order, relu):
+    """The same Function on both devices: kernels forward on the card, the
+    plain version on the CPU, one backward; aggregation-first recomputes
+    Ã·X through K1."""
     ba, x, w, b = _case()
-    vals, cols, lens, xt, wt, bt = _torch_args(ba, x, w, b, cuda)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fused_gcn_layer(vals, cols, lens, xt, wt.requires_grad_(), bt)
+    before = fg.LAUNCHES["k1_bsr_spmm"]
+    on_card = _layer_grads(_torch_args(ba, x, w, b, cuda), order, relu)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES["k1_bsr_spmm"] - before == (order == "aggregation_first")
+    for a, r in zip(on_card, _layer_grads(_torch_args(ba, x, w, b), order, relu)):
+        scale = float(r.abs().max()) + 1e-9
+        _close(a.cpu() / scale, r / scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [7, 16, 50, 129])
+def test_cuda_bsr_spmm_matches_plain(cuda, f):
+    ba, _, _, _ = _case(seed=f)
+    vals, cols, lens = ba.arrays(device=cuda)
+    z = torch.from_numpy(np.random.default_rng(f).standard_normal((ba.n_col_padded, f)).astype(np.float32))
+    before = fg.LAUNCHES["k1_bsr_spmm"]
+    out = bsr_spmm(vals, cols, z.to(cuda), lens)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES["k1_bsr_spmm"] == before + 1
+    _close(out.cpu(), k1.bsr_spmm_plain(vals.cpu(), cols.cpu(), lens.cpu(), z))
+
+
+@pytest.mark.cuda
+def test_cuda_bsr_spmm_rectangular_poisoned_empty_row(cuda):
+    """Z with twice the output's block-rows, NaN in every padding tile and
+    an empty block-row: finite, equal to the clean plain version, zeros on
+    the empty row."""
+    ba, _, _, _ = _case(n=384, e=2500, seed=4)
+    vals, cols, lens = ba.arrays(device="cpu")
+    R, T = cols.shape
+    lens = lens.clone()
+    lens[1] = 0
+    cols = (cols + R * (torch.arange(T, dtype=torch.int32) % 2)).contiguous()
+    z = torch.from_numpy(np.random.default_rng(4).standard_normal((2 * R * 128, 16)).astype(np.float32))
+    out = k1.bsr_spmm(poison_padding(vals, lens).to(cuda), cols.to(cuda), lens.to(cuda), z.to(cuda)).cpu()
+    assert torch.isfinite(out).all()
+    _close(out, k1.bsr_spmm_plain(vals, cols, lens, z))
+    assert torch.equal(out[128:256], torch.zeros(128, 16))
+
+
+@pytest.mark.cuda
+def test_cuda_training_step_matches_cpu(cuda):
+    """One AdamW step of a small bsr GCN (quant off, 50 → 16 → 24 so that
+    layer 2 runs aggregation-first and its backward runs K1) on the card and
+    on the CPU, from the same parameters."""
+    from repro_torch.models.gcn import GCNConfig, gcn_loss
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.train.optimizer import adamw
+
+    ba, x, _, _ = _case(d_in=50)
+    r = np.random.default_rng(11)
+    params = {"w0": r.standard_normal((50, 16)) * 0.2, "b0": r.standard_normal(16),
+              "w1": r.standard_normal((16, 24)) * 0.2, "b1": r.standard_normal(24)}
+    labels = r.integers(0, 24, 300)
+    cfg = GCNConfig(layer_dims=(50, 16, 24), backend="bsr")
+    result = {}
+    for device in ("cpu", cuda):
+        adj = ba.arrays(device=device)
+        batch = {"x": torch.from_numpy(x).to(device), "labels": torch.from_numpy(labels).to(device)}
+        e = torch.zeros(1, dtype=torch.int32, device=device)
+
+        def loss(p, bt, adj=adj, e=e):
+            return gcn_loss(p, bt["x"], e, e, e.float(), bt["labels"], torch.ones(300, device=e.device),
+                            cfg, adjacency=adj)
+
+        tr = Trainer(loss, adamw(1e-2), {k: torch.tensor(v, dtype=torch.float32, device=device)
+                                          for k, v in params.items()}, TrainerConfig(log_every=100))
+        before = fg.LAUNCHES["k1_bsr_spmm"]
+        losses = tr.fit(iter(lambda: batch, None), max_steps=2)
+        result[str(device)] = (losses, {k: v.cpu() for k, v in tr.params.items()},
+                               fg.LAUNCHES["k1_bsr_spmm"] - before)
+    (l_cpu, p_cpu, k1_cpu), (l_card, p_card, k1_card) = result["cpu"], result[str(cuda)]
+    assert (k1_cpu, k1_card) == (0, 2)
+    np.testing.assert_allclose(l_card, l_cpu, rtol=1e-5)
+    for k in p_cpu:
+        _close(p_card[k], p_cpu[k])
