@@ -8,25 +8,35 @@ file). It needs one CUDA card and exits non-zero without one, or without
 the package, before printing any result. It imports nothing of JAX and
 nothing of the JAX package `repro`.
 
-Two paths of the paper's GCN (``coin_gcn``) run at the widths of Nell
+Three paths of the paper's GCN (``coin_gcn``) run at the widths of Nell
 (Table I: 65,755 nodes, 5,414 → 16 → 210, 4-bit fake quant) with the
-blocked (bsr) backend: full-graph inference and full-graph training. The
-forward of each layer runs the hand-written CUDA kernels of
-`repro_torch.kernels.fused_gcn` (K2): layer 1 feature-first
-(``k2_ff_transform`` then ``k2_ff_aggregate``), layer 2 aggregation-first
-(``k2_af_layer``). The backward of layer 2 recomputes Ã·h1 through
-`repro_torch.kernels.bsr_spmm` (K1, ``k1_bsr_spmm``). Weights are random,
-from a seed.
+blocked (bsr) backend: full-graph inference, full-graph training, and
+sharded (halo) inference over 4 ranks. The forward of each unsharded layer
+runs the hand-written CUDA kernels of `repro_torch.kernels.fused_gcn` (K2):
+layer 1 feature-first (``k2_ff_transform`` then ``k2_ff_aggregate``),
+layer 2 aggregation-first (``k2_af_layer``). The backward of layer 2
+recomputes Ã·h1 through `repro_torch.kernels.bsr_spmm` (K1,
+``k1_bsr_spmm``). The sharded forward runs K1 on each rank's
+``[local ‖ halo]`` table for layer 1 and K2's aggregation-first kernel for
+layer 2 — under the bf16 wire its bf16-operand instantiation
+(``k2_af_layer_bf16``: fp32 tiles, bf16 table, fp32 W). Weights are
+random, from a seed.
 
 Phases, one JSON line each; any failed check ends the run with exit code 1:
 
   build    compile the kernels from src/repro_torch/kernels/csrc (nvcc)
   data     make_dataset("nell") → symmetrize, self-loops, sym-norm weights →
            locality_block_order → blocked_adjacency → the card
+  plan     partition_graph(k=4, bfs, refine) → get_halo_plan on the same
+           graph; the plan's sizes and both table forms' shapes, printed
+           before any tile of them exists
   kernels  each kernel against its plain PyTorch version on the card at
            Nell's layer shapes: relu on and off, NaN-poisoned padding tiles,
            an empty block-row, the 91-row tail block; K1 also on a
-           rectangular Z with extra source block-rows
+           rectangular Z with extra source block-rows; at rank 0's halo
+           shapes K1 and fp32 ``k2_af_layer`` over its [local ‖ halo]
+           table, K1 over its interior and boundary tables (the split
+           pair), and K2's bf16 instantiations
   main     inference: gcn_forward(backend="bsr") three times under
            inference_mode with the launch counts zeroed just before and read
            just after; the quant-off logits against the segment (index_add_)
@@ -42,13 +52,26 @@ Phases, one JSON line each; any failed check ends the run with exit code 1:
            peak device memory
   profile  torch.profiler over three training steps (bsr, quant on): device
            time by kernel and the device's idle share of the window
+  halo     the parent frees the card, then 4 ranks on cuda:0 in one gloo
+           group (the wire goes through the host; NCCL takes one rank per
+           card) each run gcn_forward on their block: (a) combined table,
+           fp32 wire; (b) bf16 wire; (c) split tables; (d) int8 wire;
+           (e) quant on, bf16 wire, bsr and segment. Gathered and restored
+           logits against the unsharded bsr forward ((e): bsr against
+           segment, argmax agreement with ties), launches and wire rows
+           per rank, forward and exchange times per rank after a barrier
+           (4 ranks share one card: not a multi-card time), peak memory
 
 then the card's name and power limit (nvidia-smi), the ``{"kernels": [...]}``
-line, and as the last line ``{"ok": true, "device": {...}}``.
+line, and as the last line ``{"ok": true, "device": {...}}``. A kernel's
+``launches`` there is its count over the three main-path runs (inference
+forwards, training steps, the halo forwards of all ranks), each counted
+with the counts zeroed just before and read just after.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import pathlib
 import statistics
@@ -72,8 +95,10 @@ LOSS_RTOL = 1e-4               # bsr vs segment quant-off losses, relative, ever
 LOGIT_RTOL = 1e-4              # quant-off logits, bsr kernels vs segment path, same rule
 ARGMAX_AGREEMENT = 0.999       # quant on: a 4-bit bucket may flip on a rounding difference;
                                # ties within LOGIT_RTOL count as agreement
+BF16_KERNEL_RTOL = 1e-2        # a bf16 output: max |diff| ≤ 1e-2 · max |plain|
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12        # H100 SXM data sheet, fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12       # H100 SXM data sheet, dense bf16 tensor cores
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/fused_gcn_kernels.cuh"
 REPLACES = {
     "k2_ff_transform": "src/repro/kernels/fused_gcn.py:45",
@@ -81,7 +106,21 @@ REPLACES = {
     "k2_af_layer": "src/repro/kernels/fused_gcn.py:70",
     "k1_bsr_spmm": "src/repro/kernels/bsr_spmm.py:87",
 }
+REPLACES.update({f"{k}{sfx}": REPLACES[k] for sfx in ("_bf16", "_bf16_all")
+                 for k in list(REPLACES) if k.startswith("k2")})
 K2 = ("k2_ff_transform", "k2_ff_aggregate", "k2_af_layer")
+FP32_KERNELS = K2 + ("k1_bsr_spmm",)
+# (vals, x, w) dtypes of K2's bf16 instantiations, by launch-name suffix.
+BF16_COMBOS = {"_bf16": (torch.float32, torch.bfloat16, torch.float32),
+               "_bf16_all": (torch.bfloat16, torch.bfloat16, torch.bfloat16)}
+
+HALO_K = 4
+HALO_REPS = 5                  # timed forwards / exchanges per variant and rank
+HALO_TIMEOUT_S = 480.0
+HALO_LOGIT_RTOL = 1e-4         # (a), (c): fp32 wire vs the unsharded bsr forward, · max |logit|
+HALO_BF16_RTOL = 1e-2          # (b): the reference's bf16 bound (tests/test_overlap_halo.py:241-242), · max |logit|
+HALO_INT8_ABS = 5e-2           # (d): the reference's int8 bounds (tests/test_overlap_halo.py:243-250):
+HALO_INT8_REL_L2 = 1e-2        #      5e-2 max-abs and 1e-2 relative L2
 
 
 def emit(phase: str, **fields) -> None:
@@ -130,12 +169,29 @@ def wall_ms(fn, reps: int = 5, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound(n_bytes: float, n_flop: float) -> tuple[float, str]:
-    """Least time on the card (ms): bytes over the HBM rate or fp32
-    operations over the CUDA-core rate, whichever is larger."""
+def bound(n_bytes: float, n_flop: float, flop_per_s: float = FP32_FLOP_PER_S) -> tuple[float, str]:
+    """Least time on the card (ms): bytes over the HBM rate or operations
+    over the peak rate for their type (fp32 on the CUDA cores unless
+    ``flop_per_s`` says otherwise), whichever is larger."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_flop = n_flop / FP32_FLOP_PER_S * 1e3
+    t_flop = n_flop / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_flop else (t_flop, "operations")
+
+
+def argmax_agreement(out: torch.Tensor, ref: torch.Tensor, tie_rtol: float) -> tuple[float, float, int]:
+    """(agreement up to ties, raw argmax equality, nodes with tied tops).
+
+    A node agrees when the class ``out`` picks is a top logit of ``ref``
+    within ``tie_rtol · max |ref|``: quantized activations are often all
+    zero on a node, and then every logit ties and argmax is decided by
+    noise."""
+    top = ref.max(-1).values
+    picked = ref.gather(1, out.argmax(-1, keepdim=True))[:, 0]
+    tie_tol = tie_rtol * float(ref.abs().max())
+    agree = float((picked >= top - tie_tol).float().mean())
+    raw = float((out.argmax(-1) == ref.argmax(-1)).float().mean())
+    tied = int(((ref >= top[:, None] - tie_tol).sum(-1) > 1).sum())
+    return agree, raw, tied
 
 
 def card_line() -> str:
@@ -192,7 +248,59 @@ def load_graph(device: torch.device) -> dict:
          tail_rows=g.n_nodes % 128, host_build_s=host_s, upload_s=upload_s)
     return dict(spec=spec, n=g.n_nodes, vals=vals, cols=cols, lens=lens, pg=pg, x=x,
                 labels=torch.from_numpy(relocate_rows(perm, g.labels)).to(device),
-                test=torch.from_numpy(test).to(device))
+                test=torch.from_numpy(test).to(device),
+                host=dict(edge_index=gs.edge_index, weights=weights, features=g.features, perm=perm))
+
+
+def build_plan(data: dict) -> dict:
+    """The halo plan of the same graph over HALO_K ranks, and the shapes of
+    its per-rank tables, before any tile of them exists."""
+    from repro_torch.core.partition import partition_graph
+    from repro_torch.dist.halo import get_halo_plan, plan_blocked_shape, plan_split_blocked_shape
+    from repro_torch.launch.distributed_gcn import table_widths
+
+    host = data["host"]
+    t0 = time.perf_counter()
+    part = partition_graph(data["n"], host["edge_index"], HALO_K, method="bfs", seed=0, refine=True)
+    plan = get_halo_plan(part, host["edge_index"], host["weights"])
+    host_s = time.perf_counter() - t0
+    shape, split = plan_blocked_shape(plan), plan_split_blocked_shape(plan)
+    tile = 128 * 128 * 4
+
+    def padded_gb(st):
+        return st["n_block_rows"] * st["max_nnzb"] * tile / 1e9
+
+    per_rank = dict(combined=padded_gb(shape), interior=padded_gb(split["interior"]),
+                    boundary=padded_gb(split["boundary"]))
+    emit("plan", ok=True, k=plan.k, part_sizes=plan.part_sizes.tolist(), n_local=plan.n_local,
+         s_max=plan.s_max, e_local=plan.e_local, halo_rows_per_rank=plan.halo_rows_per_device,
+         broadcast_rows_per_rank=plan.broadcast_rows_per_device, wire_fraction=plan.wire_fraction(),
+         overlap_fraction=plan.overlap_fraction(), neighbor_table_rows=plan.neighbor_table_rows,
+         blocked_combined=shape, blocked_split=split, padded_table_gb_per_rank=per_rank,
+         padded_tables_gb_all_ranks=plan.k * sum(per_rank.values()),
+         valid_tiles_gb_max_rank=dict(combined=shape["nnz_blocks_max_device"] * tile / 1e9,
+                                      interior=split["interior"]["nnz_blocks_max_device"] * tile / 1e9,
+                                      boundary=split["boundary"]["nnz_blocks_max_device"] * tile / 1e9),
+         host_build_s=host_s)
+    return dict(plan=plan, widths=table_widths(plan))
+
+
+def rank_operands(data: dict, halo: dict, ops: dict, generator: torch.Generator) -> dict:
+    """Rank 0's combined [local ‖ halo] table and operands at its Nell
+    shapes, for K2's bf16 instantiations: layer 1's feature block, layer 2's
+    16-wide table (what the bf16 wire hands `k2_af_layer_bf16`)."""
+    from repro_torch.dist.halo import plan_blocked_rank
+
+    plan, device = halo["plan"], data["x"].device
+    ba = plan_blocked_rank(plan, 0, max_nnzb=halo["widths"]["combined"])
+    vals, cols, lens = ba.arrays(device=device)
+    rows, hidden = ba.n_col_padded, ops["w1"].shape[1]
+    n0 = int(plan.part_sizes[0])            # rank 0's nodes are the first n0 of the plan's order
+    x0 = torch.zeros((ba.n_padded, data["spec"].n_features), device=device)
+    x0[:n0] = torch.from_numpy(data["host"]["features"][plan.perm[:n0]]).to(device).float()
+    return dict(vals=vals, cols=cols, lens=lens, x=x0, nnz=ba.nnz_blocks,
+                table=(torch.randn((rows, hidden), generator=generator)).to(device),
+                z=(torch.randn((rows, hidden), generator=generator)).to(device))
 
 
 def layer_operands(data: dict, generator: torch.Generator) -> dict:
@@ -214,8 +322,9 @@ def layer_operands(data: dict, generator: torch.Generator) -> dict:
     )
 
 
-def check_kernels(data: dict, ops: dict) -> dict:
-    """Each kernel against its plain version; returns the worst error per kernel."""
+def check_kernels(data: dict, ops: dict, rank: dict, halo: dict) -> dict:
+    """Each kernel against its plain version; returns the worst error per
+    kernel. The halo path's shapes are rank 0's (``rank``, ``halo``)."""
     from repro_torch.kernels import bsr_spmm as k1
     from repro_torch.kernels import fused_gcn as fg
     from repro_torch.kernels.ref import poison_padding
@@ -225,10 +334,11 @@ def check_kernels(data: dict, ops: dict) -> dict:
     worst = {name: 0.0 for name in fg.LAUNCHES}
     cases = []
 
-    def hold(kernel, case, out, ref):
-        err, scale = max_err(out, ref)
-        ok = bool(err <= KERNEL_RTOL * scale)
-        cases.append(dict(kernel=kernel, case=case, max_abs_err=err, max_abs_ref=scale, ok=ok))
+    def hold(kernel, case, out, ref, rtol=KERNEL_RTOL):
+        err, scale = max_err(out.float(), ref.float())
+        ok = bool(err <= rtol * scale and out.dtype == ref.dtype)
+        cases.append(dict(kernel=kernel, case=case, max_abs_err=err, max_abs_ref=scale, rtol=rtol,
+                          dtype=str(out.dtype).removeprefix("torch."), ok=ok))
         worst[kernel] = max(worst[kernel], err)
         return ok
 
@@ -272,11 +382,80 @@ def check_kernels(data: dict, ops: dict) -> dict:
             ok = hold(kernel, "poisoned padding + empty block-row", out, ref)
             cases[-1].update(finite=finite, empty_row_is_act_b=empty_ok, ok=ok and finite and empty_ok)
         del poisoned
+        check_rank_kernels(rank, halo, ops, hold)
+        check_bf16_kernels(rank, ops, hold, cases)
         torch.cuda.empty_cache()
     ok = all(c["ok"] for c in cases)
     emit("kernels", ok=ok, rtol=KERNEL_RTOL, tail_rows=data["n"] % 128, cases=cases)
     require(ok, "kernels", "a kernel disagrees with its plain version")
     return worst
+
+
+def check_rank_kernels(rank: dict, halo: dict, ops: dict, hold) -> None:
+    """K1 and fp32 ``k2_af_layer`` against their plain versions at the
+    shapes the halo forward gives them on rank 0: both over its
+    [local ‖ halo] table (16 wide, fp32 wire), and K1 over the split pair —
+    the interior table on the local block and the boundary table on the
+    k·s_max-row halo block, each row-padded to the block grid as
+    `repro_torch.kernels.ops.bsr_spmm` pads it."""
+    from repro_torch.dist.halo import plan_blocked_rank
+    from repro_torch.kernels import bsr_spmm as k1
+    from repro_torch.kernels import fused_gcn as fg
+
+    vals, cols, lens, table = rank["vals"], rank["cols"], rank["lens"], rank["table"]
+    hold("k1_bsr_spmm", "rank 0 [local ‖ halo] table (F=16)", k1.bsr_spmm(vals, cols, lens, table),
+         k1.bsr_spmm_plain(vals, cols, lens, table))
+    for relu in (True, False):
+        hold("k2_af_layer", f"rank 0 [local ‖ halo] table, relu={relu}",
+             fg.af_layer(vals, cols, lens, table, ops["w2"], ops["b2"], relu),
+             fg.af_layer_plain(vals, cols, lens, table, ops["w2"], ops["b2"], relu))
+    plan, device = halo["plan"], table.device
+    for part, n_rows in (("interior", plan.n_local), ("boundary", plan.k * plan.s_max)):
+        ba = plan_blocked_rank(plan, 0, part=part, max_nnzb=halo["widths"][part])
+        pv, pc, pl = ba.arrays(device=device)
+        z = torch.zeros((ba.n_col_padded, table.shape[1]), device=device)
+        z[:n_rows] = table[:n_rows]
+        hold("k1_bsr_spmm", f"rank 0 {part} table over {n_rows} rows (F=16)", k1.bsr_spmm(pv, pc, pl, z),
+             k1.bsr_spmm_plain(pv, pc, pl, z))
+        del ba, pv, pc, pl, z
+
+
+def check_bf16_kernels(rank: dict, ops: dict, hold, cases: list) -> None:
+    """K2's bf16 instantiations against their plain versions at rank 0's
+    shapes: layer 1's transform of its feature block, the feature-first
+    aggregation and the aggregation-first layer over its [local ‖ halo]
+    table (16 wide), relu on and off; the halo path's instantiation also
+    with NaN-poisoned padding and an emptied block-row."""
+    from repro_torch.kernels import fused_gcn as fg
+    from repro_torch.kernels.ref import poison_padding
+
+    vals, cols, lens = rank["vals"], rank["cols"], rank["lens"]
+    for sfx, (vd, xd, wd) in BF16_COMBOS.items():
+        rv = vals.to(vd)
+        rtol = KERNEL_RTOL if vd == torch.float32 else BF16_KERNEL_RTOL   # Z is stored in vals' dtype
+        x, w1 = rank["x"].to(xd), ops["w1"].to(wd)
+        hold(f"k2_ff_transform{sfx}", "rank 0 layer 1", fg.ff_transform(x, w1, vd), fg.ff_transform_plain(x, w1, vd),
+             rtol)
+        z, t, w2 = rank["z"].to(vd), rank["table"].to(xd), ops["w2"].to(wd)
+        for relu in (True, False):
+            hold(f"k2_ff_aggregate{sfx}", f"rank 0 table, relu={relu}",
+                 fg.ff_aggregate(rv, cols, lens, z, ops["b1"], relu, xd),
+                 fg.ff_aggregate_plain(rv, cols, lens, z, ops["b1"], relu, xd), BF16_KERNEL_RTOL)
+            hold(f"k2_af_layer{sfx}", f"rank 0 table, relu={relu}",
+                 fg.af_layer(rv, cols, lens, t, w2, ops["b2"], relu),
+                 fg.af_layer_plain(rv, cols, lens, t, w2, ops["b2"], relu), BF16_KERNEL_RTOL)
+        del rv, x, w1, z, t, w2
+    empty = 1
+    lens_e = lens.clone()
+    lens_e[empty] = 0
+    t = rank["table"].to(torch.bfloat16)
+    out = fg.af_layer(poison_padding(vals, lens_e), cols, lens_e, t, ops["w2"], ops["b2"], True)
+    ref = fg.af_layer_plain(vals, cols, lens_e, t, ops["w2"], ops["b2"], True)
+    finite = bool(torch.isfinite(out.float()).all())
+    empty_ok = bool(torch.equal(out[empty * 128:(empty + 1) * 128],
+                                ops["b2"].clamp_min(0).to(torch.bfloat16).expand(128, -1)))
+    ok = hold("k2_af_layer_bf16", "rank 0 table, poisoned padding + empty block-row", out, ref, BF16_KERNEL_RTOL)
+    cases[-1].update(finite=finite, empty_row_is_act_b=empty_ok, ok=ok and finite and empty_ok)
 
 
 def run_main_path(data: dict) -> dict:
@@ -303,19 +482,13 @@ def run_main_path(data: dict) -> dict:
         torch.cuda.synchronize()
         launches = dict(fg.LAUNCHES)
         quant_off = dataclasses.replace(cfg, quant=QuantConfig(enabled=False))
-        err, scale = max_err(forward(quant_off), forward(dataclasses.replace(quant_off, backend="segment")))
+        logits_off = forward(quant_off)
+        err, scale = max_err(logits_off, forward(dataclasses.replace(quant_off, backend="segment")))
         ref_q = forward(dataclasses.replace(cfg, backend="segment"))
     expected = {name: PASSES if name in K2 else 0 for name in fg.LAUNCHES}   # K1 runs in training only
     # Agreement up to ties: a node agrees when the class the kernel path
     # picks is a top logit of the plain path within the logit tolerance.
-    # Quantized activations are often all zero on a node, and then every
-    # logit ties and argmax is decided by noise.
-    top = ref_q.max(-1).values
-    picked = ref_q.gather(1, logits.argmax(-1, keepdim=True))[:, 0]
-    tie_tol = LOGIT_RTOL * float(ref_q.abs().max())
-    agree = float((picked >= top - tie_tol).float().mean())
-    raw_agree = float((logits.argmax(-1) == ref_q.argmax(-1)).float().mean())
-    tied = int(((ref_q >= top[:, None] - tie_tol).sum(-1) > 1).sum())
+    agree, raw_agree, tied = argmax_agreement(logits, ref_q, LOGIT_RTOL)
     pred = logits.argmax(-1) == data["labels"]
     acc = float(pred[data["test"]].float().mean())
     checks = dict(
@@ -332,7 +505,7 @@ def run_main_path(data: dict) -> dict:
          quant_on_raw_argmax_equal=raw_agree, quant_on_nodes_with_tied_top_logits=tied,
          test_accuracy=acc, note="random weights: accuracy is near chance")
     require(all(checks.values()), "main", f"checks {checks}")
-    return dict(launches=launches, forward=forward, cfg=cfg)
+    return dict(launches=launches, forward=forward, cfg=cfg, logits_quant_off=logits_off.cpu().numpy())
 
 
 def run_training(data: dict) -> dict:
@@ -388,7 +561,7 @@ def run_training(data: dict) -> dict:
 
     trajectory = {b: fit(trainer(dataclasses.replace(quant_off, backend=b))) for b in ("bsr", "segment")}
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(trajectory["bsr"], trajectory["segment"])]
-    expected = {name: TRAIN_STEPS for name in fg.LAUNCHES}
+    expected = {name: TRAIN_STEPS if name in FP32_KERNELS else 0 for name in fg.LAUNCHES}
     checks = dict(
         launches=launches == expected,
         gradients=all(err <= GRAD_RTOL * scale for err, scale in grad_err.values()),
@@ -488,11 +661,68 @@ def time_everything(data: dict, ops: dict, main: dict, train: dict) -> dict:
     return rows
 
 
+def time_bf16_kernels(rank: dict, ops: dict) -> dict:
+    """CUDA-event medians of K2's bf16 instantiations at rank 0's shapes,
+    their plain versions and, where one PyTorch call computes the same
+    function, that call; with ``k2_af_layer`` (fp32) at the same shape
+    beside the halo path's ``k2_af_layer_bf16``. Bounds count each element
+    at its own width (2 bytes for bf16)."""
+    from repro_torch.kernels import fused_gcn as fg
+
+    vals, cols, lens, nnz = rank["vals"], rank["cols"], rank["lens"], rank["nnz"]
+    R, B = cols.shape[0], 128
+    size = {torch.float32: 4.0, torch.bfloat16: 2.0}
+    idx = 4.0 * (R + nnz)
+    rows = {}
+    with torch.inference_mode():
+        for sfx, (vd, xd, wd) in BF16_COMBOS.items():
+            rate = BF16_FLOP_PER_S if (vd, xd, wd) == (torch.bfloat16,) * 3 else FP32_FLOP_PER_S
+            rv, x, w1, w2 = vals.to(vd), rank["x"].to(xd), ops["w1"].to(wd), ops["w2"].to(wd)
+            z, t, b1, b2 = rank["z"].to(vd), rank["table"].to(xd), ops["b1"], ops["b2"]
+            M, K = x.shape
+            hidden, f_out = w1.shape[1], w2.shape[1]
+            tiles = size[vd] * nnz * B * B
+            rows[f"k2_ff_transform{sfx}"] = dict(
+                ms=cuda_ms(lambda: fg.ff_transform(x, w1, vd)),
+                plain_ms=cuda_ms(lambda: fg.ff_transform_plain(x, w1, vd)),
+                library_ms=cuda_ms(lambda: torch.mm(x, w1)) if xd == wd else None,
+                bound=bound(size[xd] * M * K + size[wd] * K * hidden + size[vd] * M * hidden,
+                            2.0 * M * K * hidden, rate))
+            rows[f"k2_ff_aggregate{sfx}"] = dict(
+                ms=cuda_ms(lambda: fg.ff_aggregate(rv, cols, lens, z, b1, True, xd)),
+                plain_ms=cuda_ms(lambda: fg.ff_aggregate_plain(rv, cols, lens, z, b1, True, xd)),
+                library_ms=None,
+                bound=bound(tiles + idx + size[vd] * z.numel() + 4.0 * hidden + size[xd] * R * B * hidden,
+                            2.0 * nnz * B * B * hidden + R * B * hidden, rate))
+            rows[f"k2_af_layer{sfx}"] = dict(
+                ms=cuda_ms(lambda: fg.af_layer(rv, cols, lens, t, w2, b2, True)),
+                plain_ms=cuda_ms(lambda: fg.af_layer_plain(rv, cols, lens, t, w2, b2, True)),
+                library_ms=None,
+                bound=bound(tiles + idx + size[xd] * t.numel() + size[wd] * w2.numel() + 4.0 * f_out
+                            + size[xd] * R * B * f_out,
+                            2.0 * nnz * B * B * hidden + 2.0 * R * B * hidden * f_out, rate))
+            del rv, x, w1, w2, z, t
+        t32 = rank["table"]
+        af32_ms = cuda_ms(lambda: fg.af_layer(vals, cols, lens, t32, ops["w2"], ops["b2"], True))
+        af32_bound = bound(4.0 * nnz * B * B + idx + 4.0 * (t32.numel() + ops["w2"].numel() + ops["w2"].shape[1]
+                                                             + R * B * ops["w2"].shape[1]),
+                           2.0 * nnz * B * B * t32.shape[1] + 2.0 * R * B * ops["w2"].numel())
+    emit("times_rank", ok=True, rank=0, block_rows=R, tile_table_width=int(cols.shape[1]), nnz_tiles=nnz,
+         table_rows=int(rank["table"].shape[0]), reps=10,
+         af_layer_bf16_vs_fp32=dict(bf16_ms=rows["k2_af_layer_bf16"]["ms"],
+                                    bf16_bound=list(rows["k2_af_layer_bf16"]["bound"]),
+                                    fp32_ms=af32_ms, fp32_bound=list(af32_bound)),
+         kernels={k: {**v, "bound": list(v["bound"])} for k, v in rows.items()})
+    return rows
+
+
 def profile_train_steps(train: dict, steps: int = 3) -> None:
     """Device time by kernel name and the idle share of the card over
     ``steps`` bsr quant-on training steps, from torch.profiler's CUDA events
     (their union is the busy time; the window spans every recorded event)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs.trace import device_time_summary
 
     tr = train["trainer"](train["cfg"])
 
@@ -507,25 +737,108 @@ def profile_train_steps(train: dict, steps: int = 3) -> None:
         for _ in range(steps):
             one()
         torch.cuda.synchronize()
-    events = list(prof.events())
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy, last = 0.0, float("-inf")
-    for start, end in sorted((e.time_range.start, e.time_range.end) for e in kernels):
-        busy += max(0.0, end - max(start, last))
-        last = max(last, end)
-    window = (max(e.time_range.end for e in events) - min(e.time_range.start for e in events)) if events else 0.0
-    by_name: dict[str, list] = {}          # kernel name → [µs, launches]
-    for e in kernels:
-        entry = by_name.setdefault(e.name, [0.0, 0])
-        entry[0] += e.time_range.elapsed_us()
-        entry[1] += 1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
-    emit("profile", ok=True, steps=steps, device_kernel_events=len(kernels),
-         window_ms_per_step=window / steps / 1e3, device_busy_ms_per_step=busy / steps / 1e3,
-         device_idle_share=(1.0 - busy / window) if kernels and window > 0 else "not measured",
-         top_kernels=[dict(name=name[:160], ms_per_step=us / steps / 1e3, launches_per_step=n / steps)
-                      for name, (us, n) in top],
+    emit("profile", ok=True, steps=steps, **device_time_summary(list(prof.events()), steps),
          note="profiler overhead lengthens the host side of the window")
+
+
+def halo_variants():
+    from repro_torch.launch.distributed_gcn import HaloVariant as V
+
+    return (V("a_fp32"), V("b_bf16", payload="bf16"), V("c_split_fp32", split=True), V("d_int8", payload="int8"),
+            V("e_bsr_quant_bf16", payload="bf16", quant=True),
+            V("e_segment_quant_bf16", backend="segment", payload="bf16", quant=True))
+
+
+# Launches per rank in one forward: layer 1 (5,414 → 16, feature-first) is
+# X·W (torch.matmul) then K1 over the [local ‖ halo] table, or K1 on the
+# interior and the boundary table; layer 2 (16 → 210, aggregation-first)
+# is one K2 launch over the combined table (bf16 table under the bf16
+# wire), or K1 twice and X·W on the split pair. The segment path runs none.
+HALO_LAUNCHES = {
+    "a_fp32": {"k1_bsr_spmm": 1, "k2_af_layer": 1},
+    "b_bf16": {"k1_bsr_spmm": 1, "k2_af_layer_bf16": 1},
+    "c_split_fp32": {"k1_bsr_spmm": 4},
+    "d_int8": {"k1_bsr_spmm": 1, "k2_af_layer": 1},
+    "e_bsr_quant_bf16": {"k1_bsr_spmm": 1, "k2_af_layer_bf16": 1},
+    "e_segment_quant_bf16": {},
+}
+
+
+def run_halo(host: dict, halo: dict, main: dict) -> dict:
+    """The sharded forward on HALO_K ranks sharing the card, against the
+    unsharded bsr forward; returns each kernel's launches summed over the
+    ranks' forwards (one per variant)."""
+    from repro_torch.configs.coin_gcn import make_config
+    from repro_torch.dist.halo import restore_node_array
+    from repro_torch.graph.structure import restore_rows
+    from repro_torch.kernels import fused_gcn as fg
+    from repro_torch.launch.distributed_gcn import halo_rank, rank_jobs
+    from repro_torch.launch.mesh import GroupSpec, run_group
+    from repro_torch.models.gcn import gcn_init
+
+    plan = halo["plan"]
+    cfg = make_config(dataset=DATASET)
+    params = {k: v.numpy() for k, v in gcn_init(torch.Generator().manual_seed(SEED), cfg, device="cpu").items()}
+    variants = halo_variants()
+    t0 = time.perf_counter()
+    jobs = rank_jobs(plan, host["features"], params, cfg.layer_dims, variants, quant=cfg.quant,
+                     time_reps=HALO_REPS)
+    spec = GroupSpec(k=HALO_K, backend="gloo", devices=("cuda:0",), timeout_s=HALO_TIMEOUT_S)
+    print(f"halo group: {spec.describe()}", flush=True)
+    results = run_group(spec, halo_rank, jobs)
+    seconds = time.perf_counter() - t0
+    ref = restore_rows(host["perm"], main["logits_quant_off"])        # unsharded bsr, global node order
+    ref_scale = float(np.abs(ref).max())
+    per_variant, checks = {}, {}
+    launches = {name: 0 for name in fg.LAUNCHES}
+    logits = {}
+    for v in variants:
+        recs = [r["variants"][v.name] for r in results]
+        logits[v.name] = restore_node_array(plan, np.stack([rec["logits"] for rec in recs]))
+        for rec in recs:
+            for name, n in rec["launches"].items():
+                launches[name] += n
+        per_variant[v.name] = dict(
+            backend=v.backend, payload=v.payload or "fp32", tables="split" if v.split else "combined",
+            quant=v.quant, dtype=recs[0]["dtype"], launches_per_rank=[rec["launches"] for rec in recs],
+            wire_rows_per_rank=[rec["wire_rows"] for rec in recs],
+            wire_bytes_per_rank=[rec["wire_bytes"] for rec in recs],
+            forward_ms_per_rank=[rec.get("forward_ms") for rec in recs])
+        checks[f"{v.name}_launches"] = all(rec["launches"] == HALO_LAUNCHES[v.name] for rec in recs)
+        checks[f"{v.name}_wire_rows"] = all(rec["wire_rows"] == (cfg.n_layers * plan.halo_rows_per_device)
+                                            for rec in recs)
+        checks[f"{v.name}_finite"] = all(rec["finite"] for rec in recs) and bool(np.isfinite(logits[v.name]).all())
+        checks[f"{v.name}_shape"] = logits[v.name].shape == ref.shape
+    for name, rtol in (("a_fp32", HALO_LOGIT_RTOL), ("c_split_fp32", HALO_LOGIT_RTOL), ("b_bf16", HALO_BF16_RTOL)):
+        err = float(np.abs(logits[name] - ref).max())
+        per_variant[name].update(max_abs_err_vs_unsharded=err, rtol=rtol)
+        checks[f"{name}_vs_unsharded"] = err <= rtol * ref_scale
+    diff = logits["d_int8"] - ref
+    err8, rel8 = float(np.abs(diff).max()), float(np.linalg.norm(diff) / np.linalg.norm(ref))
+    per_variant["d_int8"].update(max_abs_err_vs_unsharded=err8, rel_l2_vs_unsharded=rel8,
+                                 max_abs_bound=HALO_INT8_ABS, rel_l2_bound=HALO_INT8_REL_L2)
+    checks["d_int8_vs_unsharded"] = err8 < HALO_INT8_ABS and rel8 <= HALO_INT8_REL_L2
+    # (e): the main phase's rule, ties within LOGIT_RTOL · max |logit|. The
+    # bsr path's logits are bf16 (the fused bf16 layer's output), so the
+    # agreement with ties within the bf16 tolerance is reported beside it.
+    eb, es = torch.from_numpy(logits["e_bsr_quant_bf16"]), torch.from_numpy(logits["e_segment_quant_bf16"])
+    agree, raw, tied = argmax_agreement(eb, es, LOGIT_RTOL)
+    agree_bf16_ties = argmax_agreement(eb, es, HALO_BF16_RTOL)[0]
+    checks["e_argmax_agreement"] = agree >= ARGMAX_AGREEMENT
+    ok = all(checks.values())
+    emit("halo", ok=ok, checks=checks, ranks=HALO_K, group=spec.describe(), shared_card="cuda:0",
+         wire="gloo through the host (NCCL not exercised: one card)", seconds=seconds,
+         halo_rows_per_rank_per_exchange=plan.halo_rows_per_device, k_s_max=plan.k * plan.s_max,
+         exchanges_per_forward=cfg.n_layers, max_abs_logit_unsharded=ref_scale, variants=per_variant,
+         e_argmax_agreement=agree, e_argmax_agreement_bf16_ties=agree_bf16_ties, e_raw_argmax_equal=raw,
+         e_nodes_with_tied_top_logits=tied, e_tie_rtol=LOGIT_RTOL, argmax_agreement_min=ARGMAX_AGREEMENT,
+         exchange_ms_per_rank={p: [r["exchange_ms"][p] for r in results] for p in results[0].get("exchange_ms", {})},
+         exchange_width=cfg.layer_dims[1], peak_memory_gb_per_rank=[r.get("peak_memory_gb") for r in results],
+         profile_first_variant_per_rank=[r.get("profile") for r in results],
+         launches_all_ranks=launches, timing=f"CUDA events after a group barrier, median of {HALO_REPS}; "
+         f"{HALO_K} ranks share one card, so these are not multi-card times")
+    require(ok, "halo", f"checks {checks}")
+    return launches
 
 
 def main() -> int:
@@ -547,20 +860,36 @@ def main() -> int:
 
     build_kernels()
     data = load_graph(device)
+    halo = build_plan(data)
     ops = layer_operands(data, torch.Generator().manual_seed(SEED + 1))
-    worst = check_kernels(data, ops)
+    rank = rank_operands(data, halo, ops, torch.Generator().manual_seed(SEED + 2))
+    worst = check_kernels(data, ops, rank, halo)
+    del rank                 # kept off the card while the unsharded paths run and measure their peak
+    torch.cuda.empty_cache()
     main_run = run_main_path(data)
     train_run = run_training(data)
     rows = time_everything(data, ops, main_run, train_run)
+    rank = rank_operands(data, halo, ops, torch.Generator().manual_seed(SEED + 2))
+    rows.update(time_bf16_kernels(rank, ops))
     profile_train_steps(train_run)
+
+    # The ranks share the card: free the unsharded tables first.
+    host, inference, train = data["host"], main_run["launches"], train_run["launches"]
+    main_run.pop("forward")
+    del data, ops, rank, train_run
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = run_halo(host, halo, main_run)
 
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNEL_SOURCE, replaces=REPLACES[name],
-             launches=train_run["launches"][name], launches_per_train_step=train_run["launches"][name] / TRAIN_STEPS,
-             launches_inference=main_run["launches"][name], max_abs_err=worst[name], ms=row["ms"],
+             launches=inference[name] + train[name] + sharded[name], launches_inference=inference[name],
+             launches_train=train[name], launches_per_train_step=train[name] / TRAIN_STEPS,
+             launches_halo=sharded[name], max_abs_err=worst[name], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound"][0], bound_by=row["bound"][1],
-             library_ms=row["library_ms"])
+             library_ms=row["library_ms"],
+             shape="rank 0 of 4 (halo)" if name not in FP32_KERNELS else "unsharded Nell")
         for name, row in rows.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

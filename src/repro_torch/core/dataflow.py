@@ -7,7 +7,12 @@ O = A · X · W; the multiplication order changes the work:
   feature-first (COIN): A·(X·W)
 
 For the ``"bsr"`` backend the aggregation runs one 128×128 × 128×F product
-per nonzero block, so its cost term is ``nnz_blocks · B² · F``.
+per nonzero block, so its cost term is ``nnz_blocks · B² · F``. The halo
+exchange has its own model (`ExchangeCost`): rows on the wire, scaled by the
+payload's bits and the share of the exchange interior work hides. (The
+reference's chooser also takes an exchange term, for its dry-run and
+hillclimb accounting; it never changes the decision, and the port has no
+caller for it yet.)
 """
 from __future__ import annotations
 
@@ -15,9 +20,11 @@ import dataclasses
 
 __all__ = [
     "DataflowCost",
+    "ExchangeCost",
     "dense_multiply_count",
     "sparse_multiply_count",
     "blocked_multiply_count",
+    "exchange_cost",
     "choose_order",
 ]
 
@@ -62,6 +69,45 @@ def blocked_multiply_count(
     agg_first = bb * d_in + n * d_in * d_out
     feat_first = n * d_in * d_out + bb * d_out
     return DataflowCost(aggregation_first=agg_first, feature_first=feat_first)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExchangeCost:
+    """The halo-exchange wire model: per-device per-layer rows crossing the
+    wire, compressed by the payload format and hidden behind interior compute.
+
+      wire_bytes    = rows · d · payload_bits / 8        (what crosses)
+      exposed_bytes = wire_bytes · (1 − overlap_fraction) (what the critical
+                      path still waits on)
+    """
+
+    rows: int                         # halo rows received per device per layer
+    d: int                            # feature width crossing the wire
+    payload_bits: int = 32            # fp32 32 | bf16 16 | int8 8
+    overlap_fraction: float = 0.0     # HaloPlan.overlap_fraction()
+
+    @property
+    def wire_bytes(self) -> float:
+        return self.rows * self.d * self.payload_bits / 8.0
+
+    @property
+    def exposed_bytes(self) -> float:
+        return self.wire_bytes * (1.0 - self.overlap_fraction)
+
+    @property
+    def compression(self) -> float:
+        """Wire-byte reduction vs the fp32 baseline (32 / payload_bits)."""
+        return 32.0 / max(self.payload_bits, 1)
+
+
+def exchange_cost(
+    rows: int, d: int, payload_bits: int = 32, overlap_fraction: float = 0.0
+) -> ExchangeCost:
+    """Convenience constructor for :class:`ExchangeCost`."""
+    return ExchangeCost(
+        rows=int(rows), d=int(d), payload_bits=int(payload_bits),
+        overlap_fraction=float(overlap_fraction),
+    )
 
 
 def choose_order(

@@ -1,8 +1,8 @@
 """Fake quantization of weights and activations (paper §V-B, Fig. 7).
 
-Twin of `repro.core.quant` for the forward path: symmetric per-tensor fake
-quantization with a straight-through estimator. The halo wire payload
-encoders arrive with the halo slice.
+Twin of `repro.core.quant`: symmetric per-tensor fake quantization with a
+straight-through estimator, and the wire payload codecs of the halo
+exchange (`repro_torch.dist.halo`).
 """
 from __future__ import annotations
 
@@ -11,7 +11,14 @@ import math
 
 import torch
 
-__all__ = ["QuantConfig", "fake_quant"]
+__all__ = [
+    "QuantConfig",
+    "PAYLOAD_BITS",
+    "fake_quant",
+    "payload_bits",
+    "quantize_payload",
+    "dequantize_payload",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,3 +57,65 @@ def fake_quant(x: torch.Tensor, bits: int, percentile: float | None = None) -> t
     q = torch.clamp(torch.round(x / scale), -qmax - 1, qmax) * scale
     # Straight-through estimator: forward q, backward identity.
     return x + (q - x).detach()
+
+
+# --------------------------------------------------------- halo wire payloads
+# Wire formats for the halo exchange: the export block is encoded before the
+# collective and decoded on receive, so only the compressed representation
+# crosses the wire. Unlike fake_quant (QAT emulation in fp32), these change
+# the transferred dtype.
+PAYLOAD_BITS = {None: 32, "fp32": 32, "bf16": 16, "int8": 8}
+
+
+def payload_bits(payload: str | None) -> int:
+    """Wire bits per element for a halo payload format."""
+    try:
+        return PAYLOAD_BITS[payload]
+    except KeyError:
+        raise ValueError(
+            f"unknown halo payload {payload!r}; expected one of "
+            "None/'fp32', 'bf16', 'int8'"
+        ) from None
+
+
+def quantize_payload(
+    x: torch.Tensor, payload: str | None
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Encode an export block for the wire. Returns ``(wire, scale)``.
+
+    * ``None``/``"fp32"`` — identity, scale None.
+    * ``"bf16"``          — bfloat16 cast (round to nearest even), scale None.
+    * ``"int8"``          — symmetric per-export-block scale (amax/127); the
+                            (1, 1) fp32 scale travels alongside the payload so
+                            the receiver can decode every sender's block.
+    """
+    if payload in (None, "fp32") or x.shape[0] == 0:
+        return x, None
+    if payload == "bf16":
+        return x.to(torch.bfloat16), None
+    if payload == "int8":
+        amax = x.abs().max()
+        scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax)).float()
+        q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+        return q, scale.reshape(1, 1)
+    payload_bits(payload)  # raises the canonical error
+    raise AssertionError  # pragma: no cover
+
+
+def dequantize_payload(
+    wire: torch.Tensor, scale: torch.Tensor | None, dtype=torch.float32
+) -> torch.Tensor:
+    """Decode gathered wire rows back to ``dtype``.
+
+    For int8, ``scale`` holds one row per gathered export block — shape
+    (n_blocks, 1) against wire (n_blocks·s, d) — and each block is rescaled
+    by its sender's amax/127.
+    """
+    if scale is None:
+        return wire.to(dtype)
+    n_blocks = scale.shape[0]
+    rows = wire.shape[0]
+    if n_blocks > 1 and rows:
+        per = rows // n_blocks
+        return (wire.to(dtype).reshape(n_blocks, per, -1) * scale[:, :, None]).reshape(rows, -1)
+    return wire.to(dtype) * scale[0]

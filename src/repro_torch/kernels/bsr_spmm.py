@@ -58,8 +58,11 @@ def bsr_spmm_plain(vals, cols, lens, z) -> torch.Tensor:
 
 
 def bsr_spmm(vals, cols, lens, z) -> torch.Tensor:
-    """Ã · Z on the card, one launch; Z's rows a positive multiple of 128."""
+    """Ã · Z on the card, one launch; Z's rows a positive multiple of 128.
+    fp32 only: K1's bf16 mode comes with halo training (ROADMAP)."""
     device = _check("bsr_spmm", vals=vals, cols=cols, lens=lens, z=z)
+    if vals.dtype != torch.float32 or z.dtype != torch.float32:
+        raise TypeError(f"bsr_spmm takes float32 vals and z, got {vals.dtype} and {z.dtype}")
     f = z.shape[1]
     _check_table("bsr_spmm", vals, cols, lens, z, f)
     _require_cuda("bsr_spmm", device)

@@ -8,18 +8,31 @@
 //   ragged_layer_kernel<1>    act((Ã · X) · W + b)  (K2 aggregation-first, one launch)
 //   ragged_layer_kernel<2>    Ã · Z                 (K1, one launch)
 //
-// Ã is the ragged 128×128 blocked adjacency: vals (R, T, 128, 128) fp32,
-// cols (R, T) int32 block-column ids, lens (R,) int32 valid tiles per
-// block-row. Tiles t >= lens[r] are padding and are never read.
+// Ã is the ragged 128×128 blocked adjacency: vals (R, T, 128, 128), cols
+// (R, T) int32 block-column ids, lens (R,) int32 valid tiles per block-row.
+// Tiles t >= lens[r] are padding and are never read.
 //
-// All arithmetic is IEEE fp32 on the CUDA cores (no tensor cores, no TF32).
-// Operands reach shared memory through asynchronous copies
+// Element types. K2 takes fp32 or bf16 operands (the TPU kernel's
+// bf16-operand mode, fused_gcn.py:57-59 and :88-90), as template arguments:
+// TV for vals, TX for X (and the output), TW for W. Every operand is widened
+// to fp32 as it is staged, all arithmetic is IEEE fp32 on the CUDA cores (no
+// tensor cores, no TF32), and values are rounded (to nearest even) exactly
+// where the TPU kernel rounds: feature-first Z = X·W to vals' type,
+// aggregation-first Ã·X to W's type before the product with W, and the
+// output to X's type. Bias and activation apply in fp32. K1 is fp32.
+//
+// fp32 operands reach shared memory through asynchronous copies
 // (__pipeline_memcpy_async, cp.async) into two stages: the copy of chunk
-// q + 1 is in flight while the block computes on chunk q.
+// q + 1 is in flight while the block computes on chunk q. bf16 operands are
+// loaded and widened by the threads themselves (8 values per 16-byte load
+// for the adjacency, one at a time for feature rows) into the same fp32
+// stages, so the shared-memory layout, and with it the aggregation-first
+// width limit, is that of fp32.
 //
 // This file holds device code only and includes no header: fused_gcn.cu
-// includes <cuda_pipeline.h> before it, and a host-compiler check may
-// include it after stand-ins for the built-ins it uses.
+// includes <cuda_pipeline.h> and <cuda_bf16.h> before it, and a
+// host-compiler check may include it after stand-ins for the built-ins it
+// uses.
 
 #pragma once
 
@@ -48,32 +61,50 @@ __host__ __device__ inline long long layer_smem_bytes(int ft) {
 // Dynamic shared memory of xw_kernel: per stage a chunk of X and of W.
 __host__ __device__ inline long long xw_smem_bytes() { return 4LL * STAGES * (TILE * LDX + KC * NC); }
 
-// Start the asynchronous copies of X[m0:m0+TILE, k0:k0+KC] and
-// W[k0:k0+KC, n0:n0+NC] into one stage; elements past the matrix edges are
-// written as zeros.
-__device__ inline void xw_copy_chunk(const float* __restrict__ x, const float* __restrict__ w,
+// fp32 ↔ element type. bf16 rounds to nearest even, as torch's
+// .to(torch.bfloat16) and JAX's astype do.
+__device__ inline float to_f32(float v) { return v; }
+__device__ inline float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T> __device__ inline T from_f32(float v);
+template <> __device__ inline float from_f32<float>(float v) { return v; }
+template <> __device__ inline __nv_bfloat16 from_f32<__nv_bfloat16>(float v) { return __float2bfloat16_rn(v); }
+// v rounded to T's precision, kept in fp32.
+template <typename T> __device__ inline float round_to(float v) { return to_f32(from_f32<T>(v)); }
+
+// One element of global memory into an fp32 stage slot: an asynchronous
+// 4-byte copy for fp32, a load and widening for bf16.
+__device__ inline void stage1(float* dst, const float* src) { __pipeline_memcpy_async(dst, src, 4); }
+__device__ inline void stage1(float* dst, const __nv_bfloat16* src) { *dst = __bfloat162float(*src); }
+
+// Stage X[m0:m0+TILE, k0:k0+KC] and W[k0:k0+KC, n0:n0+NC] into one stage
+// (fp32 elements asynchronously, bf16 ones widened in place); elements past
+// the matrix edges are written as zeros.
+template <typename TX, typename TW>
+__device__ inline void xw_copy_chunk(const TX* __restrict__ x, const TW* __restrict__ w,
                                      long long m0, int n0, int k0, int M, int K, int N,
                                      float* xs, float* ws, int tid) {
-    for (int i = tid; i < TILE * KC; i += THREADS) {   // each warp: KC consecutive floats of a row
+    for (int i = tid; i < TILE * KC; i += THREADS) {   // each warp: KC consecutive elements of a row
         const int row = i / KC, col = i % KC;
         const long long m = m0 + row;
         const int k = k0 + col;
-        if (m < M && k < K) __pipeline_memcpy_async(xs + row * LDX + col, x + m * K + k, 4);
+        if (m < M && k < K) stage1(xs + row * LDX + col, x + m * K + k);
         else xs[row * LDX + col] = 0.f;
     }
     for (int i = tid; i < KC * NC; i += THREADS) {
         const int kk = i / NC, c = i % NC;
         const int k = k0 + kk, n = n0 + c;
-        if (k < K && n < N) __pipeline_memcpy_async(ws + i, w + (long long)k * N + n, 4);
+        if (k < K && n < N) stage1(ws + i, w + (long long)k * N + n);
         else ws[i] = 0.f;
     }
 }
 
-// Z[m, n0:n0+NC] = X[m, :] · W[:, n0:n0+NC]. One block owns TILE rows and NC
-// output columns; thread i owns row m0+i and keeps its NC sums in registers.
-// X (M, K), W (K, N), Z (M, N), all row-major fp32.
+// Z[m, n0:n0+NC] = X[m, :] · W[:, n0:n0+NC], accumulated in fp32 and stored
+// as TZ. One block owns TILE rows and NC output columns; thread i owns row
+// m0+i and keeps its NC sums in registers. X (M, K), W (K, N), Z (M, N),
+// all row-major.
+template <typename TX, typename TW, typename TZ>
 __global__ void __launch_bounds__(THREADS)
-xw_kernel(const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ z,
+xw_kernel(const TX* __restrict__ x, const TW* __restrict__ w, TZ* __restrict__ z,
           int M, int K, int N) {
     extern __shared__ float smem[];
     const int tid = threadIdx.x;
@@ -118,32 +149,48 @@ xw_kernel(const float* __restrict__ x, const float* __restrict__ w, float* __res
     if (m < M) {
 #pragma unroll
         for (int c = 0; c < NC; ++c)
-            if (n0 + c < N) z[m * N + n0 + c] = acc[c];
+            if (n0 + c < N) z[m * N + n0 + c] = from_f32<TZ>(acc[c]);
     }
 }
 
-// Start the asynchronous copies of chunk q of block-row r — columns
-// [j0, j0+KC) of tile t = q / CPT and the KC source rows they multiply —
-// into one stage. The adjacency chunk moves in 16-byte pieces (vals is
-// 16-byte aligned); source columns past the block's range or the source
-// width are written as zeros.
-__device__ inline void layer_copy_chunk(const float* __restrict__ vals, const int* __restrict__ cols,
-                                        int r, int T, int n_src_blocks, const float* __restrict__ src,
+// Stage the adjacency chunk rows[0:TILE] × [j0, j0+KC) of one tile: fp32
+// moves in 16-byte asynchronous pieces (4 values), bf16 in 16-byte loads
+// (8 values) widened to fp32. vals is 16-byte aligned and a chunk row is
+// KC values, so every piece is aligned.
+__device__ inline void stage_tile_chunk(const float* __restrict__ tile, int j0, float* as, int tid) {
+    for (int i = tid; i < TILE * KC / 4; i += THREADS) {   // each warp: 4 rows × KC floats
+        const int row = i / (KC / 4), c4 = 4 * (i % (KC / 4));
+        __pipeline_memcpy_async(as + row * LDA + c4, tile + row * TILE + j0 + c4, 16);
+    }
+}
+__device__ inline void stage_tile_chunk(const __nv_bfloat16* __restrict__ tile, int j0, float* as, int tid) {
+    for (int i = tid; i < TILE * KC / 8; i += THREADS) {   // each warp: 8 rows × KC values
+        const int row = i / (KC / 8), c8 = 8 * (i % (KC / 8));
+        const float4 raw = *reinterpret_cast<const float4*>(tile + row * TILE + j0 + c8);
+        const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&raw);
+        float* dst = as + row * LDA + c8;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) dst[e] = __bfloat162float(v[e]);
+    }
+}
+
+// Stage chunk q of block-row r — columns [j0, j0+KC) of tile t = q / CPT
+// and the KC source rows they multiply — into one stage. Source columns
+// past the block's range or the source width are written as zeros.
+template <typename TV, typename TS>
+__device__ inline void layer_copy_chunk(const TV* __restrict__ vals, const int* __restrict__ cols,
+                                        int r, int T, int n_src_blocks, const TS* __restrict__ src,
                                         int f_src, int ft, int ftp, int f0, int q,
                                         float* as, float* ss, int tid) {
     const int t = q / CPT, j0 = (q % CPT) * KC;
     int cb = cols[(long long)r * T + t];
     cb = cb < 0 ? 0 : (cb >= n_src_blocks ? n_src_blocks - 1 : cb);
-    const float* tile = vals + ((long long)r * T + t) * (TILE * TILE);
-    const float* sblk = src + (long long)cb * TILE * f_src;
-    for (int i = tid; i < TILE * KC / 4; i += THREADS) {   // each warp: 4 rows × KC floats
-        const int row = i / (KC / 4), c4 = 4 * (i % (KC / 4));
-        __pipeline_memcpy_async(as + row * LDA + c4, tile + row * TILE + j0 + c4, 16);
-    }
+    stage_tile_chunk(vals + ((long long)r * T + t) * (TILE * TILE), j0, as, tid);
+    const TS* sblk = src + (long long)cb * TILE * f_src;
     for (int i = tid; i < KC * ftp; i += THREADS) {
         const int jj = i / ftp, cc = i % ftp;
         const int f = f0 + cc;
-        if (cc < ft && f < f_src) __pipeline_memcpy_async(ss + i, sblk + (long long)(j0 + jj) * f_src + f, 4);
+        if (cc < ft && f < f_src) stage1(ss + i, sblk + (long long)(j0 + jj) * f_src + f);
         else ss[i] = 0.f;
     }
 }
@@ -157,20 +204,21 @@ __device__ inline void layer_copy_chunk(const float* __restrict__ vals, const in
 //
 // MODE 0 (feature-first): src = Z (width f_src = f_out); out = act(acc + b).
 // MODE 1 (aggregation-first): src = X (width f_src = ft = f_in);
-//                             out = act(acc · W + b), W (f_in, f_out).
+//                             out = act(round_W(acc) · W + b), W (f_in, f_out).
 // MODE 2 (K1, the plain product): src = Z (width f_src = f_out); out = acc,
 //                             with no bias and no activation (w, b unused).
+// TV, TS, TW, TO are the element types of vals, src, W and out; b is fp32.
 //
 // Column ids outside [0, n_src_blocks) are clamped and lens to [0, T], so a
 // malformed table cannot read outside the operands; the host side
 // (BlockedAdjacency.arrays) rejects such tables before they get here.
-template <int MODE>
+template <int MODE, typename TV, typename TS, typename TW, typename TO>
 __global__ void __launch_bounds__(THREADS)
-ragged_layer_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
+ragged_layer_kernel(const TV* __restrict__ vals, const int* __restrict__ cols,
                     const int* __restrict__ lens, int T, int n_src_blocks,
-                    const float* __restrict__ src, int f_src, int ft,
-                    const float* __restrict__ w, const float* __restrict__ b,
-                    float* __restrict__ out, int f_out, int relu) {
+                    const TS* __restrict__ src, int f_src, int ft,
+                    const TW* __restrict__ w, const float* __restrict__ b,
+                    TO* __restrict__ out, int f_out, int relu) {
     extern __shared__ float smem[];
     const int ftp = padded_width(ft);
     const int ldc = ftp + 1;             // odd stride: each thread's row sits in its own banks
@@ -227,16 +275,16 @@ ragged_layer_kernel(const float* __restrict__ vals, const int* __restrict__ cols
         __syncthreads();                 // stage s is refilled in the next iteration
     }
 
-    float* o = out + ((long long)r * TILE + tid) * f_out;
+    TO* o = out + ((long long)r * TILE + tid) * f_out;
     if (MODE == 2) {
         for (int c = 0; c < ft; ++c)
-            if (f0 + c < f_out) o[f0 + c] = crow[c];
+            if (f0 + c < f_out) o[f0 + c] = from_f32<TO>(crow[c]);
     } else if (MODE == 0) {
         for (int c = 0; c < ft; ++c) {
             const int f = f0 + c;
             if (f < f_out) {
                 const float h = crow[c] + b[f];
-                o[f] = relu ? fmaxf(h, 0.f) : h;
+                o[f] = from_f32<TO>(relu ? fmaxf(h, 0.f) : h);
             }
         }
     } else {
@@ -245,17 +293,17 @@ ragged_layer_kernel(const float* __restrict__ vals, const int* __restrict__ cols
 #pragma unroll
             for (int c = 0; c < NC; ++c) h[c] = 0.f;
             for (int k = 0; k < ft; ++k) {
-                const float a = crow[k];
-                const float* wrow = w + (long long)k * f_out + o0;
+                const float a = round_to<TW>(crow[k]);   // the TPU kernel's acc.astype(W.dtype)
+                const TW* wrow = w + (long long)k * f_out + o0;
 #pragma unroll
                 for (int c = 0; c < NC; ++c)
-                    if (o0 + c < f_out) h[c] = fmaf(a, wrow[c], h[c]);
+                    if (o0 + c < f_out) h[c] = fmaf(a, to_f32(wrow[c]), h[c]);
             }
 #pragma unroll
             for (int c = 0; c < NC; ++c) {
                 if (o0 + c < f_out) {
                     const float v = h[c] + b[o0 + c];
-                    o[o0 + c] = relu ? fmaxf(v, 0.f) : v;
+                    o[o0 + c] = from_f32<TO>(relu ? fmaxf(v, 0.f) : v);
                 }
             }
         }

@@ -44,6 +44,23 @@ tiles) that is 1.42 GB + 0.76 GB = 2.19 GB, 0.65 ms at 3.35 TB/s, against
   has 299 tiles, the median 19), and that block sets the aggregation's
   time: splitting long block-rows is later work.
 
+**The bf16-operand mode** (the TPU kernel's, ``fused_gcn.py:57-59`` and
+``:88-90``) is the same kernels instantiated on other element types, one
+launcher per combination of (vals, X, W):
+
+* fp32, fp32, fp32 — the launch names below without a suffix;
+* fp32, bf16, fp32 — suffix ``_bf16``: the halo path's bf16 neighbor table
+  (`repro_torch.models.gcn`), where the only rounding is the bf16 output;
+* bf16, bf16, bf16 — suffix ``_bf16_all``.
+
+Operands are widened to fp32 as they are staged and rounded where the TPU
+kernel rounds: feature-first Z = X·W to vals' type, aggregation-first Ã·X
+to W's type before the product with W, the output to X's type; bias (fp32)
+and activation apply in fp32. bf16 halves the bytes of what it touches (at
+the halo path's rank shape only the 16-wide table, not the fp32 tiles that
+bound the kernel). The stages stay fp32, so `AF_MAX_F_IN` is the same for
+every combination. Any other combination raises a TypeError.
+
 On CPU tensors `repro_torch.kernels.ops.fused_gcn_layer` runs the plain
 versions below; on CUDA tensors it runs the kernels or raises. Each kernel
 wrapper adds one to its entry of `LAUNCHES` where it launches.
@@ -70,6 +87,7 @@ __all__ = [
     "ff_aggregate_plain",
     "af_layer_plain",
     "fused_gcn_layer_plain",
+    "operand_suffix",
 ]
 
 TILE = 128                  # adjacency tile edge the kernels take
@@ -77,8 +95,13 @@ _KC, _NC, _STAGES = 32, 16, 2   # staged chunk depth, accumulator chunk, pipelin
 FF_F_TILE = 64              # output columns one feature-first aggregation block covers
 SMEM_LIMIT = 232_448        # bytes of shared memory one H100 block may opt into
 
+# The (vals, X, W) dtype combinations K2 takes, and their launchers' suffixes.
+_F32, _BF16 = torch.float32, torch.bfloat16
+_SUFFIX = {(_F32, _F32, _F32): "", (_F32, _BF16, _F32): "_bf16", (_BF16, _BF16, _BF16): "_bf16_all"}
+_K2 = ("k2_ff_transform", "k2_ff_aggregate", "k2_af_layer")
+
 # Launches of every kernel of the library (K2 here, K1 in `kernels.bsr_spmm`).
-LAUNCHES = {"k2_ff_transform": 0, "k2_ff_aggregate": 0, "k2_af_layer": 0, "k1_bsr_spmm": 0}
+LAUNCHES = {**{f"{k}{sfx}": 0 for sfx in _SUFFIX.values() for k in _K2}, "k1_bsr_spmm": 0}
 
 
 def reset_launch_counts() -> None:
@@ -96,17 +119,32 @@ def layer_smem_bytes(ft: int) -> int:
 AF_MAX_F_IN = max(f for f in range(_NC, 4096, _NC) if layer_smem_bytes(f) <= SMEM_LIMIT)
 
 
+def operand_suffix(kernel: str, vals_dtype, x_dtype, w_dtype) -> str:
+    """The launch-name suffix of K2's (vals, X, W) dtype combination, or a
+    TypeError naming the combinations the kernels take."""
+    try:
+        return _SUFFIX[(vals_dtype, x_dtype, w_dtype)]
+    except KeyError:
+        taken = "; ".join(f"({', '.join(str(d).removeprefix('torch.') for d in c)})" for c in _SUFFIX)
+        raise TypeError(
+            f"{kernel} takes (vals, x, w) dtypes {taken}; got "
+            f"({vals_dtype}, {x_dtype}, {w_dtype})"
+        ) from None
+
+
 # ----------------------------------------------------------------- plain versions
+# fp32 arithmetic on widened operands, rounded where the kernels round; for
+# fp32 operands every cast below is the identity.
 def _ragged_aggregate_plain(vals, cols, lens, src):
-    """Σ_{t < lens[r]} vals[r, t] @ src_block[cols[r, t]] as (R·B, F), reading
-    only the valid tiles."""
+    """Σ_{t < lens[r]} vals[r, t] @ src_block[cols[r, t]] as (R·B, F) in fp32,
+    reading only the valid tiles."""
     R, T, B, _ = vals.shape
     F = src.shape[1]
     valid = torch.arange(T, device=vals.device)[None, :] < lens[:, None]
     r_idx, t_idx = valid.nonzero(as_tuple=True)
-    tiles = vals[r_idx, t_idx]                                   # (nnz, B, B)
-    blocks = src.reshape(-1, B, F)[cols[r_idx, t_idx].long()]   # (nnz, B, F)
-    acc = src.new_zeros((R, B, F)).index_add_(0, r_idx, torch.bmm(tiles, blocks))
+    tiles = vals[r_idx, t_idx].float()                                   # (nnz, B, B)
+    blocks = src.reshape(-1, B, F)[cols[r_idx, t_idx].long()].float()   # (nnz, B, F)
+    acc = tiles.new_zeros((R, B, F)).index_add_(0, r_idx, torch.bmm(tiles, blocks))
     return acc.reshape(R * B, F)
 
 
@@ -114,22 +152,27 @@ def _act(h: torch.Tensor, relu: bool) -> torch.Tensor:
     return h.clamp_min(0.0) if relu else h
 
 
-def ff_transform_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return x @ w
+def ff_transform_plain(x: torch.Tensor, w: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
+    """Z = X · W in fp32, stored as ``out_dtype`` (vals' dtype)."""
+    return (x.float() @ w.float()).to(out_dtype)
 
 
-def ff_aggregate_plain(vals, cols, lens, z, b, relu: bool = True) -> torch.Tensor:
-    return _act(_ragged_aggregate_plain(vals, cols, lens, z) + b.reshape(1, -1), relu)
+def ff_aggregate_plain(vals, cols, lens, z, b, relu: bool = True, out_dtype=torch.float32) -> torch.Tensor:
+    out = _act(_ragged_aggregate_plain(vals, cols, lens, z) + b.float().reshape(1, -1), relu)
+    return out.to(out_dtype)
 
 
 def af_layer_plain(vals, cols, lens, x, w, b, relu: bool = True) -> torch.Tensor:
-    return _act(_ragged_aggregate_plain(vals, cols, lens, x) @ w + b.reshape(1, -1), relu)
+    """act(round_W(Ã · X) · W + b) in fp32, stored in X's dtype."""
+    m = _ragged_aggregate_plain(vals, cols, lens, x).to(w.dtype).float()
+    return _act(m @ w.float() + b.float().reshape(1, -1), relu).to(x.dtype)
 
 
 def fused_gcn_layer_plain(vals, cols, lens, x, w, b, order: str = "feature_first",
                           relu: bool = True) -> torch.Tensor:
     if order == "feature_first":
-        return ff_aggregate_plain(vals, cols, lens, ff_transform_plain(x, w), b, relu)
+        z = ff_transform_plain(x, w, vals.dtype)
+        return ff_aggregate_plain(vals, cols, lens, z, b, relu, x.dtype)
     if order == "aggregation_first":
         return af_layer_plain(vals, cols, lens, x, w, b, relu)
     raise ValueError(f"unknown dataflow order: {order!r}")
@@ -140,12 +183,13 @@ def fused_gcn_layer_plain(vals, cols, lens, x, w, b, order: str = "feature_first
 def _lib() -> ctypes.CDLL:
     lib = library("fused_gcn")
     P, I = ctypes.c_void_p, ctypes.c_int
-    signatures = {
+    args = {
         "k2_ff_transform": [P, P, P, I, I, I, P],
         "k2_ff_aggregate": [P, P, P, I, I, I, P, P, P, I, I, I, P],
         "k2_af_layer": [P, P, P, I, I, I, P, I, P, P, P, I, I, P],
-        "k1_bsr_spmm": [P, P, P, I, I, I, P, P, I, I, P],
     }
+    signatures = {f"{k}{sfx}": a for k, a in args.items() for sfx in _SUFFIX.values()}
+    signatures["k1_bsr_spmm"] = [P, P, P, I, I, I, P, P, I, I, P]
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
@@ -168,14 +212,17 @@ def _stream(device: torch.device) -> int:
 
 
 def _check(kernel: str, **tensors) -> torch.device:
-    """Device, dtype, rank and contiguity checks shared by the wrappers."""
-    want = {"cols": torch.int32, "lens": torch.int32}
+    """Device, dtype, rank and contiguity checks shared by the wrappers:
+    int32 tables, an fp32 bias, fp32 or bf16 data (each wrapper then checks
+    its combination)."""
+    want = {"cols": (torch.int32,), "lens": (torch.int32,), "b": (_F32,)}
     rank = {"vals": 4, "cols": 2, "lens": 1, "x": 2, "z": 2, "w": 2, "b": 1}
     device = next(iter(tensors.values())).device
     for name, t in tensors.items():
-        dtype = want.get(name, torch.float32)
-        if t.dtype != dtype:
-            raise TypeError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
+        dtypes = want.get(name, (_F32, _BF16))
+        if t.dtype not in dtypes:
+            names = " or ".join(str(d) for d in dtypes)
+            raise TypeError(f"{kernel}: {name} must be {names}, got {t.dtype}")
         if t.dim() != rank[name]:
             raise ValueError(f"{kernel}: {name} must have {rank[name]} dims, got shape {tuple(t.shape)}")
         if not t.is_contiguous():
@@ -208,29 +255,37 @@ def _check_table(kernel: str, vals, cols, lens, src, f_out: int, b=None) -> None
         raise ValueError(f"{kernel}: b must have shape ({f_out},), got {tuple(b.shape)}")
 
 
-def ff_transform(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Z = X · W on the card (feature-first launch 1 of 2)."""
+def ff_transform(x: torch.Tensor, w: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
+    """Z = X · W on the card (feature-first launch 1 of 2), stored as
+    ``out_dtype`` — vals' dtype in the layer: (x, w, out) is (fp32, fp32,
+    fp32), (bf16, fp32, fp32) or (bf16, bf16, bf16)."""
     device = _check("ff_transform", x=x, w=w)
     M, K = x.shape
     if w.shape[0] != K or min(M, K, w.shape[1]) < 1:
         raise ValueError(f"ff_transform: cannot multiply x {tuple(x.shape)} by w {tuple(w.shape)}")
+    sfx = operand_suffix("ff_transform", out_dtype, x.dtype, w.dtype)
     N = w.shape[1]
     _require_cuda("ff_transform", device)
-    z = torch.empty((M, N), dtype=torch.float32, device=device)
-    _launch("k2_ff_transform", x.data_ptr(), w.data_ptr(), z.data_ptr(), M, K, N, _stream(device))
+    z = torch.empty((M, N), dtype=out_dtype, device=device)
+    _launch(f"k2_ff_transform{sfx}", x.data_ptr(), w.data_ptr(), z.data_ptr(), M, K, N, _stream(device))
     return z
 
 
-def ff_aggregate(vals, cols, lens, z, b, relu: bool = True) -> torch.Tensor:
-    """act(Ã · Z + b) on the card (feature-first launch 2 of 2)."""
+def ff_aggregate(vals, cols, lens, z, b, relu: bool = True, out_dtype=torch.float32) -> torch.Tensor:
+    """act(Ã · Z + b) on the card (feature-first launch 2 of 2); Z in vals'
+    dtype, the output stored as ``out_dtype`` (X's dtype in the layer)."""
     device = _check("ff_aggregate", vals=vals, cols=cols, lens=lens, z=z, b=b)
+    if z.dtype != vals.dtype:
+        raise TypeError(f"ff_aggregate: z must have vals' dtype {vals.dtype}, got {z.dtype}")
+    w_dtype = _BF16 if vals.dtype == _BF16 else _F32
+    sfx = operand_suffix("ff_aggregate", vals.dtype, out_dtype, w_dtype)
     f_out = z.shape[1]
     _check_table("ff_aggregate", vals, cols, lens, z, f_out, b)
     _require_cuda("ff_aggregate", device)
     R, T = cols.shape
-    out = torch.empty((R * TILE, f_out), dtype=torch.float32, device=device)
+    out = torch.empty((R * TILE, f_out), dtype=out_dtype, device=device)
     _launch(
-        "k2_ff_aggregate", vals.data_ptr(), cols.data_ptr(), lens.data_ptr(), R, T,
+        f"k2_ff_aggregate{sfx}", vals.data_ptr(), cols.data_ptr(), lens.data_ptr(), R, T,
         z.shape[0] // TILE, z.data_ptr(), b.data_ptr(), out.data_ptr(), f_out,
         min(f_out, FF_F_TILE), int(relu), _stream(device),
     )
@@ -238,8 +293,9 @@ def ff_aggregate(vals, cols, lens, z, b, relu: bool = True) -> torch.Tensor:
 
 
 def af_layer(vals, cols, lens, x, w, b, relu: bool = True) -> torch.Tensor:
-    """act((Ã · X) · W + b) on the card, one launch."""
+    """act((Ã · X) · W + b) on the card, one launch; output in X's dtype."""
     device = _check("af_layer", vals=vals, cols=cols, lens=lens, x=x, w=w, b=b)
+    sfx = operand_suffix("af_layer", vals.dtype, x.dtype, w.dtype)
     f_in, f_out = w.shape
     if x.shape[1] != f_in or f_in < 1:
         raise ValueError(f"af_layer: x {tuple(x.shape)} does not match w {tuple(w.shape)}")
@@ -252,9 +308,9 @@ def af_layer(vals, cols, lens, x, w, b, relu: bool = True) -> torch.Tensor:
     _check_table("af_layer", vals, cols, lens, x, f_out, b)
     _require_cuda("af_layer", device)
     R, T = cols.shape
-    out = torch.empty((R * TILE, f_out), dtype=torch.float32, device=device)
+    out = torch.empty((R * TILE, f_out), dtype=x.dtype, device=device)
     _launch(
-        "k2_af_layer", vals.data_ptr(), cols.data_ptr(), lens.data_ptr(), R, T,
+        f"k2_af_layer{sfx}", vals.data_ptr(), cols.data_ptr(), lens.data_ptr(), R, T,
         x.shape[0] // TILE, x.data_ptr(), f_in, w.data_ptr(), b.data_ptr(), out.data_ptr(),
         f_out, int(relu), _stream(device),
     )
@@ -265,8 +321,10 @@ def fused_gcn_layer_cuda(vals, cols, lens, x, w, b, order: str = "feature_first"
                          relu: bool = True) -> torch.Tensor:
     """The whole layer on the card: two launches feature-first, one
     aggregation-first."""
+    operand_suffix("fused_gcn_layer", vals.dtype, x.dtype, w.dtype)
     if order == "feature_first":
-        return ff_aggregate(vals, cols, lens, ff_transform(x, w), b, relu)
+        z = ff_transform(x, w, vals.dtype)
+        return ff_aggregate(vals, cols, lens, z, b, relu, x.dtype)
     if order == "aggregation_first":
         return af_layer(vals, cols, lens, x, w, b, relu)
     raise ValueError(f"unknown dataflow order: {order!r}")

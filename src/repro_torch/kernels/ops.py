@@ -22,6 +22,14 @@ There is no lane padding and no feature tile to pick (both were TPU
 constraints); the kernels take any width and set their own limits. The
 plain matmuls of the backward are `torch.matmul` in full fp32 (TF32 is
 off by default in PyTorch and callers keep it off).
+
+`fused_gcn_layer` takes the (vals, x, w) dtype combinations of K2's
+kernels — all fp32, (fp32, bf16, fp32) and all bf16 — and its backward
+takes the reference's casts: the cotangent and every product in fp32,
+each gradient returned in its operand's dtype. The aggregation-first
+recompute M = Ã·X of a bf16 X runs K1 on X widened to fp32 and rounds M
+to bf16, which is what the reference's bf16 K1 computes (K1's own bf16
+mode comes with halo training). `bsr_spmm` is fp32.
 """
 from __future__ import annotations
 
@@ -29,7 +37,7 @@ import torch
 
 from repro_torch.kernels.bsr_spmm import bsr_spmm as bsr_spmm_cuda
 from repro_torch.kernels.bsr_spmm import bsr_spmm_plain
-from repro_torch.kernels.fused_gcn import fused_gcn_layer_cuda, fused_gcn_layer_plain
+from repro_torch.kernels.fused_gcn import fused_gcn_layer_cuda, fused_gcn_layer_plain, operand_suffix
 
 __all__ = ["bsr_spmm", "fused_gcn_layer"]
 
@@ -52,10 +60,7 @@ def _on_device(kernel: str, plain, cuda, *args, **kw) -> torch.Tensor:
     return cuda(*args, **kw)
 
 
-def _check_operands(kernel: str, cols, lens, tensors: dict) -> None:
-    for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{kernel} takes float32 operands; {name} is {t.dtype}")
+def _check_devices(kernel: str, cols, lens, tensors: dict) -> None:
     device = tensors["vals"].device
     for t in (cols, lens, *tensors.values()):
         if t.device != device:
@@ -76,7 +81,7 @@ def _bsr_t_apply(vals, cols, pairs, g: torch.Tensor, n_z_rows: int) -> torch.Ten
     r_idx, t_idx = pairs
     R, _, B, _ = vals.shape
     F = g.shape[-1]
-    contrib = torch.bmm(vals[r_idx, t_idx].transpose(1, 2), g.reshape(R, B, F)[r_idx])
+    contrib = torch.bmm(vals[r_idx, t_idx].float().transpose(1, 2), g.reshape(R, B, F)[r_idx])
     dz = g.new_zeros((n_z_rows // B, B, F)).index_add_(0, cols[r_idx, t_idx].long(), contrib)
     return dz.reshape(n_z_rows, F)
 
@@ -87,7 +92,7 @@ def _bsr_dvals(shape, cols, pairs, g: torch.Tensor, z: torch.Tensor) -> torch.Te
     r_idx, t_idx = pairs
     R, _, B, _ = shape
     F = z.shape[-1]
-    zb = z.reshape(-1, B, F)[cols[r_idx, t_idx].long()]
+    zb = z.reshape(-1, B, F)[cols[r_idx, t_idx].long()].float()
     dvals = g.new_zeros(shape)
     dvals[r_idx, t_idx] = torch.bmm(g.reshape(R, B, F)[r_idx], zb.transpose(1, 2))
     return dvals
@@ -96,6 +101,12 @@ def _bsr_dvals(shape, cols, pairs, g: torch.Tensor, z: torch.Tensor) -> torch.Te
 # --------------------------------------------------------- bsr_spmm (+ VJP)
 def _bsr_forward(vals, cols, lens, z) -> torch.Tensor:
     return _on_device("bsr_spmm", bsr_spmm_plain, bsr_spmm_cuda, vals, cols, lens, z)
+
+
+def _recompute_m(vals, cols, lens, x) -> torch.Tensor:
+    """M = Ã·X for the aggregation-first backward, in X's dtype: K1 on
+    operands widened to fp32 (the identity for fp32), rounded to X's dtype."""
+    return _bsr_forward(vals.float(), cols, lens, x.float()).to(x.dtype)
 
 
 class _BsrSpmm(torch.autograd.Function):
@@ -126,7 +137,10 @@ def bsr_spmm(vals, cols, z, lens=None) -> torch.Tensor:
     R, T, B, _ = vals.shape
     if lens is None:
         lens = torch.full((R,), T, dtype=torch.int32, device=vals.device)
-    _check_operands("bsr_spmm", cols, lens, {"vals": vals, "z": z})
+    for name, t in (("vals", vals), ("z", z)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"bsr_spmm takes float32 operands; {name} is {t.dtype}")
+    _check_devices("bsr_spmm", cols, lens, {"vals": vals, "z": z})
     return _BsrSpmm.apply(vals, cols, lens, _pad_rows(z, B))
 
 
@@ -135,41 +149,48 @@ class _FusedGcnLayer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, vals, cols, lens, x, w, b, order, relu):
         out = _on_device("fused_gcn_layer", fused_gcn_layer_plain, fused_gcn_layer_cuda,
-                         vals, cols, lens, x, w, b, order=order, relu=relu)
+                         vals, cols, lens, x, w, b.float(), order=order, relu=relu)
         ctx.order, ctx.relu = order, relu
         ctx.save_for_backward(vals, cols, lens, x, w, out)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        """`_fused_diff_bwd` of the reference: dpre = g·act'(pre), then the
-        two matmul transposes — the aggregation transpose is
+        """`_fused_diff_bwd` of the reference: dpre = g·act'(pre) in fp32,
+        then the two matmul transposes — the aggregation transpose is
         `_bsr_t_apply`, and aggregation-first recomputes M = Ã·X through
-        the `bsr_spmm` forward."""
+        the `bsr_spmm` forward. Each gradient leaves in its operand's dtype."""
         vals, cols, lens, x, w, out = ctx.saved_tensors
         need_vals, _, _, need_x, need_w, need_b = ctx.needs_input_grad[:6]
         pairs = _tile_mask(cols, lens).nonzero(as_tuple=True)
+        g = g.float()
         if ctx.relu:
             g = g * (out > 0)       # act' from the saved output: relu(pre) > 0 ⇔ pre > 0
         dvals = dx = dw = None
-        db = g.sum(dim=0) if need_b else None
+        db = g.sum(dim=0) if need_b else None   # fp32; autograd casts it to b's dtype
+        wf = w.float()
         if ctx.order == "feature_first":
             # pre = Ã·(x@w) + b
             if need_vals:
-                dvals = _bsr_dvals(vals.shape, cols, pairs, g, x @ w)
+                z = (x.float() @ wf).to(x.dtype)                         # recompute Z
+                dvals = _bsr_dvals(vals.shape, cols, pairs, g, z)
             if need_w or need_x:
                 dz = _bsr_t_apply(vals, cols, pairs, g, x.shape[0])      # Ãᵀ·dpre
-                dw = x.T @ dz if need_w else None
-                dx = dz @ w.T if need_x else None
+                dw = x.float().T @ dz if need_w else None
+                dx = dz @ wf.T if need_x else None
         else:
             # pre = (Ã·x)·w + b
             if need_w:
-                dw = _bsr_forward(vals, cols, lens, x).T @ g
+                dw = _recompute_m(vals, cols, lens, x).float().T @ g
             if need_vals or need_x:
-                dm = g @ w.T                                             # (R·B, F_in)
+                dm = g @ wf.T                                            # (R·B, F_in)
                 dvals = _bsr_dvals(vals.shape, cols, pairs, dm, x) if need_vals else None
                 dx = _bsr_t_apply(vals, cols, pairs, dm, x.shape[0]) if need_x else None
-        return dvals, None, None, dx, dw, db, None, None
+        return (
+            None if dvals is None else dvals.to(vals.dtype), None, None,
+            None if dx is None else dx.to(x.dtype), None if dw is None else dw.to(w.dtype),
+            db, None, None,
+        )
 
 
 def fused_gcn_layer(vals, cols, lens, x, w, b, order: str = "feature_first",
@@ -177,8 +198,9 @@ def fused_gcn_layer(vals, cols, lens, x, w, b, order: str = "feature_first",
     """One fused GCN layer act(Ã·(X·W) + b) / act((Ã·X)·W + b),
     differentiable in vals, x, w and b.
 
-    ``lens=None`` treats every tile as valid. Returns (R·B, F_out) — callers
-    slice to their real node count. fp32 only.
+    ``lens=None`` treats every tile as valid. Returns (R·B, F_out) in X's
+    dtype — callers slice to their real node count. (vals, x, w) are all
+    fp32, (fp32, bf16, fp32) or all bf16; b is fp32 or bf16.
     """
     R, T, B, _ = vals.shape
     if order not in _ORDERS:
@@ -186,5 +208,8 @@ def fused_gcn_layer(vals, cols, lens, x, w, b, order: str = "feature_first",
     if lens is None:
         lens = torch.full((R,), T, dtype=torch.int32, device=vals.device)
     b = b.reshape(-1)
-    _check_operands("fused_gcn_layer", cols, lens, {"vals": vals, "x": x, "w": w, "b": b})
+    operand_suffix("fused_gcn_layer", vals.dtype, x.dtype, w.dtype)
+    if b.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused_gcn_layer takes a float32 or bfloat16 bias, got {b.dtype}")
+    _check_devices("fused_gcn_layer", cols, lens, {"vals": vals, "x": x, "w": w, "b": b})
     return _FusedGcnLayer.apply(vals, cols, lens, _pad_rows(x, B), w, b, order, relu)

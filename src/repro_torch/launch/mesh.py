@@ -1,0 +1,151 @@
+"""Set up and tear down a k-rank `torch.distributed` group — the port's
+counterpart of `repro.launch.mesh`.
+
+The reference runs one program over a device mesh (``shard_map``); the port
+runs one process per rank. `run_group` starts ``k`` processes, joins them
+into one group, calls ``fn(rank, k, device, arg)`` in each with that rank's
+own argument, and returns the k results in rank order. Everything that
+shapes the run is an explicit field of :class:`GroupSpec`, and
+:meth:`GroupSpec.describe` says it in one line for the callers to print:
+
+* the backend: ``gloo`` (host tensors; any number of ranks per card) or
+  ``nccl`` (one rank per card),
+* the device of each rank (several ranks may share one card),
+* the start method: ``spawn``, the only one safe in a parent that has
+  already initialized CUDA,
+* the rendezvous: a ``file://`` store in a fresh temporary directory, so
+  that groups started side by side (tests run in parallel) never fight
+  over a port.
+
+Nothing falls back: a rank that raises, dies or outlasts the timeout ends
+the whole group (the other ranks are terminated) and `run_group` raises
+with that rank's traceback.
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import multiprocessing
+import os
+import queue
+import shutil
+import tempfile
+import time
+import traceback
+from typing import Any, Callable
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["GroupSpec", "run_group"]
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupSpec:
+    """One k-rank group: its backend, each rank's device and how the ranks
+    start."""
+
+    k: int
+    backend: str = "gloo"
+    devices: tuple[str, ...] = ("cpu",)   # one entry per rank, or one for all
+    start_method: str = "spawn"
+    timeout_s: float = 600.0              # whole run; also the group's collective timeout
+
+    def __post_init__(self):
+        if self.k < 1:
+            raise ValueError(f"a group needs at least one rank, got k={self.k}")
+        if len(self.devices) not in (1, self.k):
+            raise ValueError(f"devices names {len(self.devices)} devices for {self.k} ranks")
+        if self.backend == "nccl" and len(set(self.device_of(r) for r in range(self.k))) < self.k:
+            raise ValueError("nccl takes one rank per card; ranks that share a card need gloo")
+
+    def device_of(self, rank: int) -> str:
+        return self.devices[rank if len(self.devices) > 1 else 0]
+
+    def describe(self) -> str:
+        devices = (f"{self.devices[0]}×{self.k}" if len(self.devices) == 1
+                   else ",".join(self.devices))
+        return (f"k={self.k} backend={self.backend} devices={devices} "
+                f"start={self.start_method} rendezvous=file threads/rank=1")
+
+
+def _rank_main(rank: int, spec: GroupSpec, init_file: str, fn: Callable, arg: Any,
+               results) -> None:
+    """The body of one rank's process: join the group, run ``fn``, report."""
+    try:
+        torch.set_num_threads(1)      # k ranks share the host's cores
+        device = torch.device(spec.device_of(rank))
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        dist.init_process_group(
+            spec.backend, init_method=f"file://{init_file}", world_size=spec.k, rank=rank,
+            timeout=datetime.timedelta(seconds=spec.timeout_s),
+        )
+        try:
+            out = fn(rank, spec.k, device, arg)
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, True, out))
+    except BaseException:   # reported to the parent, which ends the group and raises
+        results.put((rank, False, traceback.format_exc()))
+
+
+def run_group(spec: GroupSpec, fn: Callable, args: list) -> list:
+    """Run ``fn(rank, k, device, args[rank])`` on every rank of a fresh
+    group; returns the results in rank order.
+
+    ``fn`` and every argument must pickle (``fn`` by its import path: a
+    module-level function). Raises RuntimeError when a rank raises, exits
+    without a result, or the group outlasts ``spec.timeout_s``; every
+    process started here has ended when this returns or raises.
+    """
+    if len(args) != spec.k:
+        raise ValueError(f"run_group needs one argument per rank: {len(args)} for k={spec.k}")
+    ctx = multiprocessing.get_context(spec.start_method)
+    workdir = tempfile.mkdtemp(prefix="repro_torch_group_")
+    init_file = os.path.join(workdir, "rendezvous")
+    results = ctx.Queue()
+    procs = [
+        ctx.Process(target=_rank_main, args=(r, spec, init_file, fn, args[r], results),
+                    name=f"rank{r}", daemon=True)
+        for r in range(spec.k)
+    ]
+    out: dict[int, Any] = {}
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + spec.timeout_s
+        while len(out) < spec.k:
+            try:
+                rank, ok, value = results.get(timeout=1.0)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs) if r not in out and p.exitcode is not None]
+                if dead:
+                    # A rank may have put its report just before exiting.
+                    try:
+                        rank, ok, value = results.get(timeout=5.0)
+                    except queue.Empty:
+                        raise RuntimeError(
+                            f"rank {dead[0]} exited with code {procs[dead[0]].exitcode} "
+                            f"and no result ({spec.describe()})") from None
+                elif time.monotonic() > deadline:
+                    raise RuntimeError(f"group did not finish in {spec.timeout_s:.0f} s "
+                                       f"({spec.describe()}); ranks done: {sorted(out)}") from None
+                else:
+                    continue
+            if not ok:
+                raise RuntimeError(f"rank {rank} failed ({spec.describe()}):\n{value}")
+            out[rank] = value
+        for p in procs:
+            p.join(timeout=60.0)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10.0)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10.0)
+        results.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+    return [out[r] for r in range(spec.k)]

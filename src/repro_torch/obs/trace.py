@@ -51,6 +51,7 @@ __all__ = [
     "instant",
     "counter",
     "export",
+    "device_time_summary",
 ]
 
 
@@ -311,3 +312,35 @@ def export(path: str) -> bool:
         return False
     _DEFAULT.export(path)
     return True
+
+
+def device_time_summary(events, steps: int = 1, top: int = 20) -> dict:
+    """Device time of a `torch.profiler` window: ``events`` is
+    ``list(prof.events())`` of a profile with the CUDA activity on.
+
+    The device's busy time is the union of its kernels' intervals (the
+    ``ProfilerStep#`` marks a scheduled profile also puts on the device
+    timeline are not kernels and are left out); the window spans every
+    recorded event, host and device. Returns per-step window and busy ms,
+    the idle share (``"not measured"`` when no device event was recorded),
+    the device-event count, and the ``top`` kernels by device time with
+    their launches per step."""
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith("ProfilerStep")]
+    busy, last = 0.0, float("-inf")
+    for start, end in sorted((e.time_range.start, e.time_range.end) for e in kernels):
+        busy += max(0.0, end - max(start, last))
+        last = max(last, end)
+    window = (max(e.time_range.end for e in events) - min(e.time_range.start for e in events)) if events else 0.0
+    by_name: dict[str, list] = {}          # kernel name → [µs, launches]
+    for e in kernels:
+        entry = by_name.setdefault(e.name, [0.0, 0])
+        entry[0] += e.time_range.elapsed_us()
+        entry[1] += 1
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return dict(
+        device_kernel_events=len(kernels), window_ms_per_step=window / steps / 1e3,
+        device_busy_ms_per_step=busy / steps / 1e3,
+        device_idle_share=(1.0 - busy / window) if kernels and window > 0 else "not measured",
+        top_kernels=[dict(name=name[:160], ms_per_step=us / steps / 1e3, launches_per_step=n / steps)
+                     for name, (us, n) in ranked])

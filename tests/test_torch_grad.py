@@ -111,6 +111,47 @@ def test_fused_layer_grad_lens_none_matches_jax(order):
         _close(a, r, f"{order}/{name}")
 
 
+# ------------------------------------------------- the bf16-operand mode
+BF16_COMBOS = [pytest.param((jnp.float32, jnp.bfloat16, jnp.float32), id="bf16_table"),
+               pytest.param((jnp.bfloat16, jnp.bfloat16, jnp.bfloat16), id="bf16_all")]
+_TORCH = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+
+
+@pytest.mark.parametrize("combo", BF16_COMBOS)
+@pytest.mark.parametrize("order", ORDERS)
+def test_fused_layer_bf16_grad_matches_jax(combo, order):
+    """The reference's casts in the backward: the cotangent and every
+    product in fp32, each gradient returned in its operand's dtype. Against
+    `jax.grad` of the reference with the same operand dtypes, at the bf16
+    tolerance of ROADMAP.md's parity contract (5e-2 of each gradient's
+    largest magnitude: both sides round the forward's output, the
+    feature-first Z and the aggregation-first M to bf16)."""
+    ba, x, w, b = _case()
+    n = x.shape[0]
+    vd, xd, wd = combo
+    cols, lens = ba.block_cols, ba.row_nnzb
+
+    def loss_j(w, b, x, vals):
+        out = j_ops.fused_gcn_layer(vals, jnp.asarray(cols), jnp.asarray(lens), x, w, b, order=order)
+        return (out[:n].astype(jnp.float32) ** 2).sum()
+
+    def loss_t(w, b, x, vals):
+        out = ops.fused_gcn_layer(vals, torch.from_numpy(cols), torch.from_numpy(lens), x, w, b, order=order)
+        return (out[:n].float() ** 2).sum()
+
+    args_j = (jnp.asarray(w, wd), jnp.asarray(b), jnp.asarray(x, xd), jnp.asarray(ba.block_vals, vd))
+    ref = jax.grad(loss_j, argnums=(0, 1, 2, 3))(*args_j)
+    leaves = [torch.from_numpy(np.array(a, np.float32)).to(_TORCH[d]).requires_grad_()
+              for a, d in zip((w, b, x, ba.block_vals), (wd, jnp.float32, xd, vd))]
+    ours = torch.autograd.grad(loss_t(*leaves), leaves)
+    for name, a, r, leaf in zip(("dw", "db", "dx", "dvals"), ours, ref, leaves):
+        assert a.dtype == leaf.dtype, name
+        r = np.asarray(r, np.float32)
+        scale = float(np.abs(r).max()) + 1e-9
+        np.testing.assert_allclose(a.float().numpy() / scale, r / scale, rtol=5e-2, atol=5e-2,
+                                   err_msg=f"{order}/{name}")
+
+
 # ------------------------------------------------------------------ the padding
 @pytest.mark.parametrize("order", ORDERS)
 def test_poisoned_padding_gradients_finite_and_zero_on_padding(order):

@@ -1,5 +1,6 @@
-"""The CUDA source of the graph kernels (the fused GCN layer, K2, and the
-ragged block-sparse product, K1), run on the CPU.
+"""The CUDA source of the graph kernels (the fused GCN layer, K2 — fp32 and
+its bf16-operand instantiations — and the ragged block-sparse product, K1),
+run on the CPU.
 
 A CUDA kernel has no interpret mode, so this compiles the device code of
 `src/repro_torch/kernels/csrc/fused_gcn_kernels.cuh` with the host C++
@@ -33,6 +34,9 @@ from repro_torch.kernels.ref import poison_padding
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+F32, BF16 = torch.float32, torch.bfloat16
+# (vals, x, w) dtypes → suffix of the emulated entry points (as fused_gcn.cu).
+SUFFIXES = {(F32, F32, F32): "", (F32, BF16, F32): "_bf16", (BF16, BF16, BF16): "_bf16_all"}
 
 SHIM = r"""
 // Host-compiler stand-ins for the CUDA built-ins the port's kernels use, so
@@ -46,6 +50,7 @@ SHIM = r"""
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 #include <cstring>
 #include <deque>
 #include <thread>
@@ -65,6 +70,26 @@ struct dim3 {
 struct alignas(16) float4 {
     float x, y, z, w;
 };
+
+// bf16 as its 16 bits, with the conversions of <cuda_bf16.h>: widening is
+// exact, and narrowing rounds to nearest even (NaN becomes 0x7FC0), as
+// torch's .to(torch.bfloat16) does.
+struct __nv_bfloat16 {
+    std::uint16_t bits;
+};
+inline float __bfloat162float(__nv_bfloat16 h) {
+    const std::uint32_t u = std::uint32_t(h.bits) << 16;
+    float f;
+    std::memcpy(&f, &u, 4);
+    return f;
+}
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+    if (std::isnan(f)) return {0x7FC0};
+    std::uint32_t u;
+    std::memcpy(&u, &f, 4);
+    u += 0x7FFFu + ((u >> 16) & 1u);
+    return {std::uint16_t(u >> 16)};
+}
 
 inline thread_local dim3 threadIdx;
 inline dim3 blockIdx, blockDim, gridDim;
@@ -132,45 +157,78 @@ namespace k2 {
 alignas(16) float smem[232448 / sizeof(float)];
 }
 
-extern "C" {
+using bf16 = __nv_bfloat16;
 
-int emu_ff_transform(const float* x, const float* w, float* z, int M, int K, int N) {
+template <typename TX, typename TW, typename TZ>
+int ff_transform(const void* x, const void* w, void* z, int M, int K, int N) {
     if (k2::xw_smem_bytes() > (long long)sizeof(k2::smem)) return 1;
     dim3 grid((M + k2::TILE - 1) / k2::TILE, (N + k2::NC - 1) / k2::NC);
-    emu_launch(grid, k2::THREADS, [&] { k2::xw_kernel(x, w, z, M, K, N); });
+    emu_launch(grid, k2::THREADS, [&] {
+        k2::xw_kernel<TX, TW, TZ>((const TX*)x, (const TW*)w, (TZ*)z, M, K, N);
+    });
     return 0;
 }
 
-int emu_ff_aggregate(const float* vals, const int* cols, const int* lens, int R, int T,
-                     int n_src_blocks, const float* z, const float* b, float* out,
-                     int f_out, int ft, int relu) {
+template <typename TV, typename TO>
+int ff_aggregate(const void* vals, const int* cols, const int* lens, int R, int T,
+                 int n_src_blocks, const void* z, const float* b, void* out,
+                 int f_out, int ft, int relu) {
     if (k2::layer_smem_bytes(ft) > (long long)sizeof(k2::smem)) return 1;
     dim3 grid(R, (f_out + ft - 1) / ft);
     emu_launch(grid, k2::THREADS, [&] {
-        k2::ragged_layer_kernel<0>(vals, cols, lens, T, n_src_blocks, z, f_out, ft,
-                                   nullptr, b, out, f_out, relu);
+        k2::ragged_layer_kernel<0, TV, TV, float, TO>((const TV*)vals, cols, lens, T, n_src_blocks,
+                                                      (const TV*)z, f_out, ft, nullptr, b, (TO*)out,
+                                                      f_out, relu);
     });
     return 0;
 }
 
-int emu_af_layer(const float* vals, const int* cols, const int* lens, int R, int T,
-                 int n_src_blocks, const float* x, int f_in, const float* w,
-                 const float* b, float* out, int f_out, int relu) {
+template <typename TV, typename TX, typename TW>
+int af_layer(const void* vals, const int* cols, const int* lens, int R, int T,
+             int n_src_blocks, const void* x, int f_in, const void* w,
+             const float* b, void* out, int f_out, int relu) {
     if (k2::layer_smem_bytes(f_in) > (long long)sizeof(k2::smem)) return 1;
     emu_launch(dim3(R, 1), k2::THREADS, [&] {
-        k2::ragged_layer_kernel<1>(vals, cols, lens, T, n_src_blocks, x, f_in, f_in,
-                                   w, b, out, f_out, relu);
+        k2::ragged_layer_kernel<1, TV, TX, TW, TX>((const TV*)vals, cols, lens, T, n_src_blocks,
+                                                   (const TX*)x, f_in, f_in, (const TW*)w, b,
+                                                   (TX*)out, f_out, relu);
     });
     return 0;
 }
+
+extern "C" {
+
+// One entry per operand-type combination, suffixed as the launchers of
+// fused_gcn.cu: (none) all fp32, _bf16 (fp32 vals, bf16 X, fp32 W),
+// _bf16_all (all bf16).
+#define EMU_K2(SFX, TV, TX, TW)                                                             \
+    int emu_ff_transform##SFX(const void* x, const void* w, void* z, int M, int K, int N) { \
+        return ff_transform<TX, TW, TV>(x, w, z, M, K, N);                                  \
+    }                                                                                       \
+    int emu_ff_aggregate##SFX(const void* vals, const int* cols, const int* lens, int R,    \
+                              int T, int n_src_blocks, const void* z, const float* b,       \
+                              void* out, int f_out, int ft, int relu) {                     \
+        return ff_aggregate<TV, TX>(vals, cols, lens, R, T, n_src_blocks, z, b, out, f_out, \
+                                    ft, relu);                                              \
+    }                                                                                       \
+    int emu_af_layer##SFX(const void* vals, const int* cols, const int* lens, int R, int T, \
+                          int n_src_blocks, const void* x, int f_in, const void* w,         \
+                          const float* b, void* out, int f_out, int relu) {                 \
+        return af_layer<TV, TX, TW>(vals, cols, lens, R, T, n_src_blocks, x, f_in, w, b,    \
+                                    out, f_out, relu);                                      \
+    }
+
+EMU_K2(, float, float, float)
+EMU_K2(_bf16, float, bf16, float)
+EMU_K2(_bf16_all, bf16, bf16, bf16)
 
 int emu_bsr_spmm(const float* vals, const int* cols, const int* lens, int R, int T,
                  int n_src_blocks, const float* z, float* out, int f, int ft) {
     if (k2::layer_smem_bytes(ft) > (long long)sizeof(k2::smem)) return 1;
     dim3 grid(R, (f + ft - 1) / ft);
     emu_launch(grid, k2::THREADS, [&] {
-        k2::ragged_layer_kernel<2>(vals, cols, lens, T, n_src_blocks, z, f, ft,
-                                   nullptr, nullptr, out, f, 0);
+        k2::ragged_layer_kernel<2, float, float, float, float>(vals, cols, lens, T, n_src_blocks, z,
+                                                               f, ft, nullptr, nullptr, out, f, 0);
     });
     return 0;
 }
@@ -197,9 +255,10 @@ def emu(tmp_path_factory):
     )
     lib = ctypes.CDLL(str(lib_path))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.emu_ff_transform.argtypes = [P, P, P, I, I, I]
-    lib.emu_ff_aggregate.argtypes = [P, P, P, I, I, I, P, P, P, I, I, I]
-    lib.emu_af_layer.argtypes = [P, P, P, I, I, I, P, I, P, P, P, I, I]
+    for sfx in SUFFIXES.values():
+        getattr(lib, f"emu_ff_transform{sfx}").argtypes = [P, P, P, I, I, I]
+        getattr(lib, f"emu_ff_aggregate{sfx}").argtypes = [P, P, P, I, I, I, P, P, P, I, I, I]
+        getattr(lib, f"emu_af_layer{sfx}").argtypes = [P, P, P, I, I, I, P, I, P, P, P, I, I]
     lib.emu_bsr_spmm.argtypes = [P, P, P, I, I, I, P, P, I, I]
     lib.emu_layer_smem_bytes.argtypes = [I]
     lib.emu_layer_smem_bytes.restype = ctypes.c_longlong
@@ -211,28 +270,34 @@ def _p(t: torch.Tensor) -> int:
     return t.data_ptr()
 
 
-def _ff_transform(lib, x, w):
-    z = torch.empty((x.shape[0], w.shape[1]), dtype=torch.float32)
-    assert lib.emu_ff_transform(_p(x), _p(w), _p(z), x.shape[0], x.shape[1], w.shape[1]) == 0
+def _ff_transform(lib, x, w, z_dtype=F32):
+    sfx = SUFFIXES[(z_dtype, x.dtype, w.dtype)]
+    z = torch.empty((x.shape[0], w.shape[1]), dtype=z_dtype)
+    fn = getattr(lib, f"emu_ff_transform{sfx}")
+    assert fn(_p(x), _p(w), _p(z), x.shape[0], x.shape[1], w.shape[1]) == 0
     return z
 
 
-def _ff_aggregate(lib, vals, cols, lens, z, b, relu):
+def _ff_aggregate(lib, vals, cols, lens, z, b, relu, out_dtype=F32):
+    sfx = SUFFIXES[(vals.dtype, out_dtype, vals.dtype)]
     R, T = cols.shape
     f_out = z.shape[1]
-    out = torch.full((R * 128, f_out), float("nan"))
-    rc = lib.emu_ff_aggregate(_p(vals), _p(cols), _p(lens), R, T, z.shape[0] // 128, _p(z),
-                              _p(b), _p(out), f_out, min(f_out, FF_F_TILE), int(relu))
+    out = torch.full((R * 128, f_out), float("nan"), dtype=out_dtype)
+    rc = getattr(lib, f"emu_ff_aggregate{sfx}")(
+        _p(vals), _p(cols), _p(lens), R, T, z.shape[0] // 128, _p(z), _p(b), _p(out), f_out,
+        min(f_out, FF_F_TILE), int(relu))
     assert rc == 0
     return out
 
 
 def _af_layer(lib, vals, cols, lens, x, w, b, relu):
+    sfx = SUFFIXES[(vals.dtype, x.dtype, w.dtype)]
     R, T = cols.shape
     f_in, f_out = w.shape
-    out = torch.full((R * 128, f_out), float("nan"))
-    rc = lib.emu_af_layer(_p(vals), _p(cols), _p(lens), R, T, x.shape[0] // 128, _p(x), f_in,
-                          _p(w), _p(b), _p(out), f_out, int(relu))
+    out = torch.full((R * 128, f_out), float("nan"), dtype=x.dtype)
+    rc = getattr(lib, f"emu_af_layer{sfx}")(
+        _p(vals), _p(cols), _p(lens), R, T, x.shape[0] // 128, _p(x), f_in, _p(w), _p(b), _p(out),
+        f_out, int(relu))
     assert rc == 0
     return out
 
@@ -260,6 +325,7 @@ def _layer_inputs(n, e, d_in, d_out, seed):
 
 
 def _close(out, ref, tol=1e-5):
+    out, ref = out.float(), ref.float()
     scale = float(ref.abs().max()) + 1e-9
     np.testing.assert_allclose(out.numpy() / scale, ref.numpy() / scale, rtol=tol, atol=tol)
 
@@ -368,3 +434,87 @@ def test_emulated_bsr_spmm_ragged_skip_and_empty_row(emu):
     assert torch.isfinite(out).all()
     _close(out, bsr_spmm_plain(vals, cols, lens, z))
     assert torch.equal(out[128:256], torch.zeros(128, 16))
+
+
+# ------------------------------------------------------ K2's bf16-operand mode
+BF16_COMBOS = [pytest.param(c, id=sfx.lstrip("_")) for c, sfx in SUFFIXES.items() if sfx]
+BF16_TOL = 1e-2   # a bf16 output: one rounding of 2⁻⁸ relative, and the sums' order differs
+
+
+def test_emulated_bf16_conversions_round_as_torch(emu):
+    """The shim's bf16 stand-in narrows as torch does (nearest even, ties
+    included) and widens exactly, so the emulated kernels round where the
+    card does: Z = X · w with K = 1 is one exact fp32 product of two bf16
+    values, narrowed once."""
+    r = np.random.default_rng(3)
+    x = torch.from_numpy(r.standard_normal((4096, 1)).astype(np.float32)).to(BF16)
+    x[:4, 0] = torch.tensor([1.0 + 2 ** -7, -3.0 - 2 ** -6, 0.0, 2.0 ** -130])
+    for wv in (1.0 + 2 ** -7, -1.5 - 2 ** -6, 3.0):
+        w = torch.full((1, 1), wv).to(BF16)
+        z = _ff_transform(emu, x, w, BF16)
+        assert torch.equal(z, (x.float() * w.float()).to(BF16))
+
+
+@pytest.mark.parametrize("combo", BF16_COMBOS)
+@pytest.mark.parametrize("m,k,n", [(256, 50, 7), (384, 70, 33)])
+def test_emulated_ff_transform_bf16_matches_plain(emu, combo, m, k, n):
+    vals_dtype, x_dtype, w_dtype = combo
+    r = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(r.standard_normal((m, k)).astype(np.float32)).to(x_dtype)
+    w = torch.from_numpy(r.standard_normal((k, n)).astype(np.float32)).to(w_dtype)
+    out = _ff_transform(emu, x, w, vals_dtype)
+    assert out.dtype == vals_dtype
+    _close(out, ff_transform_plain(x, w, vals_dtype), tol=BF16_TOL if vals_dtype == BF16 else 1e-5)
+
+
+@pytest.mark.parametrize("combo", BF16_COMBOS)
+@pytest.mark.parametrize("order", ["feature_first", "aggregation_first"])
+@pytest.mark.parametrize("relu", [True, False])
+def test_emulated_bf16_layer_matches_plain(emu, combo, order, relu):
+    """n=300 (a 44-row tail block), 50 → 7, each bf16 combination, both
+    orders: the emulated kernels against the plain versions, which round at
+    the same points; the output is bf16."""
+    vals_dtype, x_dtype, w_dtype = combo
+    vals, cols, lens, x, w, b = _layer_inputs(300, 1500, 50, 7, seed=1)
+    vals, x, w = vals.to(vals_dtype).contiguous(), x.to(x_dtype), w.to(w_dtype)
+    if order == "feature_first":
+        z = _ff_transform(emu, x, w, vals_dtype)
+        out = _ff_aggregate(emu, vals, cols, lens, z, b, relu, x_dtype)
+        ref = ff_aggregate_plain(vals, cols, lens, ff_transform_plain(x, w, vals_dtype), b, relu, x_dtype)
+    else:
+        out = _af_layer(emu, vals, cols, lens, x, w, b, relu)
+        ref = af_layer_plain(vals, cols, lens, x, w, b, relu)
+    assert out.dtype == ref.dtype == BF16
+    _close(out, ref, tol=BF16_TOL)
+
+
+@pytest.mark.parametrize("combo", BF16_COMBOS)
+def test_emulated_bf16_ragged_skip_and_empty_row(emu, combo):
+    """NaN in every padding tile (bf16 NaN too) and an empty block-row:
+    finite output, equal to the clean plain version, act(b) on the empty
+    row, rounded to bf16."""
+    vals_dtype, x_dtype, w_dtype = combo
+    vals, cols, lens, x, w, b = _layer_inputs(384, 2500, 16, 9, seed=4)
+    lens = lens.clone()
+    lens[1] = 0
+    poisoned = poison_padding(vals, lens).to(vals_dtype).contiguous()
+    vals, x, w = vals.to(vals_dtype).contiguous(), x.to(x_dtype), w.to(w_dtype)
+    out = _af_layer(emu, poisoned, cols, lens, x, w, b, True)
+    assert torch.isfinite(out.float()).all()
+    _close(out, af_layer_plain(vals, cols, lens, x, w, b, True), tol=BF16_TOL)
+    assert torch.equal(out[128:256], b.clamp_min(0).to(BF16).expand(128, -1))
+
+
+def test_emulated_bf16_af_rounds_the_aggregate_to_w_dtype(emu):
+    """All-bf16 aggregation-first rounds Ã·X to bf16 before the product
+    with W, as the TPU kernel's ``acc.astype(w.dtype)``: on inputs where that
+    rounding moves the result, the kernel follows the rounded plain version,
+    not the unrounded one."""
+    vals, cols, lens, x, w, b = _layer_inputs(256, 1200, 8, 4, seed=12)
+    vals, x, w = vals.to(BF16), x.to(BF16), w.to(BF16)
+    out = _af_layer(emu, vals, cols, lens, x, w, b, False).float()
+    rounded = af_layer_plain(vals, cols, lens, x, w, b, False).float()
+    m = bsr_spmm_plain(vals.float(), cols, lens, x.float())          # Ã·X unrounded
+    unrounded = (m @ w.float() + b).to(BF16).float()
+    assert not torch.equal(rounded, unrounded)
+    assert (out - rounded).abs().max() < (out - unrounded).abs().max()

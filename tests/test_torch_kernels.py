@@ -3,11 +3,14 @@ package's, and its CUDA kernels against their plain versions.
 
 On the CPU `repro_torch.kernels.ops.fused_gcn_layer` runs the plain PyTorch
 version; it is held against the reference's `fused_gcn_layer` (Pallas in
-interpret mode) at the reference suite's bsr tolerance, 3e-4. The tests
-marked ``cuda`` hold the hand-written kernels (K2, the fused layer, and K1,
-`bsr_spmm`) against the plain versions on the card at the same tolerance
-(summation order differs), and one training step on the card against the
-same step on the CPU; they skip without a card. JAX is imported inside
+interpret mode) at the reference suite's bsr tolerance, 3e-4, and in K2's
+bf16-operand mode at the bf16 tolerance, 5e-2, with the same operand
+dtypes. The tests marked ``cuda`` hold the hand-written kernels (K2, the
+fused layer — fp32 and its bf16 instantiations — and K1, `bsr_spmm`)
+against the plain versions on the card at the same tolerance (summation
+order differs; 1e-2 of the largest magnitude for a bf16 output), and one
+training step on the card against the same step on the CPU; they skip
+without a card. JAX is imported inside
 fixtures, so the ``cuda`` tests also run on a machine without JAX:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels.py
@@ -26,7 +29,11 @@ from repro_torch.kernels.ops import bsr_spmm, fused_gcn_layer
 from repro_torch.kernels.ref import bsr_spmm_ref, fused_gcn_layer_ref, poison_padding
 
 TOL = 3e-4
+BF16_TOL = 5e-2            # ROADMAP parity contract: bf16 operands
+BF16_CARD_TOL = 1e-2       # kernel vs plain on the card, bf16 output: one rounding, sums in another order
 ORDERS = ["feature_first", "aggregation_first"]
+F32, BF16 = torch.float32, torch.bfloat16
+BF16_COMBOS = [pytest.param((F32, BF16, F32), id="bf16_table"), pytest.param((BF16, BF16, BF16), id="bf16_all")]
 
 
 @pytest.fixture(scope="module")
@@ -115,6 +122,63 @@ def test_poison_padding_matches_jax(jx):
     np.testing.assert_array_equal(np.nan_to_num(ours), np.nan_to_num(theirs))
 
 
+@pytest.mark.parametrize("combo", BF16_COMBOS)
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("relu", [True, False])
+def test_bf16_fused_layer_matches_jax(jx, combo, order, relu):
+    """K2's bf16-operand mode: the plain version (which rounds where the
+    kernels round) against the reference's `fused_gcn_layer` in interpret
+    mode with the same (vals, x, w) dtypes and an fp32 bias; both return
+    bf16 (as tests/test_kernels.py:127-147, at 300 nodes, 50 → 7)."""
+    vd, xd, wd = combo
+    ba, x, w, b = _case()
+    jd = {F32: jx.jnp.float32, BF16: jx.jnp.bfloat16}
+    ref = jx.ops.fused_gcn_layer(jx.jnp.asarray(ba.block_vals, jd[vd]), jx.jnp.asarray(ba.block_cols),
+                                 jx.jnp.asarray(ba.row_nnzb), jx.jnp.asarray(x, jd[xd]),
+                                 jx.jnp.asarray(w, jd[wd]), jx.jnp.asarray(b), order=order, relu=relu)
+    vals, cols, lens, xt, wt, bt = _torch_args(ba, x, w, b)
+    out = fused_gcn_layer(vals.to(vd), cols, lens, xt.to(xd), wt.to(wd), bt, order=order, relu=relu)
+    assert out.dtype == BF16 and str(ref.dtype) == "bfloat16"
+    _close(out[:300].float(), np.asarray(ref, np.float32)[:300], tol=BF16_TOL)
+
+
+def test_bf16_plain_rounds_where_the_kernels_do():
+    """Feature-first rounds Z to vals' dtype; aggregation-first rounds Ã·X to
+    W's dtype; both store X's dtype and apply bias and ReLU in fp32."""
+    ba, x, w, b = _case(n=260, e=900, d_in=24, d_out=5, seed=3)
+    vals, cols, lens, xt, wt, bt = _torch_args(ba, x, w, b)
+    xp = torch.cat([xt, xt.new_zeros((ba.n_col_padded - 260, 24))])
+    v16, x16, w16 = vals.to(BF16), xp.to(BF16), wt.to(BF16)
+    z = fg.ff_transform_plain(x16, w16, BF16)
+    assert z.dtype == BF16 and torch.equal(z, (x16.float() @ w16.float()).to(BF16))
+    ff = fg.fused_gcn_layer_plain(v16, cols, lens, x16, w16, bt, order="feature_first")
+    want = (fg._ragged_aggregate_plain(v16, cols, lens, z) + bt).clamp_min(0).to(BF16)
+    assert torch.equal(ff, want)
+    af = fg.fused_gcn_layer_plain(vals, cols, lens, x16, wt, bt, order="aggregation_first", relu=False)
+    m = fg._ragged_aggregate_plain(vals, cols, lens, x16)
+    assert af.dtype == BF16 and torch.equal(af, (m @ wt + bt).to(BF16))
+
+
+def test_bf16_combinations_the_kernels_do_not_take():
+    ba, x, w, b = _case()
+    vals, cols, lens, xt, wt, bt = _torch_args(ba, x, w, b)
+    for args in ((vals.to(BF16), xt, wt), (vals, xt, wt.to(BF16)), (vals, xt.to(BF16), wt.to(BF16)),
+                 (vals.half(), xt.half(), wt.half())):
+        with pytest.raises(TypeError, match="takes \\(vals, x, w\\) dtypes"):
+            fused_gcn_layer(*args[:1], cols, lens, *args[1:], bt)
+    with pytest.raises(TypeError, match="bias"):
+        fused_gcn_layer(vals, cols, lens, xt, wt, bt.double())
+    with pytest.raises(TypeError, match="float32"):
+        bsr_spmm(vals.to(BF16), cols, xt.to(BF16), lens)
+    z = torch.zeros((ba.n_col_padded, 7))
+    with pytest.raises(TypeError, match="vals' dtype"):
+        fg.ff_aggregate(vals, cols, lens, z.to(BF16), bt)
+    with pytest.raises(TypeError, match="takes \\(vals, x, w\\) dtypes"):
+        fg.ff_transform(xt.to(BF16), wt, BF16)
+    with pytest.raises(TypeError, match="b must be"):
+        fg.af_layer(vals, cols, lens, torch.zeros((ba.n_col_padded, 50)), wt, bt.to(BF16))
+
+
 # -------------------------------------------------------------- the ragged contract
 def _poisoned_empty_row(device="cpu", order="feature_first", d_in=20):
     """Poison every padding tile with NaN and empty block-row 1."""
@@ -192,9 +256,8 @@ def test_cuda_layer_matches_plain(cuda, order, relu):
     ref = fused_gcn_layer(*_torch_args(ba, x, w, b), order=order, relu=relu)
     _close(out.cpu(), ref)
     launched = {k: fg.LAUNCHES[k] - before[k] for k in before}
-    want = ({"k2_ff_transform": 1, "k2_ff_aggregate": 1, "k2_af_layer": 0} if order == "feature_first"
-            else {"k2_ff_transform": 0, "k2_ff_aggregate": 0, "k2_af_layer": 1})
-    want["k1_bsr_spmm"] = 0
+    want = dict.fromkeys(fg.LAUNCHES, 0)
+    want.update({"k2_ff_transform": 1, "k2_ff_aggregate": 1} if order == "feature_first" else {"k2_af_layer": 1})
     assert launched == want
 
 
@@ -316,3 +379,54 @@ def test_cuda_training_step_matches_cpu(cuda):
     np.testing.assert_allclose(l_card, l_cpu, rtol=1e-5)
     for k in p_cpu:
         _close(p_card[k], p_cpu[k])
+
+
+# ------------------------------------------------- K2 bf16 instantiations (card)
+@pytest.mark.cuda
+@pytest.mark.parametrize("combo", BF16_COMBOS)
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("relu", [True, False])
+def test_cuda_bf16_layer_matches_plain(cuda, combo, order, relu):
+    """Each bf16 instantiation against its plain version on the same inputs,
+    with its launches counted under its own name."""
+    vd, xd, wd = combo
+    ba, x, w, b = _case()
+    vals, cols, lens, xt, wt, bt = _torch_args(ba, x, w, b, cuda)
+    vals, xt, wt = vals.to(vd), xt.to(xd), wt.to(wd)
+    before = dict(fg.LAUNCHES)
+    out = fused_gcn_layer(vals, cols, lens, xt, wt, bt, order=order, relu=relu)
+    torch.cuda.synchronize()
+    launched = {k: fg.LAUNCHES[k] - before[k] for k in before if fg.LAUNCHES[k] != before[k]}
+    sfx = fg.operand_suffix("test", vd, xd, wd)
+    assert launched == ({f"k2_ff_transform{sfx}": 1, f"k2_ff_aggregate{sfx}": 1} if order == "feature_first"
+                        else {f"k2_af_layer{sfx}": 1})
+    ref = fg.fused_gcn_layer_plain(vals.cpu(), cols.cpu(), lens.cpu(), ops_pad(xt.cpu()), wt.cpu(), bt.cpu(),
+                                   order=order, relu=relu)
+    assert out.dtype == ref.dtype == BF16
+    scale = float(ref.float().abs().max())
+    assert float((out.cpu().float() - ref.float()).abs().max()) <= BF16_CARD_TOL * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combo", BF16_COMBOS)
+def test_cuda_bf16_poisoned_padding_and_empty_row(cuda, combo):
+    vd, xd, wd = combo
+    ba, x, w, b = _case(n=384, e=2500, d_in=16, d_out=40, seed=4)
+    vals, cols, lens, xt, wt, bt = _torch_args(ba, x, w, b, cuda)
+    lens = lens.clone()
+    lens[1] = 0
+    out = fused_gcn_layer(poison_padding(vals, lens).to(vd), cols, lens, xt.to(xd), wt.to(wd), bt,
+                          order="aggregation_first")
+    ref = fg.fused_gcn_layer_plain(vals.to(vd).cpu(), cols.cpu(), lens.cpu(), ops_pad(xt.to(xd).cpu()),
+                                   wt.to(wd).cpu(), bt.cpu(), order="aggregation_first")
+    assert torch.isfinite(out.float()).all()
+    scale = float(ref.float().abs().max())
+    assert float((out.cpu().float() - ref.float()).abs().max()) <= BF16_CARD_TOL * scale
+    assert torch.equal(out[128:256].cpu(), bt.cpu().clamp_min(0).to(BF16).expand(128, -1))
+
+
+def ops_pad(x: torch.Tensor) -> torch.Tensor:
+    """Row-pad to the block grid, as `fused_gcn_layer` does before the kernels."""
+    from repro_torch.kernels.ops import _pad_rows
+
+    return _pad_rows(x, 128)
