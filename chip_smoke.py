@@ -8,10 +8,10 @@ file). It needs one CUDA card and exits non-zero without one, or without
 the package, before printing any result. It imports nothing of JAX and
 nothing of the JAX package `repro`.
 
-Three paths of the paper's GCN (``coin_gcn``) run at the widths of Nell
+Four paths of the paper's GCN (``coin_gcn``) run at the widths of Nell
 (Table I: 65,755 nodes, 5,414 → 16 → 210, 4-bit fake quant) with the
 blocked (bsr) backend: full-graph inference, full-graph training, and
-sharded (halo) inference over 4 ranks. The forward of each unsharded layer
+sharded (halo) inference and training over 4 ranks. The forward of each unsharded layer
 runs the hand-written CUDA kernels of `repro_torch.kernels.fused_gcn` (K2):
 layer 1 feature-first (``k2_ff_transform`` then ``k2_ff_aggregate``),
 layer 2 aggregation-first (``k2_af_layer``). The backward of layer 2
@@ -19,8 +19,11 @@ recomputes Ã·h1 through `repro_torch.kernels.bsr_spmm` (K1,
 ``k1_bsr_spmm``). The sharded forward runs K1 on each rank's
 ``[local ‖ halo]`` table for layer 1 and K2's aggregation-first kernel for
 layer 2 — under the bf16 wire its bf16-operand instantiation
-(``k2_af_layer_bf16``: fp32 tiles, bf16 table, fp32 W). Weights are
-random, from a seed.
+(``k2_af_layer_bf16``: fp32 tiles, bf16 table, fp32 W). Sharded training
+runs the exchange's backward (a reduce-scatter through the group) and,
+in layer 2's backward, K1 on the same table — under the bf16 wire its
+bf16 instantiation (``k1_bsr_spmm_bf16``, the running sum rounded to
+bf16 per tile as the TPU kernel does). Weights are random, from a seed.
 
 Phases, one JSON line each; any failed check ends the run with exit code 1:
 
@@ -36,7 +39,9 @@ Phases, one JSON line each; any failed check ends the run with exit code 1:
            rectangular Z with extra source block-rows; at rank 0's halo
            shapes K1 and fp32 ``k2_af_layer`` over its [local ‖ halo]
            table, K1 over its interior and boundary tables (the split
-           pair), and K2's bf16 instantiations
+           pair), and K2's and K1's bf16 instantiations (K1's: within one
+           bf16 step of the largest value, ≥ 99 % bit-equal, also with
+           NaN-poisoned padding and an emptied block-row)
   main     inference: gcn_forward(backend="bsr") three times under
            inference_mode with the launch counts zeroed just before and read
            just after; the quant-off logits against the segment (index_add_)
@@ -61,12 +66,28 @@ Phases, one JSON line each; any failed check ends the run with exit code 1:
            segment, argmax agreement with ties), launches and wire rows
            per rank, forward and exchange times per rank after a barrier
            (4 ranks share one card: not a multi-card time), peak memory
+  halo_train  in the same group, after the forwards: five AdamW steps
+           (lr 1e-3) of every rank's Trainer on the sharded loss
+           (`halo_loss`) in each of (t1) combined table, fp32 wire; (t2)
+           bf16 wire; (t3) split tables; (t4) quant on, bf16 wire, bsr and
+           segment; the training mask is the train phase's node set. The
+           first gradients and the losses of (t1), (t3) against the train
+           phase's unsharded bsr ones (1e-4), (t2)'s gradients at the bf16
+           tolerance (5e-2) against the unsharded ones with the logits
+           rounded to bf16 (the fused bf16 layer's output, whose rounding
+           and its cotangent's move the bias gradient by up to ~6 % of its
+           largest entry), (t4) bsr against segment with its logits rounded
+           alike; launches per step
+           counted from zero just before the steps and read just after;
+           wire rows per step (forward and backward exchanges); step ms,
+           one exchange's backward ms and peak memory per rank
 
 then the card's name and power limit (nvidia-smi), the ``{"kernels": [...]}``
 line, and as the last line ``{"ok": true, "device": {...}}``. A kernel's
-``launches`` there is its count over the three main-path runs (inference
-forwards, training steps, the halo forwards of all ranks), each counted
-with the counts zeroed just before and read just after.
+``launches`` there is its count over the four main-path runs (inference
+forwards, training steps, the halo forwards and the halo training steps
+of all ranks), each counted with the counts zeroed just before and read
+just after.
 """
 from __future__ import annotations
 
@@ -106,13 +127,17 @@ REPLACES = {
     "k2_af_layer": "src/repro/kernels/fused_gcn.py:70",
     "k1_bsr_spmm": "src/repro/kernels/bsr_spmm.py:87",
 }
-REPLACES.update({f"{k}{sfx}": REPLACES[k] for sfx in ("_bf16", "_bf16_all")
-                 for k in list(REPLACES) if k.startswith("k2")})
+REPLACES.update({f"{k}{sfx}": REPLACES[k] for sfx in ("_bf16", "_bf16_all") for k in list(REPLACES)})
 K2 = ("k2_ff_transform", "k2_ff_aggregate", "k2_af_layer")
 FP32_KERNELS = K2 + ("k1_bsr_spmm",)
 # (vals, x, w) dtypes of K2's bf16 instantiations, by launch-name suffix.
 BF16_COMBOS = {"_bf16": (torch.float32, torch.bfloat16, torch.float32),
                "_bf16_all": (torch.bfloat16, torch.bfloat16, torch.bfloat16)}
+# (vals, Z) dtypes of K1's bf16 instantiations, by launch-name suffix.
+K1_BF16_COMBOS = {"_bf16": (torch.float32, torch.bfloat16), "_bf16_all": (torch.bfloat16, torch.bfloat16)}
+K1_BF16_STEP = 2.0 ** -7       # K1 bf16 vs plain: max |diff| ≤ one bf16 step of max |plain| ...
+K1_BF16_BIT_EQUAL = 0.99       # ... and at least 99 % of the elements bit-equal (the sums' order inside
+                               # a tile may flip a per-tile rounding)
 
 HALO_K = 4
 HALO_REPS = 5                  # timed forwards / exchanges per variant and rank
@@ -121,6 +146,12 @@ HALO_LOGIT_RTOL = 1e-4         # (a), (c): fp32 wire vs the unsharded bsr forwar
 HALO_BF16_RTOL = 1e-2          # (b): the reference's bf16 bound (tests/test_overlap_halo.py:241-242), · max |logit|
 HALO_INT8_ABS = 5e-2           # (d): the reference's int8 bounds (tests/test_overlap_halo.py:243-250):
 HALO_INT8_REL_L2 = 1e-2        #      5e-2 max-abs and 1e-2 relative L2
+HALO_TRAIN_STEPS = 5           # AdamW steps (lr 1e-3) per halo training variant
+HALO_TRAIN_LR = 1e-3
+HALO_GRAD_RTOL = 1e-4          # (t1), (t3): first gradients vs the unsharded bsr ones, · max per parameter
+HALO_LOSS_RTOL = 1e-4          # (t1), (t3): five-step losses vs the unsharded bsr ones, relative
+HALO_BF16_GRAD_RTOL = 5e-2     # (t2) vs unsharded, (t4) bsr vs segment: the reference suite's bf16 tolerance
+HALO_QUANT_LOSS_RTOL = 1e-2    # (t4) bsr vs segment losses, relative (bf16 logits of the fused layer)
 
 
 def emit(phase: str, **fields) -> None:
@@ -221,7 +252,7 @@ def load_graph(device: torch.device) -> dict:
     from repro_torch.graph.generators import make_dataset
     from repro_torch.graph.structure import (
         GraphData, blocked_adjacency, locality_block_order, permute_edge_index,
-        relocate_rows, to_padded,
+        relocate_rows, restore_rows, to_padded,
     )
 
     t0 = time.perf_counter()
@@ -249,7 +280,8 @@ def load_graph(device: torch.device) -> dict:
     return dict(spec=spec, n=g.n_nodes, vals=vals, cols=cols, lens=lens, pg=pg, x=x,
                 labels=torch.from_numpy(relocate_rows(perm, g.labels)).to(device),
                 test=torch.from_numpy(test).to(device),
-                host=dict(edge_index=gs.edge_index, weights=weights, features=g.features, perm=perm))
+                host=dict(edge_index=gs.edge_index, weights=weights, features=g.features, perm=perm,
+                          labels=g.labels, train_mask=restore_rows(perm, ~test).astype(np.float32)))
 
 
 def build_plan(data: dict) -> dict:
@@ -384,6 +416,7 @@ def check_kernels(data: dict, ops: dict, rank: dict, halo: dict) -> dict:
         del poisoned
         check_rank_kernels(rank, halo, ops, hold)
         check_bf16_kernels(rank, ops, hold, cases)
+        check_k1_bf16(rank, hold, cases)
         torch.cuda.empty_cache()
     ok = all(c["ok"] for c in cases)
     emit("kernels", ok=ok, rtol=KERNEL_RTOL, tail_rows=data["n"] % 128, cases=cases)
@@ -458,6 +491,37 @@ def check_bf16_kernels(rank: dict, ops: dict, hold, cases: list) -> None:
     cases[-1].update(finite=finite, empty_row_is_act_b=empty_ok, ok=ok and finite and empty_ok)
 
 
+def check_k1_bf16(rank: dict, hold, cases: list) -> None:
+    """K1's bf16 instantiations against their plain version (the
+    reference's per-tile rounding of the running sum) at rank 0's shape:
+    its [local ‖ halo] table and a 16-wide bf16 table (what the bf16 wire
+    hands the aggregation-first recompute), clean and with NaN-poisoned
+    padding and an emptied block-row. Within one bf16 step of the largest
+    value, and at least K1_BF16_BIT_EQUAL of the elements bit-equal."""
+    from repro_torch.kernels import bsr_spmm as k1
+    from repro_torch.kernels.ref import poison_padding
+
+    vals, cols, lens = rank["vals"], rank["cols"], rank["lens"]
+    t = rank["table"].to(torch.bfloat16)
+    empty = 1
+    lens_e = lens.clone()
+    lens_e[empty] = 0
+    for sfx, (vd, zd) in K1_BF16_COMBOS.items():
+        rv = vals.to(vd)
+        for case, kv, kl in (("rank 0 table (F=16)", rv, lens),
+                             ("rank 0 table, poisoned padding + empty block-row", poison_padding(rv, lens_e), lens_e)):
+            out = k1.bsr_spmm(kv, cols, kl, t)
+            ref = k1.bsr_spmm_plain(rv, cols, kl, t)
+            ok = hold(f"k1_bsr_spmm{sfx}", case, out, ref, K1_BF16_STEP)
+            bit_equal = float((out == ref).float().mean())
+            finite = bool(torch.isfinite(out.float()).all())
+            empty_ok = kl is lens or bool((out[empty * 128:(empty + 1) * 128] == 0).all())
+            cases[-1].update(bit_equal=bit_equal, bit_equal_min=K1_BF16_BIT_EQUAL, finite=finite,
+                             empty_row_is_zero=empty_ok, ok=ok and bit_equal >= K1_BF16_BIT_EQUAL and finite and empty_ok)
+            del kv, out, ref
+        del rv
+
+
 def run_main_path(data: dict) -> dict:
     from repro_torch.configs.coin_gcn import make_config
     from repro_torch.core.quant import QuantConfig
@@ -515,7 +579,7 @@ def run_training(data: dict) -> dict:
     from repro_torch.configs.coin_gcn import make_config
     from repro_torch.core.quant import QuantConfig
     from repro_torch.kernels import fused_gcn as fg
-    from repro_torch.models.gcn import gcn_init, gcn_loss
+    from repro_torch.models.gcn import gcn_forward, gcn_init, gcn_loss
     from repro_torch.train.loop import Trainer, TrainerConfig, value_and_grad
     from repro_torch.train.optimizer import adamw
 
@@ -549,7 +613,20 @@ def run_training(data: dict) -> dict:
         params = gcn_init(torch.Generator().manual_seed(SEED), c, device=device)
         _, grads[backend] = value_and_grad(loss_fn(c), params, batch)
     grad_err = {k: max_err(grads["bsr"][k], grads["segment"][k]) for k in grads["bsr"]}
+    grads_bsr = {k: g.cpu().numpy() for k, g in grads["bsr"].items()}    # the sharded gradients' reference
     del grads
+
+    # The same gradient with the logits rounded to bf16 before the loss (and
+    # so their cotangent), as the sharded bf16 path's fused layer emits them:
+    # the reference of that path's gradient.
+    def bf16_logits_loss(p, b):
+        logits = gcn_forward(p, b["x"], pg.senders, pg.receivers, pg.edge_weight, quant_off,
+                             adjacency=adjacency).to(torch.bfloat16).float()
+        gold = torch.gather(logits, 1, b["labels"].long()[:, None])[:, 0]
+        return ((torch.logsumexp(logits, dim=-1) - gold) * b["mask"]).sum() / b["mask"].sum()
+
+    params = gcn_init(torch.Generator().manual_seed(SEED), quant_off, device=device)
+    grads_bsr_bf16 = {k: g.cpu().numpy() for k, g in value_and_grad(bf16_logits_loss, params, batch)[1].items()}
 
     tr = trainer(cfg)
     torch.cuda.synchronize()
@@ -574,7 +651,9 @@ def run_training(data: dict) -> dict:
          grad_max_abs={k: s for k, (_, s) in grad_err.items()}, grad_rtol=GRAD_RTOL,
          losses_quant_off=trajectory, loss_max_rel_diff=max(loss_rel), loss_rtol=LOSS_RTOL)
     require(all(checks.values()), "train", f"checks {checks}")
-    return dict(launches=launches, trainer=trainer, batch=batch, cfg=cfg, quant_off=quant_off)
+    return dict(launches=launches, trainer=trainer, batch=batch, cfg=cfg, quant_off=quant_off,
+                grads_bsr_quant_off=grads_bsr, grads_bsr_quant_off_bf16_logits=grads_bsr_bf16,
+                losses_bsr_quant_off=trajectory["bsr"])
 
 
 def time_everything(data: dict, ops: dict, main: dict, train: dict) -> dict:
@@ -662,11 +741,12 @@ def time_everything(data: dict, ops: dict, main: dict, train: dict) -> dict:
 
 
 def time_bf16_kernels(rank: dict, ops: dict) -> dict:
-    """CUDA-event medians of K2's bf16 instantiations at rank 0's shapes,
+    """CUDA-event medians of K2's and K1's bf16 instantiations at rank 0's shapes,
     their plain versions and, where one PyTorch call computes the same
     function, that call; with ``k2_af_layer`` (fp32) at the same shape
     beside the halo path's ``k2_af_layer_bf16``. Bounds count each element
     at its own width (2 bytes for bf16)."""
+    from repro_torch.kernels import bsr_spmm as k1
     from repro_torch.kernels import fused_gcn as fg
 
     vals, cols, lens, nnz = rank["vals"], rank["cols"], rank["lens"], rank["nnz"]
@@ -702,6 +782,17 @@ def time_bf16_kernels(rank: dict, ops: dict) -> dict:
                             + size[xd] * R * B * f_out,
                             2.0 * nnz * B * B * hidden + 2.0 * R * B * hidden * f_out, rate))
             del rv, x, w1, w2, z, t
+        for sfx, (vd, zd) in K1_BF16_COMBOS.items():
+            rv, t = vals.to(vd), rank["table"].to(zd)
+            F = t.shape[1]
+            rate = BF16_FLOP_PER_S if vd == torch.bfloat16 else FP32_FLOP_PER_S
+            rows[f"k1_bsr_spmm{sfx}"] = dict(
+                ms=cuda_ms(lambda: k1.bsr_spmm(rv, cols, lens, t)),
+                plain_ms=cuda_ms(lambda: k1.bsr_spmm_plain(rv, cols, lens, t)),
+                library_ms=None,
+                bound=bound(size[vd] * nnz * B * B + idx + size[zd] * (t.numel() + R * B * F),
+                            2.0 * nnz * B * B * F, rate))
+            del rv, t
         t32 = rank["table"]
         af32_ms = cuda_ms(lambda: fg.af_layer(vals, cols, lens, t32, ops["w2"], ops["b2"], True))
         af32_bound = bound(4.0 * nnz * B * B + idx + 4.0 * (t32.numel() + ops["w2"].numel() + ops["w2"].shape[1]
@@ -764,10 +855,33 @@ HALO_LAUNCHES = {
 }
 
 
-def run_halo(host: dict, halo: dict, main: dict) -> dict:
-    """The sharded forward on HALO_K ranks sharing the card, against the
-    unsharded bsr forward; returns each kernel's launches summed over the
-    ranks' forwards (one per variant)."""
+def halo_train_variants():
+    from repro_torch.launch.distributed_gcn import HaloVariant as V
+
+    return (V("t1_fp32"), V("t2_bf16", payload="bf16"), V("t3_split_fp32", split=True),
+            V("t4_bsr_quant_bf16", payload="bf16", quant=True),
+            V("t4_segment_quant_bf16", backend="segment", payload="bf16", quant=True, round_logits=True))
+
+
+# Launches per rank in one training step: the forward's (HALO_LAUNCHES) and,
+# for the combined table's aggregation-first layer 2, K1 once more in its
+# backward (the recompute M = Ã·table; under the bf16 wire its bf16
+# instantiation). The backward's blocked transposes are torch ops.
+HALO_TRAIN_LAUNCHES = {
+    "t1_fp32": {"k1_bsr_spmm": 2, "k2_af_layer": 1},
+    "t2_bf16": {"k1_bsr_spmm": 1, "k2_af_layer_bf16": 1, "k1_bsr_spmm_bf16": 1},
+    "t3_split_fp32": {"k1_bsr_spmm": 4},
+    "t4_bsr_quant_bf16": {"k1_bsr_spmm": 1, "k2_af_layer_bf16": 1, "k1_bsr_spmm_bf16": 1},
+    "t4_segment_quant_bf16": {},
+}
+
+
+def run_halo(host: dict, halo: dict, main: dict, train: dict) -> tuple[dict, dict]:
+    """The sharded forward and sharded training on HALO_K ranks sharing the
+    card, in one group: the forward against the unsharded bsr forward, the
+    training (`halo_train` line) against the unsharded bsr train phase;
+    returns each kernel's launches summed over the ranks' forwards (one per
+    variant) and over their training steps."""
     from repro_torch.configs.coin_gcn import make_config
     from repro_torch.dist.halo import restore_node_array
     from repro_torch.graph.structure import restore_rows
@@ -782,7 +896,8 @@ def run_halo(host: dict, halo: dict, main: dict) -> dict:
     variants = halo_variants()
     t0 = time.perf_counter()
     jobs = rank_jobs(plan, host["features"], params, cfg.layer_dims, variants, quant=cfg.quant,
-                     time_reps=HALO_REPS)
+                     time_reps=HALO_REPS, labels=host["labels"], mask=host["train_mask"],
+                     train_variants=halo_train_variants(), steps=HALO_TRAIN_STEPS, lr=HALO_TRAIN_LR)
     spec = GroupSpec(k=HALO_K, backend="gloo", devices=("cuda:0",), timeout_s=HALO_TIMEOUT_S)
     print(f"halo group: {spec.describe()}", flush=True)
     results = run_group(spec, halo_rank, jobs)
@@ -838,6 +953,78 @@ def run_halo(host: dict, halo: dict, main: dict) -> dict:
          launches_all_ranks=launches, timing=f"CUDA events after a group barrier, median of {HALO_REPS}; "
          f"{HALO_K} ranks share one card, so these are not multi-card times")
     require(ok, "halo", f"checks {checks}")
+    return launches, check_halo_train(results, plan, cfg, train, seconds)
+
+
+def check_halo_train(results: list, plan, cfg, train: dict, seconds: float) -> dict:
+    """The `halo_train` line: every training variant's checks on every
+    rank; returns each kernel's launches over all ranks' training steps."""
+    from repro_torch.kernels import fused_gcn as fg
+
+    variants = halo_train_variants()
+    ref_losses = train["losses_bsr_quant_off"]
+    rows_per_step = 2 * cfg.n_layers * plan.halo_rows_per_device     # forward and backward exchanges
+    checks, per_variant = {}, {}
+    launches = {name: 0 for name in fg.LAUNCHES}
+
+    def grad_errs(recs, ref):
+        return {n: max(float(np.abs(rec["grads"][n] - ref[n]).max()) for rec in recs) / float(np.abs(ref[n]).max())
+                for n in ref}
+
+    for v in variants:
+        recs = [r["train"][v.name] for r in results]
+        for rec in recs:
+            for name, n in rec["launches"].items():
+                launches[name] += n
+        expected = {k: n * HALO_TRAIN_STEPS for k, n in HALO_TRAIN_LAUNCHES[v.name].items()}
+        checks[f"{v.name}_launches"] = all(rec["launches"] == expected for rec in recs)
+        checks[f"{v.name}_wire_rows"] = all(rec["wire_rows"] == rows_per_step * HALO_TRAIN_STEPS for rec in recs)
+        checks[f"{v.name}_finite"] = all(rec["finite"] for rec in recs)
+        checks[f"{v.name}_steps"] = all(rec["steps_run"] == HALO_TRAIN_STEPS for rec in recs)
+        checks[f"{v.name}_ranks_agree"] = all(rec["losses"] == recs[0]["losses"] for rec in recs)
+        per_variant[v.name] = dict(
+            backend=v.backend, payload=v.payload or "fp32", tables="split" if v.split else "combined",
+            quant=v.quant, losses=recs[0]["losses"], launches_per_rank_per_step=HALO_TRAIN_LAUNCHES[v.name],
+            wire_rows_per_rank_per_step=[rec["wire_rows"] / HALO_TRAIN_STEPS for rec in recs],
+            wire_bytes_per_rank_per_step=[rec["wire_bytes"] / HALO_TRAIN_STEPS for rec in recs],
+            step_ms_per_rank=[rec.get("step_ms") for rec in recs])
+        if not v.quant:
+            # The bf16 path's logits are bf16 (the fused layer's output), and
+            # so is their cotangent: its reference rounds the logits alike.
+            bf16 = v.payload == "bf16"
+            errs = grad_errs(recs, train["grads_bsr_quant_off_bf16_logits" if bf16 else "grads_bsr_quant_off"])
+            rtol = HALO_BF16_GRAD_RTOL if bf16 else HALO_GRAD_RTOL
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(recs[0]["losses"], ref_losses))
+            per_variant[v.name].update(grad_rel_err_vs_unsharded=errs, grad_rtol=rtol,
+                                       loss_max_rel_diff_vs_unsharded=loss_rel)
+            if bf16:
+                per_variant[v.name].update(
+                    grad_reference="unsharded bsr, logits rounded to bf16",
+                    grad_rel_err_vs_unsharded_fp32_logits=grad_errs(recs, train["grads_bsr_quant_off"]))
+            checks[f"{v.name}_grads_vs_unsharded"] = all(e <= rtol for e in errs.values())
+            if v.payload is None:
+                per_variant[v.name]["loss_rtol"] = HALO_LOSS_RTOL
+                checks[f"{v.name}_losses_vs_unsharded"] = loss_rel <= HALO_LOSS_RTOL
+    bsr = [r["train"]["t4_bsr_quant_bf16"] for r in results]
+    seg = [r["train"]["t4_segment_quant_bf16"] for r in results]
+    errs = grad_errs(bsr, seg[0]["grads"])
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(bsr[0]["losses"], seg[0]["losses"]))
+    per_variant["t4_bsr_quant_bf16"].update(grad_rel_err_vs_segment=errs, grad_rtol=HALO_BF16_GRAD_RTOL,
+                                            loss_max_rel_diff_vs_segment=loss_rel, loss_rtol=HALO_QUANT_LOSS_RTOL)
+    checks["t4_grads_bsr_vs_segment"] = all(e <= HALO_BF16_GRAD_RTOL for e in errs.values())
+    checks["t4_losses_bsr_vs_segment"] = loss_rel <= HALO_QUANT_LOSS_RTOL
+    ok = all(checks.values())
+    emit("halo_train", ok=ok, checks=checks, ranks=HALO_K, steps=HALO_TRAIN_STEPS,
+         optimizer=f"adamw(lr={HALO_TRAIN_LR})", seconds_halo_phase=seconds,
+         wire_rows_per_rank_per_step_expected=rows_per_step, variants=per_variant,
+         exchange_backward_ms_per_rank={p: [r["train"]["exchange_backward_ms"][p] for r in results]
+                                        for p in results[0]["train"].get("exchange_backward_ms", {})},
+         exchange_width=cfg.layer_dims[1],
+         peak_memory_gb_per_rank=[r["train"].get("peak_memory_gb") for r in results],
+         launches_all_ranks=launches, timing=f"step: host clock after a group barrier, median of {HALO_REPS} "
+         f"after 2 warm-ups; exchange backward: CUDA events after a barrier, median of {HALO_REPS}; "
+         f"{HALO_K} ranks share one card")
+    require(ok, "halo_train", f"checks {checks}")
     return launches
 
 
@@ -875,18 +1062,21 @@ def main() -> int:
 
     # The ranks share the card: free the unsharded tables first.
     host, inference, train = data["host"], main_run["launches"], train_run["launches"]
+    halo_ref = {k: train_run[k] for k in ("grads_bsr_quant_off", "grads_bsr_quant_off_bf16_logits",
+                                          "losses_bsr_quant_off")}
     main_run.pop("forward")
     del data, ops, rank, train_run
     gc.collect()
     torch.cuda.empty_cache()
-    sharded = run_halo(host, halo, main_run)
+    sharded, sharded_train = run_halo(host, halo, main_run, halo_ref)
 
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNEL_SOURCE, replaces=REPLACES[name],
-             launches=inference[name] + train[name] + sharded[name], launches_inference=inference[name],
-             launches_train=train[name], launches_per_train_step=train[name] / TRAIN_STEPS,
-             launches_halo=sharded[name], max_abs_err=worst[name], ms=row["ms"],
+             launches=inference[name] + train[name] + sharded[name] + sharded_train[name],
+             launches_inference=inference[name], launches_train=train[name],
+             launches_per_train_step=train[name] / TRAIN_STEPS, launches_halo=sharded[name],
+             launches_halo_train=sharded_train[name], max_abs_err=worst[name], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound"][0], bound_by=row["bound"][1],
              library_ms=row["library_ms"],
              shape="rank 0 of 4 (halo)" if name not in FP32_KERNELS else "unsharded Nell")

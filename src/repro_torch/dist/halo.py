@@ -25,6 +25,20 @@ whose backend cannot carry device tensors (``gloo``) gets the wire block
 copied to the host and back: the exchange's wire goes through the group,
 all compute stays on the rank's device. The hierarchical two-phase
 exchange (``hier_halo_exchange``) is not ported yet (ROADMAP).
+
+The exchange is differentiable, with the backward JAX's transposes give:
+the collective acts on the wire tensor (`_AxisGather`), and the wire's
+encode and decode stay ordinary torch ops, so autograd puts the casts
+where JAX does. The backward of ``all_gather`` is one reduce-scatter
+(rank j receives the sum over ranks i of slot j of rank i's cotangent),
+that of the ``ppermute`` ring the ring run in reverse; an fp32 wire's
+cotangent crosses in fp32, a bf16 wire's in bf16, and an int8 wire's not
+at all: rounding has no derivative, so only the scales' cotangents cross,
+which ``amax`` hands to the largest element of each export block (ties
+split evenly, as ``jnp.max`` splits them). The transpose of
+``h[send_idx]`` is autograd's scatter-add into the exporting rows.
+`halo_block`, `halo_aggregate` and `split_halo_aggregate` then
+differentiate with no code of their own.
 """
 from __future__ import annotations
 
@@ -1090,47 +1104,107 @@ def _wire_on_host(t: torch.Tensor, group) -> bool:
     return t.device.type != "cpu" and dist.get_backend(group) == "gloo"
 
 
-def _axis_gather(export: torch.Tensor, group=None, via: str = "all_gather") -> torch.Tensor:
+def _ring_peer(group, r: int) -> int:
+    """The global rank of ``group``'s rank ``r``."""
+    return r if group is None else dist.get_global_rank(group, r)
+
+
+def _gather(wire: torch.Tensor, group, via: str) -> torch.Tensor:
+    """Every rank's (s, d) block of ``wire`` → (k·s, d), slots in rank order
+    (``wire`` already where the group's backend carries it)."""
+    k = dist.get_world_size(group)
+    if via == "all_gather":
+        blocks = [torch.empty_like(wire) for _ in range(k)]
+        dist.all_gather(blocks, wire, group=group)
+        return torch.cat(blocks)
+    i = dist.get_rank(group)
+    ring, cur = [wire], wire
+    for _ in range(k - 1):
+        nxt = torch.empty_like(cur)
+        reqs = [dist.isend(cur, _ring_peer(group, (i - 1) % k), group=group),
+                dist.irecv(nxt, _ring_peer(group, (i + 1) % k), group=group)]
+        for req in reqs:
+            req.wait()
+        ring.append(nxt)
+        cur = nxt
+    # ring[t] on rank i is rank (i+t) mod k's export: slot j is ring[(j−i) mod k].
+    return torch.cat([ring[(j - i) % k] for j in range(k)])
+
+
+def _gather_transpose(ct: torch.Tensor, group, via: str) -> torch.Tensor:
+    """The transpose of :func:`_gather`: this rank's (s, d) block of the
+    sum over ranks i of slot ``rank`` of rank i's (k·s, d) cotangent.
+
+    all_gather transposes to one reduce-scatter; the ppermute ring to the
+    ring run in reverse (as JAX transposes ``ppermute``): k−1 steps, each
+    passing a partial sum one rank up, which adds its own slot to it."""
+    k = dist.get_world_size(group)
+    blocks = ct.reshape(k, ct.shape[0] // k, *ct.shape[1:])
+    if via == "all_gather":
+        out = torch.empty_like(blocks[0])
+        # reduce_scatter_single is the newer name of reduce_scatter_tensor.
+        reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+        reduce_scatter(out, ct, op=dist.ReduceOp.SUM, group=group)
+        return out
+    i = dist.get_rank(group)
+    # g[t] (the cotangent of ring[t] on rank i) = slot (i+t) of ct
+    # + g[t+1] of rank i−1, whose ring[t+1] was this rank's ring[t].
+    acc = blocks[(i + k - 1) % k].clone()
+    for t in range(k - 2, -1, -1):
+        prev = torch.empty_like(acc)
+        reqs = [dist.isend(acc, _ring_peer(group, (i + 1) % k), group=group),
+                dist.irecv(prev, _ring_peer(group, (i - 1) % k), group=group)]
+        for req in reqs:
+            req.wait()
+        acc = blocks[(i + t) % k] + prev
+    return acc
+
+
+class _AxisGather(torch.autograd.Function):
+    """:func:`_gather` as a differentiable collective. The wire crosses the
+    group in its own dtype both ways (a bf16 wire's cotangent is bf16), and
+    through the host where the backend needs it, as in the forward. With
+    ``count_rows`` (the exchanged rows, not the int8 scales) and metrics on,
+    the backward's received rows and bytes add to ``halo.wire_rows`` and
+    ``halo.wire_bytes``: the cotangent block, k·s rows, the same as the
+    forward's."""
+
+    @staticmethod
+    def forward(ctx, export, group, via, count_rows):
+        ctx.group, ctx.via, ctx.count_rows = group, via, count_rows
+        wire = export.contiguous()
+        on_host = _wire_on_host(wire, group)
+        out = _gather(wire.cpu() if on_host else wire, group, via)
+        return out.to(export.device) if on_host else out
+
+    @staticmethod
+    def backward(ctx, ct):
+        wire = ct.contiguous()
+        on_host = _wire_on_host(wire, ctx.group)
+        if ctx.count_rows and _obs_metrics.enabled():
+            _obs_metrics.inc("halo.wire_rows", int(wire.shape[0]))
+            _obs_metrics.inc("halo.wire_bytes", wire.numel() * wire.element_size())
+        out = _gather_transpose(wire.cpu() if on_host else wire, ctx.group, ctx.via)
+        return (out.to(ct.device) if on_host else out), None, None, None
+
+
+def _axis_gather(export: torch.Tensor, group=None, via: str = "all_gather",
+                 count_rows: bool = False) -> torch.Tensor:
     """Gather every rank's ``(s, d)`` export block across ``group`` →
-    ``(k·s, d)``, slots in rank order.
+    ``(k·s, d)``, slots in rank order; differentiable (:class:`_AxisGather`).
 
     via="all_gather" lowers to one collective; via="ppermute" runs a k−1
     step ring of send/recv (each step passes the block one rank down, the
     NoC-shaped schedule COIN's mesh model assumes) — identical results,
-    different lowering.
+    different lowering. Their backwards are a reduce-scatter and the ring
+    in reverse.
     """
     if export.shape[0] == 0:
         # Nothing crosses this tier, and (k·0, d) == (0, d) anyway.
         return export
     if via not in ("all_gather", "ppermute"):
         raise ValueError(f"unknown exchange lowering: {via!r}")
-    wire = export.contiguous()
-    on_host = _wire_on_host(wire, group)
-    if on_host:
-        wire = wire.cpu()
-    k = dist.get_world_size(group)
-    if via == "all_gather":
-        blocks = [torch.empty_like(wire) for _ in range(k)]
-        dist.all_gather(blocks, wire, group=group)
-    else:
-        i = dist.get_rank(group)
-
-        def peer(r: int) -> int:
-            return r if group is None else dist.get_global_rank(group, r)
-
-        ring, cur = [wire], wire
-        for _ in range(k - 1):
-            nxt = torch.empty_like(cur)
-            reqs = [dist.isend(cur, peer((i - 1) % k), group=group),
-                    dist.irecv(nxt, peer((i + 1) % k), group=group)]
-            for req in reqs:
-                req.wait()
-            ring.append(nxt)
-            cur = nxt
-        # ring[t] on rank i is rank (i+t) mod k's export: slot j is ring[(j−i) mod k].
-        blocks = [ring[(j - i) % k] for j in range(k)]
-    out = torch.cat(blocks)
-    return out.to(export.device) if on_host else out
+    return _AxisGather.apply(export, group, via, count_rows)
 
 
 def _quantized_gather(
@@ -1144,9 +1218,9 @@ def _quantized_gather(
     as on the fp32 path — only wire bytes change (× bits/32).
     """
     if payload in (None, "fp32") or export.shape[0] == 0:
-        return _axis_gather(export, group, via)
+        return _axis_gather(export, group, via, count_rows=True)
     wire, scale = quantize_payload(export, payload)
-    gathered = _axis_gather(wire, group, via)
+    gathered = _axis_gather(wire, group, via, count_rows=True)
     if scale is None:                                     # bf16: plain upcast
         return gathered.to(export.dtype)
     scales = _axis_gather(scale, group, via)              # (k, 1) fp32

@@ -19,6 +19,16 @@ export rows with ``bind_halo``. ``constrain`` is the identity: there is no
 mesh to place activations on, and the call keeps the model code in step
 with the reference. The hierarchical (pod, model) exchange is not ported
 yet (ROADMAP, slice 5).
+
+Training under halo needs two more pieces of the reference's ``shard_map``
+(`replicate` and `psum`, and the policy's methods of those names). There
+the parameters are closed over, so the transpose of their broadcast sums
+each device's gradient over the mesh axis; and the loss is
+``psum(wsum) / psum(wcnt)``, whose ``psum`` (under ``check_vma=False``)
+hands each device's cotangent back to its own term. `replicate` is the
+identity with an all-reduce (sum) over the group as its backward, `psum`
+an all-reduce (sum) whose backward is the identity: together every rank
+gets the unsharded gradient, and no other gradient all-reduce is needed.
 """
 from __future__ import annotations
 
@@ -26,8 +36,55 @@ import dataclasses
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
-__all__ = ["ShardingPolicy", "NO_POLICY"]
+__all__ = ["ShardingPolicy", "NO_POLICY", "replicate", "psum"]
+
+
+def _all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Σ over the ranks of ``group`` of ``x`` (a new tensor), through the
+    host where the backend carries host tensors only (gloo)."""
+    from repro_torch.dist.halo import _wire_on_host
+
+    on_host = _wire_on_host(x, group)
+    out = (x.detach().cpu() if on_host else x.detach()).clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out.to(x.device) if on_host else out
+
+
+class _Replicate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_sum(g, ctx.group), None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def replicate(x: torch.Tensor, group=None) -> torch.Tensor:
+    """A parameter every rank of ``group`` holds alike: the identity, whose
+    backward sums the ranks' gradients (the transpose of the reference's
+    closed-over, replicated parameters)."""
+    return _Replicate.apply(x, group)
+
+
+def psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Σ of ``x`` over the ranks of ``group`` (``jax.lax.psum``), whose
+    backward hands each rank's cotangent back to its own term, as JAX
+    transposes ``psum`` under ``check_vma=False``."""
+    return _Psum.apply(x, group)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +146,17 @@ class ShardingPolicy:
         if not self.is_halo:
             return x
         return torch.cat([x, self.halo_block(x)])
+
+    def replicate(self, params: dict) -> dict:
+        """``params`` as the parameters every rank holds alike (armed halo:
+        :func:`replicate` of each; otherwise themselves)."""
+        if not self.is_halo:
+            return params
+        return {name: replicate(p, self.group) for name, p in params.items()}
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """:func:`psum` over the group (armed halo; otherwise ``x``)."""
+        return psum(x, self.group) if self.is_halo else x
 
     def halo_block(self, x: torch.Tensor) -> torch.Tensor:
         """Just the exchanged halo rows of :meth:`neighbor_table` (armed

@@ -14,6 +14,13 @@
 //   _bf16      vals fp32, X bf16, W fp32 → out bf16   (the halo path's bf16 table)
 //   _bf16_all  vals bf16, X bf16, W bf16 → out bf16
 // bias is fp32 in every combination.
+//
+// K1 has one launcher per (vals, Z) combination; the output has Z's type:
+//   k1_bsr_spmm            vals fp32, Z fp32 → out fp32
+//   k1_bsr_spmm_bf16       vals fp32, Z bf16 → out bf16 (the halo path's bf16 table)
+//   k1_bsr_spmm_bf16_all   vals bf16, Z bf16 → out bf16
+// With a bf16 Z the running sum is rounded to bf16 after every tile, as the
+// TPU kernel's bf16 output block is.
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
@@ -35,7 +42,7 @@ int launch_layer(const TV* vals, const int* cols, const int* lens, int R, int T,
                  int n_src_blocks, const TS* src, int f_src, int ft, int grid_y,
                  const TW* w, const float* b, TO* out, int f_out, int relu,
                  void* stream) {
-    const long long smem = k2::layer_smem_bytes(ft);
+    const long long smem = k2::kernel_smem_bytes<MODE, TO>(ft);
     cudaError_t err = allow_smem(k2::ragged_layer_kernel<MODE, TV, TS, TW, TO>, smem);
     if (err != cudaSuccess) return (int)err;
     dim3 grid(R, grid_y);
@@ -72,6 +79,16 @@ int af_layer(const TV* vals, const int* cols, const int* lens, int R, int T,
              const float* b, TX* out, int f_out, int relu, void* stream) {
     return launch_layer<1, TV, TX, TW, TX>(vals, cols, lens, R, T, n_src_blocks, x, f_in, f_in, 1,
                                            w, b, out, f_out, relu, stream);
+}
+
+// out (R·128, f) = Ã · Z, Z (n_src_blocks·128, f) — may hold more block-rows
+// than the output; each block covers ft output columns; out in Z's type.
+template <typename TV, typename TZ>
+int bsr_spmm(const TV* vals, const int* cols, const int* lens, int R, int T, int n_src_blocks,
+             const TZ* z, TZ* out, int f, int ft, void* stream) {
+    const int grid_y = (f + ft - 1) / ft;
+    return launch_layer<2, TV, TZ, float, TZ>(vals, cols, lens, R, T, n_src_blocks, z, f, ft,
+                                              grid_y, nullptr, nullptr, out, f, 0, stream);
 }
 
 using bf16 = __nv_bfloat16;
@@ -122,13 +139,17 @@ int k2_af_layer_bf16_all(const bf16* vals, const int* cols, const int* lens, int
     return af_layer(vals, cols, lens, R, T, n_src_blocks, x, f_in, w, b, out, f_out, relu, stream);
 }
 
-// out (R·128, f) = Ã · Z, Z (n_src_blocks·128, f) — may hold more block-rows
-// than the output; each block covers ft output columns. fp32.
 int k1_bsr_spmm(const float* vals, const int* cols, const int* lens, int R, int T,
                 int n_src_blocks, const float* z, float* out, int f, int ft, void* stream) {
-    const int grid_y = (f + ft - 1) / ft;
-    return launch_layer<2, float, float, float, float>(vals, cols, lens, R, T, n_src_blocks, z, f, ft,
-                                                       grid_y, nullptr, nullptr, out, f, 0, stream);
+    return bsr_spmm(vals, cols, lens, R, T, n_src_blocks, z, out, f, ft, stream);
+}
+int k1_bsr_spmm_bf16(const float* vals, const int* cols, const int* lens, int R, int T,
+                     int n_src_blocks, const bf16* z, bf16* out, int f, int ft, void* stream) {
+    return bsr_spmm(vals, cols, lens, R, T, n_src_blocks, z, out, f, ft, stream);
+}
+int k1_bsr_spmm_bf16_all(const bf16* vals, const int* cols, const int* lens, int R, int T,
+                         int n_src_blocks, const bf16* z, bf16* out, int f, int ft, void* stream) {
+    return bsr_spmm(vals, cols, lens, R, T, n_src_blocks, z, out, f, ft, stream);
 }
 
 // Shared memory one ragged-layer block needs for an accumulator of width ft.

@@ -19,7 +19,15 @@
 // tensor cores, no TF32), and values are rounded (to nearest even) exactly
 // where the TPU kernel rounds: feature-first Z = X·W to vals' type,
 // aggregation-first Ã·X to W's type before the product with W, and the
-// output to X's type. Bias and activation apply in fp32. K1 is fp32.
+// output to X's type. Bias and activation apply in fp32.
+//
+// K1 takes fp32 or bf16 vals with a Z of the same or bf16 type, and writes
+// Z's type (the TPU kernel's out_shape). With a bf16 Z its output block is
+// bf16 and the TPU kernel adds each tile's product into it
+// (bsr_spmm.py:81-83), so the running sum is rounded after every tile:
+// acc = bf16(acc + bf16(vals[r,t] · Z[cols[r,t]])), the tile product in
+// fp32. The kernel does the same, holding the rounded sum in a second fp32
+// accumulator.
 //
 // fp32 operands reach shared memory through asynchronous copies
 // (__pipeline_memcpy_async, cp.async) into two stages: the copy of chunk
@@ -56,6 +64,23 @@ __host__ __device__ inline int padded_width(int ft) { return (ft + NC - 1) / NC 
 __host__ __device__ inline long long layer_smem_bytes(int ft) {
     const int ftp = padded_width(ft);
     return 4LL * (STAGES * (TILE * LDA + KC * ftp) + TILE * (ftp + 1));
+}
+
+// fp32 or not, for the element types (the header includes no <type_traits>).
+template <typename T> struct is_f32 { static constexpr bool value = false; };
+template <> struct is_f32<float> { static constexpr bool value = true; };
+
+// Whether ragged_layer_kernel<MODE, ..., TO> rounds its running sum to TO
+// after every tile: K1 with a bf16 output, as the TPU kernel does.
+template <int MODE, typename TO> struct PerTileRound {
+    static constexpr bool value = MODE == 2 && !is_f32<TO>::value;
+};
+
+// Dynamic shared memory of one ragged_layer_kernel<MODE, ..., TO> block: a
+// per-tile-rounding block adds the rounded running sum (TILE × (ftp + 1)).
+template <int MODE, typename TO>
+__host__ __device__ inline long long kernel_smem_bytes(int ft) {
+    return layer_smem_bytes(ft) + (PerTileRound<MODE, TO>::value ? 4LL * TILE * (padded_width(ft) + 1) : 0);
 }
 
 // Dynamic shared memory of xw_kernel: per stage a chunk of X and of W.
@@ -207,6 +232,9 @@ __device__ inline void layer_copy_chunk(const TV* __restrict__ vals, const int* 
 //                             out = act(round_W(acc) · W + b), W (f_in, f_out).
 // MODE 2 (K1, the plain product): src = Z (width f_src = f_out); out = acc,
 //                             with no bias and no activation (w, b unused).
+//                             With a bf16 output the running sum is rounded
+//                             to bf16 after every tile (PerTileRound): acc
+//                             then holds one tile's product, run the sum.
 // TV, TS, TW, TO are the element types of vals, src, W and out; b is fp32.
 //
 // Column ids outside [0, n_src_blocks) are clamped and lens to [0, T], so a
@@ -225,12 +253,17 @@ ragged_layer_kernel(const TV* __restrict__ vals, const int* __restrict__ cols,
     float* as = smem;                                         // STAGES × TILE × LDA adjacency chunks
     float* ss = smem + STAGES * TILE * LDA;                   // STAGES × KC × ftp source rows
     float* acc = smem + STAGES * (TILE * LDA + KC * ftp);     // TILE × ldc accumulator
+    constexpr bool per_tile = PerTileRound<MODE, TO>::value;
+    float* run = acc + TILE * ldc;                            // TILE × ldc rounded sum (per_tile only)
     const int tid = threadIdx.x;
     const int r = blockIdx.x;
     const int f0 = blockIdx.y * ft;      // first source/output column of this block
 
     float* crow = acc + tid * ldc;       // this thread's accumulator row
+    float* rrow = run + tid * ldc;       // and its rounded running sum (per_tile only)
     for (int c = 0; c < ldc; ++c) crow[c] = 0.f;
+    if (per_tile)
+        for (int c = 0; c < ldc; ++c) rrow[c] = 0.f;
 
     int n = lens[r];
     n = n < 0 ? 0 : (n > T ? T : n);
@@ -272,13 +305,22 @@ ragged_layer_kernel(const TV* __restrict__ vals, const int* __restrict__ cols,
 #pragma unroll
             for (int c = 0; c < NC; ++c) crow[fc + c] = a_acc[c];
         }
+        if (per_tile && q % CPT == CPT - 1) {
+            // Tile q / CPT is complete: the TPU kernel's
+            // out += dot(a, z).astype(out.dtype) in out's (bf16) type.
+            for (int c = 0; c < ftp; ++c) {
+                rrow[c] = round_to<TO>(rrow[c] + round_to<TO>(crow[c]));
+                crow[c] = 0.f;
+            }
+        }
         __syncthreads();                 // stage s is refilled in the next iteration
     }
 
     TO* o = out + ((long long)r * TILE + tid) * f_out;
     if (MODE == 2) {
+        const float* sum = per_tile ? rrow : crow;
         for (int c = 0; c < ft; ++c)
-            if (f0 + c < f_out) o[f0 + c] = from_f32<TO>(crow[c]);
+            if (f0 + c < f_out) o[f0 + c] = from_f32<TO>(sum[c]);
     } else if (MODE == 0) {
         for (int c = 0; c < ft; ++c) {
             const int f = f0 + c;

@@ -100,8 +100,13 @@ _F32, _BF16 = torch.float32, torch.bfloat16
 _SUFFIX = {(_F32, _F32, _F32): "", (_F32, _BF16, _F32): "_bf16", (_BF16, _BF16, _BF16): "_bf16_all"}
 _K2 = ("k2_ff_transform", "k2_ff_aggregate", "k2_af_layer")
 
+# K1's (vals, Z) dtype combinations and their launchers (`kernels.bsr_spmm`).
+K1_NAMES = {(_F32, _F32): "k1_bsr_spmm", (_F32, _BF16): "k1_bsr_spmm_bf16",
+            (_BF16, _BF16): "k1_bsr_spmm_bf16_all"}
+
 # Launches of every kernel of the library (K2 here, K1 in `kernels.bsr_spmm`).
-LAUNCHES = {**{f"{k}{sfx}": 0 for sfx in _SUFFIX.values() for k in _K2}, "k1_bsr_spmm": 0}
+LAUNCHES = {**{f"{k}{sfx}": 0 for sfx in _SUFFIX.values() for k in _K2},
+            **{name: 0 for name in K1_NAMES.values()}}
 
 
 def reset_launch_counts() -> None:
@@ -189,7 +194,7 @@ def _lib() -> ctypes.CDLL:
         "k2_af_layer": [P, P, P, I, I, I, P, I, P, P, P, I, I, P],
     }
     signatures = {f"{k}{sfx}": a for k, a in args.items() for sfx in _SUFFIX.values()}
-    signatures["k1_bsr_spmm"] = [P, P, P, I, I, I, P, P, I, I, P]
+    signatures.update({name: [P, P, P, I, I, I, P, P, I, I, P] for name in K1_NAMES.values()})
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int

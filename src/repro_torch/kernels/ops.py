@@ -27,16 +27,19 @@ off by default in PyTorch and callers keep it off).
 kernels — all fp32, (fp32, bf16, fp32) and all bf16 — and its backward
 takes the reference's casts: the cotangent and every product in fp32,
 each gradient returned in its operand's dtype. The aggregation-first
-recompute M = Ã·X of a bf16 X runs K1 on X widened to fp32 and rounds M
-to bf16, which is what the reference's bf16 K1 computes (K1's own bf16
-mode comes with halo training). `bsr_spmm` is fp32.
+recompute M = Ã·X runs K1 on the operands' own dtypes, as the reference
+does: for a bf16 X, M is bf16 and its running sum is rounded to bf16 after
+every tile (the reference's bf16 output block), not once at the end.
+`bsr_spmm` takes (vals, z) fp32 and fp32, fp32 and bf16, or bf16 and bf16
+and returns z's dtype; its backward returns dz in z's dtype and dvals in
+vals' dtype, each computed in fp32, as the reference's `_bsr_diff_bwd`.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.bsr_spmm import bsr_spmm as bsr_spmm_cuda
-from repro_torch.kernels.bsr_spmm import bsr_spmm_plain
+from repro_torch.kernels.bsr_spmm import bsr_spmm_plain, k1_name
 from repro_torch.kernels.fused_gcn import fused_gcn_layer_cuda, fused_gcn_layer_plain, operand_suffix
 
 __all__ = ["bsr_spmm", "fused_gcn_layer"]
@@ -103,12 +106,6 @@ def _bsr_forward(vals, cols, lens, z) -> torch.Tensor:
     return _on_device("bsr_spmm", bsr_spmm_plain, bsr_spmm_cuda, vals, cols, lens, z)
 
 
-def _recompute_m(vals, cols, lens, x) -> torch.Tensor:
-    """M = Ã·X for the aggregation-first backward, in X's dtype: K1 on
-    operands widened to fp32 (the identity for fp32), rounded to X's dtype."""
-    return _bsr_forward(vals.float(), cols, lens, x.float()).to(x.dtype)
-
-
 class _BsrSpmm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, vals, cols, lens, z):
@@ -121,8 +118,9 @@ class _BsrSpmm(torch.autograd.Function):
         vals, cols, lens, z = ctx.saved_tensors
         need_vals, need_z = ctx.needs_input_grad[0], ctx.needs_input_grad[3]
         pairs = _tile_mask(cols, lens).nonzero(as_tuple=True)
-        dvals = _bsr_dvals(vals.shape, cols, pairs, g, z) if need_vals else None
-        dz = _bsr_t_apply(vals, cols, pairs, g, z.shape[0]) if need_z else None
+        g = g.float()
+        dvals = _bsr_dvals(vals.shape, cols, pairs, g, z).to(vals.dtype) if need_vals else None
+        dz = _bsr_t_apply(vals, cols, pairs, g, z.shape[0]).to(z.dtype) if need_z else None
         return dvals, None, None, dz
 
 
@@ -132,14 +130,13 @@ def bsr_spmm(vals, cols, z, lens=None) -> torch.Tensor:
     Pads the rows of ``z`` to the block grid; the output has ``R·B`` rows
     (the receiver block grid — fewer than ``z``'s rows for the rectangular
     halo tables). ``lens=None`` treats every tile as valid (dense-T:
-    padding tiles are zero, so the result is the same). fp32 only.
+    padding tiles are zero, so the result is the same). (vals, z) are fp32
+    and fp32, fp32 and bf16, or bf16 and bf16; the output has z's dtype.
     """
     R, T, B, _ = vals.shape
     if lens is None:
         lens = torch.full((R,), T, dtype=torch.int32, device=vals.device)
-    for name, t in (("vals", vals), ("z", z)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"bsr_spmm takes float32 operands; {name} is {t.dtype}")
+    k1_name(vals.dtype, z.dtype)          # raises on a combination K1 does not take
     _check_devices("bsr_spmm", cols, lens, {"vals": vals, "z": z})
     return _BsrSpmm.apply(vals, cols, lens, _pad_rows(z, B))
 
@@ -181,7 +178,9 @@ class _FusedGcnLayer(torch.autograd.Function):
         else:
             # pre = (Ã·x)·w + b
             if need_w:
-                dw = _recompute_m(vals, cols, lens, x).float().T @ g
+                # M = Ã·X recomputed by K1 on the operands' own dtypes, M in
+                # X's dtype (the reference's bsr_spmm_pallas call).
+                dw = _bsr_forward(vals, cols, lens, x).float().T @ g
             if need_vals or need_x:
                 dm = g @ wf.T                                            # (R·B, F_in)
                 dvals = _bsr_dvals(vals.shape, cols, pairs, dm, x) if need_vals else None

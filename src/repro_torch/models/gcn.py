@@ -33,7 +33,11 @@ bf16 wire, as the reference does (K2's bf16-operand kernel on the card);
 feature-first layers exchange Z = X·W between the matmul and `bsr_spmm`
 (K1). With ``adjacency_boundary`` (the split pair), each layer's
 aggregation is an interior product over the local block plus a boundary
-product over the halo block.
+product over the halo block. Every halo branch differentiates: the
+exchange's backward is the transposed collective
+(`repro_torch.dist.halo`), and under the bf16 wire the fused
+aggregation-first layer's backward recomputes Ã·table with K1's bf16
+instantiation, as the reference does.
 """
 from __future__ import annotations
 

@@ -16,6 +16,12 @@ gradient, `torch.autograd.grad` returns the gradients (so nothing
 accumulates in ``.grad``), and the update runs under `torch.no_grad`. The
 loss is read back with ``float(loss)`` after every step, which waits for
 the card, so each step's wall time covers its device work.
+
+Inside a `torch.distributed` group (sharded training: one `Trainer` per
+rank, each stepping identical parameters on its own loss, which the
+sharded loss makes identical) the reference's single controller writes one
+checkpoint: here global rank 0 writes it and every rank waits for it at a
+barrier; every rank resumes from it. The straggler monitor is per rank.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import time
 from typing import Any, Callable, Iterator
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.obs import metrics as _obs_metrics
 from repro_torch.obs import trace as _obs_trace
@@ -118,13 +125,20 @@ class Trainer:
         return True
 
     def checkpoint(self) -> None:
-        if self.cfg.ckpt_dir:
+        """Write this step's checkpoint: in a process group only rank 0
+        writes, and every rank returns once it exists."""
+        if not self.cfg.ckpt_dir:
+            return
+        grouped = dist.is_available() and dist.is_initialized()
+        if not grouped or dist.get_rank() == 0:
             save_checkpoint(
                 self.cfg.ckpt_dir,
                 self.step,
                 {"params": self.params, "opt": self.opt_state},
                 metadata={"time": time.time()},
             )
+        if grouped:
+            dist.barrier()
 
     # ------------------------------------------------------------------- fit
     def fit(

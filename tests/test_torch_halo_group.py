@@ -1,7 +1,9 @@
-"""The k-rank group launcher (`repro_torch.launch.mesh`) and the sharded
-forward's command line (`repro_torch.launch.distributed_gcn`), without the
-forward itself (tests/test_torch_halo.py runs that): one small group whose
-rank fails on purpose, and the refusals that need no group."""
+"""The k-rank group launcher (`repro_torch.launch.mesh`) and the command
+line of sharded training (`repro_torch.launch.distributed_gcn`): one small
+group whose rank fails on purpose, the refusals that need no group, and
+three training steps of the command on 4 CPU ranks (tests/test_torch_halo.py
+and tests/test_torch_halo_train.py hold the forward and the gradients
+against the reference)."""
 import multiprocessing
 
 import pytest
@@ -36,7 +38,25 @@ def test_group_spec_and_arguments_are_checked():
 
 
 def test_launcher_refuses_training_steps():
-    """Halo training is the next slice: the command says so before it builds
-    anything."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, port slice 4"):
-        distributed_gcn.main(["--steps", "3", "--device", "cpu"])
+    """A negative step count is refused before anything is built."""
+    with pytest.raises(ValueError, match="--steps must be ≥ 0"):
+        distributed_gcn.main(["--steps", "-1", "--device", "cpu"])
+
+
+def test_launcher_trains_and_prints_the_examples_lines(capfd, tmp_path):
+    """``--steps 3`` on 4 CPU ranks prints the lines of
+    examples/train_distributed_gcn.py (plan, resume, done, plan cache) and
+    passes its two asserts (the loss falls; the plan cache saw a hit and a
+    miss, both checked inside `main`); every rank ends on the same
+    parameters and losses."""
+    out = distributed_gcn.main(["--steps", "3", "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+    lines = capfd.readouterr().out.splitlines()     # rank 0 prints the resume line itself
+    for start in ("graph: cora-reduced", "wire/device/layer: halo", "group: k=4 backend=gloo",
+                  f"checkpoints → {tmp_path} (resumed=False, step=0)", "done: step=3 loss",
+                  "plan cache: "):
+        assert sum(line.startswith(start) for line in lines) == 1, (start, lines)
+    assert len(out["losses"]) == 3 and out["losses"][-1] < out["losses"][0]
+    for run in out["ranks"][1:]:
+        assert run["losses"] == out["ranks"][0]["losses"]
+        for n, p in run["params"].items():
+            assert (p == out["ranks"][0]["params"][n]).all()

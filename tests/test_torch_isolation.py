@@ -3,7 +3,8 @@
 * Importing every `repro_torch` module and `chip_smoke` loads neither `jax`
   nor `repro` (whose `__init__` installs JAX shims), nor `msgpack`, which the
   card's machine lacks (the reference's checkpoints use it).
-* With CUDA absent, ``device=None`` raises instead of running on the CPU.
+* With CUDA absent, ``device=None`` raises instead of running on the CPU,
+  and so does the sharded training command before it starts a rank.
 * `chip_smoke.py` exits non-zero, printing no result, without a card and
   when it is alone in a directory.
 """
@@ -21,6 +22,7 @@ import torch
 import repro_torch
 from repro_torch.graph.structure import blocked_adjacency, to_padded
 from repro_torch.graph.generators import citation_like
+from repro_torch.launch import distributed_gcn
 from repro_torch.models.gcn import GCNConfig, gcn_init, params_from_numpy
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -42,6 +44,7 @@ def test_port_imports_neither_jax_nor_repro():
         for name in names:
             importlib.import_module(name)
         import chip_smoke
+        chip_smoke.halo_variants(), chip_smoke.halo_train_variants()   # the halo phases' imports
         bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro", "msgpack"))
         assert not bad, bad
         print("OK", len(names))
@@ -63,6 +66,8 @@ def test_device_none_raises_without_cuda(monkeypatch):
         gcn_init(torch.Generator().manual_seed(0), cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_numpy({"w0": np.zeros((4, 3), np.float32)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distributed_gcn.main(["--steps", "1"])        # sharded training: before any rank starts
     assert repro_torch.device.resolve_device("cpu") == torch.device("cpu")
 
 

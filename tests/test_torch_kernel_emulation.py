@@ -37,6 +37,7 @@ CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
 F32, BF16 = torch.float32, torch.bfloat16
 # (vals, x, w) dtypes → suffix of the emulated entry points (as fused_gcn.cu).
 SUFFIXES = {(F32, F32, F32): "", (F32, BF16, F32): "_bf16", (BF16, BF16, BF16): "_bf16_all"}
+K1_SUFFIXES = {(F32, F32): "", (F32, BF16): "_bf16", (BF16, BF16): "_bf16_all"}   # (vals, Z)
 
 SHIM = r"""
 // Host-compiler stand-ins for the CUDA built-ins the port's kernels use, so
@@ -222,16 +223,24 @@ EMU_K2(, float, float, float)
 EMU_K2(_bf16, float, bf16, float)
 EMU_K2(_bf16_all, bf16, bf16, bf16)
 
-int emu_bsr_spmm(const float* vals, const int* cols, const int* lens, int R, int T,
-                 int n_src_blocks, const float* z, float* out, int f, int ft) {
-    if (k2::layer_smem_bytes(ft) > (long long)sizeof(k2::smem)) return 1;
-    dim3 grid(R, (f + ft - 1) / ft);
-    emu_launch(grid, k2::THREADS, [&] {
-        k2::ragged_layer_kernel<2, float, float, float, float>(vals, cols, lens, T, n_src_blocks, z,
-                                                               f, ft, nullptr, nullptr, out, f, 0);
-    });
-    return 0;
-}
+// K1, one entry per (vals, Z) combination, suffixed as the launchers of
+// fused_gcn.cu; the output has Z's type.
+#define EMU_K1(SFX, TV, TZ)                                                                     \
+    int emu_bsr_spmm##SFX(const void* vals, const int* cols, const int* lens, int R, int T,     \
+                          int n_src_blocks, const void* z, void* out, int f, int ft) {          \
+        if (k2::kernel_smem_bytes<2, TZ>(ft) > (long long)sizeof(k2::smem)) return 1;           \
+        dim3 grid(R, (f + ft - 1) / ft);                                                        \
+        emu_launch(grid, k2::THREADS, [&] {                                                     \
+            k2::ragged_layer_kernel<2, TV, TZ, float, TZ>((const TV*)vals, cols, lens, T,       \
+                                                          n_src_blocks, (const TZ*)z, f, ft,    \
+                                                          nullptr, nullptr, (TZ*)out, f, 0);    \
+        });                                                                                     \
+        return 0;                                                                               \
+    }
+
+EMU_K1(, float, float)
+EMU_K1(_bf16, float, bf16)
+EMU_K1(_bf16_all, bf16, bf16)
 
 long long emu_layer_smem_bytes(int ft) { return k2::layer_smem_bytes(ft); }
 
@@ -259,7 +268,8 @@ def emu(tmp_path_factory):
         getattr(lib, f"emu_ff_transform{sfx}").argtypes = [P, P, P, I, I, I]
         getattr(lib, f"emu_ff_aggregate{sfx}").argtypes = [P, P, P, I, I, I, P, P, P, I, I, I]
         getattr(lib, f"emu_af_layer{sfx}").argtypes = [P, P, P, I, I, I, P, I, P, P, P, I, I]
-    lib.emu_bsr_spmm.argtypes = [P, P, P, I, I, I, P, P, I, I]
+    for sfx in K1_SUFFIXES.values():
+        getattr(lib, f"emu_bsr_spmm{sfx}").argtypes = [P, P, P, I, I, I, P, P, I, I]
     lib.emu_layer_smem_bytes.argtypes = [I]
     lib.emu_layer_smem_bytes.restype = ctypes.c_longlong
     return lib
@@ -305,9 +315,9 @@ def _af_layer(lib, vals, cols, lens, x, w, b, relu):
 def _bsr_spmm(lib, vals, cols, lens, z):
     R, T = cols.shape
     f = z.shape[1]
-    out = torch.full((R * 128, f), float("nan"))
-    rc = lib.emu_bsr_spmm(_p(vals), _p(cols), _p(lens), R, T, z.shape[0] // 128, _p(z), _p(out),
-                          f, min(f, FF_F_TILE))
+    out = torch.full((R * 128, f), float("nan"), dtype=z.dtype)
+    rc = getattr(lib, f"emu_bsr_spmm{K1_SUFFIXES[(vals.dtype, z.dtype)]}")(
+        _p(vals), _p(cols), _p(lens), R, T, z.shape[0] // 128, _p(z), _p(out), f, min(f, FF_F_TILE))
     assert rc == 0
     return out
 
@@ -518,3 +528,62 @@ def test_emulated_bf16_af_rounds_the_aggregate_to_w_dtype(emu):
     unrounded = (m @ w.float() + b).to(BF16).float()
     assert not torch.equal(rounded, unrounded)
     assert (out - rounded).abs().max() < (out - unrounded).abs().max()
+
+
+# ------------------------------------------------------------- K1's bf16 mode
+K1_BF16 = [pytest.param(c, id=sfx.lstrip("_")) for c, sfx in K1_SUFFIXES.items() if sfx]
+
+
+def _k1_bf16_rule(out, ref):
+    """K1 with a bf16 Z against the plain version, which rounds the running
+    sum per tile as the reference does: at least 99 % of the elements
+    bit-equal, the rest within one bf16 step of the largest (2⁻⁷ · max);
+    the order of the sums inside a tile may flip a rounding."""
+    assert out.dtype == ref.dtype == BF16
+    out, ref = out.float(), ref.float()
+    equal = float((out == ref).float().mean())
+    assert equal >= 0.99 and float((out - ref).abs().max()) <= 2.0 ** -7 * float(ref.abs().max()), equal
+
+
+@pytest.mark.parametrize("combo", K1_BF16)
+@pytest.mark.parametrize("f", [16, 70])
+def test_emulated_bsr_spmm_bf16_rounds_per_tile(emu, combo, f):
+    """Each bf16 instantiation at two widths (70: two feature tiles), a
+    44-row tail block and Z with more block-rows than the output."""
+    vals_dtype, z_dtype = combo
+    vals, cols, lens, _, _, _ = _layer_inputs(300, 1500, 1, 1, seed=f)
+    R, T = cols.shape
+    cols = (cols + R * (torch.arange(T, dtype=torch.int32) % 2)).contiguous()
+    vals = (0.3 * vals).to(vals_dtype).contiguous()
+    z = torch.from_numpy(np.random.default_rng(f).standard_normal((2 * R * 128, f)).astype(np.float32)).to(z_dtype)
+    _k1_bf16_rule(_bsr_spmm(emu, vals, cols, lens, z), bsr_spmm_plain(vals, cols, lens, z))
+
+
+@pytest.mark.parametrize("combo", K1_BF16)
+def test_emulated_bsr_spmm_bf16_ragged_skip_and_empty_row(emu, combo):
+    """NaN in every padding tile and an empty block-row: finite output, the
+    plain version's per-tile rounding, zeros on the empty row."""
+    vals_dtype, z_dtype = combo
+    vals, cols, lens, _, _, _ = _layer_inputs(384, 2500, 1, 1, seed=9)
+    lens = lens.clone()
+    lens[1] = 0
+    z = torch.from_numpy(np.random.default_rng(9).standard_normal((vals.shape[0] * 128, 16)).astype(np.float32))
+    z = z.to(z_dtype)
+    out = _bsr_spmm(emu, poison_padding(vals, lens).to(vals_dtype).contiguous(), cols, lens, z)
+    assert torch.isfinite(out.float()).all()
+    _k1_bf16_rule(out, bsr_spmm_plain(vals.to(vals_dtype), cols, lens, z))
+    assert torch.equal(out[128:256], torch.zeros(128, 16, dtype=BF16))
+
+
+def test_emulated_bsr_spmm_bf16_follows_the_per_tile_sum(emu):
+    """On inputs where rounding once at the end gives another result, the
+    kernel follows the per-tile rounding: it is bit-equal to the plain
+    version far more often than to the round-once sum."""
+    vals, cols, lens, _, _, _ = _layer_inputs(256, 2400, 1, 1, seed=13)
+    z = torch.from_numpy(np.random.default_rng(13).standard_normal((vals.shape[0] * 128, 16)).astype(np.float32))
+    z = z.to(BF16)
+    out = _bsr_spmm(emu, vals, cols, lens, z).float()
+    per_tile = bsr_spmm_plain(vals, cols, lens, z).float()
+    once = bsr_spmm_plain(vals, cols, lens, z.float()).to(BF16).float()
+    assert float((out == per_tile).float().mean()) >= 0.99
+    assert float((out == once).float().mean()) < 0.95

@@ -159,6 +159,67 @@ def test_bf16_plain_rounds_where_the_kernels_do():
     assert af.dtype == BF16 and torch.equal(af, (m @ wt + bt).to(BF16))
 
 
+# ------------------------------------------------ K1's bf16 mode (per-tile rounding)
+def _k1_bf16_case(name):
+    """Seeded numpy inputs of K1 with a bf16 Z. ``three_rows``: R=3, T=40,
+    lens (40, 17, 1), F=16, five column blocks, fp32 vals ~ 0.05·N(0,1).
+    ``halo``: a rectangular [local ‖ halo]-like table (4 block-rows, 11
+    column blocks, an empty block-row), F=24. ``halo_bf16_all``: the same
+    with bf16 vals."""
+    r = np.random.default_rng(0)
+    if name == "three_rows":
+        R, T, F, cb, lens = 3, 40, 16, 5, [40, 17, 1]
+    else:
+        R, T, F, cb, lens = 4, 12, 24, 11, [12, 5, 0, 9]
+    vals = (0.05 * r.standard_normal((R, T, 128, 128))).astype(np.float32)
+    cols = r.integers(0, cb, size=(R, T)).astype(np.int32)
+    z = r.standard_normal((cb * 128, F)).astype(np.float32)
+    return vals, cols, np.array(lens, np.int32), z, (BF16 if name == "halo_bf16_all" else F32)
+
+
+def _bf16_rule(out: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+    """(share of bit-equal elements, max |out − ref| / max |ref|)."""
+    out, ref = out.float(), ref.float()
+    return float((out == ref).float().mean()), float((out - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.parametrize("name", ["three_rows", "halo", "halo_bf16_all"])
+def test_k1_bf16_plain_rounds_per_tile_as_the_reference(jx, name):
+    """K1 with a bf16 Z against the reference's interpret-mode
+    `bsr_spmm_pallas`, whose bf16 output block rounds the running sum after
+    every tile: at least 99 % of the elements bit-equal, the rest within one
+    bf16 step of the largest (2⁻⁷ · max |ref|); summation order inside a
+    tile may flip a rounding. Through `kernels.ops.bsr_spmm` too, whose
+    output has Z's dtype."""
+    vals, cols, lens, z, vals_dtype = _k1_bf16_case(name)
+    jnp = jx.jnp
+    jv = jnp.asarray(vals).astype(jnp.bfloat16 if vals_dtype == BF16 else jnp.float32)
+    ref = jx.bsr.bsr_spmm_pallas(jv, jnp.asarray(cols), jnp.asarray(lens), jnp.asarray(z).astype(jnp.bfloat16),
+                                 f_tile=z.shape[1], interpret=True)
+    ref = torch.from_numpy(np.array(ref.astype(jnp.float32)))
+    tv, tc, tl = torch.from_numpy(vals).to(vals_dtype), torch.from_numpy(cols), torch.from_numpy(lens)
+    tz = torch.from_numpy(z).to(BF16)
+    for out in (k1.bsr_spmm_plain(tv, tc, tl, tz), bsr_spmm(tv, tc, tz, tl)):
+        assert out.dtype == BF16
+        equal, worst = _bf16_rule(out, ref)
+        assert equal >= 0.99 and worst <= 2.0 ** -7, (name, equal, worst)
+
+
+def test_k1_bf16_round_once_fails_the_rule(jx):
+    """The rule above tells the reference's per-tile rounding from rounding
+    the fp32 sum once at the end: the latter misses it badly."""
+    vals, cols, lens, z, _ = _k1_bf16_case("three_rows")
+    jnp = jx.jnp
+    ref = jx.bsr.bsr_spmm_pallas(jnp.asarray(vals), jnp.asarray(cols), jnp.asarray(lens),
+                                 jnp.asarray(z).astype(jnp.bfloat16), f_tile=z.shape[1], interpret=True)
+    ref = torch.from_numpy(np.array(ref.astype(jnp.float32)))
+    tz = torch.from_numpy(z).to(BF16)
+    once = fg._ragged_aggregate_plain(torch.from_numpy(vals), torch.from_numpy(cols), torch.from_numpy(lens),
+                                      tz).to(BF16)
+    equal, _ = _bf16_rule(once, ref)
+    assert equal < 0.9, equal
+
+
 def test_bf16_combinations_the_kernels_do_not_take():
     ba, x, w, b = _case()
     vals, cols, lens, xt, wt, bt = _torch_args(ba, x, w, b)
@@ -168,8 +229,8 @@ def test_bf16_combinations_the_kernels_do_not_take():
             fused_gcn_layer(*args[:1], cols, lens, *args[1:], bt)
     with pytest.raises(TypeError, match="bias"):
         fused_gcn_layer(vals, cols, lens, xt, wt, bt.double())
-    with pytest.raises(TypeError, match="float32"):
-        bsr_spmm(vals.to(BF16), cols, xt.to(BF16), lens)
+    with pytest.raises(TypeError, match="takes \\(vals, z\\) dtypes"):
+        bsr_spmm(vals.to(BF16), cols, xt, lens)
     z = torch.zeros((ba.n_col_padded, 7))
     with pytest.raises(TypeError, match="vals' dtype"):
         fg.ff_aggregate(vals, cols, lens, z.to(BF16), bt)
@@ -423,6 +484,50 @@ def test_cuda_bf16_poisoned_padding_and_empty_row(cuda, combo):
     scale = float(ref.float().abs().max())
     assert float((out.cpu().float() - ref.float()).abs().max()) <= BF16_CARD_TOL * scale
     assert torch.equal(out[128:256].cpu(), bt.cpu().clamp_min(0).to(BF16).expand(128, -1))
+
+
+# --------------------------------------------------- K1 bf16 instantiations (card)
+K1_BF16 = [pytest.param((F32, BF16), id="bf16"), pytest.param((BF16, BF16), id="bf16_all")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combo", K1_BF16)
+@pytest.mark.parametrize("f", [16, 70])
+def test_cuda_k1_bf16_matches_plain(cuda, combo, f):
+    """K1 with a bf16 Z on the card against the plain version's per-tile
+    rounding (`_bf16_rule`), on a rectangular Z, with its launches counted
+    under its own name."""
+    vd, zd = combo
+    ba, _, _, _ = _case(seed=f)
+    vals, cols, lens = ba.arrays(device="cpu")
+    R, T = cols.shape
+    cols = (cols + R * (torch.arange(T, dtype=torch.int32) % 2)).contiguous()
+    vals = vals.to(vd)
+    z = torch.from_numpy(np.random.default_rng(f).standard_normal((2 * R * 128, f)).astype(np.float32)).to(zd)
+    name = k1.k1_name(vd, zd)
+    before = fg.LAUNCHES[name]
+    out = bsr_spmm(vals.to(cuda), cols.to(cuda), z.to(cuda), lens.to(cuda))
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES[name] == before + 1 and out.dtype == BF16
+    equal, worst = _bf16_rule(out.cpu(), k1.bsr_spmm_plain(vals, cols, lens, z))
+    assert equal >= 0.99 and worst <= 2.0 ** -7, (equal, worst)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combo", K1_BF16)
+def test_cuda_k1_bf16_poisoned_padding_and_empty_row(cuda, combo):
+    vd, zd = combo
+    ba, _, _, _ = _case(n=384, e=2500, seed=4)
+    vals, cols, lens = ba.arrays(device="cpu")
+    lens = lens.clone()
+    lens[1] = 0
+    z = torch.from_numpy(np.random.default_rng(4).standard_normal((vals.shape[0] * 128, 16)).astype(np.float32))
+    z = z.to(zd)
+    out = k1.bsr_spmm(poison_padding(vals, lens).to(vd).to(cuda), cols.to(cuda), lens.to(cuda), z.to(cuda)).cpu()
+    assert torch.isfinite(out.float()).all()
+    equal, worst = _bf16_rule(out, k1.bsr_spmm_plain(vals.to(vd), cols, lens, z))
+    assert equal >= 0.99 and worst <= 2.0 ** -7, (equal, worst)
+    assert torch.equal(out[128:256], torch.zeros(128, 16, dtype=BF16))
 
 
 def ops_pad(x: torch.Tensor) -> torch.Tensor:
