@@ -25,6 +25,11 @@ in layer 2's backward, K1 on the same table — under the bf16 wire its
 bf16 instantiation (``k1_bsr_spmm_bf16``, the running sum rounded to
 bf16 per tile as the TPU kernel does). Weights are random, from a seed.
 
+A fifth path, DeepFM (arXiv:1703.04247) at its full widths (39 fields,
+embed_dim 10, MLP 400-400-400, 1,000,000 rows per field: a 39 M × 10
+table), serves, retrieves and trains with its FM term in the CUDA kernel of
+`repro_torch.kernels.fm_interaction` (K3, ``k3_fm_interaction``).
+
 Phases, one JSON line each; any failed check ends the run with exit code 1:
 
   build    compile the kernels from src/repro_torch/kernels/csrc (nvcc)
@@ -82,12 +87,32 @@ Phases, one JSON line each; any failed check ends the run with exit code 1:
            wire rows per step (forward and backward exchanges); step ms,
            one exchange's backward ms and peak memory per rank
 
+  deepfm_kernels  (d1) K3 against its plain version on the card at the
+           recsys shapes serve_p99 (512), train_batch (65,536) and
+           serve_bulk (262,144) × 39 × 10 fp32, an odd B (1,000), and bf16
+           at train_batch (one bf16 step of the largest value, ≥ 99 %
+           bit-equal); CUDA-event times beside the bound
+  deepfm_serve  (d2) deepfm_init at the full widths (a seeded CUDA
+           generator), then deepfm_forward at serve_p99 (one warm-up, five
+           requests, p50) and at serve_bulk, with the launch counts zeroed
+           just before and read just after; the logits against the same
+           forward with the FM term computed by the plain version (1e-5 of
+           max |logit|)
+  deepfm_retrieval  (d3) deepfm_retrieval: 1 query × 1,000,000 candidates
+           (field 0's rows), finite scores, CUDA-event time
+  deepfm_train  (d4) the first gradients of deepfm_loss with K3 against
+           those with the plain FM term (1e-4 of each parameter's largest
+           entry); five AdamW steps (lr 1e-3) of a Trainer at train_batch
+           on the click_batch_fn stream with the launch counts zeroed just
+           before and read just after; step time, peak memory, and the
+           device's idle share from torch.profiler over three steps
+
 then the card's name and power limit (nvidia-smi), the ``{"kernels": [...]}``
 line, and as the last line ``{"ok": true, "device": {...}}``. A kernel's
-``launches`` there is its count over the four main-path runs (inference
+``launches`` there is its count over the main-path runs (inference
 forwards, training steps, the halo forwards and the halo training steps
-of all ranks), each counted with the counts zeroed just before and read
-just after.
+of all ranks; for K3 the DeepFM serving requests and training steps), each
+counted with the counts zeroed just before and read just after.
 """
 from __future__ import annotations
 
@@ -138,6 +163,15 @@ K1_BF16_COMBOS = {"_bf16": (torch.float32, torch.bfloat16), "_bf16_all": (torch.
 K1_BF16_STEP = 2.0 ** -7       # K1 bf16 vs plain: max |diff| ≤ one bf16 step of max |plain| ...
 K1_BF16_BIT_EQUAL = 0.99       # ... and at least 99 % of the elements bit-equal (the sums' order inside
                                # a tile may flip a per-tile rounding)
+
+K3_SOURCE = "src/repro_torch/kernels/csrc/fm_interaction_kernels.cuh"
+REPLACES.update({"k3_fm_interaction": "src/repro/kernels/fm_interaction.py:29",
+                 "k3_fm_interaction_bf16": "src/repro/kernels/fm_interaction.py:29"})
+DEEPFM_REQUESTS = 5            # timed serve_p99 requests, after one warm-up
+DEEPFM_TRAIN_STEPS = 5         # Trainer steps at train_batch
+DEEPFM_LR = 1e-3
+DEEPFM_LOGIT_RTOL = 1e-5       # (d2): K3 logits vs the plain FM term's, · max |logit|
+DEEPFM_GRAD_RTOL = 1e-4        # (d4): first gradients, K3 vs the plain FM term, · max per parameter
 
 HALO_K = 4
 HALO_REPS = 5                  # timed forwards / exchanges per variant and rank
@@ -235,17 +269,24 @@ def card_line() -> str:
 
 def build_kernels() -> None:
     from repro_torch.kernels import _build
+    from repro_torch.kernels import fm_interaction as k3
     from repro_torch.kernels import fused_gcn as fg
 
     t0 = time.perf_counter()
-    reports = _build.build(["fused_gcn"])
+    reports = _build.build(["fused_gcn", "fm_interaction"])     # one nvcc per source, side by side
     lib = fg._lib()          # binds every launcher of LAUNCHES: a missing symbol raises
+    lib3 = k3._lib()
     seconds = time.perf_counter() - t0
     smem_ok = all(lib.k2_layer_smem_bytes(f) == fg.layer_smem_bytes(f) for f in (7, 16, 50, 210, fg.AF_MAX_F_IN))
+    tile_ok = all((lib3.k3_tile_examples(f, d), lib3.k3_tile_fields(f, d)) == k3.fm_tile(f, d)
+                  and lib3.k3_smem_bytes(f, d) == k3.fm_smem_bytes(f, d)
+                  for f, d in ((39, 10), (8, 10), (1, 10), (40, 400), (3, 300)))
     ptxas = [ln.strip() for rep in reports.values() for ln in rep.splitlines()
              if "registers" in ln or "spill" in ln]
-    emit("build", ok=smem_ok, seconds=seconds, built=sorted(reports), ptxas=ptxas)
+    emit("build", ok=smem_ok and tile_ok, seconds=seconds, built=sorted(reports), ptxas=ptxas,
+         k3_tile_39x10=k3.fm_tile(39, 10))
     require(smem_ok, "build", "shared-memory formula of the .cuh and the wrapper disagree")
+    require(tile_ok, "build", "K3's tiling in the .cuh and in the wrapper disagree")
 
 
 def load_graph(device: torch.device) -> dict:
@@ -1028,6 +1069,229 @@ def check_halo_train(results: list, plan, cfg, train: dict, seconds: float) -> d
     return launches
 
 
+# ------------------------------------------------------------------- DeepFM
+def named_leaves(tree, prefix: str = "") -> dict:
+    """{"mlp/l0/w": leaf, ...} of a dict tree."""
+    if isinstance(tree, dict):
+        return {k: v for key in sorted(tree) for k, v in named_leaves(tree[key], f"{prefix}{key}/").items()}
+    return {prefix.rstrip("/"): tree}
+
+
+def check_k3(cfg, shapes, generator: torch.Generator) -> tuple[dict, dict]:
+    """(d1): K3 against its plain version on the card at the recsys shapes,
+    an odd B and bf16; returns (the worst error per launcher, the timing
+    rows: train_batch's as the row, every shape's beside it)."""
+    from repro_torch.kernels import fm_interaction as k3
+
+    F, D = cfg.n_fields, cfg.embed_dim
+    cases, by_shape = [], {}
+    worst = {name: 0.0 for name in k3.LAUNCHES}
+
+    def emb_of(batch, dtype=torch.float32):
+        return torch.randn((batch, F, D), generator=generator, device=generator.device).to(dtype)
+
+    with torch.inference_mode():
+        for case, batch in [(n, shapes[n].batch) for n in ("serve_p99", "train_batch", "serve_bulk")] + [("odd_B", 1000)]:
+            emb = emb_of(batch)
+            out, ref = k3.fm_interaction(emb), k3.fm_interaction_plain(emb)
+            err, scale = max_err(out, ref)
+            ok = err <= KERNEL_RTOL * scale and out.dtype == ref.dtype and tuple(out.shape) == (batch,)
+            cases.append(dict(kernel="k3_fm_interaction", case=f"{case} ({batch} × {F} × {D})", max_abs_err=err,
+                              max_abs_ref=scale, rtol=KERNEL_RTOL, dtype="float32", ok=ok))
+            worst["k3_fm_interaction"] = max(worst["k3_fm_interaction"], err)
+            if case != "odd_B":
+                by_shape[case] = dict(
+                    batch=batch, ms=cuda_ms(lambda: k3.fm_interaction(emb)),
+                    plain_ms=cuda_ms(lambda: k3.fm_interaction_plain(emb)), library_ms=None,
+                    bound=bound(4.0 * (batch * F * D + batch), 3.0 * batch * F * D + 3.0 * batch * D))
+            del emb, out, ref
+        batch = shapes["train_batch"].batch
+        emb = emb_of(batch, torch.bfloat16)
+        out, ref = k3.fm_interaction(emb), k3.fm_interaction_plain(emb)
+        err, scale = max_err(out.float(), ref.float())
+        bit_equal = float((out == ref).float().mean())
+        ok = err <= K1_BF16_STEP * scale and bit_equal >= K1_BF16_BIT_EQUAL and out.dtype == torch.bfloat16
+        cases.append(dict(kernel="k3_fm_interaction_bf16", case=f"train_batch bf16 ({batch} × {F} × {D})",
+                          max_abs_err=err, max_abs_ref=scale, rtol=K1_BF16_STEP, bit_equal=bit_equal,
+                          bit_equal_min=K1_BF16_BIT_EQUAL, dtype="bfloat16", ok=ok))
+        worst["k3_fm_interaction_bf16"] = err
+        bf16_row = dict(batch=batch, ms=cuda_ms(lambda: k3.fm_interaction(emb)),
+                        plain_ms=cuda_ms(lambda: k3.fm_interaction_plain(emb)), library_ms=None,
+                        bound=bound(2.0 * (batch * F * D + batch), 3.0 * batch * F * D + 3.0 * batch * D))
+        del emb, out, ref
+    ok = all(c["ok"] for c in cases)
+    emit("deepfm_kernels", ok=ok, cases=cases, tile=k3.fm_tile(F, D),
+         times={k: {**v, "bound": list(v["bound"])} for k, v in {**by_shape, "train_batch_bf16": bf16_row}.items()},
+         timing="CUDA events, median of 10 after 2 warm-ups, back to back (serve_p99's 0.8 MB stays in the "
+                "50 MB L2; the other shapes do not fit)", library="none: no single PyTorch call computes the FM term")
+    require(ok, "deepfm_kernels", "K3 disagrees with its plain version")
+    rows = {"k3_fm_interaction": {**by_shape["train_batch"], "by_shape": by_shape}, "k3_fm_interaction_bf16": bf16_row}
+    return worst, rows
+
+
+def deepfm_ids(cfg, batch: int, seed: int, device: torch.device) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.rows_per_field, (batch, cfg.n_fields))).to(device, torch.int64)
+
+
+def deepfm_serve(params: dict, cfg, shapes) -> dict:
+    """(d2): serve_p99 requests and one serve_bulk batch through K3, the
+    launch counts zeroed just before and read just after; the logits
+    against the same forward with the plain FM term."""
+    from repro_torch.kernels import fm_interaction as k3
+    from repro_torch.models.deepfm import deepfm_forward
+    from repro_torch.recsys.embedding import field_lookup
+
+    device = params["table"].device
+    p99, bulk = shapes["serve_p99"].batch, shapes["serve_bulk"].batch
+    ids = {"serve_p99": deepfm_ids(cfg, p99, SEED, device), "serve_bulk": deepfm_ids(cfg, bulk, SEED + 1, device)}
+    request_ms = []
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        k3.reset_launch_counts()
+        deepfm_forward(params, ids["serve_p99"], cfg)                      # warm-up
+        torch.cuda.synchronize()
+        for _ in range(DEEPFM_REQUESTS):
+            t0 = time.perf_counter()
+            logits = {"serve_p99": deepfm_forward(params, ids["serve_p99"], cfg)}
+            torch.cuda.synchronize()
+            request_ms.append((time.perf_counter() - t0) * 1e3)
+        logits["serve_bulk"] = deepfm_forward(params, ids["serve_bulk"], cfg)
+        torch.cuda.synchronize()
+        launches = dict(k3.LAUNCHES)
+        errs, fm_max = {}, {}
+        offs = torch.from_numpy(cfg.field_offsets).to(device, torch.int64)
+        for name, out in logits.items():
+            errs[name] = max_err(out, deepfm_forward(params, ids[name], cfg, fm_term=k3.fm_interaction_plain))
+            fm_max[name] = float(k3.fm_interaction_plain(field_lookup(params["table"], ids[name], offs)).abs().max())
+        bulk_ms = cuda_ms(lambda: deepfm_forward(params, ids["serve_bulk"], cfg), reps=5)
+    expected = {"k3_fm_interaction": 2 + DEEPFM_REQUESTS, "k3_fm_interaction_bf16": 0}
+    checks = dict(
+        launches=launches == expected,
+        shapes=all(tuple(out.shape) == (ids[n].shape[0],) for n, out in logits.items()),
+        finite=all(bool(torch.isfinite(out).all()) for out in logits.values()),
+        logits_vs_plain_fm=all(err <= DEEPFM_LOGIT_RTOL * scale for err, scale in errs.values()),
+    )
+    p50 = statistics.median(request_ms)
+    emit("deepfm_serve", ok=all(checks.values()), checks=checks, requests=DEEPFM_REQUESTS, batch=p99,
+         p50_ms=p50, request_ms=request_ms, examples_per_s=p99 / p50 * 1e3, bulk_batch=bulk, bulk_ms=bulk_ms,
+         bulk_examples_per_s=bulk / bulk_ms * 1e3, launches=launches, expected_launches=expected,
+         logit_max_abs_err={n: e for n, (e, _) in errs.items()}, max_abs_logit={n: m for n, (_, m) in errs.items()},
+         fm_term_max_abs=fm_max, logit_rtol=DEEPFM_LOGIT_RTOL,
+         timing=f"p50: host clock, each request ended by a synchronisation; bulk: CUDA events, median of 5")
+    require(all(checks.values()), "deepfm_serve", f"checks {checks}")
+    return launches
+
+
+def deepfm_retrieve(params: dict, cfg, shapes) -> None:
+    """(d3): one query against field 0's 1,000,000 rows."""
+    from repro_torch.models.deepfm import deepfm_retrieval
+
+    spec = shapes["retrieval_cand"]
+    device = params["table"].device
+    user = deepfm_ids(cfg, spec.batch, SEED + 2, device)
+    cand = torch.arange(spec.n_candidates, device=device, dtype=torch.int64)[None, :].expand(spec.batch, -1)
+    with torch.inference_mode():
+        scores = deepfm_retrieval(params, user, cand, cfg)
+        ms = cuda_ms(lambda: deepfm_retrieval(params, user, cand, cfg), reps=5)
+    checks = dict(shape=tuple(scores.shape) == (spec.batch, spec.n_candidates),
+                  finite=bool(torch.isfinite(scores).all()))
+    emit("deepfm_retrieval", ok=all(checks.values()), checks=checks, queries=spec.batch,
+         candidates=spec.n_candidates, ms=ms, candidates_per_s=spec.n_candidates * spec.batch / ms * 1e3,
+         max_abs_score=float(scores.abs().max()), timing="CUDA events, median of 5")
+    require(all(checks.values()), "deepfm_retrieval", f"checks {checks}")
+
+
+def deepfm_train(params: dict, cfg, shapes) -> dict:
+    """(d4): first gradients with K3 against the plain FM term's, then a
+    Trainer's AdamW steps at train_batch with the launch counts zeroed just
+    before and read just after; step time, peak memory, profile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import fm_interaction as k3
+    from repro_torch.models.deepfm import deepfm_loss, fm_interaction
+    from repro_torch.obs.trace import device_time_summary
+    from repro_torch.train.data import ShardedStream, click_batch_fn
+    from repro_torch.train.loop import Trainer, TrainerConfig, value_and_grad
+    from repro_torch.train.optimizer import adamw
+
+    device = params["table"].device
+    stream = ShardedStream(click_batch_fn(cfg.n_fields, cfg.rows_per_field),
+                           global_batch=shapes["train_batch"].batch, seed=SEED)
+    batches = [{"ids": torch.from_numpy(b["ids"]).to(device, torch.int64), "labels": torch.from_numpy(b["labels"]).to(device)}
+               for b in (next(stream) for _ in range(DEEPFM_TRAIN_STEPS))]
+
+    def loss_fn(fm_term):
+        return lambda p, b: deepfm_loss(p, b["ids"], b["labels"], cfg, fm_term=fm_term)
+
+    loss_k3, g_k3 = value_and_grad(loss_fn(fm_interaction), params, batches[0])
+    loss_plain, g_plain = value_and_grad(loss_fn(k3.fm_interaction_plain), params, batches[0])
+    grad_err = {n: max_err(g, named_leaves(g_plain)[n]) for n, g in named_leaves(g_k3).items()}
+    del g_k3, g_plain
+    tr = Trainer(loss_fn(fm_interaction), adamw(DEEPFM_LR), params, TrainerConfig(log_every=DEEPFM_TRAIN_STEPS + 1))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k3.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = tr.fit(iter(batches), max_steps=DEEPFM_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(k3.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    def one():
+        tr.params, tr.opt_state, tr.residual, loss = tr._step_fn(tr.params, tr.opt_state, tr.residual, batches[0])
+        float(loss)
+
+    step_ms = wall_ms(one)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            one()
+        torch.cuda.synchronize()
+    expected = {"k3_fm_interaction": DEEPFM_TRAIN_STEPS, "k3_fm_interaction_bf16": 0}
+    checks = dict(
+        launches=launches == expected,
+        finite_losses=len(losses) == DEEPFM_TRAIN_STEPS and all(np.isfinite(losses)),
+        gradients_vs_plain_fm=all(err <= DEEPFM_GRAD_RTOL * scale for err, scale in grad_err.values()),
+        zero_gradients=all(grad_err[n][1] == 0.0 for n in grad_err if n.split("/")[0] in ("user_tower", "item_proj")),
+    )
+    n_params = sum(p.numel() for p in named_leaves(params).values())
+    emit("deepfm_train", ok=all(checks.values()), checks=checks, batch=shapes["train_batch"].batch,
+         steps=DEEPFM_TRAIN_STEPS, optimizer=f"adamw(lr={DEEPFM_LR})", parameters=n_params, losses=losses,
+         first_loss_k3=float(loss_k3), first_loss_plain_fm=float(loss_plain),
+         grad_max_abs_err={n: e for n, (e, _) in grad_err.items()}, grad_max_abs={n: m for n, (_, m) in grad_err.items()},
+         grad_rtol=DEEPFM_GRAD_RTOL, launches=launches, expected_launches=expected, fit_s=fit_s,
+         step_ms=step_ms, peak_memory_train_gb=peak_gb,
+         profile=dict(steps=3, **device_time_summary(list(prof.events()), 3)),
+         timing="step: host clock, median of 5 after 2 warm-ups, each ended by reading the loss; "
+                "peak memory over the five Trainer steps")
+    require(all(checks.values()), "deepfm_train", f"checks {checks}")
+    return launches
+
+
+def run_deepfm(device: torch.device) -> tuple[dict, dict, dict]:
+    """(d1)–(d4) at the full DeepFM config; returns (K3's launches in the
+    serving run, in the training run, the timing rows and worst errors)."""
+    from repro_torch.configs.deepfm import FULL
+    from repro_torch.configs.registry import recsys_shapes
+    from repro_torch.models.deepfm import deepfm_init
+
+    t0 = time.perf_counter()
+    shapes = recsys_shapes()
+    worst, rows = check_k3(FULL, shapes, torch.Generator(device=device).manual_seed(SEED))
+    t1 = time.perf_counter()
+    params = deepfm_init(torch.Generator(device=device).manual_seed(SEED), FULL, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t1
+    serve = deepfm_serve(params, FULL, shapes)
+    deepfm_retrieve(params, FULL, shapes)
+    train = deepfm_train(params, FULL, shapes)
+    emit("deepfm", ok=True, config=dataclasses.asdict(FULL), table_rows=FULL.total_rows,
+         table_gb=FULL.total_rows * FULL.embed_dim * 4 / 1e9, init_s=init_s, seconds=time.perf_counter() - t0)
+    return serve, train, dict(rows=rows, worst=worst)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs on the card only",
@@ -1069,6 +1333,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     sharded, sharded_train = run_halo(host, halo, main_run, halo_ref)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fm_serve, fm_train, fm = run_deepfm(device)
 
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [
@@ -1081,6 +1348,16 @@ def main() -> int:
              library_ms=row["library_ms"],
              shape="rank 0 of 4 (halo)" if name not in FP32_KERNELS else "unsharded Nell")
         for name, row in rows.items()
+    ] + [
+        dict(name=name, route="cuda", source=K3_SOURCE, replaces=REPLACES[name],
+             launches=fm_serve[name] + fm_train[name], launches_deepfm_serve=fm_serve[name],
+             launches_deepfm_train=fm_train[name], launches_per_train_step=fm_train[name] / DEEPFM_TRAIN_STEPS,
+             max_abs_err=fm["worst"][name], ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound"][0],
+             bound_by=row["bound"][1], library_ms=row["library_ms"],
+             shape=f"DeepFM train_batch ({row['batch']} × 39 × 10, {'fp32' if name == 'k3_fm_interaction' else 'bf16'})",
+             **({"by_shape": {k: dict(ms=v["ms"], plain_ms=v["plain_ms"], bound_ms=v["bound"][0])
+                              for k, v in row["by_shape"].items()}} if "by_shape" in row else {}))
+        for name, row in fm["rows"].items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

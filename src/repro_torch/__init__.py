@@ -11,6 +11,11 @@ twin `launch.quickstart`), the host data path and the analytic core
 (energy model, CE-count solver, mesh NoC). The bsr backend runs the fused
 GCN layer and the ragged block-sparse product as hand-written CUDA kernels
 (`kernels/csrc/fused_gcn.cu`); their backward is the reference's custom VJP.
+The sharded (halo) GCN inference and training run over `torch.distributed`
+(`dist`, `launch.distributed_gcn`). DeepFM (`models.deepfm`, with
+`recsys.embedding`, `nn.layers` and the click stream of `train.data`)
+serves (`launch.serve`), retrieves and trains (`launch.train`) with its FM
+term in a hand-written CUDA kernel (`kernels/csrc/fm_interaction.cu`).
 
 Entry points that create tensors take ``device=None``, which means the CUDA
 card and raises when there is none (`repro_torch.device.resolve_device`);

@@ -10,19 +10,23 @@ import dataclasses
 import importlib
 from typing import Any, Callable
 
-__all__ = ["ArchSpec", "ShapeSpec", "get_arch", "ALL_ARCHS"]
+__all__ = ["ArchSpec", "ShapeSpec", "get_arch", "recsys_shapes", "ALL_ARCHS"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
-    """One (architecture × input-shape) cell (the graph fields)."""
+    """One (architecture × input-shape) cell (the graph and recsys fields)."""
 
     name: str
-    kind: str                      # graph
+    kind: str                      # train | serve | retrieval | graph
+    # GNN fields
     n_nodes: int | None = None
     n_edges: int | None = None
     d_feat: int | None = None
     n_out: int | None = None
+    # recsys fields
+    batch: int | None = None
+    n_candidates: int | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +37,15 @@ class ArchSpec:
     make_config: Callable[..., Any]          # (shape: ShapeSpec|None) -> model config
     make_reduced: Callable[[], Any]          # smoke-test config
     shapes: dict[str, ShapeSpec]
+
+
+def recsys_shapes() -> dict[str, ShapeSpec]:
+    return {
+        "train_batch": ShapeSpec("train_batch", "train", batch=65_536),
+        "serve_p99": ShapeSpec("serve_p99", "serve", batch=512),
+        "serve_bulk": ShapeSpec("serve_bulk", "serve", batch=262_144),
+        "retrieval_cand": ShapeSpec("retrieval_cand", "retrieval", batch=1, n_candidates=1_000_000),
+    }
 
 
 ALL_ARCHS: tuple[str, ...] = (
@@ -49,7 +62,7 @@ ALL_ARCHS: tuple[str, ...] = (
     "coin_gcn",
 )
 
-_MODULES = {"coin_gcn": "repro_torch.configs.coin_gcn"}
+_MODULES = {"coin_gcn": "repro_torch.configs.coin_gcn", "deepfm": "repro_torch.configs.deepfm"}
 
 
 def get_arch(arch_id: str) -> ArchSpec:

@@ -33,16 +33,26 @@ every tile (the reference's bf16 output block), not once at the end.
 `bsr_spmm` takes (vals, z) fp32 and fp32, fp32 and bf16, or bf16 and bf16
 and returns z's dtype; its backward returns dz in z's dtype and dvals in
 vals' dtype, each computed in fp32, as the reference's `_bsr_diff_bwd`.
+
+`fm_interaction` is DeepFM's second-order FM term (K3 on the card,
+`repro_torch.kernels.fm_interaction`). The reference has no backward
+kernel for it (its gradient is JAX's autodiff of the formula), so its
+backward is the analytic gradient in torch ops on both devices:
+d out[b] / d emb[b, f, d] = s[b, d] − emb[b, f, d], with s the field sum.
+The reference wrapper halves ``b_tile`` until it divides B; the kernel
+takes any B, so the port's wrapper has no tile argument.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.bsr_spmm import bsr_spmm as bsr_spmm_cuda
+from repro_torch.kernels.fm_interaction import fm_interaction as fm_interaction_cuda
+from repro_torch.kernels.fm_interaction import fm_interaction_plain
 from repro_torch.kernels.bsr_spmm import bsr_spmm_plain, k1_name
 from repro_torch.kernels.fused_gcn import fused_gcn_layer_cuda, fused_gcn_layer_plain, operand_suffix
 
-__all__ = ["bsr_spmm", "fused_gcn_layer"]
+__all__ = ["bsr_spmm", "fused_gcn_layer", "fm_interaction"]
 
 _ORDERS = ("feature_first", "aggregation_first")
 
@@ -212,3 +222,32 @@ def fused_gcn_layer(vals, cols, lens, x, w, b, order: str = "feature_first",
         raise TypeError(f"fused_gcn_layer takes a float32 or bfloat16 bias, got {b.dtype}")
     _check_devices("fused_gcn_layer", cols, lens, {"vals": vals, "x": x, "w": w, "b": b})
     return _FusedGcnLayer.apply(vals, cols, lens, _pad_rows(x, B), w, b, order, relu)
+
+
+# ------------------------------------------------------ fm_interaction (+ VJP)
+class _FmInteraction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, emb):
+        ctx.save_for_backward(emb)
+        return _on_device("fm_interaction", fm_interaction_plain, fm_interaction_cuda, emb)
+
+    @staticmethod
+    def backward(ctx, g):
+        """JAX's autodiff of the reference formula: g[b]·(s[b, d] − e[b, f, d]),
+        s = Σ_f e, in fp32 (float64 for a float64 emb), returned in emb's
+        dtype."""
+        (emb,) = ctx.saved_tensors
+        acc = torch.promote_types(emb.dtype, torch.float32)
+        e = emb.to(acc)
+        s = e.sum(dim=1, keepdim=True)
+        return (g.to(acc)[:, None, None] * (s - e)).to(emb.dtype)
+
+
+def fm_interaction(emb: torch.Tensor) -> torch.Tensor:
+    """DeepFM's second-order FM term of ``emb`` (B, F, D) → (B,), in emb's
+    dtype (fp32 or bf16), differentiable in emb. Any B."""
+    if emb.dim() != 3:
+        raise ValueError(f"fm_interaction takes (B, F, D) embeddings, got shape {tuple(emb.shape)}")
+    if emb.dtype not in (torch.float32, torch.bfloat16, torch.float64):
+        raise TypeError(f"fm_interaction takes float32 or bfloat16 embeddings, got {emb.dtype}")
+    return _FmInteraction.apply(emb.contiguous())

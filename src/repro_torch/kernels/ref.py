@@ -1,10 +1,11 @@
-"""Plain PyTorch oracles of the blocked kernels — twin of `repro.kernels.ref`,
-plus `poison_padding` (twin of `repro.kernels.bsr_spmm.poison_padding`)."""
+"""Plain PyTorch oracles of the kernels — twin of `repro.kernels.ref` (the
+blocked products and DeepFM's FM term), plus `poison_padding` (twin of
+`repro.kernels.bsr_spmm.poison_padding`)."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["bsr_spmm_ref", "fused_gcn_layer_ref", "poison_padding"]
+__all__ = ["bsr_spmm_ref", "fused_gcn_layer_ref", "fm_interaction_ref", "poison_padding"]
 
 
 def bsr_spmm_ref(vals: torch.Tensor, cols: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
@@ -34,6 +35,15 @@ def fused_gcn_layer_ref(
         h = bsr_spmm_ref(vals.float(), cols, x) @ w.float()
     h = h + b.reshape(1, -1).float()
     return h.clamp_min(0.0) if relu else h
+
+
+def fm_interaction_ref(emb: torch.Tensor) -> torch.Tensor:
+    """(B, F, D) → (B,): ½·Σ_d[(Σ_f e)² − Σ_f e²], accumulated in fp32 (in
+    float64 for a float64 emb) and returned in emb's dtype."""
+    e = emb.to(torch.promote_types(emb.dtype, torch.float32))
+    s = e.sum(dim=1)
+    sq = (e * e).sum(dim=1)
+    return (0.5 * (s * s - sq).sum(dim=-1)).to(emb.dtype)
 
 
 def poison_padding(vals: torch.Tensor, lens: torch.Tensor, poison: float = float("nan")) -> torch.Tensor:

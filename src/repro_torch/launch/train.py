@@ -3,14 +3,18 @@ port has reached:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch coin_gcn --steps 50
     PYTHONPATH=src python -m repro_torch.launch.train --arch coin_gcn --steps 50 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm --steps 50 --device cpu
 
 Runs the REDUCED config of ``--arch`` on one device (the CUDA card unless
 ``--device`` names another): synthetic data → eager train step → AdamW →
 checkpointing → straggler monitor, resuming from the latest checkpoint
 under ``--ckpt-dir``. For ``coin_gcn`` this is the reference's
 ``_gnn_setup`` branch: ``citation_like(256, 1024, seed=0)``, the reduced
-GCN config (segment backend, 4-bit QAT) and `gcn_loss`. Parameters come
-from a seeded `torch.Generator`, so they differ from the reference's.
+GCN config (segment backend, 4-bit QAT) and `gcn_loss`. For ``deepfm`` it
+is ``_recsys_setup``: the reduced DeepFM config (8 fields, MLP 32-32-32),
+batches of 256 from the seeded `click_batch_fn` stream and `deepfm_loss`
+(its FM term runs K3 on the card). Parameters come from a seeded
+`torch.Generator`, so they differ from the reference's.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from repro_torch.configs.registry import ALL_ARCHS, get_arch
 from repro_torch.device import resolve_device
 from repro_torch.graph.generators import citation_like
 from repro_torch.models.gcn import gcn_init, gcn_loss
+from repro_torch.train.data import ShardedStream, click_batch_fn
 from repro_torch.train.loop import Trainer, TrainerConfig
 from repro_torch.train.optimizer import adamw
 
@@ -33,7 +38,6 @@ _WAITING = {
     **dict.fromkeys(("moonshot-v1-16b-a3b", "olmoe-1b-7b", "gemma3-12b", "granite-34b", "stablelm-12b"),
                     "the LM slice (transformer_lm and kernel K4)"),
     **dict.fromkeys(("egnn", "graphcast", "equiformer-v2", "pna"), "the slice of the other GNN families"),
-    "deepfm": "the DeepFM slice (kernel K3)",
 }
 
 
@@ -66,6 +70,26 @@ def _gcn_setup(spec, device: torch.device):
     return params, loss, batches
 
 
+def _recsys_setup(spec, device: torch.device, batch: int = 256):
+    """(params, loss_fn, batches) of the reduced DeepFM on the seeded click
+    stream; ids go to the device as int64 once per batch."""
+    from repro_torch.models.deepfm import deepfm_init, deepfm_loss
+
+    cfg = spec.make_reduced()
+    params = deepfm_init(torch.Generator().manual_seed(0), cfg, device=device)
+    stream = ShardedStream(click_batch_fn(cfg.n_fields, cfg.rows_per_field), global_batch=batch, seed=0)
+
+    def batches():
+        for b in stream:
+            yield {"ids": torch.from_numpy(b["ids"]).to(device, torch.int64),
+                   "labels": torch.from_numpy(b["labels"]).to(device)}
+
+    return params, (lambda p, b: deepfm_loss(p, b["ids"], b["labels"], cfg)), batches
+
+
+_SETUPS = {"coin_gcn": _gcn_setup, "deepfm": _recsys_setup}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True, choices=ALL_ARCHS)
@@ -77,12 +101,12 @@ def main(argv=None) -> None:
                     help="torch device (default: the CUDA card; 'cpu' runs on the host)")
     args = ap.parse_args(argv)
 
-    if args.arch != "coin_gcn":
+    if args.arch not in _SETUPS:
         raise NotImplementedError(
             f"--arch {args.arch} is not ported to PyTorch yet; it comes with {_WAITING[args.arch]} "
             "(ROADMAP.md)"
         )
-    params, loss_fn, batches = _gcn_setup(get_arch(args.arch), resolve_device(args.device))
+    params, loss_fn, batches = _SETUPS[args.arch](get_arch(args.arch), resolve_device(args.device))
     tr = Trainer(
         loss_fn,
         adamw(args.lr),

@@ -1,1 +1,1 @@
-"""Models: the paper's GCN."""
+"""Models: the paper's GCN and DeepFM."""

@@ -1,0 +1,90 @@
+"""Basic layers: linear, norms, MLPs — functional style over dicts of
+tensors; twin of `repro.nn.layers`.
+
+Initializers draw from an explicit `torch.Generator`, on the generator's
+own device (so a seed gives the same numbers wherever the parameters go),
+then move the result to ``device``: ``None`` is the CUDA card, and raises
+without one (`repro_torch.device.resolve_device`). The generator's numbers
+are not JAX's: to compute what the reference computes, carry its
+parameters across as numpy.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import resolve_device
+
+__all__ = [
+    "dense_init",
+    "linear",
+    "rms_norm",
+    "layer_norm",
+    "mlp_init",
+    "mlp_apply",
+    "gelu",
+    "silu",
+]
+
+
+def normal(generator: torch.Generator, shape: tuple[int, ...], dtype=torch.float32,
+           device: str | torch.device | None = None) -> torch.Tensor:
+    """Standard normal draws on ``generator``'s device, moved to ``device``."""
+    return torch.randn(shape, generator=generator, dtype=dtype, device=generator.device).to(
+        resolve_device(device))
+
+
+def dense_init(generator: torch.Generator, d_in: int, d_out: int, scale: str | float = "fan_in",
+               dtype=torch.float32, device: str | torch.device | None = None) -> dict:
+    if scale == "fan_in":
+        std = (1.0 / d_in) ** 0.5
+    elif scale == "fan_avg":
+        std = (2.0 / (d_in + d_out)) ** 0.5
+    else:
+        std = float(scale)
+    w = normal(generator, (d_in, d_out), dtype, device) * std
+    return {"w": w, "b": torch.zeros((d_out,), dtype=dtype, device=w.device)}
+
+
+def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return x @ p["w"] + p["b"]
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    return x * torch.rsqrt(var + eps).to(x.dtype) * gamma
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * gamma + beta
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh form (``jax.nn.gelu(approximate=True)``)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return F.silu(x)
+
+
+def mlp_init(generator: torch.Generator, dims: list[int], dtype=torch.float32,
+             device: str | torch.device | None = None) -> dict:
+    return {f"l{i}": dense_init(generator, dims[i], dims[i + 1], dtype=dtype, device=device)
+            for i in range(len(dims) - 1)}
+
+
+def mlp_apply(p: dict, x: torch.Tensor, act: Callable = silu, final_act: bool = False) -> torch.Tensor:
+    """Linear layers ``l0 … l{n-1}`` with ``act`` (SiLU by default) between
+    them, and after the last only when ``final_act``."""
+    n = len(p)
+    for i in range(n):
+        x = linear(p[f"l{i}"], x)
+        if i < n - 1 or final_act:
+            x = act(x)
+    return x

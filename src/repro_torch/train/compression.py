@@ -64,7 +64,10 @@ def compressed_psum_mean(x: torch.Tensor, group=None) -> torch.Tensor:
     (one scale) and sends chunk j to rank j (``all_to_all_single``), with
     the scales all-gathered; each rank dequantizes and sums its chunk over
     the senders and divides by n. All-gather phase: the mean chunk is
-    quantized to int8 again and all-gathered with its scale. Wire bytes:
+    quantized to int8 again and all-gathered with its scale. The first
+    quantization runs in ``x``'s own dtype (for bf16: bf16 ``amax``, scale
+    and ``x / scale``, as the reference); the sum and the second phase run
+    in fp32, and the result is fp32. Wire bytes:
     2 × n_elements × 1 B against 2 × n_elements × 4 B for an fp32 mean. A
     group whose backend carries host tensors only (gloo) gets the wire
     through the host.
@@ -73,13 +76,15 @@ def compressed_psum_mean(x: torch.Tensor, group=None) -> torch.Tensor:
 
     n = dist.get_world_size(group)
     on_host = _wire_on_host(x, group)
-    flat = (x.detach().cpu() if on_host else x.detach()).reshape(-1).float()
+    flat = (x.detach().cpu() if on_host else x.detach()).reshape(-1)
     pad = (-flat.shape[0]) % n
     chunks = torch.cat([flat, flat.new_zeros(pad)]).reshape(n, -1)
-    q, scale = int8_compress(chunks)
+    q, scale = int8_compress(chunks)                       # in x's dtype, as the reference
     q_t = torch.empty_like(q)
     dist.all_to_all_single(q_t, q, group=group)            # q_t[j]: rank j's chunk of this rank
-    scales = _all_gather(scale.reshape(1), n, group).reshape(n)
+    # Widening a bf16 scale to fp32 is exact, so it may happen before the
+    # gather (gloo need not carry bf16); the reference widens after it.
+    scales = _all_gather(scale.float().reshape(1), n, group).reshape(n)
     local_sum = (q_t.float() * scales[:, None]).sum(dim=0) / n
     q2, scale2 = int8_compress(local_sum[None, :])
     gathered = _all_gather(q2[0], n, group)                # (n, chunk)

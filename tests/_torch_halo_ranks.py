@@ -81,7 +81,8 @@ def exchange_grads(rank: int, device: torch.device, job: dict) -> dict:
 
 def train_grads_and_resume(rank: int, k: int, device: torch.device, job: dict) -> dict:
     """tests/test_torch_halo_train.py's rank body: the exchange's gradients,
-    `compressed_psum_mean` of ``job["psum_mean"]``, the first gradient of every training variant (``job["grads"]``, a
+    `compressed_psum_mean` of ``job["psum_mean"]`` (fp32) and of ``job["psum_mean_bf16"]`` (cast to bf16),
+    the first gradient of every training variant (``job["grads"]``, a
     `RankJob` with no steps), a short training run that checkpoints
     (``job["trajectory"]``), then the same job again, which resumes."""
     from repro_torch.launch.distributed_gcn import halo_train_rank
@@ -90,6 +91,8 @@ def train_grads_and_resume(rank: int, k: int, device: torch.device, job: dict) -
 
     return {"exchange": exchange_grads(rank, device, job["exchange"]),
             "psum_mean": compressed_psum_mean(torch.from_numpy(job["psum_mean"]).to(device)).cpu().numpy(),
+            "psum_mean_bf16": compressed_psum_mean(
+                torch.from_numpy(job["psum_mean_bf16"]).to(device, torch.bfloat16)).cpu().numpy(),
             "grads": halo_train_rank(rank, k, device, job["grads"])["train"],
             "trajectory": halo_train_rank(rank, k, device, job["trajectory"])["train"],
             "resumed": halo_train_rank(rank, k, device, job["trajectory"])["train"]}

@@ -202,6 +202,7 @@ for payload in (None, "bf16", "int8"):
 pm = jax.shard_map(lambda v: compressed_psum_mean(v[0], "model")[None], mesh=mesh, in_specs=P("model"),
                    out_specs=P("model"), check_vma=False)
 out["psum_mean"] = np.asarray(jax.jit(pm)(jnp.asarray(d["psum_x"])))
+out["psum_mean_bf16"] = np.asarray(jax.jit(pm)(jnp.asarray(d["psum_bf16"], jnp.bfloat16)))
 
 # The sharded loss's gradient, every variant.
 for v in json.loads(str(d["variants"])):
@@ -243,10 +244,15 @@ def case():
     z = relocate_node_array(plan, r.standard_normal((g.n_nodes, 12)).astype(np.float32))
     ct = r.standard_normal((K, K * plan.s_max, 12)).astype(np.float32)
     psum_x = r.standard_normal((K, 37, 5)).astype(np.float32)       # 185 elements: padded to 4 chunks
+    # bf16 input, 1,000 elements per rank on scales 1, 3, 0.1 and 7 (held
+    # as the fp32 values of the bf16 numbers: npz has no bf16).
+    psum_bf16 = np.random.default_rng(0).standard_normal((K, 1000)) * np.array([1.0, 3.0, 0.1, 7.0])[:, None]
+    psum_bf16 = torch.from_numpy(psum_bf16).to(torch.bfloat16).float().numpy()
     ct_agg = r.standard_normal((K, plan.n_local, 12)).astype(np.float32)
     ct_table = r.standard_normal((K, plan.n_local + K * plan.s_max, 12)).astype(np.float32)
     return dict(g=g, w=w, x=x, params=params, labels=labels, mask=mask, plan=plan, z=z, ct=ct,
-                ct_agg=ct_agg, ct_table=ct_table, psum_x=psum_x, cora_params=_cora_params())
+                ct_agg=ct_agg, ct_table=ct_table, psum_x=psum_x, psum_bf16=psum_bf16,
+                cora_params=_cora_params())
 
 
 @pytest.fixture(scope="module")
@@ -257,6 +263,7 @@ def runs(case, tmp_path_factory):
     inputs, outputs = work / "inputs.npz", work / "outputs.npz"
     np.savez(inputs, edge_index=case["g"].edge_index, w=case["w"], x=case["x"], dims=np.array(DIMS),
              labels=case["labels"], mask=case["mask"], z=case["z"], ct=case["ct"], psum_x=case["psum_x"],
+             psum_bf16=case["psum_bf16"],
              ct_agg=case["ct_agg"], ct_table=case["ct_table"],
              variants=json.dumps([dataclasses.asdict(v) for v in VARIANTS]),
              **{f"p_{n}": p for n, p in case["params"].items()},
@@ -280,7 +287,7 @@ def runs(case, tmp_path_factory):
                          ckpt_dir=str(work / "ckpt"), ckpt_every=1)
         jobs = [{"exchange": {"plan": plan, "z": case["z"][r], "ct": case["ct"][r], "ct_agg": case["ct_agg"][r],
                               "ct_table": case["ct_table"][r]},
-                 "psum_mean": case["psum_x"][r], "grads": grads[r],
+                 "psum_mean": case["psum_x"][r], "psum_mean_bf16": case["psum_bf16"][r], "grads": grads[r],
                  "trajectory": traj[r]} for r in range(K)]
         spec_ = GroupSpec(k=K, backend="gloo", devices=("cpu",), timeout_s=600)
         ranks = run_group(spec_, _torch_halo_ranks.train_grads_and_resume, jobs)
@@ -380,6 +387,21 @@ def test_compressed_psum_mean_matches_jax(case, runs):
     for r, rec in enumerate(ranks):
         np.testing.assert_allclose(rec["psum_mean"], ref["psum_mean"][r], rtol=0, atol=1e-6)
         assert np.abs(rec["psum_mean"] - exact).max() < 2 * np.abs(case["psum_x"]).max() / 127
+
+
+def test_compressed_psum_mean_bf16_matches_jax(case, runs):
+    """The same on bf16 input (1,000 elements per rank, scales 1, 3, 0.1,
+    7): the first quantization runs in bf16 in both packages (its amax,
+    scale and x / scale round there); the outputs are fp32 and agree within
+    fp32 rounding, 2⁻²² of the largest."""
+    ranks, ref, _ = runs
+    x = case["psum_bf16"]
+    exact = x.mean(axis=0)
+    for r, rec in enumerate(ranks):
+        got, want = rec["psum_mean_bf16"], ref["psum_mean_bf16"][r]
+        assert got.dtype == want.dtype == np.float32
+        np.testing.assert_allclose(got, want, rtol=0, atol=2.0 ** -22 * float(np.abs(want).max()))
+        assert np.abs(got - exact).max() < 2 * np.abs(x).max() / 127
 
 
 # ------------------------------------------------------------------ gradients

@@ -1,16 +1,17 @@
-"""The CUDA source of the graph kernels (the fused GCN layer, K2 — fp32 and
-its bf16-operand instantiations — and the ragged block-sparse product, K1),
-run on the CPU.
+"""The CUDA source of the port's kernels (the fused GCN layer, K2 — fp32 and
+its bf16-operand instantiations —, the ragged block-sparse product, K1, and
+DeepFM's FM interaction, K3), run on the CPU.
 
 A CUDA kernel has no interpret mode, so this compiles the device code of
-`src/repro_torch/kernels/csrc/fused_gcn_kernels.cuh` with the host C++
+`src/repro_torch/kernels/csrc/fused_gcn_kernels.cuh` and
+`src/repro_torch/kernels/csrc/fm_interaction_kernels.cuh` with the host C++
 compiler through the stand-ins in `SHIM` below (one host thread per CUDA
 thread, a barrier per `__syncthreads`, asynchronous copies that land only
 when a wait retires them) and holds its output against the plain PyTorch
-versions of `repro_torch.kernels.fused_gcn` and `repro_torch.kernels.bsr_spmm`:
-the kernels' indexing, staging,
-copy pipeline, ragged skip and epilogues are checked here; their speed and
-the card's own rounding only on the card.
+versions of `repro_torch.kernels.fused_gcn`, `repro_torch.kernels.bsr_spmm`
+and `repro_torch.kernels.fm_interaction`: the kernels' indexing, staging,
+copy pipeline, ragged skip, tiling and epilogues are checked here; their
+speed and the card's own rounding only on the card.
 """
 import ctypes
 import pathlib
@@ -23,6 +24,7 @@ import torch
 
 from repro_torch.graph.structure import blocked_adjacency
 from repro_torch.kernels.bsr_spmm import bsr_spmm_plain
+from repro_torch.kernels.fm_interaction import fm_interaction_plain, fm_smem_bytes, fm_tile
 from repro_torch.kernels.fused_gcn import (
     FF_F_TILE,
     af_layer_plain,
@@ -91,6 +93,9 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
     u += 0x7FFFu + ((u >> 16) & 1u);
     return {std::uint16_t(u >> 16)};
 }
+
+// A product rounded on its own (never contracted into a fused multiply-add).
+inline float __fmul_rn(float a, float b) { return a * b; }
 
 inline thread_local dim3 threadIdx;
 inline dim3 blockIdx, blockDim, gridDim;
@@ -248,21 +253,66 @@ long long emu_layer_smem_bytes(int ft) { return k2::layer_smem_bytes(ft); }
 """
 
 
-@pytest.fixture(scope="module")
-def emu(tmp_path_factory):
+# K3 compiled through SHIM, with the launch geometry of fm_interaction.cu.
+K3_HARNESS = r"""
+// DeepFM's FM interaction (src/repro_torch/kernels/csrc/fm_interaction_kernels.cuh)
+// compiled by the host compiler through shim.h, with the launch geometry of
+// fm_interaction.cu, behind a C interface for ctypes. Returns 0, 1 when a
+// launch would need more shared memory than the stand-in holds, or 2 for a
+// shape the tiling refuses.
+#include "shim.h"
+
+#include "fm_interaction_kernels.cuh"
+
+namespace k3 {
+alignas(16) float smem_dyn[232448 / sizeof(float)];
+}
+
+template <typename T>
+int emu_fm(const void* emb, void* out, int B, int F, int D) {
+    const k3::Tile t = k3::tile_for(F, D);
+    if (t.bt < 1 || B < 1) return 2;
+    if (k3::smem_bytes(F, D) > (long long)sizeof(k3::smem_dyn)) return 1;
+    emu_launch(dim3((B + t.bt - 1) / t.bt), k3::THREADS, [&] {
+        k3::fm_interaction_kernel<T>((const T*)emb, (T*)out, B, F, D, t.bt, t.fc);
+    });
+    return 0;
+}
+
+extern "C" {
+int emu_fm_interaction(const void* emb, void* out, int B, int F, int D) {
+    return emu_fm<float>(emb, out, B, F, D);
+}
+int emu_fm_interaction_bf16(const void* emb, void* out, int B, int F, int D) {
+    return emu_fm<__nv_bfloat16>(emb, out, B, F, D);
+}
+int emu_fm_tile_examples(int F, int D) { return k3::tile_for(F, D).bt; }
+int emu_fm_tile_fields(int F, int D) { return k3::tile_for(F, D).fc; }
+long long emu_fm_smem_bytes(int F, int D) { return k3::smem_bytes(F, D); }
+}  // extern "C"
+"""
+
+
+def _compile(tmp_path_factory, name: str, harness: str) -> ctypes.CDLL:
+    """``harness`` compiled with SHIM by the host compiler into a loaded library."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs a host C++20 compiler (g++) to emulate the CUDA source")
-    work = tmp_path_factory.mktemp("emu")
+    work = tmp_path_factory.mktemp(name)
     (work / "shim.h").write_text(SHIM)
-    (work / "fused_gcn_emu.cpp").write_text(HARNESS)
-    lib_path = work / "libfused_gcn_emu.so"
+    (work / f"{name}.cpp").write_text(harness)
+    lib_path = work / f"lib{name}.so"
     subprocess.run(
         [cxx, "-std=c++20", "-O1", "-Wno-unknown-pragmas", "-shared", "-fPIC", "-pthread",
-         f"-I{CSRC}", f"-I{work}", str(work / "fused_gcn_emu.cpp"), "-o", str(lib_path)],
+         f"-I{CSRC}", f"-I{work}", str(work / f"{name}.cpp"), "-o", str(lib_path)],
         check=True, capture_output=True, text=True,
     )
-    lib = ctypes.CDLL(str(lib_path))
+    return ctypes.CDLL(str(lib_path))
+
+
+@pytest.fixture(scope="module")
+def emu(tmp_path_factory):
+    lib = _compile(tmp_path_factory, "fused_gcn_emu", HARNESS)
     P, I = ctypes.c_void_p, ctypes.c_int
     for sfx in SUFFIXES.values():
         getattr(lib, f"emu_ff_transform{sfx}").argtypes = [P, P, P, I, I, I]
@@ -587,3 +637,52 @@ def test_emulated_bsr_spmm_bf16_follows_the_per_tile_sum(emu):
     once = bsr_spmm_plain(vals, cols, lens, z.float()).to(BF16).float()
     assert float((out == per_tile).float().mean()) >= 0.99
     assert float((out == once).float().mean()) < 0.95
+
+
+# ------------------------------------------------------------------------- K3
+@pytest.fixture(scope="module")
+def emu_k3(tmp_path_factory):
+    lib = _compile(tmp_path_factory, "fm_interaction_emu", K3_HARNESS)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for name in ("emu_fm_interaction", "emu_fm_interaction_bf16"):
+        getattr(lib, name).argtypes = [P, P, I, I, I]
+    for name in ("emu_fm_tile_examples", "emu_fm_tile_fields"):
+        getattr(lib, name).argtypes = [I, I]
+    lib.emu_fm_smem_bytes.argtypes = [I, I]
+    lib.emu_fm_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def _fm(lib, emb):
+    B, F, D = emb.shape
+    out = torch.full((B,), float("nan"), dtype=emb.dtype)
+    name = "emu_fm_interaction" if emb.dtype == F32 else "emu_fm_interaction_bf16"
+    assert getattr(lib, name)(_p(emb), _p(out), B, F, D) == 0
+    return out
+
+
+def test_emulated_fm_tiling_matches_python(emu_k3):
+    for F, D in ((39, 10), (2, 10), (1, 1), (40, 400), (3, 300), (8, 16), (39, 4096), (1, 257)):
+        assert (emu_k3.emu_fm_tile_examples(F, D), emu_k3.emu_fm_tile_fields(F, D)) == fm_tile(F, D)
+        assert emu_k3.emu_fm_smem_bytes(F, D) == fm_smem_bytes(F, D) <= 48 * 1024
+    assert fm_tile(39, 10) == (25, 39)            # DeepFM: 25 examples (250 of 256 threads), whole rows
+    assert fm_tile(40, 400)[1] < 40               # a row wider than the stage goes a chunk at a time
+
+
+@pytest.mark.parametrize("b,f,d", [(37, 39, 10), (53, 2, 10), (26, 39, 10), (5, 1, 4), (3, 40, 400),
+                                   (4, 3, 300)])
+def test_emulated_fm_interaction_matches_plain(emu_k3, b, f, d):
+    """Odd B (a short last tile), DeepFM's row (F = 39, D = 10), F = 2 and
+    F = 1, a row staged a chunk of fields at a time, and D past the block's
+    threads; every output written."""
+    emb = torch.from_numpy(np.random.default_rng(b * f + d).standard_normal((b, f, d)).astype(np.float32))
+    _close(_fm(emu_k3, emb), fm_interaction_plain(emb))
+
+
+def test_emulated_fm_interaction_bf16(emu_k3):
+    """bf16 embeddings: widened as staged, fp32 sums, one rounding at the
+    end — the plain version's arithmetic, so within one bf16 step."""
+    emb = torch.from_numpy(np.random.default_rng(3).standard_normal((37, 39, 10)).astype(np.float32)).to(BF16)
+    out, ref = _fm(emu_k3, emb), fm_interaction_plain(emb)
+    assert out.dtype == BF16
+    _close(out, ref, tol=2.0 ** -7)

@@ -6,11 +6,13 @@ version; it is held against the reference's `fused_gcn_layer` (Pallas in
 interpret mode) at the reference suite's bsr tolerance, 3e-4, and in K2's
 bf16-operand mode at the bf16 tolerance, 5e-2, with the same operand
 dtypes. The tests marked ``cuda`` hold the hand-written kernels (K2, the
-fused layer — fp32 and its bf16 instantiations — and K1, `bsr_spmm`)
-against the plain versions on the card at the same tolerance (summation
-order differs; 1e-2 of the largest magnitude for a bf16 output), and one
-training step on the card against the same step on the CPU; they skip
-without a card. JAX is imported inside
+fused layer — fp32 and its bf16 instantiations —, K1, `bsr_spmm`, and K3,
+DeepFM's `fm_interaction`) against the plain versions on the card at the
+same tolerance (summation order differs; 1e-2 of the largest magnitude for
+a bf16 output; 1e-4 of it for K3, chip_smoke's rule), one training step on
+the card against the same step on the CPU, and K3's backward against the
+CPU's in float64, which `gradcheck` holds; they skip without a card.
+(K3's CPU parity with the reference is in tests/test_torch_deepfm.py.) JAX is imported inside
 fixtures, so the ``cuda`` tests also run on a machine without JAX:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels.py
@@ -24,8 +26,9 @@ import torch
 
 from repro_torch.graph.structure import blocked_adjacency
 from repro_torch.kernels import bsr_spmm as k1
+from repro_torch.kernels import fm_interaction as k3
 from repro_torch.kernels import fused_gcn as fg
-from repro_torch.kernels.ops import bsr_spmm, fused_gcn_layer
+from repro_torch.kernels.ops import bsr_spmm, fm_interaction, fused_gcn_layer
 from repro_torch.kernels.ref import bsr_spmm_ref, fused_gcn_layer_ref, poison_padding
 
 TOL = 3e-4
@@ -535,3 +538,71 @@ def ops_pad(x: torch.Tensor) -> torch.Tensor:
     from repro_torch.kernels.ops import _pad_rows
 
     return _pad_rows(x, 128)
+
+
+# ------------------------------------------------------------------------- K3
+K3_TOL = 1e-4              # K3 vs plain on the card: · max |plain| (sums in another order)
+
+
+def test_fm_kernel_wrapper_takes_cuda_tensors_only():
+    """The kernel's wrapper never runs the plain version: a CPU tensor, a
+    float64 one, a width past the tiling or a non-contiguous one raises."""
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        k3.fm_interaction(torch.zeros(4, 39, 10))
+    with pytest.raises(TypeError):
+        k3.fm_interaction(torch.zeros(4, 39, 10, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        k3.fm_interaction(torch.zeros(4, 39))
+    assert k3.fm_tile(39, k3.FM_MAX_D + 1) == (0, 0)
+
+
+K3_SHAPES = [
+    pytest.param((512, 39, 10), id="serve_p99"), pytest.param((65_536, 39, 10), id="train_batch"),
+    pytest.param((262_144, 39, 10), id="serve_bulk"), pytest.param((1000, 39, 10), id="odd_B"),
+    pytest.param((77, 1, 10), id="F1"), pytest.param((33, 40, 400), id="chunked_fields"),
+    pytest.param((9, 3, 300), id="D_past_threads"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K3_SHAPES)
+def test_cuda_fm_interaction_matches_plain(cuda, shape):
+    emb = torch.from_numpy(np.random.default_rng(sum(shape)).standard_normal(shape).astype(np.float32))
+    before = k3.LAUNCHES["k3_fm_interaction"]
+    out = k3.fm_interaction(emb.to(cuda))
+    torch.cuda.synchronize()
+    assert k3.LAUNCHES["k3_fm_interaction"] == before + 1 and out.dtype == F32 and out.shape == shape[:1]
+    ref = k3.fm_interaction_plain(emb)
+    assert float((out.cpu() - ref).abs().max()) <= K3_TOL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_fm_interaction_bf16(cuda):
+    emb = torch.from_numpy(np.random.default_rng(5).standard_normal((4099, 39, 10)).astype(np.float32)).to(BF16)
+    before = k3.LAUNCHES["k3_fm_interaction_bf16"]
+    out = k3.fm_interaction(emb.to(cuda))
+    torch.cuda.synchronize()
+    assert k3.LAUNCHES["k3_fm_interaction_bf16"] == before + 1 and out.dtype == BF16
+    ref = k3.fm_interaction_plain(emb).float()
+    assert float((out.cpu().float() - ref).abs().max()) <= BF16_CARD_TOL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_fm_interaction_backward_matches_gradcheck(cuda):
+    """`ops.fm_interaction` on the card: forward through K3, backward the
+    analytic gradient, against the CPU in float64, whose backward
+    `gradcheck` holds against finite differences."""
+    small = torch.from_numpy(np.random.default_rng(6).standard_normal((5, 4, 3))).requires_grad_(True)
+    assert torch.autograd.gradcheck(fm_interaction, (small,))
+    r = np.random.default_rng(7)
+    emb = r.standard_normal((1000, 39, 10))
+    g = r.standard_normal(1000)
+    e64 = torch.from_numpy(emb).requires_grad_(True)
+    (want,) = torch.autograd.grad(fm_interaction(e64), e64, torch.from_numpy(g))
+    e32 = torch.from_numpy(emb).float().to(cuda).requires_grad_(True)
+    before = k3.LAUNCHES["k3_fm_interaction"]
+    (got,) = torch.autograd.grad(fm_interaction(e32), e32, torch.from_numpy(g).float().to(cuda))
+    assert k3.LAUNCHES["k3_fm_interaction"] == before + 1 and got.dtype == F32
+    assert float((got.cpu().double() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    with pytest.raises(TypeError):
+        fm_interaction(torch.zeros(4, 3, 2, dtype=torch.float64, device=cuda))
