@@ -30,6 +30,13 @@ embed_dim 10, MLP 400-400-400, 1,000,000 rows per field: a 39 M × 10
 table), serves, retrieves and trains with its FM term in the CUDA kernel of
 `repro_torch.kernels.fm_interaction` (K3, ``k3_fm_interaction``).
 
+A sixth path, gemma3-12b at its full widths (48 layers, d_model 3,840, 16
+heads over 8 kv heads of 240, d_ff 15,360, vocab 262,144; 11.62 B fp32
+parameters, 46.5 GB; nothing cut), serves: prefill with every layer's
+causal / sliding-window attention in the CUDA kernel of
+`repro_torch.kernels.flash_attention` (K4, ``k4_flash_attention``), then
+KV-cache decode through `ContinuousBatcher`, which never reaches K4.
+
 Phases, one JSON line each; any failed check ends the run with exit code 1:
 
   build    compile the kernels from src/repro_torch/kernels/csrc (nvcc)
@@ -107,12 +114,38 @@ Phases, one JSON line each; any failed check ends the run with exit code 1:
            before and read just after; step time, peak memory, and the
            device's idle share from torch.profiler over three steps
 
+  lm_kernels  (l1) K4 against its plain version on the card at gemma3-12b's
+           attention shape for one sequence (16 query heads over 8 kv
+           heads, d 240) at S = 4,096 with the global (2³⁰) and the local
+           (1,024) window, an odd S (1,000), S under one tile (40),
+           window 0 and the bidirectional mask; grouped kv heads against
+           the same call on k and v expanded (bit-equal); bf16 (one bf16
+           step of the largest value, ≥ 99 % bit-equal); CUDA-event times
+           of K4, the plain version and SDPA (the library yardstick, never
+           called by the port) beside the bound, and K4 alone at 32,768
+  lm_init  lm_init(FULL) from a seeded CUDA generator: parameter count and
+           bytes
+  lm_prefill  (l2) lm_prefill at B = 1, S = 4,096 (token_batch_fn): one
+           warm-up and three timed runs with the launch counts zeroed just
+           before and read just after (48 launches each: 40 local, 8
+           global); the logits against the same prefill with the plain
+           attention in every layer (1e-4 of max |logit|, same argmax);
+           peak memory; the profiler's idle share over one prefill
+  lm_decode  (l3) ContinuousBatcher(4 slots, max_len 256) serving 8
+           requests (prompts of 16–64 tokens, 16 new tokens each) with the
+           launch counts zeroed just before and read just after (no K4
+           launch); engine-step times; two requests' logits at their last
+           prompt position against lm_prefill's (1e-3 of max |logit|) and
+           their first token against its argmax; peak memory; the
+           profiler's device time over three decode steps of every slot
+
 then the card's name and power limit (nvidia-smi), the ``{"kernels": [...]}``
 line, and as the last line ``{"ok": true, "device": {...}}``. A kernel's
 ``launches`` there is its count over the main-path runs (inference
 forwards, training steps, the halo forwards and the halo training steps
-of all ranks; for K3 the DeepFM serving requests and training steps), each
-counted with the counts zeroed just before and read just after.
+of all ranks; for K3 the DeepFM serving requests and training steps; for
+K4 the LM prefills and the batcher's decode steps), each counted with the
+counts zeroed just before and read just after.
 """
 from __future__ import annotations
 
@@ -172,6 +205,20 @@ DEEPFM_TRAIN_STEPS = 5         # Trainer steps at train_batch
 DEEPFM_LR = 1e-3
 DEEPFM_LOGIT_RTOL = 1e-5       # (d2): K3 logits vs the plain FM term's, · max |logit|
 DEEPFM_GRAD_RTOL = 1e-4        # (d4): first gradients, K3 vs the plain FM term, · max per parameter
+
+K4_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_kernels.cuh"
+REPLACES.update({"k4_flash_attention": "src/repro/kernels/flash_attention.py:70",
+                 "k4_flash_attention_bf16": "src/repro/kernels/flash_attention.py:70"})
+LM_SEQ = 4096                  # (l1) attention shape and (l2) prefill length, batch 1
+LM_LONG_SEQ = 32_768           # (l1) prefill_32k's per-sequence length, K4 timed alone
+LM_PREFILL_REPS = 3            # (l2) timed prefills after one warm-up
+LM_LOGIT_RTOL = 1e-4           # (l2) K4 prefill logits vs the plain attention's, · max |logit|
+LM_SLOTS, LM_MAX_LEN = 4, 256  # (l3) ContinuousBatcher
+LM_REQUESTS, LM_NEW_TOKENS = 8, 16
+LM_PROMPT_LEN = (16, 64)       # (l3) prompt lengths, inclusive
+LM_DECODE_RTOL = 1e-3          # (l3) batcher logits at the last prompt position vs lm_prefill's, · max |logit|:
+                               # another summation order (the plain einsum over the cache against K4) and other
+                               # cuBLAS shapes (4 rows against the prompt's), through 48 fp32 layers
 
 HALO_K = 4
 HALO_REPS = 5                  # timed forwards / exchanges per variant and rank
@@ -269,24 +316,30 @@ def card_line() -> str:
 
 def build_kernels() -> None:
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as k4
     from repro_torch.kernels import fm_interaction as k3
     from repro_torch.kernels import fused_gcn as fg
 
     t0 = time.perf_counter()
-    reports = _build.build(["fused_gcn", "fm_interaction"])     # one nvcc per source, side by side
+    reports = _build.build(["fused_gcn", "fm_interaction", "flash_attention"])   # one nvcc per source, side by side
     lib = fg._lib()          # binds every launcher of LAUNCHES: a missing symbol raises
     lib3 = k3._lib()
+    lib4 = k4._lib()
     seconds = time.perf_counter() - t0
     smem_ok = all(lib.k2_layer_smem_bytes(f) == fg.layer_smem_bytes(f) for f in (7, 16, 50, 210, fg.AF_MAX_F_IN))
     tile_ok = all((lib3.k3_tile_examples(f, d), lib3.k3_tile_fields(f, d)) == k3.fm_tile(f, d)
                   and lib3.k3_smem_bytes(f, d) == k3.fm_smem_bytes(f, d)
                   for f, d in ((39, 10), (8, 10), (1, 10), (40, 400), (3, 300)))
+    k4_ok = ((lib4.k4_block_rows(), lib4.k4_tile_keys(), lib4.k4_max_d())
+             == (k4.K4_BLOCK_ROWS, k4.K4_TILE_KEYS, k4.K4_MAX_D)
+             and all(lib4.k4_smem_bytes(d) == k4.k4_smem_bytes(d) for d in (16, 48, 240, 256)))
     ptxas = [ln.strip() for rep in reports.values() for ln in rep.splitlines()
              if "registers" in ln or "spill" in ln]
-    emit("build", ok=smem_ok and tile_ok, seconds=seconds, built=sorted(reports), ptxas=ptxas,
-         k3_tile_39x10=k3.fm_tile(39, 10))
+    emit("build", ok=smem_ok and tile_ok and k4_ok, seconds=seconds, built=sorted(reports), ptxas=ptxas,
+         k3_tile_39x10=k3.fm_tile(39, 10), k4_smem_bytes_d240=k4.k4_smem_bytes(240))
     require(smem_ok, "build", "shared-memory formula of the .cuh and the wrapper disagree")
     require(tile_ok, "build", "K3's tiling in the .cuh and in the wrapper disagree")
+    require(k4_ok, "build", "K4's tiles or shared memory in the .cuh and in the wrapper disagree")
 
 
 def load_graph(device: torch.device) -> dict:
@@ -1292,6 +1345,308 @@ def run_deepfm(device: torch.device) -> tuple[dict, dict, dict]:
     return serve, train, dict(rows=rows, worst=worst)
 
 
+def valid_pairs(S: int, window: int, causal: bool = True) -> int:
+    """(query, key) pairs K4's mask keeps in one head: k > q − window, and
+    k ≤ q when causal."""
+    q = np.arange(S, dtype=np.int64)
+    lo = np.maximum(q - window + 1, 0)
+    hi = q + 1 if causal else np.full(S, S)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def k4_bound(bh: int, bh_kv: int, S: int, d: int, window: int, elem: int) -> tuple[float, str]:
+    """Least time of one K4 call: q, k, v read once and o written once,
+    against 4·d operations per valid pair (two d-long dot products) at the
+    CUDA cores' fp32 rate or, for bf16, the tensor cores' rate."""
+    n_bytes = elem * S * d * (2 * bh + 2 * bh_kv)
+    n_flop = 4.0 * d * bh * valid_pairs(S, window)
+    return bound(n_bytes, n_flop, FP32_FLOP_PER_S if elem == 4 else BF16_FLOP_PER_S)
+
+
+def sdpa_ms(q, k, v, window: int) -> tuple[float, float]:
+    """(ms, max |SDPA − plain|): one `scaled_dot_product_attention` call on
+    (1, H, S, d) with k and v expanded per group and K4's mask (the library
+    yardstick; the port never calls it)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as k4
+
+    G = q.shape[0] // k.shape[0]
+    S = q.shape[1]
+    qh, kh, vh = q[None], k.repeat_interleave(G, 0)[None], v.repeat_interleave(G, 0)[None]
+    if window >= S:
+        fn = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    else:
+        pos = torch.arange(S, device=q.device)
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        fn = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+    err, _ = max_err(fn()[0].float(), k4.flash_attention_plain(q, k, v, window=window).float())
+    return cuda_ms(fn, reps=5), err
+
+
+def global_window() -> int:
+    """The LM's window of a global layer (2³⁰)."""
+    from repro_torch.models.transformer_lm import GLOBAL_WINDOW
+
+    return int(GLOBAL_WINDOW)
+
+
+def check_k4(cfg, device: torch.device) -> tuple[dict, dict]:
+    """(l1): K4 against its plain version on the card at gemma3-12b's
+    attention shape for one sequence (16 query heads over 8 key/value heads,
+    d = 240), then its times beside the plain version's, SDPA's and the
+    bound; returns (the worst error per launcher, the timing rows)."""
+    from repro_torch.kernels import flash_attention as k4
+
+    H, Hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.attn.head_dim
+    glob, local = global_window(), cfg.window
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    cases, worst = [], {name: 0.0 for name in k4.LAUNCHES}
+
+    def qkv(S, bh=H, bh_kv=Hk, dtype=torch.float32):
+        return tuple(torch.randn((n, S, d), generator=gen, device=device).to(dtype) for n in (bh, bh_kv, bh_kv))
+
+    def hold(case, q, k, v, window, causal=True):
+        out = k4.flash_attention(q, k, v, window=window, causal=causal)
+        ref = k4.flash_attention_plain(q, k, v, window=window, causal=causal)
+        name = "k4_flash_attention" if q.dtype == torch.float32 else "k4_flash_attention_bf16"
+        err, scale = max_err(out.float(), ref.float())
+        row = dict(kernel=name, case=f"{case} ({q.shape[0]}/{k.shape[0]} heads × {q.shape[1]} × {d}, window "
+                                     f"{window}, {'causal' if causal else 'bidirectional'})",
+                   max_abs_err=err, max_abs_ref=scale, dtype=str(q.dtype).replace("torch.", ""))
+        if q.dtype == torch.float32:
+            row.update(rtol=KERNEL_RTOL, ok=err <= KERNEL_RTOL * scale)
+        else:
+            bit_equal = float((out == ref).float().mean())
+            row.update(rtol=K1_BF16_STEP, bit_equal=bit_equal, bit_equal_min=K1_BF16_BIT_EQUAL,
+                       ok=err <= K1_BF16_STEP * scale and bit_equal >= K1_BF16_BIT_EQUAL)
+        row["ok"] = row["ok"] and out.dtype == q.dtype and out.shape == q.shape
+        cases.append(row)
+        worst[name] = max(worst[name], err)
+        return out
+
+    rows = {}
+    with torch.inference_mode():
+        q, k, v = qkv(LM_SEQ)
+        for tag, window in (("global", glob), ("local", local)):
+            out = hold(f"{tag} S={LM_SEQ}", q, k, v, window)
+        expanded = k4.flash_attention(q, k.repeat_interleave(H // Hk, 0), v.repeat_interleave(H // Hk, 0),
+                                      window=local)
+        gqa_equal = bool(torch.equal(out, expanded))
+        cases.append(dict(kernel="k4_flash_attention", case="GQA: 8 kv heads grouped vs expanded to 16, local",
+                          bit_equal=gqa_equal, ok=gqa_equal))
+        del out, expanded
+        hold("odd S", *qkv(1000), glob)
+        hold("S under one tile", *qkv(40), local)
+        small = qkv(300, 4, 2)
+        hold("window 0: every row averages v", *small, 0)
+        hold("bidirectional", *small, glob, causal=False)
+        hold("bidirectional, window", *small, 24, causal=False)
+        for tag, window in (("global", glob), ("local", local)):
+            rows[f"{tag}_{LM_SEQ}"] = dict(
+                S=LM_SEQ, window=window, ms=cuda_ms(lambda: k4.flash_attention(q, k, v, window=window)),
+                plain_ms=cuda_ms(lambda: k4.flash_attention_plain(q, k, v, window=window), reps=5),
+                bound=k4_bound(H, Hk, LM_SEQ, d, window, 4))
+            rows[f"{tag}_{LM_SEQ}"]["library_ms"], rows[f"{tag}_{LM_SEQ}"]["library_max_abs_err"] = sdpa_ms(
+                q, k, v, window)
+        qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+        del q, k, v
+        hold(f"bf16 global S={LM_SEQ}", qb, kb, vb, glob)
+        hold(f"bf16 local S={LM_SEQ}", qb, kb, vb, local)
+        bf16_row = dict(S=LM_SEQ, window=glob, ms=cuda_ms(lambda: k4.flash_attention(qb, kb, vb, window=glob)),
+                        plain_ms=cuda_ms(lambda: k4.flash_attention_plain(qb, kb, vb, window=glob), reps=5),
+                        bound=k4_bound(H, Hk, LM_SEQ, d, glob, 2))
+        bf16_row["library_ms"], bf16_row["library_max_abs_err"] = sdpa_ms(qb, kb, vb, glob)
+        del qb, kb, vb
+        q, k, v = qkv(LM_LONG_SEQ)
+        for tag, window in (("global", glob), ("local", local)):
+            rows[f"{tag}_{LM_LONG_SEQ}"] = dict(
+                S=LM_LONG_SEQ, window=window, ms=cuda_ms(lambda: k4.flash_attention(q, k, v, window=window),
+                                                         reps=1, warmup=1),
+                plain_ms=None, library_ms=None, bound=k4_bound(H, Hk, LM_LONG_SEQ, d, window, 4))
+        del q, k, v
+    torch.cuda.empty_cache()
+    ok = all(c["ok"] for c in cases)
+    emit("lm_kernels", ok=ok, cases=cases,
+         times={k: {**v, "bound": list(v["bound"])} for k, v in {**rows, f"bf16_global_{LM_SEQ}": bf16_row}.items()},
+         timing=f"CUDA events, median of 10 (K4) or 5 (plain, SDPA) after 2 warm-ups; S={LM_LONG_SEQ}: one launch "
+                "after one warm-up, K4 only", library="torch.nn.functional.scaled_dot_product_attention with k and "
+                "v expanded per group and the same mask (is_causal for the global window)")
+    require(ok, "lm_kernels", "K4 disagrees with its plain version")
+    main_row = rows[f"global_{LM_SEQ}"]
+    return worst, {"k4_flash_attention": {**main_row, "by_shape": rows}, "k4_flash_attention_bf16": bf16_row}
+
+
+def lm_prefill_phase(params: dict, cfg) -> dict:
+    """(l2): lm_prefill at B = 1 and S = LM_SEQ, one warm-up and three timed
+    runs with the launch counts zeroed just before and read just after; the
+    logits against the plain attention's; peak memory; the profiler's idle
+    share over one prefill."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.models.transformer_lm import lm_prefill
+    from repro_torch.obs.trace import device_time_summary
+    from repro_torch.train.data import token_batch_fn
+
+    device = params["embed"].device
+    tokens = torch.from_numpy(token_batch_fn(cfg.vocab, LM_SEQ)(np.random.default_rng(SEED), 1)[:, :LM_SEQ])
+    tokens = tokens.to(device, torch.int64)
+    windows = cfg.window_sizes()
+    n_runs = 1 + LM_PREFILL_REPS
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        k4.reset_launch_counts()
+        logits = lm_prefill(params, tokens, cfg)                     # warm-up
+        torch.cuda.synchronize()
+        prefill_ms = []
+        for _ in range(LM_PREFILL_REPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits = lm_prefill(params, tokens, cfg)
+            end.record()
+            end.synchronize()
+            prefill_ms.append(start.elapsed_time(end))
+        launches = dict(k4.LAUNCHES)
+        by_window = {str(w): n for (_, w), n in k4.WINDOWS.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        ref = lm_prefill(params, tokens, cfg, kernel=k4.flash_attention_plain)
+        err, scale = max_err(logits, ref)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            lm_prefill(params, tokens, cfg)
+            torch.cuda.synchronize()
+    expected = {"k4_flash_attention": n_runs * cfg.n_layers, "k4_flash_attention_bf16": 0}
+    n_global = int((windows == global_window()).sum())
+    expected_windows = {str(cfg.window): n_runs * (cfg.n_layers - n_global), str(global_window()): n_runs * n_global}
+    checks = dict(
+        launches=launches == expected, windows=by_window == expected_windows,
+        shape=tuple(logits.shape) == (1, cfg.vocab), finite=bool(torch.isfinite(logits).all()),
+        logits_vs_plain_attention=err <= LM_LOGIT_RTOL * scale,
+        same_argmax=bool(torch.equal(logits.argmax(-1), ref.argmax(-1))),
+    )
+    p50 = statistics.median(prefill_ms)
+    emit("lm_prefill", ok=all(checks.values()), checks=checks, batch=1, seq_len=LM_SEQ, prefills=n_runs,
+         launches=launches, expected_launches=expected, launches_per_prefill=launches["k4_flash_attention"] / n_runs,
+         launches_by_window=by_window, expected_by_window=expected_windows, prefill_ms=prefill_ms, p50_ms=p50,
+         tokens_per_s=LM_SEQ / p50 * 1e3, logit_max_abs_err=err, max_abs_logit=scale, logit_rtol=LM_LOGIT_RTOL,
+         peak_memory_gb=peak_gb, profile=dict(prefills=1, **device_time_summary(list(prof.events()), 1)),
+         timing="CUDA events around each of three prefills after one warm-up; peak memory over the four")
+    require(all(checks.values()), "lm_prefill", f"checks {checks}")
+    return launches
+
+
+def lm_decode_phase(params: dict, cfg) -> dict:
+    """(l3): a ContinuousBatcher of LM_SLOTS slots serves LM_REQUESTS
+    requests with the launch counts zeroed just before and read just after
+    (the decode never reaches K4); step times; two requests' logits at their
+    last prompt position against lm_prefill's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.models.transformer_lm import lm_prefill
+    from repro_torch.obs.trace import device_time_summary
+    from repro_torch.serve.scheduler import ContinuousBatcher, Request, decode_multi_pos
+
+    device = params["embed"].device
+    rng = np.random.default_rng(SEED + 1)
+    lens = rng.integers(LM_PROMPT_LEN[0], LM_PROMPT_LEN[1] + 1, LM_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
+    last = {}
+
+    def sampler(logits):
+        last["logits"] = logits
+        return np.argmax(logits, axis=-1)
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cb = ContinuousBatcher(params, cfg, n_slots=LM_SLOTS, max_len=LM_MAX_LEN, sampler=sampler)
+    for rid, prompt in enumerate(prompts):
+        cb.submit(Request(rid=rid, prompt=prompt, max_new_tokens=LM_NEW_TOKENS))
+    first_logits, step_ms, occupancy = {}, [], []
+    k4.reset_launch_counts()
+    t0 = time.perf_counter()
+    while cb.pending or cb.active:
+        waiting = [(slot, req) for slot, req in enumerate(cb.slot_req) if req is not None and not req.generated]
+        s0 = time.perf_counter()
+        cb.step()                                # ends in the logits' copy to the host
+        step_ms.append((time.perf_counter() - s0) * 1e3)
+        occupancy.append(sum(r is not None for r in cb.slot_req))
+        for slot, req in waiting:
+            if req.generated:
+                first_logits[req.rid] = last["logits"][slot].copy()
+    total_s = time.perf_counter() - t0
+    launches = dict(k4.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finished = {r.rid: r for r in cb.finished}
+    held = []
+    with torch.inference_mode():
+        for rid in (0, 1):
+            ref = lm_prefill(params, torch.from_numpy(prompts[rid][None]).to(device, torch.int64), cfg)[0].cpu().numpy()
+            err, scale = float(np.abs(first_logits[rid] - ref).max()), float(np.abs(ref).max())
+            top2 = np.sort(ref)[-2:]
+            tie = float(top2[1] - top2[0]) <= LM_DECODE_RTOL * scale
+            held.append(dict(rid=rid, prompt_len=int(lens[rid]), max_abs_err=err, max_abs_logit=scale,
+                             ok=err <= LM_DECODE_RTOL * scale,
+                             first_token=finished[rid].generated[0], prefill_argmax=int(ref.argmax()),
+                             top2_within_rtol=tie, first_token_ok=tie or finished[rid].generated[0] == int(ref.argmax())))
+        # The device's share of three decode steps of every slot, on the drained batcher's cache.
+        tokens = torch.zeros(LM_SLOTS, dtype=torch.int64)
+        positions = torch.full((LM_SLOTS,), LM_MAX_LEN // 2, dtype=torch.int64)
+        decode_multi_pos(params, cb.cache, tokens, positions, cfg)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                decode_multi_pos(params, cb.cache, tokens, positions, cfg)[0].cpu()
+            torch.cuda.synchronize()
+    expected = {"k4_flash_attention": 0, "k4_flash_attention_bf16": 0}
+    generated = sum(len(r.generated) for r in cb.finished)
+    checks = dict(
+        all_finished=sorted(finished) == list(range(LM_REQUESTS)),
+        tokens_each=all(len(r.generated) == LM_NEW_TOKENS for r in cb.finished),
+        no_k4_launch=launches == expected,
+        logits_vs_prefill=all(h["ok"] for h in held), first_tokens=all(h["first_token_ok"] for h in held),
+    )
+    step_p50 = statistics.median(step_ms)
+    emit("lm_decode", ok=all(checks.values()), checks=checks, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+         requests=LM_REQUESTS, prompt_lens=[int(n) for n in lens], new_tokens=LM_NEW_TOKENS, steps=cb.steps_run,
+         launches=launches, step_ms_p50=step_p50, step_ms_min=min(step_ms), step_ms_max=max(step_ms),
+         full_step_tokens_per_s=LM_SLOTS / step_p50 * 1e3, generated_tokens=generated, total_s=total_s,
+         generated_tokens_per_s=generated / total_s, mean_occupancy=float(np.mean(occupancy)),
+         held_against_prefill=held, logit_rtol=LM_DECODE_RTOL, peak_memory_gb=peak_gb,
+         profile=dict(decode_steps=3, **device_time_summary(list(prof.events()), 3)),
+         timing="host clock around each engine step (admit, one decode step of every slot, the logits' copy to "
+                "the host, sampling); a step feeds either a prompt token or a generated one")
+    require(all(checks.values()), "lm_decode", f"checks {checks}")
+    return launches
+
+
+def run_lm(device: torch.device) -> tuple[dict, dict, dict]:
+    """(l1)–(l3) at gemma3-12b's full config; returns (K4's launches in the
+    prefill run, in the decode run, the timing rows and worst errors)."""
+    from repro_torch.configs.gemma3_12b import FULL
+    from repro_torch.models.transformer_lm import lm_init
+
+    t0 = time.perf_counter()
+    worst, rows = check_k4(FULL, device)
+    t1 = time.perf_counter()
+    params = lm_init(torch.Generator(device=device).manual_seed(SEED), FULL, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t1
+    n_params = sum(p.numel() for p in named_leaves(params).values())
+    require(n_params == FULL.param_count(), "lm_prefill", f"{n_params} parameters, config says {FULL.param_count()}")
+    emit("lm_init", ok=True, config=dataclasses.asdict(FULL), parameters=n_params,
+         parameter_gb=n_params * 4 / 1e9, dtype="float32", init_s=init_s,
+         memory_allocated_gb=torch.cuda.memory_allocated() / 1e9)
+    prefill = lm_prefill_phase(params, FULL)
+    decode = lm_decode_phase(params, FULL)
+    emit("lm", ok=True, seconds=time.perf_counter() - t0)
+    return prefill, decode, dict(rows=rows, worst=worst)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs on the card only",
@@ -1336,6 +1691,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     fm_serve, fm_train, fm = run_deepfm(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_prefill_run, lm_decode_run, lm = run_lm(device)
 
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [
@@ -1358,6 +1716,19 @@ def main() -> int:
              **({"by_shape": {k: dict(ms=v["ms"], plain_ms=v["plain_ms"], bound_ms=v["bound"][0])
                               for k, v in row["by_shape"].items()}} if "by_shape" in row else {}))
         for name, row in fm["rows"].items()
+    ] + [
+        dict(name=name, route="cuda", source=K4_SOURCE, replaces=REPLACES[name],
+             launches=lm_prefill_run[name] + lm_decode_run[name], launches_lm_prefill=lm_prefill_run[name],
+             launches_per_prefill=lm_prefill_run[name] / (1 + LM_PREFILL_REPS),
+             launches_lm_decode=lm_decode_run[name], max_abs_err=lm["worst"][name], ms=row["ms"],
+             plain_ms=row["plain_ms"], bound_ms=row["bound"][0], bound_by=row["bound"][1],
+             library_ms=row["library_ms"],
+             shape=f"gemma3-12b attention, one sequence: 16 query / 8 kv heads × {row['S']} × 240, causal, "
+                   f"{'fp32' if name == 'k4_flash_attention' else 'bf16'}",
+             **({"by_shape": {k: dict(window=v["window"], S=v["S"], ms=v["ms"], plain_ms=v["plain_ms"],
+                                      library_ms=v["library_ms"], bound_ms=v["bound"][0], bound_by=v["bound"][1])
+                              for k, v in row["by_shape"].items()}} if "by_shape" in row else {}))
+        for name, row in lm["rows"].items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,12 @@ The sharded (halo) GCN inference and training run over `torch.distributed`
 (`dist`, `launch.distributed_gcn`). DeepFM (`models.deepfm`, with
 `recsys.embedding`, `nn.layers` and the click stream of `train.data`)
 serves (`launch.serve`), retrieves and trains (`launch.train`) with its FM
-term in a hand-written CUDA kernel (`kernels/csrc/fm_interaction.cu`).
+term in a hand-written CUDA kernel (`kernels/csrc/fm_interaction.cu`). The
+dense LMs (`models.transformer_lm`, `nn.attention`; gemma3-12b, stablelm-12b
+and granite-34b) serve: prefill with the causal / sliding-window attention
+in a hand-written CUDA kernel (`kernels/csrc/flash_attention.cu`), KV-cache
+decode and continuous batching (`serve.scheduler`), driven by
+`launch.serve` and the `launch.serve_lm` twin of `examples/serve_lm.py`.
 
 Entry points that create tensors take ``device=None``, which means the CUDA
 card and raises when there is none (`repro_torch.device.resolve_device`);

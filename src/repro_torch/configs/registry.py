@@ -1,5 +1,5 @@
-"""Registry mapping --arch ids to model configs — twin of
-`repro.configs.registry` for the architectures the port has reached.
+"""Registry mapping --arch ids to model configs and their input shapes —
+twin of `repro.configs.registry` for the architectures the port has reached.
 
 Every id the reference knows is known here; an id whose model the port has
 not reached yet raises `NotImplementedError` instead of a config.
@@ -10,15 +10,18 @@ import dataclasses
 import importlib
 from typing import Any, Callable
 
-__all__ = ["ArchSpec", "ShapeSpec", "get_arch", "recsys_shapes", "ALL_ARCHS"]
+__all__ = ["ArchSpec", "ShapeSpec", "get_arch", "lm_shapes", "recsys_shapes", "ALL_ARCHS"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
-    """One (architecture × input-shape) cell (the graph and recsys fields)."""
+    """One (architecture × input-shape) cell (the LM, graph and recsys fields)."""
 
     name: str
-    kind: str                      # train | serve | retrieval | graph
+    kind: str                      # train | prefill | decode | serve | retrieval | graph
+    # LM fields
+    seq_len: int | None = None
+    global_batch: int | None = None
     # GNN fields
     n_nodes: int | None = None
     n_edges: int | None = None
@@ -27,6 +30,7 @@ class ShapeSpec:
     # recsys fields
     batch: int | None = None
     n_candidates: int | None = None
+    skip_reason: str | None = None  # e.g. full-attention arch on long_500k
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +41,20 @@ class ArchSpec:
     make_config: Callable[..., Any]          # (shape: ShapeSpec|None) -> model config
     make_reduced: Callable[[], Any]          # smoke-test config
     shapes: dict[str, ShapeSpec]
+
+
+def lm_shapes(sub_quadratic: bool) -> dict[str, ShapeSpec]:
+    """The LM shape set. long_500k runs only for sub-quadratic
+    (sliding-window) archs; the others record why it is skipped."""
+    skip = None if sub_quadratic else "pure full-attention arch: 524k dense KV on every layer; skipped per assignment (DESIGN.md §4)"
+    return {
+        "train_4k": ShapeSpec("train_4k", "train", seq_len=4096, global_batch=256),
+        "prefill_32k": ShapeSpec("prefill_32k", "prefill", seq_len=32768, global_batch=32),
+        "decode_32k": ShapeSpec("decode_32k", "decode", seq_len=32768, global_batch=128),
+        "long_500k": ShapeSpec(
+            "long_500k", "decode", seq_len=524288, global_batch=1, skip_reason=skip
+        ),
+    }
 
 
 def recsys_shapes() -> dict[str, ShapeSpec]:
@@ -62,7 +80,15 @@ ALL_ARCHS: tuple[str, ...] = (
     "coin_gcn",
 )
 
-_MODULES = {"coin_gcn": "repro_torch.configs.coin_gcn", "deepfm": "repro_torch.configs.deepfm"}
+_MODULES = {
+    "gemma3-12b": "repro_torch.configs.gemma3_12b",
+    "granite-34b": "repro_torch.configs.granite_34b",
+    "stablelm-12b": "repro_torch.configs.stablelm_12b",
+    "deepfm": "repro_torch.configs.deepfm",
+    "coin_gcn": "repro_torch.configs.coin_gcn",
+}
+# The slice of the port (ROADMAP.md) that brings each architecture not ported yet.
+_WAITING = dict.fromkeys(("moonshot-v1-16b-a3b", "olmoe-1b-7b"), "the MoE slice (nn/moe.py)")
 
 
 def get_arch(arch_id: str) -> ArchSpec:
@@ -72,7 +98,8 @@ def get_arch(arch_id: str) -> ArchSpec:
     if arch_id not in ALL_ARCHS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ALL_ARCHS)}")
     if arch_id not in _MODULES:
+        then = f"; it comes with {_WAITING[arch_id]}" if arch_id in _WAITING else ""
         raise NotImplementedError(
-            f"arch {arch_id!r} is not ported to PyTorch yet; ported: {sorted(_MODULES)}"
+            f"arch {arch_id!r} is not ported to PyTorch yet{then}; ported: {sorted(_MODULES)}"
         )
     return importlib.import_module(_MODULES[arch_id]).SPEC

@@ -1,4 +1,4 @@
-"""Public wrappers around the port's graph kernels — twin of `repro.kernels.ops`.
+"""Public wrappers around the port's kernels — twin of `repro.kernels.ops`.
 
 `bsr_spmm` and `fused_gcn_layer` pad the feature rows to the block grid and
 are `torch.autograd.Function`s whose backward is the reference's custom VJP
@@ -41,18 +41,28 @@ backward is the analytic gradient in torch ops on both devices:
 d out[b] / d emb[b, f, d] = s[b, d] − emb[b, f, d], with s the field sum.
 The reference wrapper halves ``b_tile`` until it divides B; the kernel
 takes any B, so the port's wrapper has no tile argument.
+
+`flash_attention` is the LM's causal / sliding-window attention over
+(BH, S, d) (K4 on the card, `repro_torch.kernels.flash_attention`). It is
+forward only, as the reference's (no VJP, no backward kernel): a CUDA input
+that requires a gradient raises. Its k and v may have BH / G rows for G
+query heads per key/value head (grouped-query attention, no copy per
+group). The kernel takes any S, so the reference's ``bq`` / ``bk`` tile
+arguments and its ``interpret`` flag have no counterpart.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.bsr_spmm import bsr_spmm as bsr_spmm_cuda
+from repro_torch.kernels.flash_attention import flash_attention as flash_attention_cuda
+from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.fm_interaction import fm_interaction as fm_interaction_cuda
 from repro_torch.kernels.fm_interaction import fm_interaction_plain
 from repro_torch.kernels.bsr_spmm import bsr_spmm_plain, k1_name
 from repro_torch.kernels.fused_gcn import fused_gcn_layer_cuda, fused_gcn_layer_plain, operand_suffix
 
-__all__ = ["bsr_spmm", "fused_gcn_layer", "fm_interaction"]
+__all__ = ["bsr_spmm", "fused_gcn_layer", "fm_interaction", "flash_attention"]
 
 _ORDERS = ("feature_first", "aggregation_first")
 
@@ -251,3 +261,17 @@ def fm_interaction(emb: torch.Tensor) -> torch.Tensor:
     if emb.dtype not in (torch.float32, torch.bfloat16, torch.float64):
         raise TypeError(f"fm_interaction takes float32 or bfloat16 embeddings, got {emb.dtype}")
     return _FmInteraction.apply(emb.contiguous())
+
+
+# ---------------------------------------------------------- flash_attention
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None = None,
+                    causal: bool = True) -> torch.Tensor:
+    """Causal (optionally sliding-window) attention of q (BH, S, d) over
+    k, v (BH / G, S, d), scale d^-0.5, output in q's dtype; ``window`` None
+    means S. Forward only."""
+    if q.device.type == "cuda" and any(t.requires_grad for t in (q, k, v)) and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "flash_attention is forward only, as the reference's K4: its backward comes with the LM "
+            "training slice (ROADMAP.md)")
+    return _on_device("flash_attention", flash_attention_plain, flash_attention_cuda,
+                      q.contiguous(), k.contiguous(), v.contiguous(), window=window, causal=causal)

@@ -1,11 +1,11 @@
 """Plain PyTorch oracles of the kernels — twin of `repro.kernels.ref` (the
-blocked products and DeepFM's FM term), plus `poison_padding` (twin of
-`repro.kernels.bsr_spmm.poison_padding`)."""
+blocked products, DeepFM's FM term and the LM's flash attention), plus
+`poison_padding` (twin of `repro.kernels.bsr_spmm.poison_padding`)."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["bsr_spmm_ref", "fused_gcn_layer_ref", "fm_interaction_ref", "poison_padding"]
+__all__ = ["bsr_spmm_ref", "fused_gcn_layer_ref", "fm_interaction_ref", "flash_attention_ref", "poison_padding"]
 
 
 def bsr_spmm_ref(vals: torch.Tensor, cols: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
@@ -44,6 +44,27 @@ def fm_interaction_ref(emb: torch.Tensor) -> torch.Tensor:
     s = e.sum(dim=1)
     sq = (e * e).sum(dim=1)
     return (0.5 * (s * s - sq).sum(dim=-1)).to(emb.dtype)
+
+
+def flash_attention_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    window: int | None = None, causal: bool = True,
+) -> torch.Tensor:
+    """Dense oracle of the flash-attention kernel over (BH, S, d): scores in
+    q's dtype, widened to fp32 and scaled by d^-0.5, the −1e30 mask
+    (``k > q − window``, and ``k ≤ q`` when causal), softmax in fp32, the
+    weights cast to v's dtype for the product with v."""
+    BH, S, d = q.shape
+    s = torch.einsum("bqd,bkd->bqk", q, k).float() * (d ** -0.5)
+    qp = torch.arange(S, device=q.device)[:, None]
+    kp = torch.arange(S, device=q.device)[None, :]
+    win = S if window is None else window
+    valid = kp > qp - win
+    if causal:
+        valid &= kp <= qp
+    s = torch.where(valid[None], s, torch.tensor(-1e30, device=q.device))
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", w.to(v.dtype), v)
 
 
 def poison_padding(vals: torch.Tensor, lens: torch.Tensor, poison: float = float("nan")) -> torch.Tensor:

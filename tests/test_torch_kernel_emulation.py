@@ -1,17 +1,20 @@
 """The CUDA source of the port's kernels (the fused GCN layer, K2 — fp32 and
-its bf16-operand instantiations —, the ragged block-sparse product, K1, and
-DeepFM's FM interaction, K3), run on the CPU.
+its bf16-operand instantiations —, the ragged block-sparse product, K1,
+DeepFM's FM interaction, K3, and the LM's flash attention, K4), run on the
+CPU.
 
 A CUDA kernel has no interpret mode, so this compiles the device code of
-`src/repro_torch/kernels/csrc/fused_gcn_kernels.cuh` and
-`src/repro_torch/kernels/csrc/fm_interaction_kernels.cuh` with the host C++
+`src/repro_torch/kernels/csrc/fused_gcn_kernels.cuh`,
+`src/repro_torch/kernels/csrc/fm_interaction_kernels.cuh` and
+`src/repro_torch/kernels/csrc/flash_attention_kernels.cuh` with the host C++
 compiler through the stand-ins in `SHIM` below (one host thread per CUDA
 thread, a barrier per `__syncthreads`, asynchronous copies that land only
 when a wait retires them) and holds its output against the plain PyTorch
-versions of `repro_torch.kernels.fused_gcn`, `repro_torch.kernels.bsr_spmm`
-and `repro_torch.kernels.fm_interaction`: the kernels' indexing, staging,
-copy pipeline, ragged skip, tiling and epilogues are checked here; their
-speed and the card's own rounding only on the card.
+versions of `repro_torch.kernels.fused_gcn`, `repro_torch.kernels.bsr_spmm`,
+`repro_torch.kernels.fm_interaction` and `repro_torch.kernels.flash_attention`:
+the kernels' indexing, staging, copy pipeline, ragged skip, tiling, masks and
+epilogues are checked here; their speed and the card's own rounding only on
+the card.
 """
 import ctypes
 import pathlib
@@ -24,6 +27,7 @@ import torch
 
 from repro_torch.graph.structure import blocked_adjacency
 from repro_torch.kernels.bsr_spmm import bsr_spmm_plain
+from repro_torch.kernels.flash_attention import flash_attention_plain, k4_smem_bytes, k_tiles
 from repro_torch.kernels.fm_interaction import fm_interaction_plain, fm_smem_bytes, fm_tile
 from repro_torch.kernels.fused_gcn import (
     FF_F_TILE,
@@ -289,6 +293,51 @@ int emu_fm_interaction_bf16(const void* emb, void* out, int B, int F, int D) {
 int emu_fm_tile_examples(int F, int D) { return k3::tile_for(F, D).bt; }
 int emu_fm_tile_fields(int F, int D) { return k3::tile_for(F, D).fc; }
 long long emu_fm_smem_bytes(int F, int D) { return k3::smem_bytes(F, D); }
+}  // extern "C"
+"""
+
+
+# K4 compiled through SHIM, with the launch geometry of flash_attention.cu.
+K4_HARNESS = r"""
+// The LM's flash attention (src/repro_torch/kernels/csrc/flash_attention_kernels.cuh)
+// compiled by the host compiler through shim.h, with the launch geometry of
+// flash_attention.cu, behind a C interface for ctypes. Returns 0, 1 when a
+// launch would need more shared memory than the stand-in holds, or 2 for a
+// shape the kernel refuses.
+#include "shim.h"
+
+#include "flash_attention_kernels.cuh"
+
+namespace k4 {
+alignas(16) float4 k4_smem[232448 / sizeof(float4)];
+}
+
+template <typename T>
+int emu_fa(const void* q, const void* k, const void* v, void* out, int BH, int S, int d, int groups,
+           int window, int causal, float scale) {
+    if (S < 1 || BH < 1 || groups < 1 || BH % groups != 0 || d < 4 || d % 4 != 0 || d > k4::MAX_D) return 2;
+    if (k4::smem_bytes(d) > (long long)sizeof(k4::k4_smem)) return 1;
+    const unsigned blocks = (unsigned)(BH * ((S + k4::BQ - 1) / k4::BQ));
+    emu_launch(dim3(blocks), k4::THREADS, [&] {
+        k4::flash_attention_kernel<T>((const T*)q, (const T*)k, (const T*)v, (T*)out, S, d, groups,
+                                      k4::clamp_window(window, S), causal, scale);
+    });
+    return 0;
+}
+
+extern "C" {
+int emu_flash_attention(const void* q, const void* k, const void* v, void* out, int BH, int S, int d,
+                        int groups, int window, int causal, float scale) {
+    return emu_fa<float>(q, k, v, out, BH, S, d, groups, window, causal, scale);
+}
+int emu_flash_attention_bf16(const void* q, const void* k, const void* v, void* out, int BH, int S, int d,
+                             int groups, int window, int causal, float scale) {
+    return emu_fa<__nv_bfloat16>(q, k, v, out, BH, S, d, groups, window, causal, scale);
+}
+long long emu_k4_smem_bytes(int d) { return k4::smem_bytes(d); }
+void emu_k4_tiles(int q0, int S, int window, int causal, int* begin, int* end) {
+    k4::k_tiles(q0, S, k4::clamp_window(window, S), causal, begin, end);
+}
 }  // extern "C"
 """
 
@@ -686,3 +735,90 @@ def test_emulated_fm_interaction_bf16(emu_k3):
     out, ref = _fm(emu_k3, emb), fm_interaction_plain(emb)
     assert out.dtype == BF16
     _close(out, ref, tol=2.0 ** -7)
+
+
+# ------------------------------------------------------------------------- K4
+GLOBAL = 2 ** 30          # the LM's global window (repro.models.transformer_lm.GLOBAL_WINDOW)
+
+
+@pytest.fixture(scope="module")
+def emu_k4(tmp_path_factory):
+    lib = _compile(tmp_path_factory, "flash_attention_emu", K4_HARNESS)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for name in ("emu_flash_attention", "emu_flash_attention_bf16"):
+        getattr(lib, name).argtypes = [P, P, P, P, I, I, I, I, I, I, ctypes.c_float]
+    lib.emu_k4_smem_bytes.argtypes = [I]
+    lib.emu_k4_smem_bytes.restype = ctypes.c_longlong
+    lib.emu_k4_tiles.argtypes = [I, I, I, I, P, P]
+    return lib
+
+
+def _flash(lib, q, k, v, window, causal):
+    BH, S, d = q.shape
+    out = torch.full_like(q, float("nan"))
+    name = "emu_flash_attention" if q.dtype == F32 else "emu_flash_attention_bf16"
+    rc = getattr(lib, name)(_p(q), _p(k), _p(v), _p(out), BH, S, d, BH // k.shape[0], window, int(causal),
+                            d ** -0.5)
+    assert rc == 0
+    return out
+
+
+def _qkv(bh, s, d, seed, bh_kv=None, dtype=F32):
+    r = np.random.default_rng(seed)
+    q = r.standard_normal((bh, s, d)).astype(np.float32)
+    k, v = (r.standard_normal((bh_kv or bh, s, d)).astype(np.float32) for _ in range(2))
+    return (torch.from_numpy(a).to(dtype) for a in (q, k, v))
+
+
+def test_emulated_k4_tiling_matches_python(emu_k4):
+    """The k-tiles each q-tile visits, and the block's shared memory."""
+    begin, end = ctypes.c_int(), ctypes.c_int()
+    for S in (1, 63, 64, 130, 4096):
+        for q0 in range(0, S, 64):
+            for window in (GLOBAL, 1024, 33, 8, 1, 0, -3, -GLOBAL):
+                for causal in (True, False):
+                    emu_k4.emu_k4_tiles(q0, S, window, int(causal), ctypes.byref(begin), ctypes.byref(end))
+                    assert range(begin.value, end.value) == k_tiles(q0, S, window, causal)
+    for d in (4, 16, 48, 240, 256):
+        assert emu_k4.emu_k4_smem_bytes(d) == k4_smem_bytes(d)
+    assert 2 * k4_smem_bytes(240) <= 227 * 1024            # two blocks per SM at gemma3's head width
+    assert len(k_tiles(4032, 4096, 1024, True)) == 34      # a local layer's last q-tile: 34 of 128 k-tiles
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidirectional"])
+@pytest.mark.parametrize("window", [GLOBAL, 8, 0])
+@pytest.mark.parametrize("d", [16, 48])
+@pytest.mark.parametrize("s", [1, 63, 130])
+def test_emulated_flash_attention_matches_plain(emu_k4, s, d, window, causal):
+    """Any S (a single row, a short tile, a ragged third q-tile), both
+    widths, the global and a sliding window, window 0 (causal: no valid key,
+    every row averages v), with and without the causal mask."""
+    q, k, v = _qkv(2, s, d, seed=s * d + window % 97 + causal)
+    out = _flash(emu_k4, q, k, v, window, causal)
+    _close(out, flash_attention_plain(q, k, v, window=window, causal=causal))
+
+
+@pytest.mark.parametrize("window", [GLOBAL, 8, 0])
+@pytest.mark.parametrize("s", [63, 130])
+def test_emulated_flash_attention_bf16(emu_k4, s, window):
+    """bf16 q, k, v: widened as staged, fp32 inside, one rounding at the end
+    — the plain version's arithmetic, so within one bf16 step of the largest
+    value and nearly always bit-equal."""
+    q, k, v = _qkv(2, s, 48, seed=s + window % 97, dtype=BF16)
+    out = _flash(emu_k4, q, k, v, window, True)
+    ref = flash_attention_plain(q, k, v, window=window)
+    assert out.dtype == BF16
+    _close(out, ref, tol=2.0 ** -7)
+    assert float((out == ref).float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("window", [GLOBAL, 8])
+def test_emulated_flash_attention_groups_kv_heads(emu_k4, window):
+    """Grouped-query attention: 6 query rows over 3 key/value rows (G = 2)
+    equal the same call on k and v expanded per group, bit for bit, and the
+    plain version."""
+    q, k, v = _qkv(6, 130, 16, seed=window % 97, bh_kv=3)
+    out = _flash(emu_k4, q, k, v, window, True)
+    expanded = _flash(emu_k4, q, k.repeat_interleave(2, 0), v.repeat_interleave(2, 0), window, True)
+    assert torch.equal(out, expanded)
+    _close(out, flash_attention_plain(q, k, v, window=window))

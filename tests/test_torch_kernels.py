@@ -6,13 +6,15 @@ version; it is held against the reference's `fused_gcn_layer` (Pallas in
 interpret mode) at the reference suite's bsr tolerance, 3e-4, and in K2's
 bf16-operand mode at the bf16 tolerance, 5e-2, with the same operand
 dtypes. The tests marked ``cuda`` hold the hand-written kernels (K2, the
-fused layer — fp32 and its bf16 instantiations —, K1, `bsr_spmm`, and K3,
-DeepFM's `fm_interaction`) against the plain versions on the card at the
-same tolerance (summation order differs; 1e-2 of the largest magnitude for
-a bf16 output; 1e-4 of it for K3, chip_smoke's rule), one training step on
-the card against the same step on the CPU, and K3's backward against the
-CPU's in float64, which `gradcheck` holds; they skip without a card.
-(K3's CPU parity with the reference is in tests/test_torch_deepfm.py.) JAX is imported inside
+fused layer — fp32 and its bf16 instantiations —, K1, `bsr_spmm`, K3,
+DeepFM's `fm_interaction`, and K4, the LM's `flash_attention`) against the
+plain versions on the card at the same tolerance (summation order differs;
+1e-2 of the largest magnitude for a bf16 output; 1e-4 of it for K3 and K4,
+chip_smoke's rule), one training step on the card against the same step on
+the CPU, K3's backward against the CPU's in float64, which `gradcheck`
+holds, and one K4 launch per layer of a prefill at gemma3-12b's widths;
+they skip without a card. (K3's and K4's CPU parity with the reference is
+in tests/test_torch_deepfm.py and tests/test_torch_flash_attention.py.) JAX is imported inside
 fixtures, so the ``cuda`` tests also run on a machine without JAX:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels.py
@@ -26,9 +28,10 @@ import torch
 
 from repro_torch.graph.structure import blocked_adjacency
 from repro_torch.kernels import bsr_spmm as k1
+from repro_torch.kernels import flash_attention as k4
 from repro_torch.kernels import fm_interaction as k3
 from repro_torch.kernels import fused_gcn as fg
-from repro_torch.kernels.ops import bsr_spmm, fm_interaction, fused_gcn_layer
+from repro_torch.kernels.ops import bsr_spmm, flash_attention, fm_interaction, fused_gcn_layer
 from repro_torch.kernels.ref import bsr_spmm_ref, fused_gcn_layer_ref, poison_padding
 
 TOL = 3e-4
@@ -606,3 +609,89 @@ def test_cuda_fm_interaction_backward_matches_gradcheck(cuda):
     assert float((got.cpu().double() - want).abs().max()) <= 1e-5 * float(want.abs().max())
     with pytest.raises(TypeError):
         fm_interaction(torch.zeros(4, 3, 2, dtype=torch.float64, device=cuda))
+
+
+# ------------------------------------------------------------------------- K4
+K4_TOL = 1e-4              # K4 vs plain on the card: · max |plain| (sums in another order)
+GLOBAL = 2 ** 30
+
+
+def _k4_inputs(cuda, s, d=240, bh=16, bh_kv=8, dtype=F32, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v = (torch.randn((n, s, d), generator=g, device=cuda).to(dtype) for n in (bh, bh_kv, bh_kv))
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,window,causal", [(4096, GLOBAL, True), (4096, 1024, True), (1000, GLOBAL, True),
+                                             (40, 1024, True), (300, 0, True), (300, GLOBAL, False),
+                                             (300, 24, False)],
+                         ids=["global_4096", "local_4096", "odd_1000", "short_40", "window_0",
+                              "bidirectional", "bidirectional_window"])
+def test_cuda_flash_attention_matches_plain(cuda, s, window, causal):
+    """gemma3-12b's attention shape for one sequence (16 query heads over 8
+    key/value heads, d = 240): global and local, an odd S, S under one
+    tile, window 0 and the bidirectional mask."""
+    q, k, v = _k4_inputs(cuda, s, seed=s + window % 97)
+    before = k4.LAUNCHES["k4_flash_attention"]
+    out = k4.flash_attention(q, k, v, window=window, causal=causal)
+    torch.cuda.synchronize()
+    assert k4.LAUNCHES["k4_flash_attention"] == before + 1 and out.dtype == F32 and out.shape == q.shape
+    ref = k4.flash_attention_plain(q, k, v, window=window, causal=causal)
+    assert float((out - ref).abs().max()) <= K4_TOL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_groups_and_bf16(cuda):
+    """Grouping kv heads equals expanding them, bit for bit; bf16 within one
+    bf16 step of the largest value and ≥ 99 % bit-equal to the plain
+    version's rounding."""
+    q, k, v = _k4_inputs(cuda, 1000, seed=3)
+    grouped = k4.flash_attention(q, k, v, window=1024)
+    expanded = k4.flash_attention(q, k.repeat_interleave(2, 0), v.repeat_interleave(2, 0), window=1024)
+    assert torch.equal(grouped, expanded)
+    qb, kb, vb = (t.to(BF16) for t in (q, k, v))
+    out = k4.flash_attention(qb, kb, vb)
+    ref = k4.flash_attention_plain(qb, kb, vb)
+    torch.cuda.synchronize()
+    assert out.dtype == BF16
+    assert float((out.float() - ref.float()).abs().max()) <= 2.0 ** -7 * float(ref.float().abs().max())
+    assert float((out == ref).float().mean()) >= 0.99
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_is_forward_only(cuda):
+    q, k, v = _k4_inputs(cuda, 64, d=16, bh=2, bh_kv=2)
+    with pytest.raises(NotImplementedError, match="LM training slice"):
+        flash_attention(q.requires_grad_(True), k, v)
+    with torch.no_grad():
+        flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        k4.flash_attention(*(t[..., :14].contiguous() for t in (q, k, v)))
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_launches_k4_once_per_layer(cuda):
+    """gemma3-12b's widths at 6 layers (5 local, 1 global): one K4 launch per
+    layer of a prefill, each with its layer's window, and none per decode
+    step; the prefill's logits against the plain attention's."""
+    import dataclasses
+
+    from repro_torch.configs.gemma3_12b import FULL
+    from repro_torch.models.transformer_lm import lm_decode_step, lm_init, lm_init_cache, lm_prefill
+
+    cfg = dataclasses.replace(FULL, n_layers=6)
+    params = lm_init(torch.Generator(device=cuda).manual_seed(0), cfg, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (1, 1500))).to(cuda)
+    with torch.inference_mode():
+        k4.reset_launch_counts()
+        logits = lm_prefill(params, tokens, cfg)
+        torch.cuda.synchronize()
+        assert k4.LAUNCHES == {"k4_flash_attention": 6, "k4_flash_attention_bf16": 0}
+        assert dict(k4.WINDOWS) == {("k4_flash_attention", 1024): 5, ("k4_flash_attention", GLOBAL): 1}
+        ref = lm_prefill(params, tokens, cfg, kernel=k4.flash_attention_plain)
+        assert float((logits - ref).abs().max()) <= K4_TOL * float(ref.abs().max())
+        k4.reset_launch_counts()
+        lm_decode_step(params, lm_init_cache(cfg, 1, 8, device=cuda), tokens[:, 0], 0, cfg)
+        torch.cuda.synchronize()
+        assert k4.LAUNCHES["k4_flash_attention"] == 0
