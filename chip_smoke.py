@@ -64,7 +64,8 @@ Phases, one JSON line each; any failed check ends the run with exit code 1:
            of each kernel per step); five quant-off steps with bsr and with
            segment, loss against loss
   times    CUDA-event medians: each kernel, its plain version, the library
-           call where one computes the same function, the whole forward, the
+           call where one computes the same function (K1's: a
+           torch.sparse_bsr_tensor product, checked first), the whole forward, the
            backward's torch parts; host-clock medians of the training step;
            peak device memory
   profile  torch.profiler over three training steps (bsr, quant on): device
@@ -119,10 +120,16 @@ Phases, one JSON line each; any failed check ends the run with exit code 1:
            heads, d 240) at S = 4,096 with the global (2³⁰) and the local
            (1,024) window, an odd S (1,000), S under one tile (40),
            window 0 and the bidirectional mask; grouped kv heads against
-           the same call on k and v expanded (bit-equal); bf16 (one bf16
-           step of the largest value, ≥ 99 % bit-equal); CUDA-event times
-           of K4, the plain version and SDPA (the library yardstick, never
-           called by the port) beside the bound, and K4 alone at 32,768
+           the same call on k and v expanded (bit-equal); bf16 at both
+           windows, an odd S and S under one tile (one bf16 step of the
+           largest value, ≥ 99 % bit-equal) and grouped against expanded
+           (bit-equal); CUDA-event times of K4, the plain version and SDPA
+           (the library yardstick, never called by the port) beside the
+           bound, fp32 and bf16 at both windows, and K4 alone at 32,768;
+           each body's registers, local memory (spills) and blocks per SM
+           as the compiler gave them (the build line also counts the
+           tensor-core instructions in each body's SASS: the bf16 body
+           must have them, the fp32 body none)
   lm_init  lm_init(FULL) from a seeded CUDA generator: parameter count and
            bytes
   lm_prefill  (l2) lm_prefill at B = 1, S = 4,096 (token_batch_fn): one
@@ -330,16 +337,46 @@ def build_kernels() -> None:
     tile_ok = all((lib3.k3_tile_examples(f, d), lib3.k3_tile_fields(f, d)) == k3.fm_tile(f, d)
                   and lib3.k3_smem_bytes(f, d) == k3.fm_smem_bytes(f, d)
                   for f, d in ((39, 10), (8, 10), (1, 10), (40, 400), (3, 300)))
-    k4_ok = ((lib4.k4_block_rows(), lib4.k4_tile_keys(), lib4.k4_max_d())
-             == (k4.K4_BLOCK_ROWS, k4.K4_TILE_KEYS, k4.K4_MAX_D)
-             and all(lib4.k4_smem_bytes(d) == k4.k4_smem_bytes(d) for d in (16, 48, 240, 256)))
+    k4_ok = lib4.k4_max_d() == k4.K4_MAX_D and all(
+        (lib4.k4_block_rows(bf16), lib4.k4_tile_keys(bf16), lib4.k4_block_threads(bf16))
+        == (k4.K4_BLOCK_ROWS[dtype], k4.K4_TILE_KEYS[dtype], k4.K4_THREADS[dtype])
+        and all(lib4.k4_smem_bytes(d, bf16) == k4.k4_smem_bytes(d, dtype) for d in (16, 20, 48, 240, 256))
+        for dtype, bf16 in ((torch.float32, 0), (torch.bfloat16, 1)))
     ptxas = [ln.strip() for rep in reports.values() for ln in rep.splitlines()
              if "registers" in ln or "spill" in ln]
-    emit("build", ok=smem_ok and tile_ok and k4_ok, seconds=seconds, built=sorted(reports), ptxas=ptxas,
-         k3_tile_39x10=k3.fm_tile(39, 10), k4_smem_bytes_d240=k4.k4_smem_bytes(240))
+    k4_mma = k4_tensor_core_instructions()
+    mma_ok = (len(k4_mma["flash_attention_bf16_kernel"]) == k4.K4_MAX_D // 16
+              and min(k4_mma["flash_attention_bf16_kernel"]) > 0 and k4_mma["flash_attention_f32_kernel"] == [0])
+    emit("build", ok=smem_ok and tile_ok and k4_ok and mma_ok, seconds=seconds, built=sorted(reports), ptxas=ptxas,
+         k3_tile_39x10=k3.fm_tile(39, 10),
+         k4_smem_bytes_d240={str(dt).replace("torch.", ""): k4.k4_smem_bytes(240, dt)
+                             for dt in (torch.float32, torch.bfloat16)},
+         k4_tensor_core_instructions=k4_mma)
     require(smem_ok, "build", "shared-memory formula of the .cuh and the wrapper disagree")
     require(tile_ok, "build", "K3's tiling in the .cuh and in the wrapper disagree")
     require(k4_ok, "build", "K4's tiles or shared memory in the .cuh and in the wrapper disagree")
+    require(mma_ok, "build", f"K4's bf16 body must run mma and its fp32 body none: {k4_mma}")
+
+
+def k4_tensor_core_instructions() -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) in the SASS of each K4 body
+    (one count per instantiation: the bf16 body has one per head width in
+    steps of 16), read from the built library with cuobjdump."""
+    import os
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                                                       "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build._target("flash_attention"))], check=True,
+                          capture_output=True, text=True, timeout=120).stdout
+    counts = {}
+    for body in ("flash_attention_bf16_kernel", "flash_attention_f32_kernel"):
+        funcs = [f for f in sass.split("Function : ")[1:] if body in f.splitlines()[0]]
+        require(len(funcs) >= 1, "build", f"{body} not found in the SASS of the K4 library")
+        counts[body] = [sum(1 for ln in f.splitlines() if "HMMA" in ln or "HGMMA" in ln) for f in funcs]
+    return counts
 
 
 def load_graph(device: torch.device) -> dict:
@@ -786,9 +823,9 @@ def time_everything(data: dict, ops: dict, main: dict, train: dict) -> dict:
             "k1_bsr_spmm": dict(
                 ms=cuda_ms(lambda: k1.bsr_spmm(vals, cols, lens, h1)),
                 plain_ms=cuda_ms(lambda: k1.bsr_spmm_plain(vals, cols, lens, h1)),
-                library_ms=None,
                 bound=bound(tiles + idx + 4.0 * (h1.numel() + R * B * hidden), 2.0 * nnz * B * B * hidden)),
         }
+        rows["k1_bsr_spmm"].update(bsr_library_ms(vals, cols, lens, h1))
         # The backward's torch parts at Nell's shapes: both layers' blocked
         # transposes take a 16-wide cotangent (layer 1's dpre, layer 2's
         # dm = g·W2ᵀ), and layer 1's dw = Xᵀ·dz is the one large matmul.
@@ -832,6 +869,32 @@ def time_everything(data: dict, ops: dict, main: dict, train: dict) -> dict:
          resident_tile_table_gb=vals.numel() * 4 / 1e9,
          kernels={k: {**v, "bound": list(v["bound"])} for k, v in rows.items()})
     return rows
+
+
+def bsr_library_ms(vals, cols, lens, z) -> dict:
+    """K1's library yardstick: one ``torch.sparse_bsr_tensor(...) @ z`` call
+    (cuSPARSE's BSR product in fp32) on the same table, built outside the
+    timed call: crow the cumulative sum of ``lens``, col ``cols[r, :lens[r]]``
+    and the valid tiles as values. Checked against K1's plain version to
+    KERNEL_RTOL of max; the port never calls it. Where CUDA refuses the
+    call, ``library_ms`` is None and ``library_error`` says why."""
+    from repro_torch.kernels import bsr_spmm as k1
+
+    R, T = cols.shape
+    valid = torch.arange(T, device=cols.device)[None, :] < lens[:, None].long()
+    crow = torch.zeros(R + 1, dtype=torch.int64, device=cols.device)
+    crow[1:] = torch.cumsum(lens.long(), 0)
+    bsr = torch.sparse_bsr_tensor(crow, cols[valid].long(), vals[valid], size=(R * vals.shape[-2], z.shape[0]))
+    try:
+        out = bsr @ z
+    except RuntimeError as err:
+        return dict(library_ms=None, library_error=str(err).splitlines()[0])
+    err, scale = max_err(out, k1.bsr_spmm_plain(vals, cols, lens, z))
+    require(err <= KERNEL_RTOL * scale, "times", f"the BSR library product disagrees with K1's plain version: "
+                                                 f"{err} > {KERNEL_RTOL} · {scale}")
+    del out
+    return dict(library_ms=cuda_ms(lambda: bsr @ z), library_max_abs_err=err,
+                library="torch.sparse_bsr_tensor(crow, col, values) @ h1 (cuSPARSE BSR, fp32)")
 
 
 def time_bf16_kernels(rank: dict, ops: dict) -> dict:
@@ -1452,11 +1515,24 @@ def check_k4(cfg, device: torch.device) -> tuple[dict, dict]:
         qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
         del q, k, v
         hold(f"bf16 global S={LM_SEQ}", qb, kb, vb, glob)
-        hold(f"bf16 local S={LM_SEQ}", qb, kb, vb, local)
-        bf16_row = dict(S=LM_SEQ, window=glob, ms=cuda_ms(lambda: k4.flash_attention(qb, kb, vb, window=glob)),
-                        plain_ms=cuda_ms(lambda: k4.flash_attention_plain(qb, kb, vb, window=glob), reps=5),
-                        bound=k4_bound(H, Hk, LM_SEQ, d, glob, 2))
-        bf16_row["library_ms"], bf16_row["library_max_abs_err"] = sdpa_ms(qb, kb, vb, glob)
+        out = hold(f"bf16 local S={LM_SEQ}", qb, kb, vb, local)
+        expanded = k4.flash_attention(qb, kb.repeat_interleave(H // Hk, 0), vb.repeat_interleave(H // Hk, 0),
+                                      window=local)
+        gqa_equal = bool(torch.equal(out, expanded))
+        cases.append(dict(kernel="k4_flash_attention_bf16", case="bf16 GQA: 8 kv heads grouped vs expanded to 16, "
+                          "local", bit_equal=gqa_equal, ok=gqa_equal))
+        del out, expanded
+        hold("bf16 odd S", *qkv(1000, dtype=torch.bfloat16), glob)
+        hold("bf16 S under one tile", *qkv(40, dtype=torch.bfloat16), local)
+        bf16_rows = {}
+        for tag, window in (("global", glob), ("local", local)):
+            bf16_rows[f"{tag}_{LM_SEQ}"] = dict(
+                S=LM_SEQ, window=window, ms=cuda_ms(lambda: k4.flash_attention(qb, kb, vb, window=window)),
+                plain_ms=cuda_ms(lambda: k4.flash_attention_plain(qb, kb, vb, window=window), reps=5),
+                bound=k4_bound(H, Hk, LM_SEQ, d, window, 2))
+            bf16_rows[f"{tag}_{LM_SEQ}"]["library_ms"], bf16_rows[f"{tag}_{LM_SEQ}"]["library_max_abs_err"] = \
+                sdpa_ms(qb, kb, vb, window)
+        bf16_row = bf16_rows[f"global_{LM_SEQ}"]
         del qb, kb, vb
         q, k, v = qkv(LM_LONG_SEQ)
         for tag, window in (("global", glob), ("local", local)):
@@ -1466,15 +1542,22 @@ def check_k4(cfg, device: torch.device) -> tuple[dict, dict]:
                 plain_ms=None, library_ms=None, bound=k4_bound(H, Hk, LM_LONG_SEQ, d, window, 4))
         del q, k, v
     torch.cuda.empty_cache()
+    compiler = {name: k4.kernel_attributes(dtype, d) for dtype, name in
+                ((torch.float32, "k4_flash_attention"), (torch.bfloat16, "k4_flash_attention_bf16"))}
+    widest = k4.kernel_attributes(torch.bfloat16, k4.K4_MAX_D)      # the bf16 instantiation of d 241–256
     ok = all(c["ok"] for c in cases)
     emit("lm_kernels", ok=ok, cases=cases,
-         times={k: {**v, "bound": list(v["bound"])} for k, v in {**rows, f"bf16_global_{LM_SEQ}": bf16_row}.items()},
+         times={k: {**v, "bound": list(v["bound"])} for k, v in
+                {**rows, **{f"bf16_{key}": row for key, row in bf16_rows.items()}}.items()},
+         compiler=compiler, spills=sum(c["local_bytes"] for c in compiler.values()),
+         compiler_bf16_widest=widest,
          timing=f"CUDA events, median of 10 (K4) or 5 (plain, SDPA) after 2 warm-ups; S={LM_LONG_SEQ}: one launch "
                 "after one warm-up, K4 only", library="torch.nn.functional.scaled_dot_product_attention with k and "
                 "v expanded per group and the same mask (is_causal for the global window)")
     require(ok, "lm_kernels", "K4 disagrees with its plain version")
     main_row = rows[f"global_{LM_SEQ}"]
-    return worst, {"k4_flash_attention": {**main_row, "by_shape": rows}, "k4_flash_attention_bf16": bf16_row}
+    return worst, {"k4_flash_attention": {**main_row, "by_shape": rows},
+                   "k4_flash_attention_bf16": {**bf16_row, "by_shape": bf16_rows}}
 
 
 def lm_prefill_phase(params: dict, cfg) -> dict:

@@ -136,26 +136,30 @@ def test_kernel_wrapper_takes_cuda_tensors_only():
 
 
 def test_k_tiles_skip_only_fully_masked_tiles():
-    """The k-tiles a block visits hold every valid pair of its q-tile (so a
-    skipped tile is fully masked), and the skip is what the source note
-    says at gemma3's prefill_32k shape."""
-    S = 300
-    pos = np.arange(S)
-    for window in (GLOBAL, 40, 1):
-        valid = (pos[None, :] > pos[:, None] - window) & (pos[None, :] <= pos[:, None])
-        for q0 in range(0, S, k4.K4_BLOCK_ROWS):
-            rows = valid[q0:q0 + k4.K4_BLOCK_ROWS]
-            need = {j // k4.K4_TILE_KEYS for j in np.flatnonzero(rows.any(axis=0))}
-            visited = set(k_tiles(q0, S, window, True))
-            assert need <= visited and len(visited) <= len(need) + 1
-    for window in (0, -5):
-        assert list(k_tiles(64, S, window, True)) == list(range(-(-S // k4.K4_TILE_KEYS)))
-    assert list(k_tiles(64, S, 8, False)) == list(range(-(-S // k4.K4_TILE_KEYS)))
-    S, n_q = 32_768, 32_768 // k4.K4_BLOCK_ROWS
-    full = n_q * (S // k4.K4_TILE_KEYS)
-    glob = sum(len(k_tiles(q0 * k4.K4_BLOCK_ROWS, S, GLOBAL, True)) for q0 in range(n_q))
-    local = sum(len(k_tiles(q0 * k4.K4_BLOCK_ROWS, S, 1024, True)) for q0 in range(n_q))
-    assert 0.49 < glob / full < 0.51 and local / full < 1.1 / 32
+    """For each body's tiling (fp32 and bf16), the k-tiles a block visits
+    hold every valid pair of its q-tile (so a skipped tile is fully masked),
+    and the skip is what the source note says at gemma3's prefill_32k shape:
+    half of a global layer's tiles, and a local layer's window plus one
+    q-tile and one k-tile per q-tile."""
+    for dtype in (torch.float32, torch.bfloat16):
+        bq, bk = k4.K4_BLOCK_ROWS[dtype], k4.K4_TILE_KEYS[dtype]
+        S = 300
+        pos = np.arange(S)
+        for window in (GLOBAL, 40, 1):
+            valid = (pos[None, :] > pos[:, None] - window) & (pos[None, :] <= pos[:, None])
+            for q0 in range(0, S, bq):
+                rows = valid[q0:q0 + bq]
+                need = {j // bk for j in np.flatnonzero(rows.any(axis=0))}
+                visited = set(k_tiles(q0, S, window, True, dtype))
+                assert need <= visited and len(visited) <= len(need) + 1
+        for window in (0, -5):
+            assert list(k_tiles(64, S, window, True, dtype)) == list(range(-(-S // bk)))
+        assert list(k_tiles(64, S, 8, False, dtype)) == list(range(-(-S // bk)))
+        S, n_q = 32_768, 32_768 // bq
+        full = n_q * (S // bk)
+        glob = sum(len(k_tiles(q0 * bq, S, GLOBAL, True, dtype)) for q0 in range(n_q))
+        local = sum(len(k_tiles(q0 * bq, S, 1024, True, dtype)) for q0 in range(n_q))
+        assert 0.49 < glob / full < 0.51 and local / full < (1024 + bq + bk) / S
 
 
 def test_flash_attention_plain_matches_the_model_attention():

@@ -27,7 +27,14 @@ import torch
 
 from repro_torch.graph.structure import blocked_adjacency
 from repro_torch.kernels.bsr_spmm import bsr_spmm_plain
-from repro_torch.kernels.flash_attention import flash_attention_plain, k4_smem_bytes, k_tiles
+from repro_torch.kernels.flash_attention import (
+    K4_BLOCK_ROWS,
+    K4_THREADS,
+    K4_TILE_KEYS,
+    flash_attention_plain,
+    k4_smem_bytes,
+    k_tiles,
+)
 from repro_torch.kernels.fm_interaction import fm_interaction_plain, fm_smem_bytes, fm_tile
 from repro_torch.kernels.fused_gcn import (
     FF_F_TILE,
@@ -48,18 +55,21 @@ K1_SUFFIXES = {(F32, F32): "", (F32, BF16): "_bf16", (BF16, BF16): "_bf16_all"} 
 SHIM = r"""
 // Host-compiler stand-ins for the CUDA built-ins the port's kernels use, so
 // that their device code compiles with g++ and runs on the CPU: one
-// std::thread per CUDA thread, std::barrier for __syncthreads(), blocks run
-// one after another (so a namespace-scope array can stand in for shared
+// std::thread per CUDA thread, std::barrier for __syncthreads() and for each
+// warp (warp shuffles exchange through per-thread slots), blocks run one
+// after another (so a namespace-scope array can stand in for shared
 // memory). Slow and only for small shapes; it checks indexing, staging and
 // synchronisation, not speed or the GPU's own floating-point behaviour.
 #pragma once
 
+#include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
 #include <deque>
+#include <memory>
 #include <thread>
 #include <vector>
 
@@ -77,6 +87,7 @@ struct dim3 {
 struct alignas(16) float4 {
     float x, y, z, w;
 };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 
 // bf16 as its 16 bits, with the conversions of <cuda_bf16.h>: widening is
 // exact, and narrowing rounds to nearest even (NaN becomes 0x7FC0), as
@@ -97,6 +108,7 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
     u += 0x7FFFu + ((u >> 16) & 1u);
     return {std::uint16_t(u >> 16)};
 }
+inline std::uint16_t __bfloat16_as_ushort(__nv_bfloat16 h) { return h.bits; }
 
 // A product rounded on its own (never contracted into a fused multiply-add).
 inline float __fmul_rn(float a, float b) { return a * b; }
@@ -106,6 +118,37 @@ inline dim3 blockIdx, blockDim, gridDim;
 inline std::barrier<>* emu_block_barrier = nullptr;
 
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
+
+// Warps: the block's threads in groups of 32, each with a barrier and one
+// exchange slot per thread, for the warp-collective stand-ins.
+struct alignas(16) EmuSlot {
+    unsigned char bytes[64];
+};
+inline std::vector<std::unique_ptr<std::barrier<>>> emu_warp_barriers;
+inline std::vector<EmuSlot> emu_slots;
+inline int emu_lane() { return int(threadIdx.x % 32); }
+inline int emu_warp() { return int(threadIdx.x / 32); }
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp_barriers[emu_warp()]->arrive_and_wait(); }
+
+// Put v in this lane's slot, wait for the whole warp, and return the warp's
+// 32 slots; the caller reads them and then calls __syncwarp() before any
+// slot is written again.
+template <typename T>
+inline const EmuSlot* emu_warp_publish(const T& v) {
+    static_assert(sizeof(T) <= sizeof(EmuSlot), "slot too small");
+    std::memcpy(emu_slots[threadIdx.x].bytes, &v, sizeof(T));
+    __syncwarp();
+    return &emu_slots[emu_warp() * 32];
+}
+
+template <typename T>
+inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
+    const EmuSlot* slots = emu_warp_publish(v);
+    T r;
+    std::memcpy(&r, slots[emu_lane() ^ lane_mask].bytes, sizeof(T));
+    __syncwarp();
+    return r;
+}
 
 // The asynchronous copy primitives of <cuda_pipeline.h>. A copy lands only
 // when a wait retires its commit group, so a kernel that reads a stage
@@ -142,6 +185,10 @@ void emu_launch(dim3 grid, int threads, Body body) {
             blockIdx = dim3(bx, by);
             std::barrier<> bar(threads);
             emu_block_barrier = &bar;
+            emu_slots.assign(threads, EmuSlot{});
+            emu_warp_barriers.clear();
+            for (int w = 0; w < (threads + 31) / 32; ++w)
+                emu_warp_barriers.push_back(std::make_unique<std::barrier<>>(std::min(32, threads - 32 * w)));
             std::vector<std::thread> pool;
             pool.reserve(threads);
             for (int t = 0; t < threads; ++t)
@@ -297,7 +344,8 @@ long long emu_fm_smem_bytes(int F, int D) { return k3::smem_bytes(F, D); }
 """
 
 
-# K4 compiled through SHIM, with the launch geometry of flash_attention.cu.
+# K4 compiled through SHIM, with stand-ins for the PTX wrappers of
+# flash_attention_ptx.cuh and the launch geometry of flash_attention.cu.
 K4_HARNESS = r"""
 // The LM's flash attention (src/repro_torch/kernels/csrc/flash_attention_kernels.cuh)
 // compiled by the host compiler through shim.h, with the launch geometry of
@@ -306,21 +354,149 @@ K4_HARNESS = r"""
 // shape the kernel refuses.
 #include "shim.h"
 
+// Stand-ins for flash_attention_ptx.cuh, with the PTX ISA's fragment layouts.
+namespace k4 {
+
+// cp.async: the copy lands when a wait retires its group (shim.h); with
+// fill false it lands as zeros.
+template <int BYTES>
+inline void cp_async(void* dst, const void* src, bool fill) {
+    static const unsigned char zeros[16] = {};
+    emu_open_group.push_back({dst, fill ? src : zeros, std::size_t(BYTES)});
+}
+inline void cp_async_commit() { __pipeline_commit(); }
+inline void cp_async_wait_all() {
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+}
+
+// ldmatrix .x4: lanes 8i .. 8i+7 give the rows of matrix i; register i of
+// lane l holds row l / 4, elements 2(l % 4), 2(l % 4) + 1 (.trans: the
+// elements [2(l % 4)][l / 4] and [2(l % 4) + 1][l / 4]), lower in the lower half.
+inline void emu_ldmatrix(unsigned r[4], const void* p, bool trans) {
+    const EmuSlot* slots = emu_warp_publish(p);
+    const int lane = emu_lane();
+    for (int i = 0; i < 4; ++i) {
+        std::uint16_t e[2];
+        for (int h = 0; h < 2; ++h) {
+            const int row = trans ? 2 * (lane % 4) + h : lane / 4;
+            const int col = trans ? lane / 4 : 2 * (lane % 4) + h;
+            const void* row_ptr;
+            std::memcpy(&row_ptr, slots[8 * i + row].bytes, sizeof(row_ptr));
+            e[h] = static_cast<const std::uint16_t*>(row_ptr)[col];
+        }
+        r[i] = unsigned(e[0]) | (unsigned(e[1]) << 16);
+    }
+    __syncwarp();
+}
+inline void ldmatrix_x4(unsigned r[4], const void* p) { emu_ldmatrix(r, p, false); }
+inline void ldmatrix_x4_trans(unsigned r[4], const void* p) { emu_ldmatrix(r, p, true); }
+
+inline float emu_half(unsigned packed, int h) { return __bfloat162float({std::uint16_t(packed >> (16 * h))}); }
+
+// mma.sync m16n8k16 (bf16 A row-major, bf16 B column-major, fp32 C): the
+// warp's fragments gathered into A (16 × 16) and B (16 × 8), then each lane's
+// four outputs c += A[row] · B[:, col] in fp32.
+struct EmuMmaIn {
+    unsigned a[4], b[2];
+};
+inline void mma_bf16_16816(float c[4], const unsigned a[4], unsigned b0, unsigned b1) {
+    const EmuSlot* slots = emu_warp_publish(EmuMmaIn{{a[0], a[1], a[2], a[3]}, {b0, b1}});
+    float A[16][16], B[16][8];
+    for (int l = 0; l < 32; ++l) {
+        EmuMmaIn x;
+        std::memcpy(&x, slots[l].bytes, sizeof(x));
+        const int g = l / 4, t = l % 4;
+        for (int h = 0; h < 2; ++h) {
+            A[g][2 * t + h] = emu_half(x.a[0], h);
+            A[g + 8][2 * t + h] = emu_half(x.a[1], h);
+            A[g][2 * t + 8 + h] = emu_half(x.a[2], h);
+            A[g + 8][2 * t + 8 + h] = emu_half(x.a[3], h);
+            B[2 * t + h][g] = emu_half(x.b[0], h);
+            B[2 * t + 8 + h][g] = emu_half(x.b[1], h);
+        }
+    }
+    __syncwarp();
+    const int g = emu_lane() / 4, t = emu_lane() % 4;
+    for (int e = 0; e < 4; ++e) {
+        const int row = g + 8 * (e / 2), col = 2 * t + e % 2;
+        float sum = c[e];
+        for (int kk = 0; kk < 16; ++kk) sum += A[row][kk] * B[kk][col];
+        c[e] = sum;
+    }
+}
+
+}  // namespace k4
+
 #include "flash_attention_kernels.cuh"
+
+#include <array>
+#include <utility>
 
 namespace k4 {
 alignas(16) float4 k4_smem[232448 / sizeof(float4)];
 }
 
+using Bf16Body = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*, __nv_bfloat16*, int,
+                          int, int, int, int, int, float);
+template <int... N>
+constexpr std::array<Bf16Body, sizeof...(N)> bf16_bodies(std::integer_sequence<int, N...>) {
+    return {k4::flash_attention_bf16_kernel<N + 1>...};
+}
+// The bf16 body for each head width in steps of 16 columns, as flash_attention.cu picks it.
+constexpr auto BF16_BODIES = bf16_bodies(std::make_integer_sequence<int, k4::MAX_D / 16>{});
+
 template <typename T>
 int emu_fa(const void* q, const void* k, const void* v, void* out, int BH, int S, int d, int groups,
            int window, int causal, float scale) {
+    constexpr bool bf16 = sizeof(T) == 2;
     if (S < 1 || BH < 1 || groups < 1 || BH % groups != 0 || d < 4 || d % 4 != 0 || d > k4::MAX_D) return 2;
-    if (k4::smem_bytes(d) > (long long)sizeof(k4::k4_smem)) return 1;
-    const unsigned blocks = (unsigned)(BH * ((S + k4::BQ - 1) / k4::BQ));
-    emu_launch(dim3(blocks), k4::THREADS, [&] {
-        k4::flash_attention_kernel<T>((const T*)q, (const T*)k, (const T*)v, (T*)out, S, d, groups,
-                                      k4::clamp_window(window, S), causal, scale);
+    if (k4::smem_bytes(d, bf16) > (long long)sizeof(k4::k4_smem)) return 1;
+    const int bq = k4::block_rows(bf16);
+    const unsigned blocks = (unsigned)(BH * ((S + bq - 1) / bq));
+    window = k4::clamp_window(window, S);
+    emu_launch(dim3(blocks), k4::block_threads(bf16), [&] {
+        if constexpr (bf16)
+            BF16_BODIES[k4::bf16_width(d) / 16 - 1]((const T*)q, (const T*)k, (const T*)v, (T*)out, BH, S, d,
+                                                    groups, window, causal, scale);
+        else
+            k4::flash_attention_f32_kernel((const T*)q, (const T*)k, (const T*)v, (T*)out, BH, S, d, groups,
+                                           window, causal, scale);
+    });
+    return 0;
+}
+
+// One warp: A (16 × 16) times B (16 × 16) in bf16 through the stand-ins,
+// with the bf16 body's row addresses: A by ldmatrix_x4 from A row-major (as
+// Q), B by ldmatrix_x4 from Bᵀ row-major (as K) into d_k and by
+// ldmatrix_x4_trans from B row-major (as V) into d_v, each as two 16 × 8
+// products. Rows are padded to 24 elements, as the body pads them. Also
+// writes lane l's four A registers to a_frag[4l .. 4l + 3].
+extern "C" int emu_mma_check(const std::uint16_t* a, const std::uint16_t* b, float* d_k, float* d_v, unsigned* a_frag) {
+    static std::uint16_t as[16][24], bt[16][24], bs[16][24];
+    for (int i = 0; i < 16; ++i)
+        for (int j = 0; j < 16; ++j) {
+            as[i][j] = a[16 * i + j];
+            bs[i][j] = b[16 * i + j];
+            bt[j][i] = b[16 * i + j];
+        }
+    emu_launch(dim3(1), 32, [&] {
+        const int lane = emu_lane(), g = lane / 4, t = lane % 4;
+        unsigned af[4], bf[4];
+        k4::ldmatrix_x4(af, &as[lane % 16][(lane / 16) * 8]);
+        for (int i = 0; i < 4; ++i) a_frag[4 * lane + i] = af[i];
+        for (int trans = 0; trans < 2; ++trans) {
+            if (trans)
+                k4::ldmatrix_x4_trans(bf, &bs[((lane / 8) % 2) * 8 + lane % 8][(lane / 16) * 8]);
+            else
+                k4::ldmatrix_x4(bf, &bt[(lane / 16) * 8 + lane % 8][((lane / 8) % 2) * 8]);
+            float* dst = trans ? d_v : d_k;
+            for (int n = 0; n < 2; ++n) {
+                float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+                k4::mma_bf16_16816(c, af, bf[2 * n], bf[2 * n + 1]);
+                for (int e = 0; e < 4; ++e) dst[16 * (g + 8 * (e / 2)) + 8 * n + 2 * t + e % 2] = c[e];
+            }
+        }
     });
     return 0;
 }
@@ -334,9 +510,13 @@ int emu_flash_attention_bf16(const void* q, const void* k, const void* v, void* 
                              int groups, int window, int causal, float scale) {
     return emu_fa<__nv_bfloat16>(q, k, v, out, BH, S, d, groups, window, causal, scale);
 }
-long long emu_k4_smem_bytes(int d) { return k4::smem_bytes(d); }
-void emu_k4_tiles(int q0, int S, int window, int causal, int* begin, int* end) {
-    k4::k_tiles(q0, S, k4::clamp_window(window, S), causal, begin, end);
+long long emu_k4_smem_bytes(int d, int bf16) { return k4::smem_bytes(d, bf16); }
+int emu_k4_block_rows(int bf16) { return k4::block_rows(bf16); }
+int emu_k4_tile_keys(int bf16) { return k4::tile_keys(bf16); }
+int emu_k4_block_threads(int bf16) { return k4::block_threads(bf16); }
+void emu_k4_tiles(int q0, int S, int window, int causal, int bf16, int* begin, int* end) {
+    k4::k_tiles(q0, S, k4::clamp_window(window, S), causal, k4::block_rows(bf16), k4::tile_keys(bf16), begin,
+                end);
 }
 }  // extern "C"
 """
@@ -747,9 +927,12 @@ def emu_k4(tmp_path_factory):
     P, I = ctypes.c_void_p, ctypes.c_int
     for name in ("emu_flash_attention", "emu_flash_attention_bf16"):
         getattr(lib, name).argtypes = [P, P, P, P, I, I, I, I, I, I, ctypes.c_float]
-    lib.emu_k4_smem_bytes.argtypes = [I]
+    lib.emu_k4_smem_bytes.argtypes = [I, I]
     lib.emu_k4_smem_bytes.restype = ctypes.c_longlong
-    lib.emu_k4_tiles.argtypes = [I, I, I, I, P, P]
+    for name in ("emu_k4_block_rows", "emu_k4_tile_keys", "emu_k4_block_threads"):
+        getattr(lib, name).argtypes = [I]
+    lib.emu_k4_tiles.argtypes = [I, I, I, I, I, P, P]
+    lib.emu_mma_check.argtypes = [P, P, P, P, P]
     return lib
 
 
@@ -770,19 +953,59 @@ def _qkv(bh, s, d, seed, bh_kv=None, dtype=F32):
     return (torch.from_numpy(a).to(dtype) for a in (q, k, v))
 
 
+def _bf16_rule(out, ref):
+    """K4's bf16 contract (as on the card): within one bf16 step of the
+    largest value and at least 99 % bit-equal to the plain version, which
+    keeps p in fp32."""
+    assert out.dtype == ref.dtype == BF16
+    _close(out, ref, tol=2.0 ** -7)
+    equal = float((out == ref).float().mean())
+    assert equal >= 0.99, equal
+    return equal
+
+
 def test_emulated_k4_tiling_matches_python(emu_k4):
-    """The k-tiles each q-tile visits, and the block's shared memory."""
+    """Each body's tiles, threads and shared memory, and the k-tiles each
+    q-tile visits, in the .cuh and in the wrapper."""
     begin, end = ctypes.c_int(), ctypes.c_int()
-    for S in (1, 63, 64, 130, 4096):
-        for q0 in range(0, S, 64):
-            for window in (GLOBAL, 1024, 33, 8, 1, 0, -3, -GLOBAL):
-                for causal in (True, False):
-                    emu_k4.emu_k4_tiles(q0, S, window, int(causal), ctypes.byref(begin), ctypes.byref(end))
-                    assert range(begin.value, end.value) == k_tiles(q0, S, window, causal)
-    for d in (4, 16, 48, 240, 256):
-        assert emu_k4.emu_k4_smem_bytes(d) == k4_smem_bytes(d)
-    assert 2 * k4_smem_bytes(240) <= 227 * 1024            # two blocks per SM at gemma3's head width
-    assert len(k_tiles(4032, 4096, 1024, True)) == 34      # a local layer's last q-tile: 34 of 128 k-tiles
+    for dtype, bf16 in ((F32, 0), (BF16, 1)):
+        assert (emu_k4.emu_k4_block_rows(bf16), emu_k4.emu_k4_tile_keys(bf16), emu_k4.emu_k4_block_threads(bf16)) \
+            == (K4_BLOCK_ROWS[dtype], K4_TILE_KEYS[dtype], K4_THREADS[dtype])
+        for S in (1, 63, 64, 130, 4096):
+            for q0 in range(0, S, K4_BLOCK_ROWS[dtype]):
+                for window in (GLOBAL, 1024, 33, 8, 1, 0, -3, -GLOBAL):
+                    for causal in (True, False):
+                        emu_k4.emu_k4_tiles(q0, S, window, int(causal), bf16, ctypes.byref(begin),
+                                            ctypes.byref(end))
+                        assert range(begin.value, end.value) == k_tiles(q0, S, window, causal, dtype)
+        for d in (4, 12, 16, 20, 48, 240, 256):
+            assert emu_k4.emu_k4_smem_bytes(d, bf16) == k4_smem_bytes(d, dtype) <= 227 * 1024
+    assert 2 * k4_smem_bytes(240, BF16) <= 227 * 1024       # two bf16 blocks per SM at gemma3's head width
+    assert k4_smem_bytes(240, BF16) == 2 * 192 * 248        # rows of 496 bytes (240 + 8 bf16)
+    # a local layer's last q-tile: 36 of 128 32-key tiles in fp32, 17 of 64 64-key tiles in bf16
+    assert len(k_tiles(3968, 4096, 1024, True, F32)) == 36
+    assert len(k_tiles(4032, 4096, 1024, True, BF16)) == 17
+
+
+def test_emulated_mma_ldmatrix_match_plain_product(emu_k4):
+    """The warp-level stand-ins against a plain product: ldmatrix puts A in
+    the PTX ISA's m16n8k16 fragment layout, and A @ B through ldmatrix (from
+    Bᵀ as K is stored) or ldmatrix.trans (from B as V is stored) and two
+    m16n8k16 products equals the fp32 product of the bf16 values."""
+    r = np.random.default_rng(0)
+    a, b = (torch.from_numpy(r.standard_normal((16, 16)).astype(np.float32)).to(BF16) for _ in range(2))
+    d_k, d_v = torch.full((16, 16), float("nan")), torch.full((16, 16), float("nan"))
+    frag32 = torch.zeros(32 * 4, dtype=torch.int32)
+    assert emu_k4.emu_mma_check(_p(a), _p(b), _p(d_k), _p(d_v), _p(frag32)) == 0
+    frag = frag32.numpy().view(np.uint32).reshape(32, 4)
+    bits = a.view(torch.int16).numpy().view(np.uint16)
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        for i, (row, col) in enumerate(((g, 2 * t), (g + 8, 2 * t), (g, 2 * t + 8), (g + 8, 2 * t + 8))):
+            assert frag[lane, i] == int(bits[row, col]) | int(bits[row, col + 1]) << 16
+    want = a.double() @ b.double()
+    for got in (d_k, d_v):
+        assert torch.allclose(got.double(), want, rtol=0, atol=1e-5 * float(want.abs().max()))
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidirectional"])
@@ -790,7 +1013,7 @@ def test_emulated_k4_tiling_matches_python(emu_k4):
 @pytest.mark.parametrize("d", [16, 48])
 @pytest.mark.parametrize("s", [1, 63, 130])
 def test_emulated_flash_attention_matches_plain(emu_k4, s, d, window, causal):
-    """Any S (a single row, a short tile, a ragged third q-tile), both
+    """Any S (a single row, a short tile, a ragged second q-tile), both
     widths, the global and a sliding window, window 0 (causal: no valid key,
     every row averages v), with and without the causal mask."""
     q, k, v = _qkv(2, s, d, seed=s * d + window % 97 + causal)
@@ -801,15 +1024,43 @@ def test_emulated_flash_attention_matches_plain(emu_k4, s, d, window, causal):
 @pytest.mark.parametrize("window", [GLOBAL, 8, 0])
 @pytest.mark.parametrize("s", [63, 130])
 def test_emulated_flash_attention_bf16(emu_k4, s, window):
-    """bf16 q, k, v: widened as staged, fp32 inside, one rounding at the end
-    — the plain version's arithmetic, so within one bf16 step of the largest
-    value and nearly always bit-equal."""
+    """bf16 q, k, v through the tensor-core body: fp32 scores and softmax, p
+    into P·V as two bf16 terms, one rounding at the end — within one bf16
+    step of the largest value and nearly always bit-equal to the plain
+    version."""
     q, k, v = _qkv(2, s, 48, seed=s + window % 97, dtype=BF16)
     out = _flash(emu_k4, q, k, v, window, True)
-    ref = flash_attention_plain(q, k, v, window=window)
-    assert out.dtype == BF16
-    _close(out, ref, tol=2.0 ** -7)
-    assert float((out == ref).float().mean()) >= 0.99
+    _bf16_rule(out, flash_attention_plain(q, k, v, window=window))
+
+
+@pytest.mark.parametrize("s,d,window,causal", [
+    (1, 48, GLOBAL, True), (77, 48, GLOBAL, True), (40, 48, 8, True), (40, 16, GLOBAL, True),
+    (130, 48, 0, True), (130, 48, GLOBAL, False), (130, 48, 24, False), (200, 16, 70, True),
+    (200, 48, GLOBAL, True), (70, 40, GLOBAL, True), (70, 20, 8, True), (70, 4, GLOBAL, False)],
+    ids=["one_row", "odd_s", "short_window", "short_d16", "window_0", "bidirectional", "bidirectional_window",
+         "local_skips_tiles", "interior_tiles", "d40_padded", "d20_8byte_copies", "d4"])
+def test_emulated_flash_attention_bf16_cases(emu_k4, s, d, window, causal):
+    """The bf16 body at one row, an odd S, S under one tile, window 0
+    (every row averages v), the bidirectional mask with and without a
+    window, a window that skips k-tiles, tiles with no masked pair (no
+    per-element test), d padded to a multiple of 16 with zero columns, and
+    rows of d = 20 or 4 (copied 8 bytes at a time)."""
+    q, k, v = _qkv(2, s, d, seed=3 * s + d + window % 97 + causal, dtype=BF16)
+    out = _flash(emu_k4, q, k, v, window, causal)
+    _bf16_rule(out, flash_attention_plain(q, k, v, window=window, causal=causal))
+
+
+def test_emulated_flash_attention_bf16_keeps_p_in_16_bits(emu_k4):
+    """P·V with p as P_hi + P_lo: the body follows the plain version, whose p
+    is fp32, where one bf16 p would leave far fewer outputs bit-equal."""
+    q, k, v = _qkv(2, 130, 48, seed=21, dtype=BF16)
+    out = _flash(emu_k4, q, k, v, GLOBAL, True)
+    ref = flash_attention_plain(q, k, v)
+    s = (q.float() @ k.float().transpose(1, 2)) * 48 ** -0.5
+    s = s.masked_fill(~torch.ones(130, 130, dtype=torch.bool).tril(), -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    one_bf16 = ((p.to(BF16).float() @ v.float()) / p.sum(-1, keepdim=True)).to(BF16)
+    assert _bf16_rule(out, ref) > float((one_bf16 == ref).float().mean()) + 0.1
 
 
 @pytest.mark.parametrize("window", [GLOBAL, 8])
@@ -822,3 +1073,14 @@ def test_emulated_flash_attention_groups_kv_heads(emu_k4, window):
     expanded = _flash(emu_k4, q, k.repeat_interleave(2, 0), v.repeat_interleave(2, 0), window, True)
     assert torch.equal(out, expanded)
     _close(out, flash_attention_plain(q, k, v, window=window))
+
+
+@pytest.mark.parametrize("window", [GLOBAL, 8])
+def test_emulated_flash_attention_bf16_groups_kv_heads(emu_k4, window):
+    """The bf16 body reads grouped key/value heads in place: bit-equal to
+    expanding them, and the bf16 contract against the plain version."""
+    q, k, v = _qkv(6, 130, 16, seed=window % 97 + 1, bh_kv=3, dtype=BF16)
+    out = _flash(emu_k4, q, k, v, window, True)
+    expanded = _flash(emu_k4, q, k.repeat_interleave(2, 0), v.repeat_interleave(2, 0), window, True)
+    assert torch.equal(out, expanded)
+    _bf16_rule(out, flash_attention_plain(q, k, v, window=window))

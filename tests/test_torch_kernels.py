@@ -660,6 +660,55 @@ def test_cuda_flash_attention_groups_and_bf16(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s,window", [(4096, 1024), (1000, GLOBAL)], ids=["local_4096", "odd_1000"])
+def test_cuda_flash_attention_bf16_matches_plain(cuda, s, window):
+    """The tensor-core body at gemma3-12b's local window and at an odd S:
+    within one bf16 step of the largest value and ≥ 99 % bit-equal to the
+    plain version, which keeps p in fp32."""
+    q, k, v = _k4_inputs(cuda, s, dtype=BF16, seed=s + window % 97)
+    before = k4.LAUNCHES["k4_flash_attention_bf16"]
+    out = k4.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert k4.LAUNCHES["k4_flash_attention_bf16"] == before + 1 and out.dtype == BF16 and out.shape == q.shape
+    ref = k4.flash_attention_plain(q, k, v, window=window)
+    assert float((out.float() - ref.float()).abs().max()) <= 2.0 ** -7 * float(ref.float().abs().max())
+    assert float((out == ref).float().mean()) >= 0.99
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bf16_groups_kv_heads(cuda):
+    """The bf16 body reads grouped key/value heads in place: bit-equal to
+    the same call on k and v expanded per group."""
+    q, k, v = _k4_inputs(cuda, 1000, dtype=BF16, seed=5)
+    grouped = k4.flash_attention(q, k, v, window=1024)
+    expanded = k4.flash_attention(q, k.repeat_interleave(2, 0), v.repeat_interleave(2, 0), window=1024)
+    assert torch.equal(grouped, expanded)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bodies_do_not_spill(cuda):
+    """Both bodies keep everything in registers: no local memory per thread,
+    at most 255 registers; two bf16 blocks share an SM at d = 240."""
+    attrs = {dtype: k4.kernel_attributes(dtype, 240) for dtype in (F32, BF16)}
+    assert all(a["local_bytes"] == 0 and a["registers"] <= 255 for a in attrs.values()), attrs
+    assert attrs[BF16]["blocks_per_sm"] >= 2 and attrs[F32]["blocks_per_sm"] >= 1, attrs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["fp32", "bf16"])
+def test_cuda_flash_attention_refuses_unaligned_inputs(cuda, dtype):
+    """cp.async copies 16-byte pieces: a q that does not start on a 16-byte
+    boundary raises instead of launching."""
+    q, k, v = _k4_inputs(cuda, 64, d=16, bh=2, bh_kv=2, dtype=dtype)
+    shifted = torch.empty(q.numel() + 1, dtype=dtype, device=cuda)[1:].view(q.shape)
+    shifted.copy_(q)
+    before = dict(k4.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        k4.flash_attention(shifted, k, v)
+    assert k4.LAUNCHES == before
+
+
+@pytest.mark.cuda
 def test_cuda_flash_attention_is_forward_only(cuda):
     q, k, v = _k4_inputs(cuda, 64, d=16, bh=2, bh_kv=2)
     with pytest.raises(NotImplementedError, match="LM training slice"):
