@@ -53,7 +53,12 @@ Phases, one JSON line each; any failed check ends the run with exit code 1:
            table, K1 over its interior and boundary tables (the split
            pair), and K2's and K1's bf16 instantiations (K1's: within one
            bf16 step of the largest value, ≥ 99 % bit-equal, also with
-           NaN-poisoned padding and an emptied block-row)
+           NaN-poisoned padding and an emptied block-row); the split
+           schedule: K1, both K2 aggregations and the two bf16
+           instantiations of the halo path over a skewed table (one
+           block-row of 300 tiles among rows of 1–3, an empty row, NaN
+           padding) at Nell's 16-wide rows, and the same call twice giving
+           the same bits at Nell's and rank 0's shapes
   main     inference: gcn_forward(backend="bsr") three times under
            inference_mode with the launch counts zeroed just before and read
            just after; the quant-off logits against the segment (index_add_)
@@ -65,9 +70,17 @@ Phases, one JSON line each; any failed check ends the run with exit code 1:
            segment, loss against loss
   times    CUDA-event medians: each kernel, its plain version, the library
            call where one computes the same function (K1's: a
-           torch.sparse_bsr_tensor product, checked first), the whole forward, the
-           backward's torch parts; host-clock medians of the training step;
-           peak device memory
+           torch.sparse_bsr_tensor product, checked first), for K2's two
+           aggregations the composition of library calls that computes
+           theirs (relu(addmm(b, bsr, z)), relu(addmm(b, bsr @ x, w))),
+           each ragged kernel's split (grid, blocks that take tiles, tiles
+           per block: largest and mean; from `ragged_split`, the numpy
+           mirror of the kernel's schedule, on this run's lens), the whole
+           forward, the backward's torch parts; host-clock medians of the
+           training step;
+           peak device memory; then ``ragged_compiler``: each ragged
+           instantiation's registers, local memory (spills) and blocks per
+           SM
   profile  torch.profiler over three training steps (bsr, quant on): device
            time by kernel and the device's idle share of the window
   halo     the parent frees the card, then 4 ranks on cuda:0 in one gloo
@@ -203,6 +216,7 @@ K1_BF16_COMBOS = {"_bf16": (torch.float32, torch.bfloat16), "_bf16_all": (torch.
 K1_BF16_STEP = 2.0 ** -7       # K1 bf16 vs plain: max |diff| ≤ one bf16 step of max |plain| ...
 K1_BF16_BIT_EQUAL = 0.99       # ... and at least 99 % of the elements bit-equal (the sums' order inside
                                # a tile may flip a per-tile rounding)
+SKEW_ROWS, SKEW_LONG_ROW = 48, 300   # the kernels phase's skewed table: one 300-tile block-row among rows of 1–3
 
 K3_SOURCE = "src/repro_torch/kernels/csrc/fm_interaction_kernels.cuh"
 REPLACES.update({"k3_fm_interaction": "src/repro/kernels/fm_interaction.py:29",
@@ -333,7 +347,8 @@ def build_kernels() -> None:
     lib3 = k3._lib()
     lib4 = k4._lib()
     seconds = time.perf_counter() - t0
-    smem_ok = all(lib.k2_layer_smem_bytes(f) == fg.layer_smem_bytes(f) for f in (7, 16, 50, 210, fg.AF_MAX_F_IN))
+    smem_ok = all(lib.k2_layer_smem_bytes(f, dt.itemsize) == fg.layer_smem_bytes(f, dt)
+                  for f in (7, 16, 50, 210, fg.AF_MAX_F_IN) for dt in (torch.float32, torch.bfloat16))
     tile_ok = all((lib3.k3_tile_examples(f, d), lib3.k3_tile_fields(f, d)) == k3.fm_tile(f, d)
                   and lib3.k3_smem_bytes(f, d) == k3.fm_smem_bytes(f, d)
                   for f, d in ((39, 10), (8, 10), (1, 10), (40, 400), (3, 300)))
@@ -352,7 +367,7 @@ def build_kernels() -> None:
          k4_smem_bytes_d240={str(dt).replace("torch.", ""): k4.k4_smem_bytes(240, dt)
                              for dt in (torch.float32, torch.bfloat16)},
          k4_tensor_core_instructions=k4_mma)
-    require(smem_ok, "build", "shared-memory formula of the .cuh and the wrapper disagree")
+    require(smem_ok, "build", "shared-memory formula or split minimum of the .cuh and the wrapper disagree")
     require(tile_ok, "build", "K3's tiling in the .cuh and in the wrapper disagree")
     require(k4_ok, "build", "K4's tiles or shared memory in the .cuh and in the wrapper disagree")
     require(mma_ok, "build", f"K4's bf16 body must run mma and its fp32 body none: {k4_mma}")
@@ -545,6 +560,7 @@ def check_kernels(data: dict, ops: dict, rank: dict, halo: dict) -> dict:
             ok = hold(kernel, "poisoned padding + empty block-row", out, ref)
             cases[-1].update(finite=finite, empty_row_is_act_b=empty_ok, ok=ok and finite and empty_ok)
         del poisoned
+        check_split(data, ops, rank, hold, cases)
         check_rank_kernels(rank, halo, ops, hold)
         check_bf16_kernels(rank, ops, hold, cases)
         check_k1_bf16(rank, hold, cases)
@@ -553,6 +569,129 @@ def check_kernels(data: dict, ops: dict, rank: dict, halo: dict) -> dict:
     emit("kernels", ok=ok, rtol=KERNEL_RTOL, tail_rows=data["n"] % 128, cases=cases)
     require(ok, "kernels", "a kernel disagrees with its plain version")
     return worst
+
+
+def skewed_table(n_src_blocks: int, device: torch.device, generator: torch.Generator) -> tuple:
+    """A table the split must cut: one block-row of SKEW_LONG_ROW tiles among
+    SKEW_ROWS − 1 rows of 1–3 (one of them empty), columns into
+    ``n_src_blocks`` source blocks, NaN in every padding tile; returns
+    (clean vals, poisoned vals, cols, lens)."""
+    from repro_torch.kernels.ref import poison_padding
+
+    lens = torch.randint(1, 4, (SKEW_ROWS,), generator=generator, dtype=torch.int32)
+    lens[SKEW_ROWS // 3], lens[2 * SKEW_ROWS // 3] = SKEW_LONG_ROW, 0
+    shape = (SKEW_ROWS, SKEW_LONG_ROW, 128, 128)
+    vals = (torch.randn(shape, generator=generator) * 0.05).to(device)
+    cols = torch.randint(0, n_src_blocks, shape[:2], generator=generator, dtype=torch.int32).to(device)
+    lens = lens.to(device)
+    return vals, poison_padding(vals, lens), cols, lens
+
+
+def check_split(data: dict, ops: dict, rank: dict, hold, cases: list) -> None:
+    """The split schedule at Nell's widths: every ragged kernel of the main
+    paths over a skewed table (one block-row of 300 tiles among rows of 1–3,
+    an empty row, NaN padding; source rows Nell's 16-wide h1), and the same
+    call twice giving the same bits, at Nell's shapes (fp32) and rank 0's
+    (bf16)."""
+    from repro_torch.kernels import bsr_spmm as k1
+    from repro_torch.kernels import fused_gcn as fg
+
+    h1, w2, b1, b2 = ops["h1"], ops["w2"], ops["b1"], ops["b2"]
+    vals, poisoned, cols, lens = skewed_table(h1.shape[0] // 128, h1.device, torch.Generator().manual_seed(SEED + 3))
+    t16 = h1.to(torch.bfloat16)
+    skew = f"skewed table ({SKEW_ROWS} block-rows, one of {SKEW_LONG_ROW} tiles, one empty; NaN padding)"
+    for kernel, out, ref, rtol in (
+        ("k1_bsr_spmm", k1.bsr_spmm(poisoned, cols, lens, h1), k1.bsr_spmm_plain(vals, cols, lens, h1), KERNEL_RTOL),
+        ("k2_ff_aggregate", fg.ff_aggregate(poisoned, cols, lens, h1, b1, True),
+         fg.ff_aggregate_plain(vals, cols, lens, h1, b1, True), KERNEL_RTOL),
+        ("k2_af_layer", fg.af_layer(poisoned, cols, lens, h1, w2, b2, True),
+         fg.af_layer_plain(vals, cols, lens, h1, w2, b2, True), KERNEL_RTOL),
+        ("k2_af_layer_bf16", fg.af_layer(poisoned, cols, lens, t16, w2, b2, True),
+         fg.af_layer_plain(vals, cols, lens, t16, w2, b2, True), BF16_KERNEL_RTOL),
+        ("k1_bsr_spmm_bf16", k1.bsr_spmm(poisoned, cols, lens, t16), k1.bsr_spmm_plain(vals, cols, lens, t16),
+         K1_BF16_STEP),
+    ):
+        ok = hold(kernel, skew, out, ref, rtol)
+        finite = bool(torch.isfinite(out.float()).all())
+        extra = dict(finite=finite)
+        if kernel == "k1_bsr_spmm_bf16":
+            extra.update(bit_equal=float((out == ref).float().mean()), bit_equal_min=K1_BF16_BIT_EQUAL)
+            ok = ok and extra["bit_equal"] >= K1_BF16_BIT_EQUAL
+        cases[-1].update(**extra, ok=ok and finite)
+    del vals, poisoned, cols, lens, t16
+
+    nv, nc, nl = data["vals"], data["cols"], data["lens"]
+    rv, rc, rl = rank["vals"], rank["cols"], rank["lens"]
+    z = fg.ff_transform(ops["x"], ops["w1"])
+    t = rank["table"].to(torch.bfloat16)
+    for kernel, case, call in (
+        ("k1_bsr_spmm", "nell Ã·h1", lambda: k1.bsr_spmm(nv, nc, nl, h1)),
+        ("k2_ff_aggregate", "nell layer 1", lambda: fg.ff_aggregate(nv, nc, nl, z, b1, True)),
+        ("k2_af_layer", "nell layer 2", lambda: fg.af_layer(nv, nc, nl, h1, w2, b2, True)),
+        ("k2_af_layer_bf16", "rank 0 table", lambda: fg.af_layer(rv, rc, rl, t, w2, b2, True)),
+        ("k1_bsr_spmm_bf16", "rank 0 table", lambda: k1.bsr_spmm(rv, rc, rl, t)),
+    ):
+        first, second = call(), call()
+        same = bool(torch.equal(first, second))
+        cases.append(dict(kernel=kernel, case=f"{case}: two calls, the same bits", bit_equal_repeat=same, ok=same))
+        del first, second
+
+
+def split_stats(lens: torch.Tensor, T: int, name: str, ft: int, f_out: int) -> dict:
+    """The split schedule of launcher ``name`` on a table: the grid, the
+    row weight, the blocks that take positions and the valid tiles each
+    streams (largest, mean), from `ragged_split` on this run's lens."""
+    from repro_torch.kernels import fused_gcn as fg
+
+    grid = fg.ragged_grid(name, ft, torch.cuda.current_device())
+    weight = fg.ragged_row_weight(name, f_out)
+    blocks = fg.ragged_split(lens.cpu().numpy(), T, grid, row_weight=weight)
+    tiles = [sum(t1 - t0 for _, t0, t1 in b["segments"]) for b in blocks]
+    return dict(grid=grid, row_weight=weight, blocks=len(blocks), tiles_per_block_max=max(tiles),
+                tiles_per_block_mean=float(np.mean(tiles)))
+
+
+def bsr_tensor(vals, cols, lens, n_src_rows: int) -> torch.Tensor:
+    """The valid tiles as one ``torch.sparse_bsr_tensor`` (crow the
+    cumulative sum of lens, col ``cols[r, :lens[r]]``), for the library
+    yardsticks; the port never builds it."""
+    R, T = cols.shape
+    valid = torch.arange(T, device=cols.device)[None, :] < lens[:, None].long()
+    crow = torch.zeros(R + 1, dtype=torch.int64, device=cols.device)
+    crow[1:] = torch.cumsum(lens.long(), 0)
+    return torch.sparse_bsr_tensor(crow, cols[valid].long(), vals[valid], size=(R * vals.shape[-2], n_src_rows))
+
+
+def composition_ms(kernel: str, bsr, src, w, b, ref) -> dict:
+    """The time of the composition of library calls that computes a K2
+    aggregation: feature-first ``relu(addmm(b, bsr, z))``, aggregation-first
+    ``relu(addmm(b, bsr @ x, w))``; checked against the plain version to
+    KERNEL_RTOL of max; a yardstick the port never calls. Where CUDA refuses
+    a call, the time is None and the error is kept."""
+    if kernel == "k2_ff_aggregate":
+        label = "torch.relu(torch.addmm(b, bsr, z)) (cuSPARSE BSR, fp32)"
+        fn = lambda: torch.relu(torch.addmm(b.expand(bsr.shape[0], -1), bsr, src))
+    else:
+        label = "torch.relu(torch.addmm(b, bsr @ x, w)) (cuSPARSE BSR, then cuBLAS, fp32)"
+        fn = lambda: torch.relu(torch.addmm(b, bsr @ src, w))
+    try:
+        out = fn()
+    except RuntimeError as err:
+        return dict(composition_ms=None, composition=label, composition_error=str(err).splitlines()[0])
+    err, scale = max_err(out, ref)
+    require(err <= KERNEL_RTOL * scale, "times", f"the composition for {kernel} disagrees with its plain version: "
+                                                 f"{err} > {KERNEL_RTOL} · {scale}")
+    del out
+    return dict(composition_ms=cuda_ms(fn), composition=label, composition_max_abs_err=err)
+
+
+def ragged_compiler(ft: int) -> dict:
+    """Registers, local memory (spills) and blocks per SM of every ragged
+    instantiation at accumulator width ``ft``, as the compiler gave them."""
+    from repro_torch.kernels import fused_gcn as fg
+
+    names = [f"{k}{sfx}" for k in ("k2_ff_aggregate", "k2_af_layer", "k1_bsr_spmm") for sfx in ("", "_bf16", "_bf16_all")]
+    return {name: fg.ragged_attributes(name, ft) for name in names}
 
 
 def check_rank_kernels(rank: dict, halo: dict, ops: dict, hold) -> None:
@@ -826,6 +965,15 @@ def time_everything(data: dict, ops: dict, main: dict, train: dict) -> dict:
                 bound=bound(tiles + idx + 4.0 * (h1.numel() + R * B * hidden), 2.0 * nnz * B * B * hidden)),
         }
         rows["k1_bsr_spmm"].update(bsr_library_ms(vals, cols, lens, h1))
+        bsr = bsr_tensor(vals, cols, lens, h1.shape[0])
+        rows["k2_ff_aggregate"].update(composition_ms("k2_ff_aggregate", bsr, z, None, b1,
+                                                      fg.ff_aggregate_plain(vals, cols, lens, z, b1, True)))
+        rows["k2_af_layer"].update(composition_ms("k2_af_layer", bsr, h1, w2, b2,
+                                                  fg.af_layer_plain(vals, cols, lens, h1, w2, b2, True)))
+        del bsr
+        T = cols.shape[1]
+        for name, f in (("k2_ff_aggregate", hidden), ("k2_af_layer", f_out), ("k1_bsr_spmm", hidden)):
+            rows[name]["split"] = split_stats(lens, T, name, hidden, f)
         # The backward's torch parts at Nell's shapes: both layers' blocked
         # transposes take a 16-wide cotangent (layer 1's dpre, layer 2's
         # dm = g·W2ᵀ), and layer 1's dw = Xᵀ·dz is the one large matmul.
@@ -867,7 +1015,15 @@ def time_everything(data: dict, ops: dict, main: dict, train: dict) -> dict:
     totals["train_step_segment_quant_ms"] = step_ms(dataclasses.replace(cfg, backend="segment"))
     emit("times", ok=True, reps=dict(kernel=10, forward=5, train_step=5), **totals, backward=backward,
          resident_tile_table_gb=vals.numel() * 4 / 1e9,
-         kernels={k: {**v, "bound": list(v["bound"])} for k, v in rows.items()})
+         kernels={k: {**v, "bound": list(v["bound"])} for k, v in rows.items()},
+         split_note="split: the ragged kernels' grid (one wave: SMs × blocks per SM), the row weight, the blocks "
+                    "that take positions and the valid tiles each streams (largest, mean) on this table, from "
+                    "ragged_split (the numpy mirror of the kernel's schedule) on this run's lens")
+    compiler = ragged_compiler(hidden)
+    emit("ragged_compiler", ok=True, ft=hidden, compiler=compiler,
+         spills=sum(c["local_bytes"] for c in compiler.values()),
+         note="cudaFuncGetAttributes and cudaOccupancyMaxActiveBlocksPerMultiprocessor of each "
+              "ragged_layer_kernel instantiation at Nell's 16-wide accumulator")
     return rows
 
 
@@ -880,11 +1036,7 @@ def bsr_library_ms(vals, cols, lens, z) -> dict:
     call, ``library_ms`` is None and ``library_error`` says why."""
     from repro_torch.kernels import bsr_spmm as k1
 
-    R, T = cols.shape
-    valid = torch.arange(T, device=cols.device)[None, :] < lens[:, None].long()
-    crow = torch.zeros(R + 1, dtype=torch.int64, device=cols.device)
-    crow[1:] = torch.cumsum(lens.long(), 0)
-    bsr = torch.sparse_bsr_tensor(crow, cols[valid].long(), vals[valid], size=(R * vals.shape[-2], z.shape[0]))
+    bsr = bsr_tensor(vals, cols, lens, z.shape[0])
     try:
         out = bsr @ z
     except RuntimeError as err:
@@ -950,6 +1102,10 @@ def time_bf16_kernels(rank: dict, ops: dict) -> dict:
                 bound=bound(size[vd] * nnz * B * B + idx + size[zd] * (t.numel() + R * B * F),
                             2.0 * nnz * B * B * F, rate))
             del rv, t
+        for name, row in rows.items():
+            if not name.startswith("k2_ff_transform"):
+                row["split"] = split_stats(lens, cols.shape[1], name, rank["table"].shape[1],
+                                           ops["w2"].shape[1] if "af_layer" in name else rank["table"].shape[1])
         t32 = rank["table"]
         af32_ms = cuda_ms(lambda: fg.af_layer(vals, cols, lens, t32, ops["w2"], ops["b2"], True))
         af32_bound = bound(4.0 * nnz * B * B + idx + 4.0 * (t32.numel() + ops["w2"].numel() + ops["w2"].shape[1]
@@ -1787,6 +1943,7 @@ def main() -> int:
              launches_halo_train=sharded_train[name], max_abs_err=worst[name], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound"][0], bound_by=row["bound"][1],
              library_ms=row["library_ms"],
+             **({"composition_ms": row["composition_ms"]} if "composition_ms" in row else {}),
              shape="rank 0 of 4 (halo)" if name not in FP32_KERNELS else "unsharded Nell")
         for name, row in rows.items()
     ] + [

@@ -28,18 +28,32 @@ tiles, 0.52 GB, and a 55,424 × 16 bf16 table) is bound at about 0.156 ms.
 
 **What the design does about it.** It is the aggregation loop of the fused
 layer's kernel, not a copy of it: ``ragged_layer_kernel<2>`` in
-``csrc/fused_gcn_kernels.cuh`` runs the same staging loop as K2's
-feature-first aggregation (one block per block-row and feature tile, a loop
-over its own tiles ``t < lens[r]``, 128 × 32 chunks copied asynchronously
-two stages deep) and stores the accumulator as it is: no bias, no
-activation. Padding tiles are never read; an empty block-row writes zeros.
-The TPU's lane padding and ``f_tile`` do not carry over: columns past F are
-masked in the staging loads. Like K2's aggregation, the block that owns the
-longest block-row sets its time (PERF.md). The bf16 mode is the same loop
-on other element types: bf16 rows are widened as they are staged (by the
-threads, synchronously, as K2's bf16 mode does), the tile product
-accumulates in fp32, and after the last chunk of each tile the thread adds
-it, rounded to bf16, into a second accumulator that it rounds to bf16 again.
+``csrc/fused_gcn_kernels.cuh`` runs the same schedule as K2's aggregations
+and stores the accumulator as it is: no bias, no activation. The grid
+divides the valid tiles, not the block-rows: each block streams an even
+share of the N valid tiles (``fused_gcn.ragged_split``) in 128 × 32 chunks
+copied asynchronously two stages deep, and a block-row split over several
+blocks is finished by the last of them to arrive, which adds the fp32
+partials in block order. So Nell's 299-tile block-row no longer sets the
+time, no float is added atomically and the bits are the same on every
+run. Padding tiles are never read; an empty block-row writes zeros. The
+TPU's lane padding and ``f_tile`` do not carry over: columns past F are
+masked in the staging loads.
+
+**How the bf16 mode keeps the reference's rounding chain.** The running
+sum ``acc = bf16(acc + bf16(P_t))`` must run in tile order, but each tile's
+product P_t = vals[r,t] @ Z_blk depends on nothing else. A block-row held
+whole by one block runs the chain in that block, as before. For a split
+block-row every block computes the products of its own tiles in fp32 and
+writes them, rounded to bf16, to a workspace indexed by tile position; the
+block that finishes the row then runs the chain over all of its products
+in order. Every rounding is the one `bsr_spmm_plain` (``_rounded_per_tile``)
+makes. The workspace is sized for every position the table could hold,
+R · (T + 1) · 128 · F bf16 values (144 MB at rank 0 of the halo plan,
+against the 32.5 MB its valid tiles need), since lens is not read back;
+`fused_gcn._split_args` raises before an allocation the card cannot hold.
+bf16 Z rows reach shared memory by cp.async in 16-byte pieces and
+are widened where the compute loop reads them.
 
 On CPU tensors `repro_torch.kernels.ops.bsr_spmm` runs `bsr_spmm_plain`;
 on CUDA tensors it runs `bsr_spmm` or raises. The wrapper adds one to its
@@ -59,6 +73,7 @@ from repro_torch.kernels.fused_gcn import (
     _launch,
     _ragged_aggregate_plain,
     _require_cuda,
+    _split_args,
     _stream,
 )
 
@@ -111,9 +126,11 @@ def bsr_spmm(vals, cols, lens, z) -> torch.Tensor:
     _check_table("bsr_spmm", vals, cols, lens, z, f)
     _require_cuda("bsr_spmm", device)
     R, T = cols.shape
+    ft = min(f, FF_F_TILE)
     out = torch.empty((R * TILE, f), dtype=z.dtype, device=device)
+    _keep, ends, split = _split_args(name, cols, lens, ft, -(-f // ft), f, device)
     _launch(
-        name, vals.data_ptr(), cols.data_ptr(), lens.data_ptr(), R, T,
-        z.shape[0] // TILE, z.data_ptr(), out.data_ptr(), f, min(f, FF_F_TILE), _stream(device),
+        name, vals.data_ptr(), cols.data_ptr(), ends, R, T, z.shape[0] // TILE, z.data_ptr(), out.data_ptr(),
+        f, ft, *split, _stream(device),
     )
     return out

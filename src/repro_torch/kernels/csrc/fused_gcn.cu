@@ -21,6 +21,16 @@
 //   k1_bsr_spmm_bf16_all   vals bf16, Z bf16 → out bf16
 // With a bf16 Z the running sum is rounded to bf16 after every tile, as the
 // TPU kernel's bf16 output block is.
+//
+// The ragged launchers (K2's aggregations and K1) take `ends`, the
+// inclusive prefix sum of (lens clamped to [0, T]) + row_weight, the grid's
+// width grid_x (the wrapper picks one wave from k2_ragged_attributes),
+// row_weight (the positions that stand for a row's epilogue), min_tiles
+// (the fewest positions a block takes), and the workspace of the split
+// schedule: `part` (2 · grid_x · grid_y · 128 · ftp floats), `arrivals`
+// (R · grid_y ints, zeroed by the caller for each launch) and `prods` (K1 with
+// a bf16 Z only: R · (T + row_weight) · grid_y · 128 · ftp bf16 values),
+// where ftp is ft rounded up to a multiple of 16.
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
@@ -37,18 +47,44 @@ cudaError_t allow_smem(Kernel kernel, long long bytes) {
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// The split schedule's workspace (see fused_gcn_kernels.cuh).
+struct Split {
+    int grid_x, row_weight, min_tiles;
+    float* part;
+    int* arrivals;
+    unsigned short* prods;
+};
+
 template <int MODE, typename TV, typename TS, typename TW, typename TO>
-int launch_layer(const TV* vals, const int* cols, const int* lens, int R, int T,
+int launch_layer(const TV* vals, const int* cols, const int* ends, int R, int T,
                  int n_src_blocks, const TS* src, int f_src, int ft, int grid_y,
-                 const TW* w, const float* b, TO* out, int f_out, int relu,
+                 const TW* w, const float* b, TO* out, int f_out, int relu, Split sp,
                  void* stream) {
-    const long long smem = k2::kernel_smem_bytes<MODE, TO>(ft);
+    const long long smem = k2::kernel_smem_bytes<MODE, TS, TO>(ft);
     cudaError_t err = allow_smem(k2::ragged_layer_kernel<MODE, TV, TS, TW, TO>, smem);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid(R, grid_y);
+    if (sp.grid_x < 1 || grid_y < 1) return (int)cudaErrorInvalidValue;
+    dim3 grid(sp.grid_x, grid_y);
     k2::ragged_layer_kernel<MODE, TV, TS, TW, TO><<<grid, k2::THREADS, smem, (cudaStream_t)stream>>>(
-        vals, cols, lens, T, n_src_blocks, src, f_src, ft, w, b, out, f_out, relu);
+        vals, cols, ends, R, T, n_src_blocks, src, f_src, ft, w, b, out, f_out, relu, sp.row_weight, sp.min_tiles,
+        sp.part, sp.arrivals, sp.prods);
     return (int)cudaGetLastError();
+}
+
+// What the compiler gave one ragged instantiation, and the blocks of it that
+// fit an SM at accumulator width ft.
+template <int MODE, typename TV, typename TS, typename TW, typename TO>
+int attributes(int ft, int* registers, long long* local_bytes, int* blocks_per_sm) {
+    const auto kernel = k2::ragged_layer_kernel<MODE, TV, TS, TW, TO>;
+    const long long smem = k2::kernel_smem_bytes<MODE, TS, TO>(ft);
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return (int)err;
+    *registers = attr.numRegs;
+    *local_bytes = (long long)attr.localSizeBytes;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, k2::THREADS, (size_t)smem);
 }
 
 // Z (M, N) = X (M, K) · W (K, N), stored as TZ.
@@ -63,37 +99,41 @@ int ff_transform(const TX* x, const TW* w, TZ* z, int M, int K, int N, void* str
 // out (R·128, f_out) = act(Ã · Z + b), Z (n_src_blocks·128, f_out) in vals'
 // type; each block covers ft output columns.
 template <typename TV, typename TO>
-int ff_aggregate(const TV* vals, const int* cols, const int* lens, int R, int T,
+int ff_aggregate(const TV* vals, const int* cols, const int* ends, int R, int T,
                  int n_src_blocks, const TV* z, const float* b, TO* out,
-                 int f_out, int ft, int relu, void* stream) {
+                 int f_out, int ft, int relu, Split sp, void* stream) {
     const int grid_y = (f_out + ft - 1) / ft;
-    return launch_layer<0, TV, TV, float, TO>(vals, cols, lens, R, T, n_src_blocks, z, f_out, ft,
-                                              grid_y, nullptr, b, out, f_out, relu, stream);
+    return launch_layer<0, TV, TV, float, TO>(vals, cols, ends, R, T, n_src_blocks, z, f_out, ft,
+                                              grid_y, nullptr, b, out, f_out, relu, sp, stream);
 }
 
 // out (R·128, f_out) = act((Ã · X) · W + b), X (n_src_blocks·128, f_in); out
 // in X's type.
 template <typename TV, typename TX, typename TW>
-int af_layer(const TV* vals, const int* cols, const int* lens, int R, int T,
+int af_layer(const TV* vals, const int* cols, const int* ends, int R, int T,
              int n_src_blocks, const TX* x, int f_in, const TW* w,
-             const float* b, TX* out, int f_out, int relu, void* stream) {
-    return launch_layer<1, TV, TX, TW, TX>(vals, cols, lens, R, T, n_src_blocks, x, f_in, f_in, 1,
-                                           w, b, out, f_out, relu, stream);
+             const float* b, TX* out, int f_out, int relu, Split sp, void* stream) {
+    return launch_layer<1, TV, TX, TW, TX>(vals, cols, ends, R, T, n_src_blocks, x, f_in, f_in, 1,
+                                           w, b, out, f_out, relu, sp, stream);
 }
 
 // out (R·128, f) = Ã · Z, Z (n_src_blocks·128, f) — may hold more block-rows
 // than the output; each block covers ft output columns; out in Z's type.
 template <typename TV, typename TZ>
-int bsr_spmm(const TV* vals, const int* cols, const int* lens, int R, int T, int n_src_blocks,
-             const TZ* z, TZ* out, int f, int ft, void* stream) {
+int bsr_spmm(const TV* vals, const int* cols, const int* ends, int R, int T, int n_src_blocks,
+             const TZ* z, TZ* out, int f, int ft, Split sp, void* stream) {
     const int grid_y = (f + ft - 1) / ft;
-    return launch_layer<2, TV, TZ, float, TZ>(vals, cols, lens, R, T, n_src_blocks, z, f, ft,
-                                              grid_y, nullptr, nullptr, out, f, 0, stream);
+    return launch_layer<2, TV, TZ, float, TZ>(vals, cols, ends, R, T, n_src_blocks, z, f, ft,
+                                              grid_y, nullptr, nullptr, out, f, 0, sp, stream);
 }
 
 using bf16 = __nv_bfloat16;
 
 }  // namespace
+
+// The split arguments every ragged launcher takes after its own.
+#define SPLIT_ARGS int grid_x, int row_weight, int min_tiles, float *part, int *arrivals, unsigned short *prods
+#define SPLIT Split{grid_x, row_weight, min_tiles, part, arrivals, prods}
 
 extern "C" {
 
@@ -107,53 +147,73 @@ int k2_ff_transform_bf16_all(const bf16* x, const bf16* w, bf16* z, int M, int K
     return ff_transform(x, w, z, M, K, N, stream);
 }
 
-int k2_ff_aggregate(const float* vals, const int* cols, const int* lens, int R, int T,
+int k2_ff_aggregate(const float* vals, const int* cols, const int* ends, int R, int T,
                     int n_src_blocks, const float* z, const float* b, float* out,
-                    int f_out, int ft, int relu, void* stream) {
-    return ff_aggregate(vals, cols, lens, R, T, n_src_blocks, z, b, out, f_out, ft, relu, stream);
+                    int f_out, int ft, int relu, SPLIT_ARGS, void* stream) {
+    return ff_aggregate(vals, cols, ends, R, T, n_src_blocks, z, b, out, f_out, ft, relu, SPLIT, stream);
 }
-int k2_ff_aggregate_bf16(const float* vals, const int* cols, const int* lens, int R, int T,
+int k2_ff_aggregate_bf16(const float* vals, const int* cols, const int* ends, int R, int T,
                          int n_src_blocks, const float* z, const float* b, bf16* out,
-                         int f_out, int ft, int relu, void* stream) {
-    return ff_aggregate(vals, cols, lens, R, T, n_src_blocks, z, b, out, f_out, ft, relu, stream);
+                         int f_out, int ft, int relu, SPLIT_ARGS, void* stream) {
+    return ff_aggregate(vals, cols, ends, R, T, n_src_blocks, z, b, out, f_out, ft, relu, SPLIT, stream);
 }
-int k2_ff_aggregate_bf16_all(const bf16* vals, const int* cols, const int* lens, int R, int T,
+int k2_ff_aggregate_bf16_all(const bf16* vals, const int* cols, const int* ends, int R, int T,
                              int n_src_blocks, const bf16* z, const float* b, bf16* out,
-                             int f_out, int ft, int relu, void* stream) {
-    return ff_aggregate(vals, cols, lens, R, T, n_src_blocks, z, b, out, f_out, ft, relu, stream);
+                             int f_out, int ft, int relu, SPLIT_ARGS, void* stream) {
+    return ff_aggregate(vals, cols, ends, R, T, n_src_blocks, z, b, out, f_out, ft, relu, SPLIT, stream);
 }
 
-int k2_af_layer(const float* vals, const int* cols, const int* lens, int R, int T,
+int k2_af_layer(const float* vals, const int* cols, const int* ends, int R, int T,
                 int n_src_blocks, const float* x, int f_in, const float* w,
-                const float* b, float* out, int f_out, int relu, void* stream) {
-    return af_layer(vals, cols, lens, R, T, n_src_blocks, x, f_in, w, b, out, f_out, relu, stream);
+                const float* b, float* out, int f_out, int relu, SPLIT_ARGS, void* stream) {
+    return af_layer(vals, cols, ends, R, T, n_src_blocks, x, f_in, w, b, out, f_out, relu, SPLIT, stream);
 }
-int k2_af_layer_bf16(const float* vals, const int* cols, const int* lens, int R, int T,
+int k2_af_layer_bf16(const float* vals, const int* cols, const int* ends, int R, int T,
                      int n_src_blocks, const bf16* x, int f_in, const float* w,
-                     const float* b, bf16* out, int f_out, int relu, void* stream) {
-    return af_layer(vals, cols, lens, R, T, n_src_blocks, x, f_in, w, b, out, f_out, relu, stream);
+                     const float* b, bf16* out, int f_out, int relu, SPLIT_ARGS, void* stream) {
+    return af_layer(vals, cols, ends, R, T, n_src_blocks, x, f_in, w, b, out, f_out, relu, SPLIT, stream);
 }
-int k2_af_layer_bf16_all(const bf16* vals, const int* cols, const int* lens, int R, int T,
+int k2_af_layer_bf16_all(const bf16* vals, const int* cols, const int* ends, int R, int T,
                          int n_src_blocks, const bf16* x, int f_in, const bf16* w,
-                         const float* b, bf16* out, int f_out, int relu, void* stream) {
-    return af_layer(vals, cols, lens, R, T, n_src_blocks, x, f_in, w, b, out, f_out, relu, stream);
+                         const float* b, bf16* out, int f_out, int relu, SPLIT_ARGS, void* stream) {
+    return af_layer(vals, cols, ends, R, T, n_src_blocks, x, f_in, w, b, out, f_out, relu, SPLIT, stream);
 }
 
-int k1_bsr_spmm(const float* vals, const int* cols, const int* lens, int R, int T,
-                int n_src_blocks, const float* z, float* out, int f, int ft, void* stream) {
-    return bsr_spmm(vals, cols, lens, R, T, n_src_blocks, z, out, f, ft, stream);
+int k1_bsr_spmm(const float* vals, const int* cols, const int* ends, int R, int T,
+                int n_src_blocks, const float* z, float* out, int f, int ft, SPLIT_ARGS, void* stream) {
+    return bsr_spmm(vals, cols, ends, R, T, n_src_blocks, z, out, f, ft, SPLIT, stream);
 }
-int k1_bsr_spmm_bf16(const float* vals, const int* cols, const int* lens, int R, int T,
-                     int n_src_blocks, const bf16* z, bf16* out, int f, int ft, void* stream) {
-    return bsr_spmm(vals, cols, lens, R, T, n_src_blocks, z, out, f, ft, stream);
+int k1_bsr_spmm_bf16(const float* vals, const int* cols, const int* ends, int R, int T,
+                     int n_src_blocks, const bf16* z, bf16* out, int f, int ft, SPLIT_ARGS, void* stream) {
+    return bsr_spmm(vals, cols, ends, R, T, n_src_blocks, z, out, f, ft, SPLIT, stream);
 }
-int k1_bsr_spmm_bf16_all(const bf16* vals, const int* cols, const int* lens, int R, int T,
-                         int n_src_blocks, const bf16* z, bf16* out, int f, int ft, void* stream) {
-    return bsr_spmm(vals, cols, lens, R, T, n_src_blocks, z, out, f, ft, stream);
+int k1_bsr_spmm_bf16_all(const bf16* vals, const int* cols, const int* ends, int R, int T,
+                         int n_src_blocks, const bf16* z, bf16* out, int f, int ft, SPLIT_ARGS, void* stream) {
+    return bsr_spmm(vals, cols, ends, R, T, n_src_blocks, z, out, f, ft, SPLIT, stream);
 }
 
-// Shared memory one ragged-layer block needs for an accumulator of width ft.
-long long k2_layer_smem_bytes(int ft) { return k2::layer_smem_bytes(ft); }
+// Registers, local memory (spills) and blocks per SM of the ragged
+// instantiation `mode` (0 ff_aggregate, 1 af_layer, 2 bsr_spmm) × `combo`
+// (0 no suffix, 1 _bf16, 2 _bf16_all) at accumulator width ft.
+int k2_ragged_attributes(int mode, int combo, int ft, int* registers, long long* local_bytes,
+                         int* blocks_per_sm) {
+    switch (mode * 3 + combo) {
+        case 0: return attributes<0, float, float, float, float>(ft, registers, local_bytes, blocks_per_sm);
+        case 1: return attributes<0, float, float, float, bf16>(ft, registers, local_bytes, blocks_per_sm);
+        case 2: return attributes<0, bf16, bf16, float, bf16>(ft, registers, local_bytes, blocks_per_sm);
+        case 3: return attributes<1, float, float, float, float>(ft, registers, local_bytes, blocks_per_sm);
+        case 4: return attributes<1, float, bf16, float, bf16>(ft, registers, local_bytes, blocks_per_sm);
+        case 5: return attributes<1, bf16, bf16, bf16, bf16>(ft, registers, local_bytes, blocks_per_sm);
+        case 6: return attributes<2, float, float, float, float>(ft, registers, local_bytes, blocks_per_sm);
+        case 7: return attributes<2, float, bf16, float, bf16>(ft, registers, local_bytes, blocks_per_sm);
+        case 8: return attributes<2, bf16, bf16, float, bf16>(ft, registers, local_bytes, blocks_per_sm);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// Shared memory one ragged-layer block needs for an accumulator of width ft
+// over source rows of src_bytes-byte elements (4 fp32, 2 bf16).
+long long k2_layer_smem_bytes(int ft, int src_bytes) { return k2::layer_smem_bytes(ft, src_bytes); }
 
 const char* k2_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 

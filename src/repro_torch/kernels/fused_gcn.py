@@ -30,19 +30,27 @@ tiles) that is 1.42 GB + 0.76 GB = 2.19 GB, 0.65 ms at 3.35 TB/s, against
 * Aggregation-first is one launch: Ã·X accumulates in shared memory
   (128 × F_in fp32), then the same block multiplies by W and adds bias and
   activation. F_in is bounded by shared memory: at most `AF_MAX_F_IN`.
-* One block owns one (block-row, feature tile) pair and loops over its own
-  tiles ``t < lens[r]``, so the TPU's accumulator carried along a
-  sequential grid axis becomes a loop: nothing crosses blocks, there are no
-  atomics, padding tiles are never read, and an empty block-row writes
-  act(b).
+* **The grid divides the valid tiles, not the block-rows.** Nell's
+  block-rows are skewed (the longest holds 299 tiles, the median 19), so a
+  block per block-row would leave the card idle while the longest row
+  streams alone. Instead the valid tiles, in (row, tile) order, each row
+  followed by `ragged_row_weight` positions that stand for its epilogue,
+  are one sequence of N positions, and each of G blocks takes ⌊N/G⌋ or
+  ⌈N/G⌉ of them (G one wave of the card, from the kernel's occupancy, and
+  no block under `MIN_TILES` positions; `ragged_split` mirrors the
+  schedule in numpy). A row split over blocks is finished by the last
+  block to arrive, which adds the fp32 partials in block order (the same
+  bits on every run, no float atomics) and runs the epilogue; an empty
+  block-row writes act(b) from exactly one block. The wrapper passes the
+  prefix sum of lens plus the row weight, computed on the card with
+  `torch.cumsum`, and the workspace: nothing is read back to the host, so
+  a call never synchronises.
 * A 128×128 fp32 tile is 64 KB, so tiles move through shared memory in
-  128 × 32 chunks by asynchronous copies, two stages deep: the next chunk
-  is in flight while the block computes on the current one. Each thread
-  owns one tile row and reads shared memory four floats at a time.
-* IEEE fp32 FMAs on the CUDA cores, no tensor cores. A block-row with many
-  tiles runs them one after another in one block (Nell's longest block-row
-  has 299 tiles, the median 19), and that block sets the aggregation's
-  time: splitting long block-rows is later work.
+  128 × 32 chunks by asynchronous copies, two stages deep, across row
+  boundaries: the next chunk is in flight while the block computes on the
+  current one. Each thread owns one tile row and reads shared memory four
+  floats at a time. IEEE fp32 FMAs on the CUDA cores, no tensor cores: at
+  F = 16 the work is 6.1 GFLOP against 0.76 GB, bytes-bound.
 
 **The bf16-operand mode** (the TPU kernel's, ``fused_gcn.py:57-59`` and
 ``:88-90``) is the same kernels instantiated on other element types, one
@@ -53,13 +61,16 @@ launcher per combination of (vals, X, W):
   (`repro_torch.models.gcn`), where the only rounding is the bf16 output;
 * bf16, bf16, bf16 — suffix ``_bf16_all``.
 
-Operands are widened to fp32 as they are staged and rounded where the TPU
-kernel rounds: feature-first Z = X·W to vals' type, aggregation-first Ã·X
-to W's type before the product with W, the output to X's type; bias (fp32)
-and activation apply in fp32. bf16 halves the bytes of what it touches (at
-the halo path's rank shape only the 16-wide table, not the fp32 tiles that
-bound the kernel). The stages stay fp32, so `AF_MAX_F_IN` is the same for
-every combination. Any other combination raises a TypeError.
+Operands are widened to fp32 where the compute loop reads them and
+rounded where the TPU kernel rounds: feature-first Z = X·W to vals' type,
+aggregation-first Ã·X to W's type before the product with W, the output to
+X's type; bias (fp32) and activation apply in fp32. bf16 halves the bytes
+of what it touches (at the halo path's rank shape only the 16-wide table,
+not the fp32 tiles that bound the kernel). Source rows stay in their own
+type in shared memory and arrive by cp.async in 16-byte pieces (8 bf16 or 4
+fp32 values) where the width is a multiple of that; the fp32 stage is the
+larger, so `AF_MAX_F_IN` (240) holds for every combination. Any other
+combination raises a TypeError.
 
 On CPU tensors `repro_torch.kernels.ops.fused_gcn_layer` runs the plain
 versions below; on CUDA tensors it runs the kernels or raises. Each kernel
@@ -70,6 +81,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from repro_torch.kernels._build import library
@@ -79,6 +91,11 @@ __all__ = [
     "reset_launch_counts",
     "AF_MAX_F_IN",
     "layer_smem_bytes",
+    "MIN_TILES",
+    "ragged_split",
+    "ragged_row_weight",
+    "ragged_attributes",
+    "ragged_grid",
     "ff_transform",
     "ff_aggregate",
     "af_layer",
@@ -93,6 +110,7 @@ __all__ = [
 TILE = 128                  # adjacency tile edge the kernels take
 _KC, _NC, _STAGES = 32, 16, 2   # staged chunk depth, accumulator chunk, pipeline stages (as in the .cuh)
 FF_F_TILE = 64              # output columns one feature-first aggregation block covers
+MIN_TILES = 4               # fewest positions a block of the split takes (the launchers' min_tiles)
 SMEM_LIMIT = 232_448        # bytes of shared memory one H100 block may opt into
 
 # The (vals, X, W) dtype combinations K2 takes, and their launchers' suffixes.
@@ -114,14 +132,56 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-def layer_smem_bytes(ft: int) -> int:
+def _padded(ft: int) -> int:
+    return -(-ft // _NC) * _NC
+
+
+def layer_smem_bytes(ft: int, src_dtype=torch.float32) -> int:
     """Shared memory of one ragged-layer block with an accumulator of width
-    ``ft`` (mirrors ``k2::layer_smem_bytes``)."""
-    ftp = -(-ft // _NC) * _NC
-    return 4 * (_STAGES * (TILE * (_KC + 4) + _KC * ftp) + TILE * (ftp + 1))
+    ``ft`` over source rows of ``src_dtype`` (mirrors ``k2::layer_smem_bytes``):
+    per stage an fp32 adjacency chunk and 32 source rows in their own type,
+    then the fp32 accumulator."""
+    ftp = _padded(ft)
+    return 4 * (_STAGES * TILE * (_KC + 4) + TILE * (ftp + 1)) + _STAGES * _KC * ftp * src_dtype.itemsize
 
 
+# The widest aggregation-first input every dtype combination takes (the fp32 stage is the larger).
 AF_MAX_F_IN = max(f for f in range(_NC, 4096, _NC) if layer_smem_bytes(f) <= SMEM_LIMIT)
+
+
+def ragged_row_weight(name: str, f_out: int) -> int:
+    """The positions that stand for a row's epilogue in the split schedule:
+    one, and for the aggregation-first layer, whose epilogue is the product
+    with W, four more per 128 output columns: that product runs at about a
+    quarter of the tiles' streaming rate (`tools/ragged_bench.py` at Nell's
+    210 outputs on an H100 80GB HBM3 at 700 W: weight 7 0.63 ms, weight 2
+    0.69–0.76 ms, weight 1 0.99 ms)."""
+    return 1 + (4 * f_out // TILE if name.startswith("k2_af_layer") else 0)
+
+
+def ragged_split(lens, T: int, grid_x: int, min_tiles: int = MIN_TILES, row_weight: int = 1) -> list[dict]:
+    """The ragged kernels' split schedule, in numpy. Row r holds positions
+    ``[ends[r-1], ends[r])``: its valid tiles, then ``row_weight`` positions
+    for its epilogue (``ends`` the prefix sum of lens clamped to [0, T], plus
+    ``row_weight``). G = min(grid_x, ⌊N / min_tiles⌋) blocks (at least one)
+    take positions ``[⌊g·N/G⌋, ⌊(g+1)·N/G⌋)``. For each block: its
+    positions ``[lo, hi)``, the ``(row, t0, t1)`` segments of valid tiles it
+    streams, and the rows whose positions it holds (a row held by several
+    blocks is split; the last of them to arrive writes its epilogue)."""
+    lens = np.clip(np.asarray(lens, dtype=np.int64), 0, T)
+    ends = np.cumsum(lens + row_weight)
+    starts = ends - lens - row_weight
+    n = int(ends[-1]) if len(lens) else 0
+    G = max(1, min(grid_x, n // max(min_tiles, 1)))
+    rows = np.arange(len(lens))
+    blocks = []
+    for g in range(G):
+        lo, hi = g * n // G, (g + 1) * n // G
+        t0, t1 = np.maximum(starts, lo) - starts, np.minimum(starts + lens, hi) - starts
+        seg = rows[t1 > t0]
+        blocks.append(dict(block=g, lo=lo, hi=hi, segments=[(int(r), int(t0[r]), int(t1[r])) for r in seg],
+                           rows=[int(r) for r in rows[(starts < hi) & (ends > lo)]]))
+    return blocks
 
 
 def operand_suffix(kernel: str, vals_dtype, x_dtype, w_dtype) -> str:
@@ -188,17 +248,19 @@ def fused_gcn_layer_plain(vals, cols, lens, x, w, b, order: str = "feature_first
 def _lib() -> ctypes.CDLL:
     lib = library("fused_gcn")
     P, I = ctypes.c_void_p, ctypes.c_int
+    split = [I, I, I, P, P, P]    # grid_x, row_weight, min_tiles, part, arrivals, prods
     args = {
         "k2_ff_transform": [P, P, P, I, I, I, P],
-        "k2_ff_aggregate": [P, P, P, I, I, I, P, P, P, I, I, I, P],
-        "k2_af_layer": [P, P, P, I, I, I, P, I, P, P, P, I, I, P],
+        "k2_ff_aggregate": [P, P, P, I, I, I, P, P, P, I, I, I, *split, P],
+        "k2_af_layer": [P, P, P, I, I, I, P, I, P, P, P, I, I, *split, P],
     }
     signatures = {f"{k}{sfx}": a for k, a in args.items() for sfx in _SUFFIX.values()}
-    signatures.update({name: [P, P, P, I, I, I, P, P, I, I, P] for name in K1_NAMES.values()})
+    signatures.update({name: [P, P, P, I, I, I, P, P, I, I, *split, P] for name in K1_NAMES.values()})
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    lib.k2_layer_smem_bytes.argtypes, lib.k2_layer_smem_bytes.restype = [I], ctypes.c_longlong
+    lib.k2_ragged_attributes.argtypes, lib.k2_ragged_attributes.restype = [I, I, I, P, P, P], ctypes.c_int
+    lib.k2_layer_smem_bytes.argtypes, lib.k2_layer_smem_bytes.restype = [I, I], ctypes.c_longlong
     lib.k2_error_string.argtypes, lib.k2_error_string.restype = [I], ctypes.c_char_p
     return lib
 
@@ -214,6 +276,76 @@ def _launch(name: str, *args) -> None:
 
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+# The ragged launchers' (mode, combo) in k2_ragged_attributes.
+_RAGGED_MODE = {"k2_ff_aggregate": 0, "k2_af_layer": 1, "k1_bsr_spmm": 2}
+_COMBO = {"": 0, "_bf16": 1, "_bf16_all": 2}
+
+
+def _ragged_id(name: str) -> tuple[int, int]:
+    for base, mode in _RAGGED_MODE.items():
+        if name.startswith(base) and name[len(base):] in _COMBO:
+            return mode, _COMBO[name[len(base):]]
+    raise ValueError(f"{name} is not a ragged launcher; they are {sorted(_RAGGED_MODE)} with suffixes {list(_COMBO)}")
+
+
+@functools.cache
+def ragged_attributes(name: str, ft: int) -> dict:
+    """What the compiler gave the ragged instantiation of launcher ``name``,
+    read from the card (``cudaFuncGetAttributes``): registers a thread, local
+    memory a thread (spills; 0 when none) and the blocks that fit one SM at
+    accumulator width ``ft``."""
+    regs, local, blocks = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_int()
+    lib = _lib()
+    err = lib.k2_ragged_attributes(*_ragged_id(name), ft, ctypes.byref(regs), ctypes.byref(local),
+                                   ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"k2_ragged_attributes({name}, {ft}): CUDA error {err} ({lib.k2_error_string(err).decode()})")
+    return dict(registers=regs.value, local_bytes=local.value, blocks_per_sm=blocks.value)
+
+
+@functools.cache
+def ragged_grid(name: str, ft: int, device_index: int) -> int:
+    """Blocks of the split schedule's grid: one wave of the card (its SMs ×
+    the blocks of the instantiation that fit one)."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return max(1, sms * ragged_attributes(name, ft)["blocks_per_sm"])
+
+
+def _split_args(name: str, cols, lens, ft: int, grid_y: int, f_out: int, device: torch.device):
+    """(tensors to keep alive, the launcher's leading ``ends`` pointer and
+    trailing split arguments): the prefix sum of lens clamped to [0, T] plus
+    the row weight, and the workspace, made on the card without reading
+    anything back: fresh arrival counters, zeroed, for every launch.
+
+    K1 with a bf16 Z keeps the rounded product of every tile of a split row
+    in ``prods``, indexed by position. Without reading lens back, the wrapper
+    sizes it for every position the table could hold: R · (T + 1) · grid_y ·
+    128 · ftp bf16 values, where the valid tiles need only N · 128 · F (rank
+    0 of the halo plan, 141 × 248 at F = 16: 144 MB against 32.5 MB; a
+    514 × 299 table at F = 210 would need 10.1 GB). A workspace larger than
+    the card's memory less what torch holds raises a MemoryError here."""
+    R, T = cols.shape
+    ftp = _padded(ft)
+    grid_x = ragged_grid(name, ft, device.index if device.index is not None else torch.cuda.current_device())
+    weight = ragged_row_weight(name, f_out)
+    per_tile = name.startswith("k1_bsr_spmm") and name != "k1_bsr_spmm"     # K1 with a bf16 Z
+    n_prods = R * (T + weight) * grid_y * TILE * ftp if per_tile else 0
+    if n_prods:
+        free = torch.cuda.get_device_properties(device).total_memory - torch.cuda.memory_allocated(device)
+        if 2 * n_prods > free:
+            raise MemoryError(
+                f"{name}: the per-tile product workspace of a {R} × {T} table at width {f_out} needs "
+                f"{2 * n_prods} bytes (R · (T + 1) · {grid_y} · {TILE} · {ftp} bf16 values), more than the "
+                f"{free} bytes the card has outside torch's allocations; an fp32 Z needs no such workspace"
+            )
+    ends = torch.cumsum(lens.clamp(0, T) + weight, 0, dtype=torch.int32)
+    part = torch.empty(0 if per_tile else 2 * grid_x * grid_y * TILE * ftp, dtype=torch.float32, device=device)
+    arrivals = torch.zeros(R * grid_y, dtype=torch.int32, device=device)
+    prods = torch.empty(n_prods, dtype=torch.int16, device=device)
+    keep = (ends, part, arrivals, prods)
+    return keep, ends.data_ptr(), (grid_x, weight, MIN_TILES, part.data_ptr(), arrivals.data_ptr(), prods.data_ptr())
 
 
 def _check(kernel: str, **tensors) -> torch.device:
@@ -288,11 +420,12 @@ def ff_aggregate(vals, cols, lens, z, b, relu: bool = True, out_dtype=torch.floa
     _check_table("ff_aggregate", vals, cols, lens, z, f_out, b)
     _require_cuda("ff_aggregate", device)
     R, T = cols.shape
+    name, ft = f"k2_ff_aggregate{sfx}", min(f_out, FF_F_TILE)
     out = torch.empty((R * TILE, f_out), dtype=out_dtype, device=device)
+    _keep, ends, split = _split_args(name, cols, lens, ft, -(-f_out // ft), f_out, device)
     _launch(
-        f"k2_ff_aggregate{sfx}", vals.data_ptr(), cols.data_ptr(), lens.data_ptr(), R, T,
-        z.shape[0] // TILE, z.data_ptr(), b.data_ptr(), out.data_ptr(), f_out,
-        min(f_out, FF_F_TILE), int(relu), _stream(device),
+        name, vals.data_ptr(), cols.data_ptr(), ends, R, T, z.shape[0] // TILE, z.data_ptr(), b.data_ptr(),
+        out.data_ptr(), f_out, ft, int(relu), *split, _stream(device),
     )
     return out
 
@@ -313,11 +446,12 @@ def af_layer(vals, cols, lens, x, w, b, relu: bool = True) -> torch.Tensor:
     _check_table("af_layer", vals, cols, lens, x, f_out, b)
     _require_cuda("af_layer", device)
     R, T = cols.shape
+    name = f"k2_af_layer{sfx}"
     out = torch.empty((R * TILE, f_out), dtype=x.dtype, device=device)
+    _keep, ends, split = _split_args(name, cols, lens, f_in, 1, f_out, device)
     _launch(
-        f"k2_af_layer{sfx}", vals.data_ptr(), cols.data_ptr(), lens.data_ptr(), R, T,
-        x.shape[0] // TILE, x.data_ptr(), f_in, w.data_ptr(), b.data_ptr(), out.data_ptr(),
-        f_out, int(relu), _stream(device),
+        name, vals.data_ptr(), cols.data_ptr(), ends, R, T, x.shape[0] // TILE, x.data_ptr(), f_in,
+        w.data_ptr(), b.data_ptr(), out.data_ptr(), f_out, int(relu), *split, _stream(device),
     )
     return out
 

@@ -14,7 +14,11 @@ versions of `repro_torch.kernels.fused_gcn`, `repro_torch.kernels.bsr_spmm`,
 `repro_torch.kernels.fm_interaction` and `repro_torch.kernels.flash_attention`:
 the kernels' indexing, staging, copy pipeline, ragged skip, tiling, masks and
 epilogues are checked here; their speed and the card's own rounding only on
-the card.
+the card. The ragged kernels (K1, K2's aggregations) run their split
+schedule here on small grids, so that block-rows split over blocks; the
+shim's atomics and fences stand in for the card's, and blocks can run in a
+seeded order, to show that the result does not depend on which block
+finishes a row.
 """
 import ctypes
 import pathlib
@@ -38,10 +42,12 @@ from repro_torch.kernels.flash_attention import (
 from repro_torch.kernels.fm_interaction import fm_interaction_plain, fm_smem_bytes, fm_tile
 from repro_torch.kernels.fused_gcn import (
     FF_F_TILE,
+    MIN_TILES,
     af_layer_plain,
     ff_aggregate_plain,
     ff_transform_plain,
     layer_smem_bytes,
+    ragged_split,
 )
 from repro_torch.kernels.ref import poison_padding
 
@@ -63,6 +69,7 @@ SHIM = r"""
 #pragma once
 
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
@@ -70,6 +77,7 @@ SHIM = r"""
 #include <cstring>
 #include <deque>
 #include <memory>
+#include <random>
 #include <thread>
 #include <vector>
 
@@ -118,6 +126,29 @@ inline dim3 blockIdx, blockDim, gridDim;
 inline std::barrier<>* emu_block_barrier = nullptr;
 
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
+
+// __syncthreads_or: a barrier that returns nonzero when any thread's
+// predicate is nonzero.
+inline std::atomic<int> emu_or_flag{0};
+inline int __syncthreads_or(int pred) {
+    __syncthreads();
+    if (threadIdx.x == 0) emu_or_flag = 0;
+    __syncthreads();
+    if (pred) emu_or_flag = 1;
+    __syncthreads();
+    const int any = emu_or_flag;
+    __syncthreads();
+    return any;
+}
+
+// Device-scope atomics, fences and loads that bypass L1. Blocks run one
+// after another here, so a block sees every earlier block's writes; the
+// block order may be permuted (emu_block_order_seed) to show that a result
+// does not depend on it.
+inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+inline float __ldcg(const float* p) { return *p; }
+inline float4 __ldcg(const float4* p) { return *p; }
 
 // Warps: the block's threads in groups of 32, each with a barrier and one
 // exchange slot per thread, for the warp-collective stand-ins.
@@ -175,26 +206,35 @@ inline void __pipeline_wait_prior(std::size_t prior) {
     }
 }
 
+// The order blocks run in: 0 is index order (x fastest), anything else
+// seeds a permutation of the grid's blocks.
+inline unsigned emu_block_order_seed = 0;
+
 // Run `body` as a grid of blocks of `threads` threads each.
 template <typename Body>
 void emu_launch(dim3 grid, int threads, Body body) {
     blockDim = dim3(threads);
     gridDim = grid;
-    for (unsigned by = 0; by < grid.y; ++by) {
-        for (unsigned bx = 0; bx < grid.x; ++bx) {
-            blockIdx = dim3(bx, by);
-            std::barrier<> bar(threads);
-            emu_block_barrier = &bar;
-            emu_slots.assign(threads, EmuSlot{});
-            emu_warp_barriers.clear();
-            for (int w = 0; w < (threads + 31) / 32; ++w)
-                emu_warp_barriers.push_back(std::make_unique<std::barrier<>>(std::min(32, threads - 32 * w)));
-            std::vector<std::thread> pool;
-            pool.reserve(threads);
-            for (int t = 0; t < threads; ++t)
-                pool.emplace_back([&body, t] { threadIdx = dim3(t); body(); });
-            for (auto& th : pool) th.join();
-        }
+    std::vector<dim3> order;
+    for (unsigned by = 0; by < grid.y; ++by)
+        for (unsigned bx = 0; bx < grid.x; ++bx) order.push_back(dim3(bx, by));
+    if (emu_block_order_seed) {
+        std::mt19937 rng(emu_block_order_seed);
+        std::shuffle(order.begin(), order.end(), rng);
+    }
+    for (const dim3& blk : order) {
+        blockIdx = blk;
+        std::barrier<> bar(threads);
+        emu_block_barrier = &bar;
+        emu_slots.assign(threads, EmuSlot{});
+        emu_warp_barriers.clear();
+        for (int w = 0; w < (threads + 31) / 32; ++w)
+            emu_warp_barriers.push_back(std::make_unique<std::barrier<>>(std::min(32, threads - 32 * w)));
+        std::vector<std::thread> pool;
+        pool.reserve(threads);
+        for (int t = 0; t < threads; ++t)
+            pool.emplace_back([&body, t] { threadIdx = dim3(t); body(); });
+        for (auto& th : pool) th.join();
     }
 }
 """
@@ -226,29 +266,33 @@ int ff_transform(const void* x, const void* w, void* z, int M, int K, int N) {
     return 0;
 }
 
+// The split schedule's arguments (fused_gcn.cu's SPLIT_ARGS).
+#define SPLIT_ARGS int grid_x, int row_weight, int min_tiles, float *part, int *arrivals, unsigned short *prods
+#define SPLIT_PASS row_weight, min_tiles, part, arrivals, prods
+
 template <typename TV, typename TO>
-int ff_aggregate(const void* vals, const int* cols, const int* lens, int R, int T,
+int ff_aggregate(const void* vals, const int* cols, const int* ends, int R, int T,
                  int n_src_blocks, const void* z, const float* b, void* out,
-                 int f_out, int ft, int relu) {
-    if (k2::layer_smem_bytes(ft) > (long long)sizeof(k2::smem)) return 1;
-    dim3 grid(R, (f_out + ft - 1) / ft);
+                 int f_out, int ft, int relu, SPLIT_ARGS) {
+    if (k2::kernel_smem_bytes<0, TV, TO>(ft) > (long long)sizeof(k2::smem)) return 1;
+    dim3 grid(grid_x, (f_out + ft - 1) / ft);
     emu_launch(grid, k2::THREADS, [&] {
-        k2::ragged_layer_kernel<0, TV, TV, float, TO>((const TV*)vals, cols, lens, T, n_src_blocks,
+        k2::ragged_layer_kernel<0, TV, TV, float, TO>((const TV*)vals, cols, ends, R, T, n_src_blocks,
                                                       (const TV*)z, f_out, ft, nullptr, b, (TO*)out,
-                                                      f_out, relu);
+                                                      f_out, relu, SPLIT_PASS);
     });
     return 0;
 }
 
 template <typename TV, typename TX, typename TW>
-int af_layer(const void* vals, const int* cols, const int* lens, int R, int T,
+int af_layer(const void* vals, const int* cols, const int* ends, int R, int T,
              int n_src_blocks, const void* x, int f_in, const void* w,
-             const float* b, void* out, int f_out, int relu) {
-    if (k2::layer_smem_bytes(f_in) > (long long)sizeof(k2::smem)) return 1;
-    emu_launch(dim3(R, 1), k2::THREADS, [&] {
-        k2::ragged_layer_kernel<1, TV, TX, TW, TX>((const TV*)vals, cols, lens, T, n_src_blocks,
+             const float* b, void* out, int f_out, int relu, SPLIT_ARGS) {
+    if (k2::kernel_smem_bytes<1, TX, TX>(f_in) > (long long)sizeof(k2::smem)) return 1;
+    emu_launch(dim3(grid_x, 1), k2::THREADS, [&] {
+        k2::ragged_layer_kernel<1, TV, TX, TW, TX>((const TV*)vals, cols, ends, R, T, n_src_blocks,
                                                    (const TX*)x, f_in, f_in, (const TW*)w, b,
-                                                   (TX*)out, f_out, relu);
+                                                   (TX*)out, f_out, relu, SPLIT_PASS);
     });
     return 0;
 }
@@ -262,17 +306,17 @@ extern "C" {
     int emu_ff_transform##SFX(const void* x, const void* w, void* z, int M, int K, int N) { \
         return ff_transform<TX, TW, TV>(x, w, z, M, K, N);                                  \
     }                                                                                       \
-    int emu_ff_aggregate##SFX(const void* vals, const int* cols, const int* lens, int R,    \
+    int emu_ff_aggregate##SFX(const void* vals, const int* cols, const int* ends, int R,    \
                               int T, int n_src_blocks, const void* z, const float* b,       \
-                              void* out, int f_out, int ft, int relu) {                     \
-        return ff_aggregate<TV, TX>(vals, cols, lens, R, T, n_src_blocks, z, b, out, f_out, \
-                                    ft, relu);                                              \
+                              void* out, int f_out, int ft, int relu, SPLIT_ARGS) {         \
+        return ff_aggregate<TV, TX>(vals, cols, ends, R, T, n_src_blocks, z, b, out, f_out, \
+                                    ft, relu, grid_x, SPLIT_PASS);                          \
     }                                                                                       \
-    int emu_af_layer##SFX(const void* vals, const int* cols, const int* lens, int R, int T, \
+    int emu_af_layer##SFX(const void* vals, const int* cols, const int* ends, int R, int T, \
                           int n_src_blocks, const void* x, int f_in, const void* w,         \
-                          const float* b, void* out, int f_out, int relu) {                 \
-        return af_layer<TV, TX, TW>(vals, cols, lens, R, T, n_src_blocks, x, f_in, w, b,    \
-                                    out, f_out, relu);                                      \
+                          const float* b, void* out, int f_out, int relu, SPLIT_ARGS) {     \
+        return af_layer<TV, TX, TW>(vals, cols, ends, R, T, n_src_blocks, x, f_in, w, b,    \
+                                    out, f_out, relu, grid_x, SPLIT_PASS);                  \
     }
 
 EMU_K2(, float, float, float)
@@ -282,14 +326,16 @@ EMU_K2(_bf16_all, bf16, bf16, bf16)
 // K1, one entry per (vals, Z) combination, suffixed as the launchers of
 // fused_gcn.cu; the output has Z's type.
 #define EMU_K1(SFX, TV, TZ)                                                                     \
-    int emu_bsr_spmm##SFX(const void* vals, const int* cols, const int* lens, int R, int T,     \
-                          int n_src_blocks, const void* z, void* out, int f, int ft) {          \
-        if (k2::kernel_smem_bytes<2, TZ>(ft) > (long long)sizeof(k2::smem)) return 1;           \
-        dim3 grid(R, (f + ft - 1) / ft);                                                        \
+    int emu_bsr_spmm##SFX(const void* vals, const int* cols, const int* ends, int R, int T,     \
+                          int n_src_blocks, const void* z, void* out, int f, int ft,            \
+                          SPLIT_ARGS) {                                                         \
+        if (k2::kernel_smem_bytes<2, TZ, TZ>(ft) > (long long)sizeof(k2::smem)) return 1;       \
+        dim3 grid(grid_x, (f + ft - 1) / ft);                                                   \
         emu_launch(grid, k2::THREADS, [&] {                                                     \
-            k2::ragged_layer_kernel<2, TV, TZ, float, TZ>((const TV*)vals, cols, lens, T,       \
+            k2::ragged_layer_kernel<2, TV, TZ, float, TZ>((const TV*)vals, cols, ends, R, T,    \
                                                           n_src_blocks, (const TZ*)z, f, ft,    \
-                                                          nullptr, nullptr, (TZ*)out, f, 0);    \
+                                                          nullptr, nullptr, (TZ*)out, f, 0,     \
+                                                          SPLIT_PASS);                          \
         });                                                                                     \
         return 0;                                                                               \
     }
@@ -299,6 +345,10 @@ EMU_K1(_bf16, float, bf16)
 EMU_K1(_bf16_all, bf16, bf16)
 
 long long emu_layer_smem_bytes(int ft) { return k2::layer_smem_bytes(ft); }
+long long emu_layer_smem_bytes_bf16(int ft) { return k2::layer_smem_bytes(ft, 2); }
+int emu_split_blocks(long long n, int grid, int min_tiles) { return k2::split_blocks(n, grid, min_tiles); }
+int emu_owner_block(long long pos, long long n, long long g) { return k2::owner_block(pos, n, g); }
+void emu_set_block_order(unsigned seed) { emu_block_order_seed = seed; }
 
 }  // extern "C"
 """
@@ -543,14 +593,19 @@ def _compile(tmp_path_factory, name: str, harness: str) -> ctypes.CDLL:
 def emu(tmp_path_factory):
     lib = _compile(tmp_path_factory, "fused_gcn_emu", HARNESS)
     P, I = ctypes.c_void_p, ctypes.c_int
+    split = [I, I, I, P, P, P]    # grid_x, row_weight, min_tiles, part, arrivals, prods
     for sfx in SUFFIXES.values():
         getattr(lib, f"emu_ff_transform{sfx}").argtypes = [P, P, P, I, I, I]
-        getattr(lib, f"emu_ff_aggregate{sfx}").argtypes = [P, P, P, I, I, I, P, P, P, I, I, I]
-        getattr(lib, f"emu_af_layer{sfx}").argtypes = [P, P, P, I, I, I, P, I, P, P, P, I, I]
+        getattr(lib, f"emu_ff_aggregate{sfx}").argtypes = [P, P, P, I, I, I, P, P, P, I, I, I, *split]
+        getattr(lib, f"emu_af_layer{sfx}").argtypes = [P, P, P, I, I, I, P, I, P, P, P, I, I, *split]
     for sfx in K1_SUFFIXES.values():
-        getattr(lib, f"emu_bsr_spmm{sfx}").argtypes = [P, P, P, I, I, I, P, P, I, I]
-    lib.emu_layer_smem_bytes.argtypes = [I]
-    lib.emu_layer_smem_bytes.restype = ctypes.c_longlong
+        getattr(lib, f"emu_bsr_spmm{sfx}").argtypes = [P, P, P, I, I, I, P, P, I, I, *split]
+    for name in ("emu_layer_smem_bytes", "emu_layer_smem_bytes_bf16"):
+        getattr(lib, name).argtypes = [I]
+        getattr(lib, name).restype = ctypes.c_longlong
+    lib.emu_split_blocks.argtypes = [ctypes.c_longlong, I, I]
+    lib.emu_owner_block.argtypes = [ctypes.c_longlong] * 3
+    lib.emu_set_block_order.argtypes = [ctypes.c_uint]
     return lib
 
 
@@ -567,37 +622,70 @@ def _ff_transform(lib, x, w, z_dtype=F32):
     return z
 
 
-def _ff_aggregate(lib, vals, cols, lens, z, b, relu, out_dtype=F32):
+# The emulated ragged kernels run the split schedule on a grid of GRID blocks
+# taking at least one position each, so that the small tables here split rows.
+GRID, SPLIT_MIN = 4, 1
+
+
+def _split_args(cols, lens, ft, grid_y, grid, row_weight, min_tiles):
+    """The ragged launchers' ``ends`` and split arguments, as the wrapper
+    builds them (`fused_gcn._split_args`), with the workspace poisoned (NaN
+    partials, NaN bf16 products) so that a slot read before it is written
+    shows: (the tensors, the ``ends`` pointer, the split arguments)."""
+    R, T = cols.shape
+    ftp = -(-ft // 16) * 16
+    ends = torch.cumsum(lens.clamp(0, T) + row_weight, 0, dtype=torch.int32)
+    part = torch.full((2 * grid * grid_y * 128 * ftp,), float("nan"))
+    arrivals = torch.zeros(R * grid_y, dtype=torch.int32)
+    prods = torch.full((max(R * (T + row_weight), 1) * grid_y * 128 * ftp,), -1, dtype=torch.int16)  # bf16 NaN
+    return (ends, part, arrivals, prods), _p(ends), (grid, row_weight, min_tiles, _p(part), _p(arrivals), _p(prods))
+
+
+def _ragged_call(lib, name, cols, lens, ft, grid_y, head, grid, row_weight, min_tiles, order):
+    """One emulated ragged launch: ``head`` is the launcher's arguments
+    before the split ones, without ``ends`` (which follows vals and cols);
+    blocks run in the order seeded by ``order`` (0: index order)."""
+    _keep, ends, split = _split_args(cols, lens, ft, grid_y, grid, row_weight, min_tiles)
+    lib.emu_set_block_order(order)
+    try:
+        rc = getattr(lib, name)(*head[:2], ends, *head[2:], *split)
+    finally:
+        lib.emu_set_block_order(0)
+    assert rc == 0
+
+
+def _ff_aggregate(lib, vals, cols, lens, z, b, relu, out_dtype=F32, grid=GRID, min_tiles=SPLIT_MIN, order=0,
+                  row_weight=1):
     sfx = SUFFIXES[(vals.dtype, out_dtype, vals.dtype)]
     R, T = cols.shape
     f_out = z.shape[1]
+    ft = min(f_out, FF_F_TILE)
     out = torch.full((R * 128, f_out), float("nan"), dtype=out_dtype)
-    rc = getattr(lib, f"emu_ff_aggregate{sfx}")(
-        _p(vals), _p(cols), _p(lens), R, T, z.shape[0] // 128, _p(z), _p(b), _p(out), f_out,
-        min(f_out, FF_F_TILE), int(relu))
-    assert rc == 0
+    _ragged_call(lib, f"emu_ff_aggregate{sfx}", cols, lens, ft, -(-f_out // ft),
+                 (_p(vals), _p(cols), R, T, z.shape[0] // 128, _p(z), _p(b), _p(out), f_out, ft, int(relu)),
+                 grid, row_weight, min_tiles, order)
     return out
 
 
-def _af_layer(lib, vals, cols, lens, x, w, b, relu):
+def _af_layer(lib, vals, cols, lens, x, w, b, relu, grid=GRID, min_tiles=SPLIT_MIN, order=0, row_weight=1):
     sfx = SUFFIXES[(vals.dtype, x.dtype, w.dtype)]
     R, T = cols.shape
     f_in, f_out = w.shape
     out = torch.full((R * 128, f_out), float("nan"), dtype=x.dtype)
-    rc = getattr(lib, f"emu_af_layer{sfx}")(
-        _p(vals), _p(cols), _p(lens), R, T, x.shape[0] // 128, _p(x), f_in, _p(w), _p(b), _p(out),
-        f_out, int(relu))
-    assert rc == 0
+    _ragged_call(lib, f"emu_af_layer{sfx}", cols, lens, f_in, 1,
+                 (_p(vals), _p(cols), R, T, x.shape[0] // 128, _p(x), f_in, _p(w), _p(b), _p(out), f_out,
+                  int(relu)), grid, row_weight, min_tiles, order)
     return out
 
 
-def _bsr_spmm(lib, vals, cols, lens, z):
+def _bsr_spmm(lib, vals, cols, lens, z, grid=GRID, min_tiles=SPLIT_MIN, order=0, row_weight=1):
     R, T = cols.shape
     f = z.shape[1]
+    ft = min(f, FF_F_TILE)
     out = torch.full((R * 128, f), float("nan"), dtype=z.dtype)
-    rc = getattr(lib, f"emu_bsr_spmm{K1_SUFFIXES[(vals.dtype, z.dtype)]}")(
-        _p(vals), _p(cols), _p(lens), R, T, z.shape[0] // 128, _p(z), _p(out), f, min(f, FF_F_TILE))
-    assert rc == 0
+    _ragged_call(lib, f"emu_bsr_spmm{K1_SUFFIXES[(vals.dtype, z.dtype)]}", cols, lens, ft, -(-f // ft),
+                 (_p(vals), _p(cols), R, T, z.shape[0] // 128, _p(z), _p(out), f, ft), grid, row_weight, min_tiles,
+                 order)
     return out
 
 
@@ -866,6 +954,136 @@ def test_emulated_bsr_spmm_bf16_follows_the_per_tile_sum(emu):
     once = bsr_spmm_plain(vals, cols, lens, z.float()).to(BF16).float()
     assert float((out == per_tile).float().mean()) >= 0.99
     assert float((out == once).float().mean()) < 0.95
+
+
+# ------------------------------------------------ the split schedule (K1, K2)
+# Every ragged instantiation: (kernel, dtypes) as the launchers name them.
+RAGGED = [pytest.param(("ff", c), id=f"ff{sfx or '_f32'}") for c, sfx in SUFFIXES.items()] + \
+    [pytest.param(("af", c), id=f"af{sfx or '_f32'}") for c, sfx in SUFFIXES.items()] + \
+    [pytest.param(("k1", c), id=f"k1{sfx or '_f32'}") for c, sfx in K1_SUFFIXES.items()]
+# (lens, grid, min_tiles, row_weight): a row longer than a block's share;
+# all tiles in one row; empty rows first, in the middle and last; no valid
+# tile at all; one position per block (every row split); the default
+# minimum share, with blocks left idle; a heavier epilogue weight.
+SPLIT_CASES = {
+    "long_row": ([13, 1, 2, 1, 3], 4, 1, 1),
+    "one_row": ([10], 4, 1, 1),
+    "empty_rows_first_middle_last": ([0, 0, 3, 0, 5, 0, 0], 3, 1, 1),
+    "no_tiles": ([0, 0, 0], 4, 1, 1),
+    "one_position_per_block": ([3, 5, 2, 4], 18, 1, 1),
+    "default_min_tiles": ([13, 1, 2, 1, 3], 64, MIN_TILES, 1),
+    "row_weight_3": ([0, 4, 1, 1, 7, 0], 5, 1, 3),
+}
+
+
+def _split_table(lens, seed, n_src_blocks=5):
+    """A ragged table with the given lens, its padding tiles NaN; returns
+    (poisoned vals, clean vals, cols, lens)."""
+    r = np.random.default_rng(seed)
+    lens = torch.tensor(lens, dtype=torch.int32)
+    R, T = len(lens), max(int(lens.max()), 1)
+    vals = torch.from_numpy((0.3 * r.standard_normal((R, T, 128, 128))).astype(np.float32))
+    cols = torch.from_numpy(r.integers(0, n_src_blocks, (R, T)).astype(np.int32))
+    return poison_padding(vals, lens), vals, cols, lens
+
+
+def _run_split(emu, inst, lens, grid, min_tiles, row_weight=1, f=16, order=0, seed=0):
+    """One ragged instantiation on a split table: (kernel output, plain
+    version on the clean table, the expected rows of an empty block-row)."""
+    kind, dtypes = inst
+    poisoned, vals, cols, lens = _split_table(lens, seed)
+    r = np.random.default_rng(seed + 1)
+    src = torch.from_numpy(r.standard_normal((5 * 128, f)).astype(np.float32))
+    kw = dict(grid=grid, min_tiles=min_tiles, order=order, row_weight=row_weight)
+    if kind == "k1":
+        vd, zd = dtypes
+        v, pv, z = vals.to(vd), poisoned.to(vd).contiguous(), src.to(zd)
+        return _bsr_spmm(emu, pv, cols, lens, z, **kw), bsr_spmm_plain(v, cols, lens, z), torch.zeros(f, dtype=zd)
+    vd, xd, wd = dtypes
+    b = torch.from_numpy(r.standard_normal(9 if kind == "af" else f).astype(np.float32))
+    v, pv = vals.to(vd), poisoned.to(vd).contiguous()
+    if kind == "ff":
+        z = src.to(vd)
+        return (_ff_aggregate(emu, pv, cols, lens, z, b, True, xd, **kw),
+                ff_aggregate_plain(v, cols, lens, z, b, True, xd), b.clamp_min(0).to(xd))
+    x, w = src.to(xd), torch.from_numpy((0.2 * r.standard_normal((f, 9))).astype(np.float32)).to(wd)
+    return _af_layer(emu, pv, cols, lens, x, w, b, True, **kw), af_layer_plain(v, cols, lens, x, w, b, True), \
+        b.clamp_min(0).to(xd)
+
+
+def _hold_split(inst, out, ref):
+    kind, dtypes = inst
+    if kind == "k1" and dtypes[1] == BF16:
+        _k1_bf16_rule(out, ref)
+    else:
+        _close(out, ref, tol=BF16_TOL if out.dtype == BF16 else 1e-5)
+
+
+def test_emulated_split_helpers_match_python(emu):
+    """The .cuh's split arithmetic and the bf16 stage's shared memory
+    against the wrapper's mirrors (`ragged_split`, `layer_smem_bytes`)."""
+    for ft in (1, 7, 16, 50, 240):
+        assert emu.emu_layer_smem_bytes_bf16(ft) == layer_smem_bytes(ft, BF16) < layer_smem_bytes(ft)
+    r = np.random.default_rng(5)
+    for n_rows, grid, min_tiles, weight in ((1, 4, 1, 1), (7, 3, 1, 2), (40, 528, 4, 1), (40, 9, 4, 3),
+                                            (200, 132, 1, 1)):
+        lens = r.integers(0, 30, n_rows) * (r.random(n_rows) < 0.7)
+        n = int(lens.sum()) + weight * n_rows
+        blocks = ragged_split(lens, 30, grid, min_tiles, weight)
+        assert emu.emu_split_blocks(n, grid, min_tiles) == len(blocks)
+        for blk in blocks:
+            for pos in range(blk["lo"], blk["hi"]):
+                assert emu.emu_owner_block(pos, n, len(blocks)) == blk["block"]
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+@pytest.mark.parametrize("inst", RAGGED)
+def test_emulated_split_schedule_matches_plain(emu, inst, case):
+    """Each ragged instantiation over tables the split cuts in every way,
+    NaN in every padding tile: the plain version on the clean table, act(b)
+    (zeros for K1) on every empty block-row."""
+    lens, grid, min_tiles, weight = SPLIT_CASES[case]
+    out, ref, empty = _run_split(emu, inst, lens, grid, min_tiles, weight)
+    assert torch.isfinite(out.float()).all()
+    _hold_split(inst, out, ref)
+    for row in (i for i, n in enumerate(lens) if n == 0):
+        assert torch.equal(out[row * 128:(row + 1) * 128], empty.expand(128, -1)), row
+
+
+@pytest.mark.parametrize("inst", RAGGED)
+def test_emulated_split_is_bit_identical_under_block_orders(emu, inst):
+    """Rows split over three blocks give the same bits whichever block
+    arrives last: partials are added in block order, not arrival order."""
+    lens, grid, _, _ = SPLIT_CASES["long_row"]
+    outs = [_run_split(emu, inst, lens, grid, 1, order=order)[0] for order in (0, 1, 7)]
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+@pytest.mark.parametrize("inst", [p for p in RAGGED if p.id in ("ff_f32", "af_bf16", "k1_bf16")])
+def test_emulated_split_two_feature_tiles(emu, inst):
+    """Width 72: feature-first and K1 run two feature tiles (grid.y = 2),
+    each with its own workspace slots and counters; 16-byte staging."""
+    out, ref, _ = _run_split(emu, inst, [13, 1, 2, 1, 3], 4, 1, f=72, order=3)
+    _hold_split(inst, out, ref)
+
+
+@pytest.mark.parametrize("combo", K1_BF16)
+def test_emulated_bsr_spmm_bf16_split_rows_keep_the_chain(emu, combo):
+    """Every block-row split, one position per block: the finishing block runs
+    the reference's per-tile chain over products other blocks computed, so
+    the result follows `_rounded_per_tile`, not the sum rounded once."""
+    vals_dtype, z_dtype = combo
+    vals, cols, lens, _, _, _ = _layer_inputs(256, 2400, 1, 1, seed=13)
+    vals = vals.to(vals_dtype).contiguous()
+    z = torch.from_numpy(np.random.default_rng(13).standard_normal((vals.shape[0] * 128, 16)).astype(np.float32))
+    z = z.to(z_dtype)
+    n = int(lens.sum()) + len(lens)                      # positions at row weight 1
+    assert all(b["hi"] - b["lo"] == 1 for b in ragged_split(lens.numpy(), cols.shape[1], n, 1))
+    out = _bsr_spmm(emu, vals, cols, lens, z, grid=n, min_tiles=1, order=5)
+    per_tile = bsr_spmm_plain(vals, cols, lens, z)
+    _k1_bf16_rule(out, per_tile)
+    once = bsr_spmm_plain(vals.float(), cols, lens, z.float()).to(BF16).float()
+    assert float((out.float() == once).float().mean()) < 0.95
 
 
 # ------------------------------------------------------------------------- K3

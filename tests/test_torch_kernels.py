@@ -13,7 +13,12 @@ plain versions on the card at the same tolerance (summation order differs;
 chip_smoke's rule), one training step on the card against the same step on
 the CPU, K3's backward against the CPU's in float64, which `gradcheck`
 holds, and one K4 launch per layer of a prefill at gemma3-12b's widths;
-they skip without a card. (K3's and K4's CPU parity with the reference is
+and the ragged kernels' split schedule (every K1 and K2-aggregation
+instantiation on a skewed table with one block-row of 300 tiles, the same
+bits on a second call, and no host synchronisation in a wrapper call,
+under ``torch.cuda.set_sync_debug_mode("error")``); they skip without a
+card. `ragged_split`, the numpy mirror of that schedule, is checked here
+on the CPU. (K3's and K4's CPU parity with the reference is
 in tests/test_torch_deepfm.py and tests/test_torch_flash_attention.py.) JAX is imported inside
 fixtures, so the ``cuda`` tests also run on a machine without JAX:
 
@@ -311,6 +316,63 @@ def test_aggregation_first_width_limit():
                     torch.zeros(4))
 
 
+# ------------------------------------------------ the ragged kernels' split schedule
+def _skewed_lens(name):
+    """Block-row lengths the split must cut: Nell-like skew (one row of 299
+    among short rows), empty rows first, in the middle and last, all tiles in
+    one row, and no valid tile at all."""
+    r = np.random.default_rng(7)
+    if name == "nell_like":
+        lens = r.integers(1, 40, 514)
+        lens[[3, 100, 511]] = (299, 259, 191)
+        return lens
+    return {"empty_rows": [0, 0, 5, 0, 0, 7, 1, 0, 0], "one_row": [0, 40, 0], "no_tiles": [0, 0, 0, 0],
+            "single": [1]}[name]
+
+
+@pytest.mark.parametrize("grid,min_tiles,weight", [(1, 1, 1), (4, 1, 1), (132, 4, 2), (528, 4, 1), (2000, 1, 3)])
+@pytest.mark.parametrize("name", ["nell_like", "empty_rows", "one_row", "no_tiles", "single"])
+def test_ragged_split_covers_every_valid_tile_once(name, grid, min_tiles, weight):
+    """`ragged_split`, the numpy mirror of the kernels' schedule: every valid
+    tile in exactly one block's segments, never a padding tile, every
+    block-row (an empty one too) held by one block or by consecutive blocks
+    (so exactly one finishes it), position shares that differ by at most
+    one, and no block under ``min_tiles`` positions where there are that
+    many."""
+    lens = np.asarray(_skewed_lens(name))
+    T = int(lens.max())
+    blocks = fg.ragged_split(lens, T, grid, min_tiles, weight)
+    n = int(lens.sum()) + weight * len(lens)
+    assert 1 <= len(blocks) <= grid
+    seen = np.zeros((len(lens), T), np.int64)
+    holders = {r: [] for r in range(len(lens))}
+    for blk in blocks:
+        for r, t0, t1 in blk["segments"]:
+            assert 0 <= t0 < t1 <= lens[r] and r in blk["rows"]
+            seen[r, t0:t1] += 1
+        for r in blk["rows"]:
+            holders[r].append(blk["block"])
+    assert (seen == (np.arange(T)[None, :] < lens[:, None])).all()
+    assert all(h and h == list(range(h[0], h[-1] + 1)) for h in holders.values())
+    shares = [blk["hi"] - blk["lo"] for blk in blocks]
+    assert sum(shares) == n and max(shares) - min(shares) <= 1
+    if n >= min_tiles:
+        assert min(shares) >= min_tiles
+
+
+def test_ragged_split_balances_nell_like_rows():
+    """At one wave of 132 SMs × 4 blocks, the most valid tiles any block
+    streams is within 2× of the mean (one block a block-row gave the
+    299-tile row to one block); the aggregation-first layer's heavier row
+    weight at 210 outputs too."""
+    lens = _skewed_lens("nell_like")
+    for weight in (1, fg.ragged_row_weight("k2_af_layer", 210)):
+        blocks = fg.ragged_split(lens, 299, 528, row_weight=weight)
+        tiles = [sum(t1 - t0 for _, t0, t1 in b["segments"]) for b in blocks]
+        assert len(tiles) == 528 and sum(tiles) == lens.sum() and max(tiles) <= 2 * np.mean(tiles)
+    assert fg.ragged_row_weight("k2_af_layer", 210) == 7 and fg.ragged_row_weight("k1_bsr_spmm", 210) == 1
+
+
 # ------------------------------------------------------------ CUDA kernels (card)
 @pytest.mark.cuda
 @pytest.mark.parametrize("order", ORDERS)
@@ -541,6 +603,101 @@ def ops_pad(x: torch.Tensor) -> torch.Tensor:
     from repro_torch.kernels.ops import _pad_rows
 
     return _pad_rows(x, 128)
+
+
+# ----------------------------------------- the split schedule on the card (K1, K2)
+RAGGED = [pytest.param(("ff", c), id=f"ff_{i}") for i, c in zip(("f32", "bf16", "bf16_all"), (
+    (F32, F32, F32), (F32, BF16, F32), (BF16, BF16, BF16)))] + \
+    [pytest.param(("af", c), id=f"af_{i}") for i, c in zip(("f32", "bf16", "bf16_all"), (
+        (F32, F32, F32), (F32, BF16, F32), (BF16, BF16, BF16)))] + \
+    [pytest.param(("k1", c), id=f"k1_{i}") for i, c in zip(("f32", "bf16", "bf16_all"), (
+        (F32, F32), (F32, BF16), (BF16, BF16)))]
+
+
+def _skewed_call(inst, device, f=16):
+    """A skewed table on ``device`` — one block-row of 300 tiles among 23
+    rows of 1–3, NaN in the padding, an empty row — and one ragged call on
+    it: (call, plain version on the clean table)."""
+    kind, dtypes = inst
+    r = np.random.default_rng(19)
+    lens = r.integers(1, 4, 24).astype(np.int32)
+    lens[5], lens[17] = 300, 0
+    R, T, nb = len(lens), 300, 40
+    vals = torch.from_numpy((0.05 * r.standard_normal((R, T, 128, 128))).astype(np.float32)).to(device)
+    cols = torch.from_numpy(r.integers(0, nb, (R, T)).astype(np.int32)).to(device)
+    lens = torch.from_numpy(lens).to(device)
+    src = torch.from_numpy(r.standard_normal((nb * 128, f)).astype(np.float32)).to(device)
+    b = torch.from_numpy(r.standard_normal(9 if kind == "af" else f).astype(np.float32)).to(device)
+    if kind == "k1":
+        vd, zd = dtypes
+        v, z = vals.to(vd), src.to(zd)
+        pv = poison_padding(v, lens)
+        return (lambda: k1.bsr_spmm(pv, cols, lens, z)), k1.bsr_spmm_plain(v, cols, lens, z)
+    vd, xd, wd = dtypes
+    v = vals.to(vd)
+    pv = poison_padding(v, lens)
+    if kind == "ff":
+        z = src.to(vd)
+        return (lambda: fg.ff_aggregate(pv, cols, lens, z, b, True, xd)), fg.ff_aggregate_plain(v, cols, lens, z, b,
+                                                                                              True, xd)
+    x, w = src.to(xd), (0.2 * torch.from_numpy(r.standard_normal((f, 9)).astype(np.float32))).to(device, wd)
+    return (lambda: fg.af_layer(pv, cols, lens, x, w, b, True)), fg.af_layer_plain(v, cols, lens, x, w, b, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inst", RAGGED)
+def test_cuda_skewed_table_matches_plain_and_repeats_bit_equal(cuda, inst):
+    """A 300-tile block-row split over many blocks: the plain version's
+    result (fp32 within TOL of max, K2 bf16 within BF16_CARD_TOL, K1 bf16 ≥
+    99 % bit-equal within one bf16 step), finite on NaN padding, and the same
+    bits on a second call."""
+    call, ref = _skewed_call(inst, cuda)
+    out = call()
+    again = call()
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all() and out.dtype == ref.dtype
+    assert torch.equal(out, again)
+    kind, dtypes = inst
+    if kind == "k1" and dtypes[1] == BF16:
+        equal, worst = _bf16_rule(out.cpu(), ref.cpu())
+        assert equal >= 0.99 and worst <= 2.0 ** -7, (equal, worst)
+    else:
+        tol = TOL if out.dtype == F32 else BF16_CARD_TOL
+        scale = float(ref.float().abs().max())
+        assert float((out.float() - ref.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inst", RAGGED)
+def test_cuda_ragged_wrappers_do_not_sync(cuda, inst):
+    """A wrapper call reads nothing back to the host: under
+    ``torch.cuda.set_sync_debug_mode("error")`` it raises on any
+    synchronising call."""
+    call, _ = _skewed_call(inst, cuda)
+    call()                                   # builds and loads the library, reads the occupancy once
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_k1_bf16_product_workspace_past_the_card_raises(cuda):
+    """K1 with a bf16 Z sizes its product workspace from the table's shape
+    (R · (T + 1) · 128 · ftp bf16 values); one the card cannot hold raises a
+    MemoryError naming it before anything is allocated."""
+    R, T = 100_000, 10_000                   # 2.6e13 bytes of workspace; cols is a view of one int
+    cols = torch.zeros(1, dtype=torch.int32, device=cuda).expand(R, T)
+    lens = torch.zeros(R, dtype=torch.int32, device=cuda)
+    before = torch.cuda.memory_allocated(cuda)
+    with pytest.raises(MemoryError, match="product workspace"):
+        fg._split_args("k1_bsr_spmm_bf16", cols, lens, 16, 1, 16, cuda)
+    assert torch.cuda.memory_allocated(cuda) == before
+    keep, _, _ = fg._split_args("k1_bsr_spmm", cols, lens, 16, 1, 16, cuda)     # fp32 Z: no such workspace
+    assert keep[3].numel() == 0
 
 
 # ------------------------------------------------------------------------- K3
