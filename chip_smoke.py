@@ -39,7 +39,12 @@ KV-cache decode through `ContinuousBatcher`, which never reaches K4.
 
 Phases, one JSON line each; any failed check ends the run with exit code 1:
 
-  build    compile the kernels from src/repro_torch/kernels/csrc (nvcc)
+  build    compile the kernels from src/repro_torch/kernels/csrc (nvcc); the
+           geometry mirrors of kernels/*.py against the C exports (K2's
+           shared memory, the transform's grid and shared memory, K3's tile,
+           K4's tiles); tensor-core instructions in the SASS of K4's bodies
+           and of the transform's three instantiations (only the all-bf16
+           one may have them, and must)
   data     make_dataset("nell") → symmetrize, self-loops, sym-norm weights →
            locality_block_order → blocked_adjacency → the card
   plan     partition_graph(k=4, bfs, refine) → get_halo_plan on the same
@@ -58,7 +63,9 @@ Phases, one JSON line each; any failed check ends the run with exit code 1:
            instantiations of the halo path over a skewed table (one
            block-row of 300 tiles among rows of 1–3, an empty row, NaN
            padding) at Nell's 16-wide rows, and the same call twice giving
-           the same bits at Nell's and rank 0's shapes
+           the same bits at Nell's and rank 0's shapes (also the
+           transform's three instantiations); the all-bf16 transform within
+           one bf16 step of the largest value and ≥ 99 % bit-equal
   main     inference: gcn_forward(backend="bsr") three times under
            inference_mode with the launch counts zeroed just before and read
            just after; the quant-off logits against the segment (index_add_)
@@ -68,7 +75,10 @@ Phases, one JSON line each; any failed check ends the run with exit code 1:
            launch counts zeroed just before and read just after (one launch
            of each kernel per step); five quant-off steps with bsr and with
            segment, loss against loss
-  times    CUDA-event medians: each kernel, its plain version, the library
+  times    CUDA-event medians (the transform's rows: device_ms, calls
+           queued behind a spin kernel, the host's launch left out, with
+           the one-call event median beside as call_ms): each kernel, its
+           plain version, the library
            call where one computes the same function (K1's: a
            torch.sparse_bsr_tensor product, checked first), for K2's two
            aggregations the composition of library calls that computes
@@ -80,7 +90,9 @@ Phases, one JSON line each; any failed check ends the run with exit code 1:
            training step;
            peak device memory; then ``ragged_compiler``: each ragged
            instantiation's registers, local memory (spills) and blocks per
-           SM
+           SM; ``times_rank``: K2's and K1's bf16 instantiations at rank 0's
+           shapes; ``dense_compiler``: each transform instantiation's
+           registers, spills, blocks per SM and grid
   profile  torch.profiler over three training steps (bsr, quant on): device
            time by kernel and the device's idle share of the window
   halo     the parent frees the card, then 4 ranks on cuda:0 in one gloo
@@ -112,7 +124,9 @@ Phases, one JSON line each; any failed check ends the run with exit code 1:
            recsys shapes serve_p99 (512), train_batch (65,536) and
            serve_bulk (262,144) × 39 × 10 fp32, an odd B (1,000), and bf16
            at train_batch (one bf16 step of the largest value, ≥ 99 %
-           bit-equal); CUDA-event times beside the bound
+           bit-equal), each instantiation twice giving the same bits;
+           device_ms times beside the bound (call_ms beside), each shape's
+           tile, and each body's registers, spills and blocks per SM
   deepfm_serve  (d2) deepfm_init at the full widths (a seeded CUDA
            generator), then deepfm_forward at serve_p99 (one warm-up, five
            requests, p50) and at serve_bulk, with the launch counts zeroed
@@ -195,10 +209,12 @@ LOGIT_RTOL = 1e-4              # quant-off logits, bsr kernels vs segment path, 
 ARGMAX_AGREEMENT = 0.999       # quant on: a 4-bit bucket may flip on a rounding difference;
                                # ties within LOGIT_RTOL count as agreement
 BF16_KERNEL_RTOL = 1e-2        # a bf16 output: max |diff| ≤ 1e-2 · max |plain|
+SPIN_CYCLES, SPIN_MS = 10_000_000, 5.0   # device_ms's spin: 10 M cycles, at least 5 ms at the H100's ≤ 1.98 GHz
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12        # H100 SXM data sheet, fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12       # H100 SXM data sheet, dense bf16 tensor cores
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/fused_gcn_kernels.cuh"
+XW_SOURCE = "src/repro_torch/kernels/csrc/xw_kernel.cuh"
 REPLACES = {
     "k2_ff_transform": "src/repro/kernels/fused_gcn.py:45",
     "k2_ff_aggregate": "src/repro/kernels/fused_gcn.py:45",
@@ -287,6 +303,31 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 20, warmup: int = 2) -> float:
+    """Milliseconds of one call of ``fn`` on the card, the host's launch time
+    left out: a spin kernel holds the stream while the host queues ``reps``
+    calls between two CUDA events, so the card runs them back to back;
+    elapsed time over ``reps`` (a kernel's time and its launch gap). Unlike
+    `cuda_ms`, whose events also hold the host's time to reach the launch
+    (some 20 µs through a wrapper), this reads a short kernel's own time.
+    Fails if the host did not queue the calls within the spin."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    queued_ms = (time.perf_counter() - t0) * 1e3
+    end.synchronize()
+    require(queued_ms < 0.8 * SPIN_MS, "times", f"queueing {reps} calls took {queued_ms:.2f} ms, past the spin's "
+                                                f"{SPIN_MS} ms: the card may have waited for the host")
+    return start.elapsed_time(end) / reps
+
+
 def wall_ms(fn, reps: int = 5, warmup: int = 2) -> float:
     """Median milliseconds of ``fn`` on the host clock, each run ending in
     ``torch.cuda.synchronize()``, after warm-up."""
@@ -349,9 +390,14 @@ def build_kernels() -> None:
     seconds = time.perf_counter() - t0
     smem_ok = all(lib.k2_layer_smem_bytes(f, dt.itemsize) == fg.layer_smem_bytes(f, dt)
                   for f in (7, 16, 50, 210, fg.AF_MAX_F_IN) for dt in (torch.float32, torch.bfloat16))
-    tile_ok = all((lib3.k3_tile_examples(f, d), lib3.k3_tile_fields(f, d)) == k3.fm_tile(f, d)
-                  and lib3.k3_smem_bytes(f, d) == k3.fm_smem_bytes(f, d)
-                  for f, d in ((39, 10), (8, 10), (1, 10), (40, 400), (3, 300)))
+    tile_ok = all((lib3.k3_tile_examples(b, f, d, dt.itemsize), bool(lib3.k3_tile_staged(b, f, d, dt.itemsize)))
+                  == k3.fm_tile(b, f, d, dt) and lib3.k3_smem_bytes(b, f, d, dt.itemsize) == k3.fm_smem_bytes(b, f, d, dt)
+                  for b in (1, 512, 1000, 65_536, 262_144) for f, d in ((39, 10), (8, 10), (1, 10), (40, 400), (3, 300))
+                  for dt in (torch.float32, torch.bfloat16))
+    xw_ok = all(lib.k2_xw_blocks(m, sms, dt.itemsize) == fg.xw_blocks(m, dt, sms)
+                for m in (1, 100, 18_048, 65_792) for sms in (8, 132) for dt in (torch.float32, torch.bfloat16)) and all(
+        lib.k2_xw_smem_bytes(xd.itemsize, wd.itemsize) == fg.xw_smem_bytes(xd, wd)
+        for xd, wd in ((torch.float32, torch.float32), (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)))
     k4_ok = lib4.k4_max_d() == k4.K4_MAX_D and all(
         (lib4.k4_block_rows(bf16), lib4.k4_tile_keys(bf16), lib4.k4_block_threads(bf16))
         == (k4.K4_BLOCK_ROWS[dtype], k4.K4_TILE_KEYS[dtype], k4.K4_THREADS[dtype])
@@ -359,24 +405,38 @@ def build_kernels() -> None:
         for dtype, bf16 in ((torch.float32, 0), (torch.bfloat16, 1)))
     ptxas = [ln.strip() for rep in reports.values() for ln in rep.splitlines()
              if "registers" in ln or "spill" in ln]
-    k4_mma = k4_tensor_core_instructions()
+    k4_mma = tensor_core_instructions("flash_attention", ("flash_attention_bf16_kernel", "flash_attention_f32_kernel"))
     mma_ok = (len(k4_mma["flash_attention_bf16_kernel"]) == k4.K4_MAX_D // 16
               and min(k4_mma["flash_attention_bf16_kernel"]) > 0 and k4_mma["flash_attention_f32_kernel"] == [0])
-    emit("build", ok=smem_ok and tile_ok and k4_ok and mma_ok, seconds=seconds, built=sorted(reports), ptxas=ptxas,
-         k3_tile_39x10=k3.fm_tile(39, 10),
+    # xw_kernel's instantiations by mangled name: <bf16, bf16, bf16> on the tensor cores, the other two none.
+    xw_mma = tensor_core_instructions("fused_gcn", ("xw_kernelI13__nv_bfloat16S1_S1_", "xw_kernelI13__nv_bfloat16ff",
+                                                    "xw_kernelIfff"))
+    xw_mma_ok = (min(xw_mma["xw_kernelI13__nv_bfloat16S1_S1_"]) > 0 and xw_mma["xw_kernelI13__nv_bfloat16ff"] == [0]
+                 and xw_mma["xw_kernelIfff"] == [0])
+    emit("build", ok=smem_ok and tile_ok and xw_ok and k4_ok and mma_ok and xw_mma_ok, seconds=seconds,
+         built=sorted(reports), ptxas=ptxas,
+         k3_tile_39x10={str(b): k3.fm_tile(b, 39, 10) for b in (512, 65_536, 262_144)},
+         k2_xw_blocks={"nell": fg.xw_blocks(65_792, torch.float32),
+                       "rank0_bf16": fg.xw_blocks(18_048, torch.bfloat16)},
          k4_smem_bytes_d240={str(dt).replace("torch.", ""): k4.k4_smem_bytes(240, dt)
                              for dt in (torch.float32, torch.bfloat16)},
-         k4_tensor_core_instructions=k4_mma)
+         k4_tensor_core_instructions=k4_mma,
+         k2_ff_transform_tensor_core_instructions={"_bf16_all": xw_mma["xw_kernelI13__nv_bfloat16S1_S1_"],
+                                                    "_bf16": xw_mma["xw_kernelI13__nv_bfloat16ff"],
+                                                    "fp32": xw_mma["xw_kernelIfff"]})
     require(smem_ok, "build", "shared-memory formula or split minimum of the .cuh and the wrapper disagree")
     require(tile_ok, "build", "K3's tiling in the .cuh and in the wrapper disagree")
+    require(xw_ok, "build", "the transform's grid or shared memory in the .cuh and in the wrapper disagree")
+    require(xw_mma_ok, "build", f"the all-bf16 transform must run mma and the other two none: {xw_mma}")
     require(k4_ok, "build", "K4's tiles or shared memory in the .cuh and in the wrapper disagree")
     require(mma_ok, "build", f"K4's bf16 body must run mma and its fp32 body none: {k4_mma}")
 
 
-def k4_tensor_core_instructions() -> dict:
-    """Tensor-core instructions (HMMA, HGMMA) in the SASS of each K4 body
-    (one count per instantiation: the bf16 body has one per head width in
-    steps of 16), read from the built library with cuobjdump."""
+def tensor_core_instructions(library: str, bodies: tuple) -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) in the SASS of each kernel
+    whose (mangled) name holds one of ``bodies``, in the built library
+    ``library``: one count per instantiation (K4's bf16 body has one per
+    head width in steps of 16), read with cuobjdump."""
     import os
     import shutil
 
@@ -384,12 +444,12 @@ def k4_tensor_core_instructions() -> dict:
 
     tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
                                                        "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(_build._target("flash_attention"))], check=True,
+    sass = subprocess.run([tool, "-sass", str(_build._target(library))], check=True,
                           capture_output=True, text=True, timeout=120).stdout
     counts = {}
-    for body in ("flash_attention_bf16_kernel", "flash_attention_f32_kernel"):
+    for body in bodies:
         funcs = [f for f in sass.split("Function : ")[1:] if body in f.splitlines()[0]]
-        require(len(funcs) >= 1, "build", f"{body} not found in the SASS of the K4 library")
+        require(len(funcs) >= 1, "build", f"{body} not found in the SASS of the {library} library")
         counts[body] = [sum(1 for ln in f.splitlines() if "HMMA" in ln or "HGMMA" in ln) for f in funcs]
     return counts
 
@@ -624,7 +684,12 @@ def check_split(data: dict, ops: dict, rank: dict, hold, cases: list) -> None:
     rv, rc, rl = rank["vals"], rank["cols"], rank["lens"]
     z = fg.ff_transform(ops["x"], ops["w1"])
     t = rank["table"].to(torch.bfloat16)
+    bf16 = torch.bfloat16
+    xb, w1b = rank["x"].to(bf16), ops["w1"].to(bf16)
     for kernel, case, call in (
+        ("k2_ff_transform", "nell layer 1", lambda: fg.ff_transform(ops["x"], ops["w1"])),
+        ("k2_ff_transform_bf16", "rank 0 layer 1", lambda: fg.ff_transform(xb, ops["w1"])),
+        ("k2_ff_transform_bf16_all", "rank 0 layer 1", lambda: fg.ff_transform(xb, w1b, bf16)),
         ("k1_bsr_spmm", "nell Ã·h1", lambda: k1.bsr_spmm(nv, nc, nl, h1)),
         ("k2_ff_aggregate", "nell layer 1", lambda: fg.ff_aggregate(nv, nc, nl, z, b1, True)),
         ("k2_af_layer", "nell layer 2", lambda: fg.af_layer(nv, nc, nl, h1, w2, b2, True)),
@@ -735,10 +800,18 @@ def check_bf16_kernels(rank: dict, ops: dict, hold, cases: list) -> None:
     vals, cols, lens = rank["vals"], rank["cols"], rank["lens"]
     for sfx, (vd, xd, wd) in BF16_COMBOS.items():
         rv = vals.to(vd)
-        rtol = KERNEL_RTOL if vd == torch.float32 else BF16_KERNEL_RTOL   # Z is stored in vals' dtype
         x, w1 = rank["x"].to(xd), ops["w1"].to(wd)
-        hold(f"k2_ff_transform{sfx}", "rank 0 layer 1", fg.ff_transform(x, w1, vd), fg.ff_transform_plain(x, w1, vd),
-             rtol)
+        out, ref = fg.ff_transform(x, w1, vd), fg.ff_transform_plain(x, w1, vd)
+        if vd == torch.float32:
+            hold(f"k2_ff_transform{sfx}", "rank 0 layer 1", out, ref)
+        else:
+            # All bf16 on the tensor cores: exact products, fp32 sums in another order, one rounding to
+            # bf16, as the plain version rounds its own fp32 sums: K1 bf16's rule.
+            ok = hold(f"k2_ff_transform{sfx}", "rank 0 layer 1", out, ref, K1_BF16_STEP)
+            bit_equal = float((out == ref).float().mean())
+            cases[-1].update(bit_equal=bit_equal, bit_equal_min=K1_BF16_BIT_EQUAL,
+                             ok=ok and bit_equal >= K1_BF16_BIT_EQUAL)
+        del out, ref
         z, t, w2 = rank["z"].to(vd), rank["table"].to(xd), ops["w2"].to(wd)
         for relu in (True, False):
             hold(f"k2_ff_aggregate{sfx}", f"rank 0 table, relu={relu}",
@@ -943,9 +1016,10 @@ def time_everything(data: dict, ops: dict, main: dict, train: dict) -> dict:
         z = fg.ff_transform(x, w1)
         rows = {
             "k2_ff_transform": dict(
-                ms=cuda_ms(lambda: fg.ff_transform(x, w1)),
-                plain_ms=cuda_ms(lambda: fg.ff_transform_plain(x, w1)),
-                library_ms=cuda_ms(lambda: torch.mm(x, w1)),
+                ms=device_ms(lambda: fg.ff_transform(x, w1)),
+                call_ms=cuda_ms(lambda: fg.ff_transform(x, w1)),
+                plain_ms=device_ms(lambda: fg.ff_transform_plain(x, w1)),
+                library_ms=device_ms(lambda: torch.mm(x, w1)),
                 bound=bound(4.0 * (M * K + K * hidden + M * hidden), 2.0 * M * K * hidden)),
             "k2_ff_aggregate": dict(
                 ms=cuda_ms(lambda: fg.ff_aggregate(vals, cols, lens, z, b1, True)),
@@ -1072,9 +1146,10 @@ def time_bf16_kernels(rank: dict, ops: dict) -> dict:
             hidden, f_out = w1.shape[1], w2.shape[1]
             tiles = size[vd] * nnz * B * B
             rows[f"k2_ff_transform{sfx}"] = dict(
-                ms=cuda_ms(lambda: fg.ff_transform(x, w1, vd)),
-                plain_ms=cuda_ms(lambda: fg.ff_transform_plain(x, w1, vd)),
-                library_ms=cuda_ms(lambda: torch.mm(x, w1)) if xd == wd else None,
+                ms=device_ms(lambda: fg.ff_transform(x, w1, vd)),
+                call_ms=cuda_ms(lambda: fg.ff_transform(x, w1, vd)),
+                plain_ms=device_ms(lambda: fg.ff_transform_plain(x, w1, vd)),
+                library_ms=device_ms(lambda: torch.mm(x, w1)) if xd == wd else None,
                 bound=bound(size[xd] * M * K + size[wd] * K * hidden + size[vd] * M * hidden,
                             2.0 * M * K * hidden, rate))
             rows[f"k2_ff_aggregate{sfx}"] = dict(
@@ -1116,7 +1191,20 @@ def time_bf16_kernels(rank: dict, ops: dict) -> dict:
          af_layer_bf16_vs_fp32=dict(bf16_ms=rows["k2_af_layer_bf16"]["ms"],
                                     bf16_bound=list(rows["k2_af_layer_bf16"]["bound"]),
                                     fp32_ms=af32_ms, fp32_bound=list(af32_bound)),
-         kernels={k: {**v, "bound": list(v["bound"])} for k, v in rows.items()})
+         kernels={k: {**v, "bound": list(v["bound"])} for k, v in rows.items()},
+         timing="k2_ff_transform*: ms, plain_ms and library_ms are device_ms (20 calls queued behind a spin "
+                "kernel, back to back between two CUDA events); call_ms the CUDA-event median of one call, the "
+                "host's launch included; the other rows CUDA events")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grids = {"k2_ff_transform": fg.xw_blocks(65_792, torch.float32, sms),
+             "k2_ff_transform_bf16": fg.xw_blocks(rank["x"].shape[0], torch.bfloat16, sms),
+             "k2_ff_transform_bf16_all": fg.xw_blocks(rank["x"].shape[0], torch.bfloat16, sms)}
+    compiler = {name: dict(grid=g, **fg.transform_attributes(name)) for name, g in grids.items()}
+    emit("dense_compiler", ok=True, compiler=compiler,
+         spills=sum(c["local_bytes"] for c in compiler.values()),
+         note="cudaFuncGetAttributes and cudaOccupancyMaxActiveBlocksPerMultiprocessor of each xw_kernel "
+              "instantiation (8 warps a block) and its grid at Nell (fp32) and rank 0 (bf16); K3's on the "
+              "deepfm_kernels line")
     return rows
 
 
@@ -1373,9 +1461,14 @@ def check_k3(cfg, shapes, generator: torch.Generator) -> tuple[dict, dict]:
             worst["k3_fm_interaction"] = max(worst["k3_fm_interaction"], err)
             if case != "odd_B":
                 by_shape[case] = dict(
-                    batch=batch, ms=cuda_ms(lambda: k3.fm_interaction(emb)),
-                    plain_ms=cuda_ms(lambda: k3.fm_interaction_plain(emb)), library_ms=None,
+                    batch=batch, tile=k3.fm_tile(batch, F, D), ms=device_ms(lambda: k3.fm_interaction(emb)),
+                    call_ms=cuda_ms(lambda: k3.fm_interaction(emb)),
+                    plain_ms=device_ms(lambda: k3.fm_interaction_plain(emb)), library_ms=None,
                     bound=bound(4.0 * (batch * F * D + batch), 3.0 * batch * F * D + 3.0 * batch * D))
+            if case == "train_batch":
+                same = bool(torch.equal(out, k3.fm_interaction(emb)))
+                cases.append(dict(kernel="k3_fm_interaction", case=f"{case}: two calls, the same bits",
+                                  bit_equal_repeat=same, ok=same))
             del emb, out, ref
         batch = shapes["train_batch"].batch
         emb = emb_of(batch, torch.bfloat16)
@@ -1387,15 +1480,26 @@ def check_k3(cfg, shapes, generator: torch.Generator) -> tuple[dict, dict]:
                           max_abs_err=err, max_abs_ref=scale, rtol=K1_BF16_STEP, bit_equal=bit_equal,
                           bit_equal_min=K1_BF16_BIT_EQUAL, dtype="bfloat16", ok=ok))
         worst["k3_fm_interaction_bf16"] = err
-        bf16_row = dict(batch=batch, ms=cuda_ms(lambda: k3.fm_interaction(emb)),
-                        plain_ms=cuda_ms(lambda: k3.fm_interaction_plain(emb)), library_ms=None,
+        same = bool(torch.equal(out, k3.fm_interaction(emb)))
+        cases.append(dict(kernel="k3_fm_interaction_bf16", case="train_batch bf16: two calls, the same bits",
+                          bit_equal_repeat=same, ok=same))
+        bf16_row = dict(batch=batch, tile=k3.fm_tile(batch, F, D, torch.bfloat16),
+                        ms=device_ms(lambda: k3.fm_interaction(emb)), call_ms=cuda_ms(lambda: k3.fm_interaction(emb)),
+                        plain_ms=device_ms(lambda: k3.fm_interaction_plain(emb)), library_ms=None,
                         bound=bound(2.0 * (batch * F * D + batch), 3.0 * batch * F * D + 3.0 * batch * D))
         del emb, out, ref
     ok = all(c["ok"] for c in cases)
-    emit("deepfm_kernels", ok=ok, cases=cases, tile=k3.fm_tile(F, D),
+    compiler = {f"k3_fm_interaction{sfx}": k3.kernel_attributes(dt, shapes["train_batch"].batch, F, D)
+                for sfx, dt in (("", torch.float32), ("_bf16", torch.bfloat16))}
+    emit("deepfm_kernels", ok=ok, cases=cases,
          times={k: {**v, "bound": list(v["bound"])} for k, v in {**by_shape, "train_batch_bf16": bf16_row}.items()},
-         timing="CUDA events, median of 10 after 2 warm-ups, back to back (serve_p99's 0.8 MB stays in the "
-                "50 MB L2; the other shapes do not fit)", library="none: no single PyTorch call computes the FM term")
+         compiler=compiler, spills=sum(c["local_bytes"] for c in compiler.values()),
+         timing="ms and plain_ms: device_ms (20 calls queued behind a spin kernel, back to back between two CUDA "
+                "events, after 2 warm-ups); call_ms: CUDA-event median of one call, the host's launch included "
+                "(serve_p99's 0.8 MB stays in the 50 MB L2; the other shapes do not fit)",
+         tile_note="tile: (examples per block, staged in shared memory); compiler: registers, local bytes and "
+                   "blocks per SM at train_batch's tile",
+         library="none: no single PyTorch call computes the FM term")
     require(ok, "deepfm_kernels", "K3 disagrees with its plain version")
     rows = {"k3_fm_interaction": {**by_shape["train_batch"], "by_shape": by_shape}, "k3_fm_interaction_bf16": bf16_row}
     return worst, rows
@@ -1936,7 +2040,8 @@ def main() -> int:
 
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=KERNEL_SOURCE, replaces=REPLACES[name],
+        dict(name=name, route="cuda", source=XW_SOURCE if name.startswith("k2_ff_transform") else KERNEL_SOURCE,
+             replaces=REPLACES[name],
              launches=inference[name] + train[name] + sharded[name] + sharded_train[name],
              launches_inference=inference[name], launches_train=train[name],
              launches_per_train_step=train[name] / TRAIN_STEPS, launches_halo=sharded[name],
@@ -1944,6 +2049,7 @@ def main() -> int:
              plain_ms=row["plain_ms"], bound_ms=row["bound"][0], bound_by=row["bound"][1],
              library_ms=row["library_ms"],
              **({"composition_ms": row["composition_ms"]} if "composition_ms" in row else {}),
+             **({"call_ms": row["call_ms"], "timing": "device"} if "call_ms" in row else {"timing": "events"}),
              shape="rank 0 of 4 (halo)" if name not in FP32_KERNELS else "unsharded Nell")
         for name, row in rows.items()
     ] + [
@@ -1951,9 +2057,9 @@ def main() -> int:
              launches=fm_serve[name] + fm_train[name], launches_deepfm_serve=fm_serve[name],
              launches_deepfm_train=fm_train[name], launches_per_train_step=fm_train[name] / DEEPFM_TRAIN_STEPS,
              max_abs_err=fm["worst"][name], ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound"][0],
-             bound_by=row["bound"][1], library_ms=row["library_ms"],
+             bound_by=row["bound"][1], library_ms=row["library_ms"], call_ms=row["call_ms"], timing="device",
              shape=f"DeepFM train_batch ({row['batch']} × 39 × 10, {'fp32' if name == 'k3_fm_interaction' else 'bf16'})",
-             **({"by_shape": {k: dict(ms=v["ms"], plain_ms=v["plain_ms"], bound_ms=v["bound"][0])
+             **({"by_shape": {k: dict(ms=v["ms"], call_ms=v["call_ms"], plain_ms=v["plain_ms"], bound_ms=v["bound"][0])
                               for k, v in row["by_shape"].items()}} if "by_shape" in row else {}))
         for name, row in fm["rows"].items()
     ] + [

@@ -21,7 +21,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "flash_attention_ptx.cuh"
+#include "ptx.cuh"
+
+namespace k4 {
+using namespace ptx;   // the PTX wrappers the kernel bodies call unqualified
+}
+
 #include "flash_attention_kernels.cuh"
 
 namespace {

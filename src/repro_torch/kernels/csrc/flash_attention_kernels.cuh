@@ -78,8 +78,8 @@
 // visited.
 //
 // This file holds device code only and includes no header:
-// flash_attention.cu includes <cuda_bf16.h> and flash_attention_ptx.cuh
-// before it, and a host-compiler check may include it after stand-ins for
+// flash_attention.cu includes <cuda_bf16.h> and ptx.cuh (namespace ptx,
+// brought into k4) before it, and a host-compiler check may include it after stand-ins for
 // the built-ins and the PTX wrappers it uses.
 
 #pragma once

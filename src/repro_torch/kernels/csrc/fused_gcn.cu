@@ -32,11 +32,15 @@
 // a bf16 Z only: R · (T + row_weight) · grid_y · 128 · ftp bf16 values),
 // where ftp is ft rounded up to a multiple of 16.
 
+#include <cstdint>
+
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include "ptx.cuh"
 #include "fused_gcn_kernels.cuh"
+#include "xw_kernel.cuh"
 
 namespace {
 
@@ -87,13 +91,53 @@ int attributes(int ft, int* registers, long long* local_bytes, int* blocks_per_s
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, k2::THREADS, (size_t)smem);
 }
 
+// The widest copy (16, 8, 4 or 2 bytes) that divides both the base address
+// and the row pitch of a matrix: every row then starts on a piece boundary.
+int xw_piece(const void* base, long long pitch) {
+    const unsigned long long a = (unsigned long long)reinterpret_cast<std::uintptr_t>(base) | (unsigned long long)pitch;
+    for (int p = 16; p > 2; p /= 2)
+        if (a % p == 0) return p;
+    return 2;
+}
+
+// xw_kernel's x_read: the read width of X's rows staged as 16-byte-aligned
+// runs (X starts 16-byte aligned and its pitch is a multiple of 4), else 0.
+int xw_read(const void* x, long long pitch) {
+    if (reinterpret_cast<std::uintptr_t>(x) % 16 != 0) return 0;
+    return pitch % 16 == 0 ? 16 : pitch % 8 == 0 ? 8 : pitch % 4 == 0 ? 4 : 0;
+}
+
 // Z (M, N) = X (M, K) · W (K, N), stored as TZ.
 template <typename TX, typename TW, typename TZ>
 int ff_transform(const TX* x, const TW* w, TZ* z, int M, int K, int N, void* stream) {
-    dim3 grid((M + k2::TILE - 1) / k2::TILE, (N + k2::NC - 1) / k2::NC);
-    k2::xw_kernel<TX, TW, TZ><<<grid, k2::THREADS, k2::xw_smem_bytes(), (cudaStream_t)stream>>>(
-        x, w, z, M, K, N);
+    if (M < 1 || K < 1 || N < 1) return (int)cudaErrorInvalidValue;
+    int dev, sms;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    const long long smem = k2::xw_smem_bytes((int)sizeof(TX), (int)sizeof(TW));
+    err = allow_smem(k2::xw_kernel<TX, TW, TZ>, smem);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid(k2::xw_blocks(M, sms, (int)sizeof(TX)), (N + k2::NC - 1) / k2::NC);
+    k2::xw_kernel<TX, TW, TZ><<<grid, k2::XW_THREADS, smem, (cudaStream_t)stream>>>(
+        x, w, z, M, K, N, xw_piece(x, (long long)K * sizeof(TX)), xw_read(x, (long long)K * sizeof(TX)),
+        xw_piece(w, (long long)N * sizeof(TW)));
     return (int)cudaGetLastError();
+}
+
+// What the compiler gave one transform instantiation, and its blocks that fit an SM.
+template <typename TX, typename TW, typename TZ>
+int transform_attributes(int* registers, long long* local_bytes, int* blocks_per_sm) {
+    const auto kernel = k2::xw_kernel<TX, TW, TZ>;
+    const long long smem = k2::xw_smem_bytes((int)sizeof(TX), (int)sizeof(TW));
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return (int)err;
+    *registers = attr.numRegs;
+    *local_bytes = (long long)attr.localSizeBytes;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, k2::XW_THREADS, (size_t)smem);
 }
 
 // out (R·128, f_out) = act(Ã · Z + b), Z (n_src_blocks·128, f_out) in vals'
@@ -210,6 +254,23 @@ int k2_ragged_attributes(int mode, int combo, int ft, int* registers, long long*
         default: return (int)cudaErrorInvalidValue;
     }
 }
+
+// Registers, local memory (spills) and blocks per SM of the transform
+// instantiation `combo` (0 no suffix, 1 _bf16, 2 _bf16_all).
+int k2_ff_transform_attributes(int combo, int* registers, long long* local_bytes, int* blocks_per_sm) {
+    switch (combo) {
+        case 0: return transform_attributes<float, float, float>(registers, local_bytes, blocks_per_sm);
+        case 1: return transform_attributes<bf16, float, float>(registers, local_bytes, blocks_per_sm);
+        case 2: return transform_attributes<bf16, bf16, bf16>(registers, local_bytes, blocks_per_sm);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// The transform's blocks per block column for M rows of x_bytes-byte
+// elements on a card of `sms` SMs, and a block's dynamic shared memory for
+// x_bytes- and w_bytes-byte elements.
+int k2_xw_blocks(int M, int sms, int x_bytes) { return k2::xw_blocks(M, sms, x_bytes); }
+long long k2_xw_smem_bytes(int x_bytes, int w_bytes) { return k2::xw_smem_bytes(x_bytes, w_bytes); }
 
 // Shared memory one ragged-layer block needs for an accumulator of width ft
 // over source rows of src_bytes-byte elements (4 fp32, 2 bf16).

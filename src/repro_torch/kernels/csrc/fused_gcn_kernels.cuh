@@ -3,7 +3,7 @@
 // the ragged block-sparse product (K1), which replaces
 // `repro/kernels/bsr_spmm.py::bsr_spmm_pallas`.
 //
-//   xw_kernel                 Z = X · W            (K2 feature-first, launch 1 of 2)
+//   xw_kernel                 Z = X · W            (K2 feature-first, launch 1 of 2; xw_kernel.cuh)
 //   ragged_layer_kernel<0>    act(Ã · Z + b)        (K2 feature-first, launch 2 of 2)
 //   ragged_layer_kernel<1>    act((Ã · X) · W + b)  (K2 aggregation-first, one launch)
 //   ragged_layer_kernel<2>    Ã · Z                 (K1, one launch)
@@ -45,7 +45,8 @@
 // bf16-operand mode, fused_gcn.py:57-59 and :88-90), as template arguments:
 // TV for vals, TX for X (and the output), TW for W. Operands are widened to
 // fp32 where the compute loop reads them, all arithmetic is IEEE fp32 on the
-// CUDA cores (no tensor cores, no TF32), and values are rounded (to nearest
+// CUDA cores (no TF32; only the dense transform's all-bf16 instantiation runs
+// on the tensor cores, see xw_kernel.cuh), and values are rounded (to nearest
 // even) exactly where the TPU kernel rounds: feature-first Z = X·W to vals'
 // type, aggregation-first Ã·X to W's type before the product with W, and
 // the output to X's type. Bias and activation apply in fp32.
@@ -83,7 +84,6 @@ constexpr int KC = 32;           // depth of one staged chunk
 constexpr int CPT = TILE / KC;   // chunks per adjacency tile
 constexpr int NC = 16;           // accumulator columns a thread holds in registers
 constexpr int LDA = KC + 4;      // staged adjacency row stride: 16-byte rows, conflict-free float4 reads
-constexpr int LDX = KC + 1;      // staged X row stride (xw_kernel): conflict-free scalar reads
 constexpr int STAGES = 2;        // shared-memory stages of the copy pipeline
 
 // Width of the per-block accumulator, padded to whole NC chunks.
@@ -117,9 +117,6 @@ __host__ __device__ inline long long kernel_smem_bytes(int ft) {
            (PerTileRound<MODE, TO>::value ? 4LL * TILE * (padded_width(ft) + 1) : 0);
 }
 
-// Dynamic shared memory of xw_kernel: per stage a chunk of X and of W.
-__host__ __device__ inline long long xw_smem_bytes() { return 4LL * STAGES * (TILE * LDX + KC * NC); }
-
 // Blocks of a grid of `grid` that take tiles: at most grid, at least one,
 // and no fewer than min_tiles positions each where n allows.
 __host__ __device__ inline int split_blocks(long long n, int grid, int min_tiles) {
@@ -142,88 +139,6 @@ template <> __device__ inline float from_f32<float>(float v) { return v; }
 template <> __device__ inline __nv_bfloat16 from_f32<__nv_bfloat16>(float v) { return __float2bfloat16_rn(v); }
 // v rounded to T's precision, kept in fp32.
 template <typename T> __device__ inline float round_to(float v) { return to_f32(from_f32<T>(v)); }
-
-// One element of global memory into an fp32 stage slot: an asynchronous
-// 4-byte copy for fp32, a load and widening for bf16.
-__device__ inline void stage1(float* dst, const float* src) { __pipeline_memcpy_async(dst, src, 4); }
-__device__ inline void stage1(float* dst, const __nv_bfloat16* src) { *dst = __bfloat162float(*src); }
-
-// Stage X[m0:m0+TILE, k0:k0+KC] and W[k0:k0+KC, n0:n0+NC] into one stage
-// (fp32 elements asynchronously, bf16 ones widened in place); elements past
-// the matrix edges are written as zeros.
-template <typename TX, typename TW>
-__device__ inline void xw_copy_chunk(const TX* __restrict__ x, const TW* __restrict__ w,
-                                     long long m0, int n0, int k0, int M, int K, int N,
-                                     float* xs, float* ws, int tid) {
-    for (int i = tid; i < TILE * KC; i += THREADS) {   // each warp: KC consecutive elements of a row
-        const int row = i / KC, col = i % KC;
-        const long long m = m0 + row;
-        const int k = k0 + col;
-        if (m < M && k < K) stage1(xs + row * LDX + col, x + m * K + k);
-        else xs[row * LDX + col] = 0.f;
-    }
-    for (int i = tid; i < KC * NC; i += THREADS) {
-        const int kk = i / NC, c = i % NC;
-        const int k = k0 + kk, n = n0 + c;
-        if (k < K && n < N) stage1(ws + i, w + (long long)k * N + n);
-        else ws[i] = 0.f;
-    }
-}
-
-// Z[m, n0:n0+NC] = X[m, :] · W[:, n0:n0+NC], accumulated in fp32 and stored
-// as TZ. One block owns TILE rows and NC output columns; thread i owns row
-// m0+i and keeps its NC sums in registers. X (M, K), W (K, N), Z (M, N),
-// all row-major.
-template <typename TX, typename TW, typename TZ>
-__global__ void __launch_bounds__(THREADS)
-xw_kernel(const TX* __restrict__ x, const TW* __restrict__ w, TZ* __restrict__ z,
-          int M, int K, int N) {
-    extern __shared__ float smem[];
-    const int tid = threadIdx.x;
-    const long long m0 = (long long)blockIdx.x * TILE;
-    const int n0 = blockIdx.y * NC;
-    float* xs = smem;                    // STAGES × TILE × LDX
-    float* ws = smem + STAGES * TILE * LDX;  // STAGES × KC × NC
-
-    float acc[NC];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[c] = 0.f;
-
-    const int chunks = (K + KC - 1) / KC;
-    if (chunks > 0) xw_copy_chunk(x, w, m0, n0, 0, M, K, N, xs, ws, tid);
-    __pipeline_commit();
-    for (int q = 0; q < chunks; ++q) {
-        const int s = q & 1, next = s ^ 1;
-        if (q + 1 < chunks)
-            xw_copy_chunk(x, w, m0, n0, (q + 1) * KC, M, K, N, xs + next * TILE * LDX,
-                          ws + next * KC * NC, tid);
-        __pipeline_commit();
-        __pipeline_wait_prior(1);        // chunk q has landed; q + 1 may still be in flight
-        __syncthreads();
-        const float* xrow = xs + s * TILE * LDX + tid * LDX;
-        const float* wst = ws + s * KC * NC;
-#pragma unroll 8
-        for (int kk = 0; kk < KC; ++kk) {
-            const float a = xrow[kk];
-            const float4* wv = reinterpret_cast<const float4*>(wst + kk * NC);
-#pragma unroll
-            for (int v = 0; v < NC / 4; ++v) {
-                const float4 b = wv[v];
-                acc[4 * v + 0] = fmaf(a, b.x, acc[4 * v + 0]);
-                acc[4 * v + 1] = fmaf(a, b.y, acc[4 * v + 1]);
-                acc[4 * v + 2] = fmaf(a, b.z, acc[4 * v + 2]);
-                acc[4 * v + 3] = fmaf(a, b.w, acc[4 * v + 3]);
-            }
-        }
-        __syncthreads();                 // stage s is refilled in the next iteration
-    }
-    const long long m = m0 + tid;
-    if (m < M) {
-#pragma unroll
-        for (int c = 0; c < NC; ++c)
-            if (n0 + c < N) z[m * N + n0 + c] = from_f32<TZ>(acc[c]);
-    }
-}
 
 // Stage the adjacency chunk rows[0:TILE] × [j0, j0+KC) of one tile: fp32
 // moves in 16-byte asynchronous pieces (4 values), bf16 in 16-byte loads

@@ -9,7 +9,7 @@ valid when ``j > i − window`` and, when causal, ``j ≤ i``; a masked score is
 softmax and the product with v are fp32 (in bf16, p enters the product as
 two bf16 terms, see below); the output has q's dtype. The CUDA source is
 ``csrc/flash_attention_kernels.cuh`` (the two kernel bodies),
-``csrc/flash_attention_ptx.cuh`` (the PTX instructions they use) and
+``csrc/ptx.cuh`` (the PTX instructions they use, shared with K2 and K3) and
 ``csrc/flash_attention.cu`` (launchers).
 
 Source note

@@ -27,6 +27,16 @@ tiles) that is 1.42 GB + 0.76 GB = 2.19 GB, 0.65 ms at 3.35 TB/s, against
   epilogue. Carrying the TPU body over block by block would recompute
   X[cols[r,t]]·W for every nonzero tile: at Nell that reads X about 23
   times (32 GB) for 15× the arithmetic.
+* The transform (``csrc/xw_kernel.cuh``) streams X once, each row 1 KB at
+  a time (512 B in bf16): one block of 8 warps per SM (`xw_blocks`) takes
+  an even share of the row groups (`xw_rows`: 64 rows fp32, 48 bf16),
+  copies 256 values of K of a group's rows and W's matching rows per chunk
+  by 16-byte cp.async (each row's chunk as its 16-byte-aligned run: Nell's
+  fp32 rows are 8-byte aligned), two chunks deep (three in bf16); each warp
+  takes 32 of the 256 for all the group's rows
+  (FMAs on the CUDA cores for fp32 and bf16 X, `mma.sync` fed by
+  `ldmatrix` when every operand is bf16), and the warps' partials are added
+  in warp order at the end of each group.
 * Aggregation-first is one launch: Ã·X accumulates in shared memory
   (128 × F_in fp32), then the same block multiplies by W and adds bias and
   activation. F_in is bounded by shared memory: at most `AF_MAX_F_IN`.
@@ -96,6 +106,10 @@ __all__ = [
     "ragged_row_weight",
     "ragged_attributes",
     "ragged_grid",
+    "xw_rows",
+    "xw_blocks",
+    "xw_smem_bytes",
+    "transform_attributes",
     "ff_transform",
     "ff_aggregate",
     "af_layer",
@@ -112,6 +126,8 @@ _KC, _NC, _STAGES = 32, 16, 2   # staged chunk depth, accumulator chunk, pipelin
 FF_F_TILE = 64              # output columns one feature-first aggregation block covers
 MIN_TILES = 4               # fewest positions a block of the split takes (the launchers' min_tiles)
 SMEM_LIMIT = 232_448        # bytes of shared memory one H100 block may opt into
+H100_SMS = 132              # an H100 SXM's SMs
+_XW_KC = 256                # values of K in one transform chunk (k2::XW_KC)
 
 # The (vals, X, W) dtype combinations K2 takes, and their launchers' suffixes.
 _F32, _BF16 = torch.float32, torch.bfloat16
@@ -147,6 +163,30 @@ def layer_smem_bytes(ft: int, src_dtype=torch.float32) -> int:
 
 # The widest aggregation-first input every dtype combination takes (the fp32 stage is the larger).
 AF_MAX_F_IN = max(f for f in range(_NC, 4096, _NC) if layer_smem_bytes(f) <= SMEM_LIMIT)
+
+
+def xw_rows(x_dtype) -> int:
+    """Rows of one pass of a transform block (``k2::xw_rows``): 64 for fp32
+    X, 48 for bf16."""
+    return 64 if x_dtype.itemsize == 4 else 48
+
+
+def xw_smem_bytes(x_dtype, w_dtype) -> int:
+    """Dynamic shared memory of one transform block (mirrors
+    ``k2::xw_smem_bytes``): a ring of stages (two for fp32 X, three for
+    bf16), each the pass's rows of 256 values of X at a pitch of 16 bytes
+    more and 256 rows of W (64 bytes fp32, 48 bf16); the warps' partial sums
+    meet in the stage just computed."""
+    w_pitch = _NC * 4 if w_dtype.itemsize == 4 else _NC * 2 + 16
+    stages = 2 if x_dtype.itemsize == 4 else 3
+    return stages * (xw_rows(x_dtype) * (_XW_KC * x_dtype.itemsize + 16) + _XW_KC * w_pitch)
+
+
+def xw_blocks(M: int, x_dtype, sms: int = H100_SMS) -> int:
+    """Transform blocks per 16-column block of the output (mirrors
+    ``k2::xw_blocks``): one per SM, no more than the ⌈M / xw_rows⌉ row
+    groups, which they share evenly."""
+    return max(1, min(sms, -(-M // xw_rows(x_dtype))))
 
 
 def ragged_row_weight(name: str, f_out: int) -> int:
@@ -260,6 +300,9 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
     lib.k2_ragged_attributes.argtypes, lib.k2_ragged_attributes.restype = [I, I, I, P, P, P], ctypes.c_int
+    lib.k2_ff_transform_attributes.argtypes, lib.k2_ff_transform_attributes.restype = [I, P, P, P], ctypes.c_int
+    lib.k2_xw_blocks.argtypes, lib.k2_xw_blocks.restype = [I, I, I], ctypes.c_int
+    lib.k2_xw_smem_bytes.argtypes, lib.k2_xw_smem_bytes.restype = [I, I], ctypes.c_longlong
     lib.k2_layer_smem_bytes.argtypes, lib.k2_layer_smem_bytes.restype = [I, I], ctypes.c_longlong
     lib.k2_error_string.argtypes, lib.k2_error_string.restype = [I], ctypes.c_char_p
     return lib
@@ -302,6 +345,23 @@ def ragged_attributes(name: str, ft: int) -> dict:
                                    ctypes.byref(blocks))
     if err:
         raise RuntimeError(f"k2_ragged_attributes({name}, {ft}): CUDA error {err} ({lib.k2_error_string(err).decode()})")
+    return dict(registers=regs.value, local_bytes=local.value, blocks_per_sm=blocks.value)
+
+
+@functools.cache
+def transform_attributes(name: str) -> dict:
+    """What the compiler gave the transform instantiation of launcher
+    ``name`` (``k2_ff_transform`` and its suffixes), read from the card:
+    registers a thread, local memory a thread (spills; 0 when none) and the
+    blocks that fit one SM."""
+    sfx = name.removeprefix("k2_ff_transform")
+    if not name.startswith("k2_ff_transform") or sfx not in _COMBO:
+        raise ValueError(f"{name} is not a transform launcher; they are k2_ff_transform with suffixes {list(_COMBO)}")
+    regs, local, blocks = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_int()
+    lib = _lib()
+    err = lib.k2_ff_transform_attributes(_COMBO[sfx], ctypes.byref(regs), ctypes.byref(local), ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"k2_ff_transform_attributes({name}): CUDA error {err} ({lib.k2_error_string(err).decode()})")
     return dict(registers=regs.value, local_bytes=local.value, blocks_per_sm=blocks.value)
 
 

@@ -48,6 +48,8 @@ from repro_torch.kernels.fused_gcn import (
     ff_transform_plain,
     layer_smem_bytes,
     ragged_split,
+    xw_blocks,
+    xw_smem_bytes,
 )
 from repro_torch.kernels.ref import poison_padding
 
@@ -95,6 +97,9 @@ struct dim3 {
 struct alignas(16) float4 {
     float x, y, z, w;
 };
+struct alignas(8) float2 {
+    float x, y;
+};
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 
 // bf16 as its 16 bits, with the conversions of <cuda_bf16.h>: widening is
@@ -120,6 +125,18 @@ inline std::uint16_t __bfloat16_as_ushort(__nv_bfloat16 h) { return h.bits; }
 
 // A product rounded on its own (never contracted into a fused multiply-add).
 inline float __fmul_rn(float a, float b) { return a * b; }
+
+// The bits of a float as an unsigned int, and back.
+inline unsigned __float_as_uint(float f) {
+    unsigned u;
+    std::memcpy(&u, &f, 4);
+    return u;
+}
+inline float __uint_as_float(unsigned u) {
+    float f;
+    std::memcpy(&f, &u, 4);
+    return f;
+}
 
 inline thread_local dim3 threadIdx;
 inline dim3 blockIdx, blockDim, gridDim;
@@ -239,173 +256,12 @@ void emu_launch(dim3 grid, int threads, Body body) {
 }
 """
 
-# The kernels compiled through SHIM, with the launch geometry of
-# fused_gcn.cu, behind a C interface for ctypes.
-HARNESS = r"""
-// The graph kernels (src/repro_torch/kernels/csrc/fused_gcn_kernels.cuh)
-// compiled by the host compiler through shim.h, with the launch geometry of
-// fused_gcn.cu, behind a C interface for ctypes. Returns 0, or 1 when a launch
-// would need more shared memory than the stand-in holds.
-#include "shim.h"
-
-#include "fused_gcn_kernels.cuh"
-
-namespace k2 {
-alignas(16) float smem[232448 / sizeof(float)];
-}
-
-using bf16 = __nv_bfloat16;
-
-template <typename TX, typename TW, typename TZ>
-int ff_transform(const void* x, const void* w, void* z, int M, int K, int N) {
-    if (k2::xw_smem_bytes() > (long long)sizeof(k2::smem)) return 1;
-    dim3 grid((M + k2::TILE - 1) / k2::TILE, (N + k2::NC - 1) / k2::NC);
-    emu_launch(grid, k2::THREADS, [&] {
-        k2::xw_kernel<TX, TW, TZ>((const TX*)x, (const TW*)w, (TZ*)z, M, K, N);
-    });
-    return 0;
-}
-
-// The split schedule's arguments (fused_gcn.cu's SPLIT_ARGS).
-#define SPLIT_ARGS int grid_x, int row_weight, int min_tiles, float *part, int *arrivals, unsigned short *prods
-#define SPLIT_PASS row_weight, min_tiles, part, arrivals, prods
-
-template <typename TV, typename TO>
-int ff_aggregate(const void* vals, const int* cols, const int* ends, int R, int T,
-                 int n_src_blocks, const void* z, const float* b, void* out,
-                 int f_out, int ft, int relu, SPLIT_ARGS) {
-    if (k2::kernel_smem_bytes<0, TV, TO>(ft) > (long long)sizeof(k2::smem)) return 1;
-    dim3 grid(grid_x, (f_out + ft - 1) / ft);
-    emu_launch(grid, k2::THREADS, [&] {
-        k2::ragged_layer_kernel<0, TV, TV, float, TO>((const TV*)vals, cols, ends, R, T, n_src_blocks,
-                                                      (const TV*)z, f_out, ft, nullptr, b, (TO*)out,
-                                                      f_out, relu, SPLIT_PASS);
-    });
-    return 0;
-}
-
-template <typename TV, typename TX, typename TW>
-int af_layer(const void* vals, const int* cols, const int* ends, int R, int T,
-             int n_src_blocks, const void* x, int f_in, const void* w,
-             const float* b, void* out, int f_out, int relu, SPLIT_ARGS) {
-    if (k2::kernel_smem_bytes<1, TX, TX>(f_in) > (long long)sizeof(k2::smem)) return 1;
-    emu_launch(dim3(grid_x, 1), k2::THREADS, [&] {
-        k2::ragged_layer_kernel<1, TV, TX, TW, TX>((const TV*)vals, cols, ends, R, T, n_src_blocks,
-                                                   (const TX*)x, f_in, f_in, (const TW*)w, b,
-                                                   (TX*)out, f_out, relu, SPLIT_PASS);
-    });
-    return 0;
-}
-
-extern "C" {
-
-// One entry per operand-type combination, suffixed as the launchers of
-// fused_gcn.cu: (none) all fp32, _bf16 (fp32 vals, bf16 X, fp32 W),
-// _bf16_all (all bf16).
-#define EMU_K2(SFX, TV, TX, TW)                                                             \
-    int emu_ff_transform##SFX(const void* x, const void* w, void* z, int M, int K, int N) { \
-        return ff_transform<TX, TW, TV>(x, w, z, M, K, N);                                  \
-    }                                                                                       \
-    int emu_ff_aggregate##SFX(const void* vals, const int* cols, const int* ends, int R,    \
-                              int T, int n_src_blocks, const void* z, const float* b,       \
-                              void* out, int f_out, int ft, int relu, SPLIT_ARGS) {         \
-        return ff_aggregate<TV, TX>(vals, cols, ends, R, T, n_src_blocks, z, b, out, f_out, \
-                                    ft, relu, grid_x, SPLIT_PASS);                          \
-    }                                                                                       \
-    int emu_af_layer##SFX(const void* vals, const int* cols, const int* ends, int R, int T, \
-                          int n_src_blocks, const void* x, int f_in, const void* w,         \
-                          const float* b, void* out, int f_out, int relu, SPLIT_ARGS) {     \
-        return af_layer<TV, TX, TW>(vals, cols, ends, R, T, n_src_blocks, x, f_in, w, b,    \
-                                    out, f_out, relu, grid_x, SPLIT_PASS);                  \
-    }
-
-EMU_K2(, float, float, float)
-EMU_K2(_bf16, float, bf16, float)
-EMU_K2(_bf16_all, bf16, bf16, bf16)
-
-// K1, one entry per (vals, Z) combination, suffixed as the launchers of
-// fused_gcn.cu; the output has Z's type.
-#define EMU_K1(SFX, TV, TZ)                                                                     \
-    int emu_bsr_spmm##SFX(const void* vals, const int* cols, const int* ends, int R, int T,     \
-                          int n_src_blocks, const void* z, void* out, int f, int ft,            \
-                          SPLIT_ARGS) {                                                         \
-        if (k2::kernel_smem_bytes<2, TZ, TZ>(ft) > (long long)sizeof(k2::smem)) return 1;       \
-        dim3 grid(grid_x, (f + ft - 1) / ft);                                                   \
-        emu_launch(grid, k2::THREADS, [&] {                                                     \
-            k2::ragged_layer_kernel<2, TV, TZ, float, TZ>((const TV*)vals, cols, ends, R, T,    \
-                                                          n_src_blocks, (const TZ*)z, f, ft,    \
-                                                          nullptr, nullptr, (TZ*)out, f, 0,     \
-                                                          SPLIT_PASS);                          \
-        });                                                                                     \
-        return 0;                                                                               \
-    }
-
-EMU_K1(, float, float)
-EMU_K1(_bf16, float, bf16)
-EMU_K1(_bf16_all, bf16, bf16)
-
-long long emu_layer_smem_bytes(int ft) { return k2::layer_smem_bytes(ft); }
-long long emu_layer_smem_bytes_bf16(int ft) { return k2::layer_smem_bytes(ft, 2); }
-int emu_split_blocks(long long n, int grid, int min_tiles) { return k2::split_blocks(n, grid, min_tiles); }
-int emu_owner_block(long long pos, long long n, long long g) { return k2::owner_block(pos, n, g); }
-void emu_set_block_order(unsigned seed) { emu_block_order_seed = seed; }
-
-}  // extern "C"
-"""
-
-
-# K3 compiled through SHIM, with the launch geometry of fm_interaction.cu.
-K3_HARNESS = r"""
-// DeepFM's FM interaction (src/repro_torch/kernels/csrc/fm_interaction_kernels.cuh)
-// compiled by the host compiler through shim.h, with the launch geometry of
-// fm_interaction.cu, behind a C interface for ctypes. Returns 0, 1 when a
-// launch would need more shared memory than the stand-in holds, or 2 for a
-// shape the tiling refuses.
-#include "shim.h"
-
-#include "fm_interaction_kernels.cuh"
-
-namespace k3 {
-alignas(16) float smem_dyn[232448 / sizeof(float)];
-}
-
-template <typename T>
-int emu_fm(const void* emb, void* out, int B, int F, int D) {
-    const k3::Tile t = k3::tile_for(F, D);
-    if (t.bt < 1 || B < 1) return 2;
-    if (k3::smem_bytes(F, D) > (long long)sizeof(k3::smem_dyn)) return 1;
-    emu_launch(dim3((B + t.bt - 1) / t.bt), k3::THREADS, [&] {
-        k3::fm_interaction_kernel<T>((const T*)emb, (T*)out, B, F, D, t.bt, t.fc);
-    });
-    return 0;
-}
-
-extern "C" {
-int emu_fm_interaction(const void* emb, void* out, int B, int F, int D) {
-    return emu_fm<float>(emb, out, B, F, D);
-}
-int emu_fm_interaction_bf16(const void* emb, void* out, int B, int F, int D) {
-    return emu_fm<__nv_bfloat16>(emb, out, B, F, D);
-}
-int emu_fm_tile_examples(int F, int D) { return k3::tile_for(F, D).bt; }
-int emu_fm_tile_fields(int F, int D) { return k3::tile_for(F, D).fc; }
-long long emu_fm_smem_bytes(int F, int D) { return k3::smem_bytes(F, D); }
-}  // extern "C"
-"""
-
-
-# K4 compiled through SHIM, with stand-ins for the PTX wrappers of
-# flash_attention_ptx.cuh and the launch geometry of flash_attention.cu.
-K4_HARNESS = r"""
-// The LM's flash attention (src/repro_torch/kernels/csrc/flash_attention_kernels.cuh)
-// compiled by the host compiler through shim.h, with the launch geometry of
-// flash_attention.cu, behind a C interface for ctypes. Returns 0, 1 when a
-// launch would need more shared memory than the stand-in holds, or 2 for a
-// shape the kernel refuses.
-#include "shim.h"
-
-// Stand-ins for flash_attention_ptx.cuh, with the PTX ISA's fragment layouts.
-namespace k4 {
+# Host-compiler stand-ins for the PTX wrappers of ptx.cuh (namespace ptx),
+# with the PTX ISA's fragment layouts; shared by every harness below.
+PTX_STANDINS = r"""
+#pragma once
+// Stand-ins for ptx.cuh, with the PTX ISA's fragment layouts.
+namespace ptx {
 
 // cp.async: the copy lands when a wait retires its group (shim.h); with
 // fill false it lands as zeros.
@@ -418,6 +274,14 @@ inline void cp_async_commit() { __pipeline_commit(); }
 inline void cp_async_wait_all() {
     __pipeline_commit();
     __pipeline_wait_prior(0);
+}
+template <int N>
+inline void cp_async_wait_group() { __pipeline_wait_prior(N); }
+// 16-byte cp.async of n source bytes: the other 16 − n land as zeros.
+inline void cp_async_16(void* dst, const void* src, int n) {
+    static const unsigned char zeros[16] = {};
+    emu_open_group.push_back({dst, src, std::size_t(n)});
+    emu_open_group.push_back({static_cast<unsigned char*>(dst) + n, zeros, std::size_t(16 - n)});
 }
 
 // ldmatrix .x4: lanes 8i .. 8i+7 give the rows of matrix i; register i of
@@ -476,6 +340,209 @@ inline void mma_bf16_16816(float c[4], const unsigned a[4], unsigned b0, unsigne
     }
 }
 
+}  // namespace ptx
+"""
+
+
+# The kernels compiled through SHIM, with the launch geometry of
+# fused_gcn.cu, behind a C interface for ctypes.
+HARNESS = r"""
+// The graph kernels (src/repro_torch/kernels/csrc/fused_gcn_kernels.cuh)
+// compiled by the host compiler through shim.h, with the launch geometry of
+// fused_gcn.cu, behind a C interface for ctypes. Returns 0, or 1 when a launch
+// would need more shared memory than the stand-in holds.
+#include "shim.h"
+#include "ptx.h"
+
+#include "fused_gcn_kernels.cuh"
+#include "xw_kernel.cuh"
+
+#include <cstdint>
+
+namespace k2 {
+alignas(16) float smem[232448 / sizeof(float)];
+alignas(16) float4 xw_smem[232448 / sizeof(float4)];
+}
+
+using bf16 = __nv_bfloat16;
+
+// The copy width and read width fused_gcn.cu's xw_piece and xw_read pick.
+int xw_piece(const void* base, long long pitch) {
+    const unsigned long long a = (unsigned long long)reinterpret_cast<std::uintptr_t>(base) | (unsigned long long)pitch;
+    for (int p = 16; p > 2; p /= 2)
+        if (a % p == 0) return p;
+    return 2;
+}
+int xw_read(const void* x, long long pitch) {
+    if (reinterpret_cast<std::uintptr_t>(x) % 16 != 0) return 0;
+    return pitch % 16 == 0 ? 16 : pitch % 8 == 0 ? 8 : pitch % 4 == 0 ? 4 : 0;
+}
+
+// The transform on a grid of `blocks` blocks a block column (the launcher's
+// k2::xw_blocks for the card's SMs).
+template <typename TX, typename TW, typename TZ>
+int ff_transform(const void* x, const void* w, void* z, int M, int K, int N, int blocks) {
+    if (k2::xw_smem_bytes(sizeof(TX), sizeof(TW)) > (long long)sizeof(k2::xw_smem)) return 1;
+    dim3 grid(blocks, (N + k2::NC - 1) / k2::NC);   // blocks ≤ the row groups, as k2::xw_blocks
+    const int xp = xw_piece(x, (long long)K * sizeof(TX)), xr = xw_read(x, (long long)K * sizeof(TX));
+    const int wp = xw_piece(w, (long long)N * sizeof(TW));
+    emu_launch(grid, k2::XW_THREADS, [&] {
+        k2::xw_kernel<TX, TW, TZ>((const TX*)x, (const TW*)w, (TZ*)z, M, K, N, xp, xr, wp);
+    });
+    return 0;
+}
+
+// The split schedule's arguments (fused_gcn.cu's SPLIT_ARGS).
+#define SPLIT_ARGS int grid_x, int row_weight, int min_tiles, float *part, int *arrivals, unsigned short *prods
+#define SPLIT_PASS row_weight, min_tiles, part, arrivals, prods
+
+template <typename TV, typename TO>
+int ff_aggregate(const void* vals, const int* cols, const int* ends, int R, int T,
+                 int n_src_blocks, const void* z, const float* b, void* out,
+                 int f_out, int ft, int relu, SPLIT_ARGS) {
+    if (k2::kernel_smem_bytes<0, TV, TO>(ft) > (long long)sizeof(k2::smem)) return 1;
+    dim3 grid(grid_x, (f_out + ft - 1) / ft);
+    emu_launch(grid, k2::THREADS, [&] {
+        k2::ragged_layer_kernel<0, TV, TV, float, TO>((const TV*)vals, cols, ends, R, T, n_src_blocks,
+                                                      (const TV*)z, f_out, ft, nullptr, b, (TO*)out,
+                                                      f_out, relu, SPLIT_PASS);
+    });
+    return 0;
+}
+
+template <typename TV, typename TX, typename TW>
+int af_layer(const void* vals, const int* cols, const int* ends, int R, int T,
+             int n_src_blocks, const void* x, int f_in, const void* w,
+             const float* b, void* out, int f_out, int relu, SPLIT_ARGS) {
+    if (k2::kernel_smem_bytes<1, TX, TX>(f_in) > (long long)sizeof(k2::smem)) return 1;
+    emu_launch(dim3(grid_x, 1), k2::THREADS, [&] {
+        k2::ragged_layer_kernel<1, TV, TX, TW, TX>((const TV*)vals, cols, ends, R, T, n_src_blocks,
+                                                   (const TX*)x, f_in, f_in, (const TW*)w, b,
+                                                   (TX*)out, f_out, relu, SPLIT_PASS);
+    });
+    return 0;
+}
+
+extern "C" {
+
+// One entry per operand-type combination, suffixed as the launchers of
+// fused_gcn.cu: (none) all fp32, _bf16 (fp32 vals, bf16 X, fp32 W),
+// _bf16_all (all bf16).
+#define EMU_K2(SFX, TV, TX, TW)                                                             \
+    int emu_ff_transform##SFX(const void* x, const void* w, void* z, int M, int K, int N,   \
+                              int blocks) {                                                 \
+        return ff_transform<TX, TW, TV>(x, w, z, M, K, N, blocks);                          \
+    }                                                                                       \
+    int emu_ff_aggregate##SFX(const void* vals, const int* cols, const int* ends, int R,    \
+                              int T, int n_src_blocks, const void* z, const float* b,       \
+                              void* out, int f_out, int ft, int relu, SPLIT_ARGS) {         \
+        return ff_aggregate<TV, TX>(vals, cols, ends, R, T, n_src_blocks, z, b, out, f_out, \
+                                    ft, relu, grid_x, SPLIT_PASS);                          \
+    }                                                                                       \
+    int emu_af_layer##SFX(const void* vals, const int* cols, const int* ends, int R, int T, \
+                          int n_src_blocks, const void* x, int f_in, const void* w,         \
+                          const float* b, void* out, int f_out, int relu, SPLIT_ARGS) {     \
+        return af_layer<TV, TX, TW>(vals, cols, ends, R, T, n_src_blocks, x, f_in, w, b,    \
+                                    out, f_out, relu, grid_x, SPLIT_PASS);                  \
+    }
+
+EMU_K2(, float, float, float)
+EMU_K2(_bf16, float, bf16, float)
+EMU_K2(_bf16_all, bf16, bf16, bf16)
+
+// K1, one entry per (vals, Z) combination, suffixed as the launchers of
+// fused_gcn.cu; the output has Z's type.
+#define EMU_K1(SFX, TV, TZ)                                                                     \
+    int emu_bsr_spmm##SFX(const void* vals, const int* cols, const int* ends, int R, int T,     \
+                          int n_src_blocks, const void* z, void* out, int f, int ft,            \
+                          SPLIT_ARGS) {                                                         \
+        if (k2::kernel_smem_bytes<2, TZ, TZ>(ft) > (long long)sizeof(k2::smem)) return 1;       \
+        dim3 grid(grid_x, (f + ft - 1) / ft);                                                   \
+        emu_launch(grid, k2::THREADS, [&] {                                                     \
+            k2::ragged_layer_kernel<2, TV, TZ, float, TZ>((const TV*)vals, cols, ends, R, T,    \
+                                                          n_src_blocks, (const TZ*)z, f, ft,    \
+                                                          nullptr, nullptr, (TZ*)out, f, 0,     \
+                                                          SPLIT_PASS);                          \
+        });                                                                                     \
+        return 0;                                                                               \
+    }
+
+EMU_K1(, float, float)
+EMU_K1(_bf16, float, bf16)
+EMU_K1(_bf16_all, bf16, bf16)
+
+int emu_xw_blocks(int M, int sms, int x_bytes) { return k2::xw_blocks(M, sms, x_bytes); }
+long long emu_xw_smem_bytes(int x_bytes, int w_bytes) { return k2::xw_smem_bytes(x_bytes, w_bytes); }
+long long emu_layer_smem_bytes(int ft) { return k2::layer_smem_bytes(ft); }
+long long emu_layer_smem_bytes_bf16(int ft) { return k2::layer_smem_bytes(ft, 2); }
+int emu_split_blocks(long long n, int grid, int min_tiles) { return k2::split_blocks(n, grid, min_tiles); }
+int emu_owner_block(long long pos, long long n, long long g) { return k2::owner_block(pos, n, g); }
+void emu_set_block_order(unsigned seed) { emu_block_order_seed = seed; }
+
+}  // extern "C"
+"""
+
+
+# K3 compiled through SHIM, with the launch geometry of fm_interaction.cu.
+K3_HARNESS = r"""
+// DeepFM's FM interaction (src/repro_torch/kernels/csrc/fm_interaction_kernels.cuh)
+// compiled by the host compiler through shim.h, with the launch geometry of
+// fm_interaction.cu, behind a C interface for ctypes. Returns 0, 1 when a
+// launch would need more shared memory than the stand-in holds, or 2 for a
+// shape the tiling refuses.
+#include "shim.h"
+#include "ptx.h"
+
+#include "fm_interaction_kernels.cuh"
+
+#include <cstdint>
+
+namespace k3 {
+alignas(16) float4 k3_stage[232448 / sizeof(float4)];
+}
+
+// A grid of `blocks` blocks (the launcher's one wave, at most the tiles):
+// fewer blocks than tiles make each block loop over several tiles.
+template <typename T>
+int emu_fm(const void* emb, void* out, int B, int F, int D, int blocks) {
+    const k3::Tile t = k3::tile_for(B, F, D, (int)sizeof(T));
+    if (t.bt < 1) return 2;
+    const bool staged = t.staged && reinterpret_cast<std::uintptr_t>(emb) % 16 == 0;
+    if (staged && k3::smem_bytes(B, F, D, (int)sizeof(T)) > (long long)sizeof(k3::k3_stage)) return 1;
+    const long long tiles = ((long long)B + t.bt - 1) / t.bt;
+    emu_launch(dim3((unsigned)(tiles < blocks ? tiles : blocks)), k3::THREADS, [&] {
+        k3::fm_interaction_kernel<T>((const T*)emb, (T*)out, B, F, D, t.bt, staged ? 1 : 0);
+    });
+    return 0;
+}
+
+extern "C" {
+int emu_fm_interaction(const void* emb, void* out, int B, int F, int D, int blocks) {
+    return emu_fm<float>(emb, out, B, F, D, blocks);
+}
+int emu_fm_interaction_bf16(const void* emb, void* out, int B, int F, int D, int blocks) {
+    return emu_fm<__nv_bfloat16>(emb, out, B, F, D, blocks);
+}
+int emu_fm_tile_examples(int B, int F, int D, int elem) { return k3::tile_for(B, F, D, elem).bt; }
+int emu_fm_tile_staged(int B, int F, int D, int elem) { return k3::tile_for(B, F, D, elem).staged ? 1 : 0; }
+long long emu_fm_smem_bytes(int B, int F, int D, int elem) { return k3::smem_bytes(B, F, D, elem); }
+}  // extern "C"
+"""
+
+
+# K4 compiled through SHIM and PTX_STANDINS, with the launch geometry of
+# flash_attention.cu.
+K4_HARNESS = r"""
+// The LM's flash attention (src/repro_torch/kernels/csrc/flash_attention_kernels.cuh)
+// compiled by the host compiler through shim.h, with the launch geometry of
+// flash_attention.cu, behind a C interface for ctypes. Returns 0, 1 when a
+// launch would need more shared memory than the stand-in holds, or 2 for a
+// shape the kernel refuses.
+#include "shim.h"
+#include "ptx.h"
+
+namespace k4 {
+using namespace ptx;
 }  // namespace k4
 
 #include "flash_attention_kernels.cuh"
@@ -579,6 +646,7 @@ def _compile(tmp_path_factory, name: str, harness: str) -> ctypes.CDLL:
         pytest.skip("needs a host C++20 compiler (g++) to emulate the CUDA source")
     work = tmp_path_factory.mktemp(name)
     (work / "shim.h").write_text(SHIM)
+    (work / "ptx.h").write_text(PTX_STANDINS)
     (work / f"{name}.cpp").write_text(harness)
     lib_path = work / f"lib{name}.so"
     subprocess.run(
@@ -595,7 +663,7 @@ def emu(tmp_path_factory):
     P, I = ctypes.c_void_p, ctypes.c_int
     split = [I, I, I, P, P, P]    # grid_x, row_weight, min_tiles, part, arrivals, prods
     for sfx in SUFFIXES.values():
-        getattr(lib, f"emu_ff_transform{sfx}").argtypes = [P, P, P, I, I, I]
+        getattr(lib, f"emu_ff_transform{sfx}").argtypes = [P, P, P, I, I, I, I]
         getattr(lib, f"emu_ff_aggregate{sfx}").argtypes = [P, P, P, I, I, I, P, P, P, I, I, I, *split]
         getattr(lib, f"emu_af_layer{sfx}").argtypes = [P, P, P, I, I, I, P, I, P, P, P, I, I, *split]
     for sfx in K1_SUFFIXES.values():
@@ -603,6 +671,9 @@ def emu(tmp_path_factory):
     for name in ("emu_layer_smem_bytes", "emu_layer_smem_bytes_bf16"):
         getattr(lib, name).argtypes = [I]
         getattr(lib, name).restype = ctypes.c_longlong
+    lib.emu_xw_blocks.argtypes = [I, I, I]
+    lib.emu_xw_smem_bytes.argtypes = [I, I]
+    lib.emu_xw_smem_bytes.restype = ctypes.c_longlong
     lib.emu_split_blocks.argtypes = [ctypes.c_longlong, I, I]
     lib.emu_owner_block.argtypes = [ctypes.c_longlong] * 3
     lib.emu_set_block_order.argtypes = [ctypes.c_uint]
@@ -614,11 +685,17 @@ def _p(t: torch.Tensor) -> int:
     return t.data_ptr()
 
 
-def _ff_transform(lib, x, w, z_dtype=F32):
+def _ff_transform(lib, x, w, z_dtype=F32, blocks=None):
+    """The emulated transform on ``blocks`` blocks a block column (by default
+    as the launcher picks them on an H100: one per 64-row group at these
+    sizes; fewer blocks run several groups one after another)."""
     sfx = SUFFIXES[(z_dtype, x.dtype, w.dtype)]
-    z = torch.empty((x.shape[0], w.shape[1]), dtype=z_dtype)
+    M, K = x.shape
+    N = w.shape[1]
+    z = torch.full((M, N), float("nan"), dtype=z_dtype)
     fn = getattr(lib, f"emu_ff_transform{sfx}")
-    assert fn(_p(x), _p(w), _p(z), x.shape[0], x.shape[1], w.shape[1]) == 0
+    most = xw_blocks(M, x.dtype)
+    assert fn(_p(x), _p(w), _p(z), M, K, N, most if blocks is None else min(blocks, most)) == 0
     return z
 
 
@@ -842,6 +919,96 @@ def test_emulated_ff_transform_bf16_matches_plain(emu, combo, m, k, n):
     out = _ff_transform(emu, x, w, vals_dtype)
     assert out.dtype == vals_dtype
     _close(out, ff_transform_plain(x, w, vals_dtype), tol=BF16_TOL if vals_dtype == BF16 else 1e-5)
+
+
+ALL_COMBOS = [pytest.param(c, id=sfx.lstrip("_") or "f32") for c, sfx in SUFFIXES.items()]
+
+
+def _transform_rule(out, ref, vals_dtype):
+    """fp32 within 1e-5 of max (the order of the sum differs); all bf16 (the
+    tensor cores) within one bf16 step of max and, where the output is large
+    enough to count, at least 99 % of the elements bit-equal to the plain
+    version, which rounds the same fp32 sums once."""
+    if vals_dtype == F32:
+        _close(out, ref)
+        return
+    out, ref = out.float(), ref.float()
+    assert float((out - ref).abs().max()) <= 2.0 ** -7 * float(ref.abs().max())
+    if out.numel() >= 1000:
+        assert float((out == ref).float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("combo", ALL_COMBOS)
+@pytest.mark.parametrize("m,k,n,blocks", [
+    pytest.param(100, 37, 16, 2, id="odd_k37-short_group"),
+    pytest.param(130, 141, 7, 1, id="odd_k141-n7-three_passes"),
+    pytest.param(64, 600, 16, 1, id="k600-three_chunks"),
+    pytest.param(192, 520, 32, 2, id="k520-n32_two_column_blocks-uneven_passes"),
+    pytest.param(70, 136, 33, 2, id="k136-n33"),
+])
+def test_emulated_ff_transform_modes(emu, combo, m, k, n, blocks):
+    """Every instantiation against the plain version: K odd (the row pitch
+    4- or 2-byte aligned: 4-byte pieces in fp32, plain 2-byte copies in bf16)
+    and even (8- and 16-byte pieces), several 256-value chunks of K with a
+    short last one, a short last 64-row group, N < 16, N = 32 and 33 over two
+    and three blocks in y, and blocks that run one to three groups one after
+    another (2 blocks over 3 groups: one and two)."""
+    vals_dtype, x_dtype, w_dtype = combo
+    r = np.random.default_rng(m * k + n)
+    x = torch.from_numpy(r.standard_normal((m, k)).astype(np.float32)).to(x_dtype)
+    w = torch.from_numpy(r.standard_normal((k, n)).astype(np.float32)).to(w_dtype)
+    out = _ff_transform(emu, x, w, vals_dtype, blocks=blocks)
+    assert out.dtype == vals_dtype and bool(torch.isfinite(out.float()).all())
+    _transform_rule(out, ff_transform_plain(x, w, vals_dtype), vals_dtype)
+
+
+@pytest.mark.parametrize("combo", ALL_COMBOS)
+@pytest.mark.parametrize("k", [37, 141, 138, 300, 5_414])
+def test_emulated_ff_transform_unaligned_start(emu, combo, k):
+    """X that starts off a 16-byte boundary (a view one row in): copied in the
+    widest piece its start and pitch allow, read 16 bytes at a time; beside
+    the same rows from an aligned copy (16-byte runs read 4, 8 or 16 bytes at
+    a time), bit for bit."""
+    vals_dtype, x_dtype, w_dtype = combo
+    r = np.random.default_rng(k)
+    full = torch.from_numpy(r.standard_normal((71, k)).astype(np.float32)).to(x_dtype)
+    w = torch.from_numpy(r.standard_normal((k, 16)).astype(np.float32)).to(w_dtype)
+    view, aligned = full[1:], full[1:].clone()
+    assert view.is_contiguous() and (view.data_ptr() % 16 != 0) == (k * x_dtype.itemsize % 16 != 0)
+    out = _ff_transform(emu, view, w, vals_dtype)
+    assert torch.equal(out, _ff_transform(emu, aligned, w, vals_dtype))
+    _transform_rule(out, ff_transform_plain(view, w, vals_dtype), vals_dtype)
+
+
+@pytest.mark.parametrize("combo", ALL_COMBOS)
+def test_emulated_ff_transform_bit_identical_across_grids(emu, combo):
+    """The same bits on every call, and whatever the grid: each output's sum
+    runs over the same warps' slices of K in the same order whichever block
+    holds its group."""
+    vals_dtype, x_dtype, w_dtype = combo
+    r = np.random.default_rng(11)
+    x = torch.from_numpy(r.standard_normal((192, 300)).astype(np.float32)).to(x_dtype)
+    w = torch.from_numpy(r.standard_normal((300, 16)).astype(np.float32)).to(w_dtype)
+    first = _ff_transform(emu, x, w, vals_dtype, blocks=3)
+    assert torch.equal(first, _ff_transform(emu, x, w, vals_dtype, blocks=3))
+    assert torch.equal(first, _ff_transform(emu, x, w, vals_dtype, blocks=1))
+    _transform_rule(first, ff_transform_plain(x, w, vals_dtype), vals_dtype)
+
+
+def test_emulated_xw_geometry_matches_python(emu):
+    """`xw_blocks` and `xw_smem_bytes` mirror the .cuh: one block per SM up to
+    the row groups (Nell's 1,028 groups of 64 fp32 rows over 132 blocks, rank
+    0's 376 groups of 48 bf16 rows too), and a block's shared memory within
+    the 227 KB an H100 block may take."""
+    for M in (1, 48, 64, 65, 100, 8_448, 18_048, 65_792):
+        for sms in (1, 8, 132):
+            for x_dtype in (F32, BF16):
+                assert emu.emu_xw_blocks(M, sms, x_dtype.itemsize) == xw_blocks(M, x_dtype, sms)
+    for x_dtype, w_dtype in ((F32, F32), (BF16, F32), (BF16, BF16)):
+        xb, wb = x_dtype.itemsize, w_dtype.itemsize
+        assert emu.emu_xw_smem_bytes(xb, wb) == xw_smem_bytes(x_dtype, w_dtype) <= 232_448
+    assert xw_blocks(65_792, F32) == xw_blocks(18_048, BF16) == 132
+    assert (xw_blocks(100, F32), xw_blocks(100, BF16)) == (2, 3)
 
 
 @pytest.mark.parametrize("combo", BF16_COMBOS)
@@ -1092,44 +1259,91 @@ def emu_k3(tmp_path_factory):
     lib = _compile(tmp_path_factory, "fm_interaction_emu", K3_HARNESS)
     P, I = ctypes.c_void_p, ctypes.c_int
     for name in ("emu_fm_interaction", "emu_fm_interaction_bf16"):
-        getattr(lib, name).argtypes = [P, P, I, I, I]
-    for name in ("emu_fm_tile_examples", "emu_fm_tile_fields"):
-        getattr(lib, name).argtypes = [I, I]
-    lib.emu_fm_smem_bytes.argtypes = [I, I]
+        getattr(lib, name).argtypes = [P, P, I, I, I, I]
+    for name in ("emu_fm_tile_examples", "emu_fm_tile_staged"):
+        getattr(lib, name).argtypes = [I, I, I, I]
+    lib.emu_fm_smem_bytes.argtypes = [I, I, I, I]
     lib.emu_fm_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
-def _fm(lib, emb):
+def _fm(lib, emb, blocks=3):
+    """The emulated K3 on at most ``blocks`` blocks (so that blocks loop over
+    several tiles, through both slots of their ring)."""
     B, F, D = emb.shape
     out = torch.full((B,), float("nan"), dtype=emb.dtype)
     name = "emu_fm_interaction" if emb.dtype == F32 else "emu_fm_interaction_bf16"
-    assert getattr(lib, name)(_p(emb), _p(out), B, F, D) == 0
+    assert getattr(lib, name)(_p(emb), _p(out), B, F, D, blocks) == 0
     return out
 
 
 def test_emulated_fm_tiling_matches_python(emu_k3):
-    for F, D in ((39, 10), (2, 10), (1, 1), (40, 400), (3, 300), (8, 16), (39, 4096), (1, 257)):
-        assert (emu_k3.emu_fm_tile_examples(F, D), emu_k3.emu_fm_tile_fields(F, D)) == fm_tile(F, D)
-        assert emu_k3.emu_fm_smem_bytes(F, D) == fm_smem_bytes(F, D) <= 48 * 1024
-    assert fm_tile(39, 10) == (25, 39)            # DeepFM: 25 examples (250 of 256 threads), whole rows
-    assert fm_tile(40, 400)[1] < 40               # a row wider than the stage goes a chunk at a time
+    """`fm_tile` and `fm_smem_bytes` mirror the .cuh: the tile follows B as
+    well as F, D and the dtype, starts every tile on a 16-byte boundary, and
+    stays within 48 KB of shared memory."""
+    shapes = [(39, 10), (2, 10), (1, 1), (40, 400), (3, 300), (8, 16), (39, 4096), (1, 257), (7, 3), (3, 1)]
+    for B in (1, 2, 7, 512, 1000, 65_536, 262_144):
+        for F, D in shapes:
+            for dtype in (F32, BF16):
+                e = dtype.itemsize
+                bt, staged = fm_tile(B, F, D, dtype)
+                assert (emu_k3.emu_fm_tile_examples(B, F, D, e), bool(emu_k3.emu_fm_tile_staged(B, F, D, e))) == \
+                    (bt, staged)
+                assert emu_k3.emu_fm_smem_bytes(B, F, D, e) == fm_smem_bytes(B, F, D, dtype) <= 2 * 48 * 1024
+                assert bt >= 1 and (not staged or bt * F * D * e % 16 == 0)
+    assert fm_tile(65_536, 39, 10) == (16, True)           # DeepFM: one pass of 16 examples, 16 lanes each
+    assert fm_tile(512, 39, 10) == (4, True)               # serve_p99: 128 blocks
+    assert fm_tile(65_536, 39, 10, BF16) == (16, True)
+    assert fm_tile(512, 39, 10, BF16) == (4, True)
+    assert fm_tile(33, 40, 400) == (1, False)              # an example past the stage is read in place
+    assert fm_tile(0, 39, 10) == (0, False)
 
 
 @pytest.mark.parametrize("b,f,d", [(37, 39, 10), (53, 2, 10), (26, 39, 10), (5, 1, 4), (3, 40, 400),
-                                   (4, 3, 300)])
+                                   (4, 3, 300), (1, 39, 10), (2, 39, 10), (512, 39, 10), (9, 7, 3),
+                                   (300, 3, 1)])
 def test_emulated_fm_interaction_matches_plain(emu_k3, b, f, d):
-    """Odd B (a short last tile), DeepFM's row (F = 39, D = 10), F = 2 and
-    F = 1, a row staged a chunk of fields at a time, and D past the block's
-    threads; every output written."""
+    """Odd B (a short last tile), B = 1 and 2, the serving batch of 512,
+    DeepFM's row (F = 39, D = 10), F = 2 and F = 1, an example wider than
+    the stage (read in place), D past a warp, an example of 21 fp32 values
+    (84 bytes: tiles of four examples) and D = 1; every output written."""
     emb = torch.from_numpy(np.random.default_rng(b * f + d).standard_normal((b, f, d)).astype(np.float32))
     _close(_fm(emu_k3, emb), fm_interaction_plain(emb))
 
 
-def test_emulated_fm_interaction_bf16(emu_k3):
-    """bf16 embeddings: widened as staged, fp32 sums, one rounding at the
-    end — the plain version's arithmetic, so within one bf16 step."""
-    emb = torch.from_numpy(np.random.default_rng(3).standard_normal((37, 39, 10)).astype(np.float32)).to(BF16)
+@pytest.mark.parametrize("blocks", [1, 2, 5, 1000])
+def test_emulated_fm_interaction_any_grid(emu_k3, blocks):
+    """One block taking every tile, a few blocks looping over several (both
+    ring slots, a short last tile) and one block per tile: the same bits."""
+    emb = torch.from_numpy(np.random.default_rng(12).standard_normal((150, 39, 10)).astype(np.float32))
+    out = _fm(emu_k3, emb, blocks)
+    assert torch.equal(out, _fm(emu_k3, emb, 1))
+    _close(out, fm_interaction_plain(emb))
+
+
+def test_emulated_fm_interaction_one_field_is_zero(emu_k3):
+    """F = 1: (Σ_f e)² − Σ_f e² is exactly zero, fp32 and bf16."""
+    for dtype in (F32, BF16):
+        emb = torch.from_numpy(np.random.default_rng(8).standard_normal((77, 1, 10)).astype(np.float32)).to(dtype)
+        out = _fm(emu_k3, emb)
+        assert out.dtype == dtype and torch.equal(out, torch.zeros_like(out))
+
+
+def test_emulated_fm_interaction_unaligned_start_reads_in_place(emu_k3):
+    """An embedding view that starts 8 bytes past a 16-byte boundary (emb[1:]
+    of DeepFM's rows) is not staged, and gives the same answer."""
+    full = torch.from_numpy(np.random.default_rng(9).standard_normal((38, 39, 10)).astype(np.float32))
+    view = full[1:]
+    assert view.is_contiguous() and view.data_ptr() % 16 == 8
+    _close(_fm(emu_k3, view), fm_interaction_plain(view))
+
+
+@pytest.mark.parametrize("b", [37, 3, 512])
+def test_emulated_fm_interaction_bf16(emu_k3, b):
+    """bf16 embeddings: widened as read, fp32 sums, one rounding at the end —
+    the plain version's arithmetic, so within one bf16 step; B = 3 leaves a
+    tile tail under 16 bytes (3 × 780 bytes)."""
+    emb = torch.from_numpy(np.random.default_rng(3).standard_normal((b, 39, 10)).astype(np.float32)).to(BF16)
     out, ref = _fm(emu_k3, emb), fm_interaction_plain(emb)
     assert out.dtype == BF16
     _close(out, ref, tol=2.0 ** -7)

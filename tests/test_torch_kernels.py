@@ -706,14 +706,19 @@ K3_TOL = 1e-4              # K3 vs plain on the card: · max |plain| (sums in an
 
 def test_fm_kernel_wrapper_takes_cuda_tensors_only():
     """The kernel's wrapper never runs the plain version: a CPU tensor, a
-    float64 one, a width past the tiling or a non-contiguous one raises."""
+    float64 one or one of the wrong rank raises, and the tiling refuses an
+    empty batch, field or width (the kernel takes any D since its redesign:
+    an example wider than the stage is read in place)."""
     with pytest.raises(ValueError, match="CUDA tensors"):
         k3.fm_interaction(torch.zeros(4, 39, 10))
     with pytest.raises(TypeError):
         k3.fm_interaction(torch.zeros(4, 39, 10, dtype=torch.float64))
     with pytest.raises(ValueError):
         k3.fm_interaction(torch.zeros(4, 39))
-    assert k3.fm_tile(39, k3.FM_MAX_D + 1) == (0, 0)
+    for shape in ((0, 39, 10), (4, 0, 10), (4, 39, 0)):
+        assert k3.fm_tile(*shape) == (0, False)
+    bt, staged = k3.fm_tile(4, 39, 4097)        # past the old kernel's widest D: taken, read in place
+    assert bt >= 1 and not staged
 
 
 K3_SHAPES = [
@@ -748,6 +753,20 @@ def test_cuda_fm_interaction_bf16(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", [512, 65_536, 262_144])
+def test_cuda_fm_interaction_bf16_recsys_shapes(cuda, batch):
+    """bf16 at DeepFM's serving, training and bulk batches: fp32 sums
+    rounded once, as the plain version does, so within one bf16 step of max
+    and at least 99 % of the outputs bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(batch)
+    emb = torch.randn((batch, 39, 10), generator=g, device=cuda).to(BF16)
+    out, ref = k3.fm_interaction(emb), k3.fm_interaction_plain(emb)
+    torch.cuda.synchronize()
+    equal, worst = _bf16_rule(out.cpu(), ref.cpu())
+    assert out.dtype == BF16 and equal >= 0.99 and worst <= 2.0 ** -7, (equal, worst)
+
+
+@pytest.mark.cuda
 def test_cuda_fm_interaction_backward_matches_gradcheck(cuda):
     """`ops.fm_interaction` on the card: forward through K3, backward the
     analytic gradient, against the CPU in float64, whose backward
@@ -766,6 +785,103 @@ def test_cuda_fm_interaction_backward_matches_gradcheck(cuda):
     assert float((got.cpu().double() - want).abs().max()) <= 1e-5 * float(want.abs().max())
     with pytest.raises(TypeError):
         fm_interaction(torch.zeros(4, 3, 2, dtype=torch.float64, device=cuda))
+
+
+# --------------------------------------------- K2's dense transform and K3 alone
+TRANSFORMS = [pytest.param(c, id=sfx.lstrip("_") or "f32") for c, sfx in fg._SUFFIX.items()]
+
+
+def _transform_case(cuda, combo, seed=0):
+    """X at Nell's width (5,414 features, 16 outputs): its 65,792 rows for
+    fp32, rank 0's 18,048 of the halo plan for the bf16 instantiations."""
+    vd, xd, wd = combo
+    rows = 65_792 if xd == F32 else 18_048
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((rows, 5_414), generator=g, device=cuda).to(xd)
+    w = (torch.randn((5_414, 16), generator=g, device=cuda) * (2.0 / 5_430) ** 0.5).to(wd)
+    return (lambda: fg.ff_transform(x, w, vd)), fg.ff_transform_plain(x, w, vd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combo", TRANSFORMS)
+def test_cuda_ff_transform_at_nell_width(cuda, combo):
+    """Each instantiation against the plain version at Nell's width: fp32
+    outputs within 1e-4 of max (chip_smoke's rule: the order of the sum
+    differs); all bf16 within one bf16 step of max and at least 99 %
+    bit-equal; one launch, and the same bits on a second call."""
+    call, ref = _transform_case(cuda, combo)
+    name = f"k2_ff_transform{fg._SUFFIX[combo]}"
+    before = fg.LAUNCHES[name]
+    out, again = call(), call()
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES[name] == before + 2 and out.dtype == ref.dtype and torch.equal(out, again)
+    if out.dtype == BF16:
+        equal, worst = _bf16_rule(out.cpu(), ref.cpu())
+        assert equal >= 0.99 and worst <= 2.0 ** -7, (equal, worst)
+    else:
+        assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(100, 37, 7), (130, 141, 33), (1000, 1, 16), (4096, 5_415, 16)])
+@pytest.mark.parametrize("combo", TRANSFORMS)
+def test_cuda_ff_transform_edges(cuda, combo, m, k, n):
+    """Odd K (4-byte pieces in fp32, plain 2-byte copies in bf16), K = 1, a
+    short last strip, N < 16 and N = 33 over three blocks in y."""
+    vd, xd, wd = combo
+    r = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(r.standard_normal((m, k)).astype(np.float32)).to(cuda, xd)
+    w = torch.from_numpy(r.standard_normal((k, n)).astype(np.float32)).to(cuda, wd)
+    out, ref = fg.ff_transform(x, w, vd), fg.ff_transform_plain(x, w, vd)
+    torch.cuda.synchronize()
+    tol = 1e-4 if vd == F32 else 2.0 ** -7
+    assert float((out.float() - ref.float()).abs().max()) <= tol * float(ref.float().abs().max())
+
+
+K3_INSTANCES = [pytest.param(F32, id="f32"), pytest.param(BF16, id="bf16")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", K3_INSTANCES)
+def test_cuda_fm_interaction_repeats_bit_equal(cuda, dtype):
+    emb = torch.randn((65_536, 39, 10), generator=torch.Generator(device=cuda).manual_seed(1), device=cuda).to(dtype)
+    first, second = k3.fm_interaction(emb), k3.fm_interaction(emb)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inst", TRANSFORMS + K3_INSTANCES)
+def test_cuda_dense_wrappers_do_not_sync(cuda, inst):
+    """The transform's and K3's wrappers read nothing back to the host:
+    under ``torch.cuda.set_sync_debug_mode("error")`` they raise on any
+    synchronising call."""
+    if isinstance(inst, tuple):
+        call, _ = _transform_case(cuda, inst)
+    else:
+        emb = torch.randn((65_536, 39, 10), device=cuda).to(inst)
+        call = lambda: k3.fm_interaction(emb)  # noqa: E731
+    call()                                   # builds and loads the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_dense_kernels_do_not_spill(cuda):
+    """No transform instantiation nor K3 body keeps values in local memory,
+    and each fits the blocks its grid needs on one SM: the transform's one
+    block of 8 warps, K3 at least four tiles of 16 examples."""
+    for sfx in fg._SUFFIX.values():
+        attr = fg.transform_attributes(f"k2_ff_transform{sfx}")
+        assert attr["local_bytes"] == 0 and attr["blocks_per_sm"] >= 1, (sfx, attr)
+    for dtype in (F32, BF16):
+        attr = k3.kernel_attributes(dtype, 65_536, 39, 10)
+        assert attr["local_bytes"] == 0 and attr["blocks_per_sm"] >= 4, (dtype, attr)
 
 
 # ------------------------------------------------------------------------- K4
