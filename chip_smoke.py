@@ -11,7 +11,9 @@ nothing of the JAX package `repro`.
 Four paths of the paper's GCN (``coin_gcn``) run at the widths of Nell
 (Table I: 65,755 nodes, 5,414 → 16 → 210, 4-bit fake quant) with the
 blocked (bsr) backend: full-graph inference, full-graph training, and
-sharded (halo) inference and training over 4 ranks. The forward of each unsharded layer
+sharded (halo) inference and training over 4 ranks, flat and as 2 pods ×
+2 ranks (the hierarchical exchange), and the elastic re-plan after a
+model-degree halving. The forward of each unsharded layer
 runs the hand-written CUDA kernels of `repro_torch.kernels.fused_gcn` (K2):
 layer 1 feature-first (``k2_ff_transform`` then ``k2_ff_aggregate``),
 layer 2 aggregation-first (``k2_af_layer``). The backward of layer 2
@@ -95,6 +97,12 @@ Phases, one JSON line each; any failed check ends the run with exit code 1:
            registers, spills, blocks per SM and grid
   profile  torch.profiler over three training steps (bsr, quant on): device
            time by kernel and the device's idle share of the window
+  af_wide  K2's aggregation-first kernel past one chunk of F_in on Nell's
+           table at F_out = 128: F_in 241, 1,433 (Cora's width) and 9,029
+           (the reference's widest at 128), every operand mode against its
+           plain version (fp32 2e-5 of max, bf16 5e-2), the same bits on two
+           calls, ms, bound, registers and spills; F_in 9,030 raises the
+           reference's error
   halo     the parent frees the card, then 4 ranks on cuda:0 in one gloo
            group (the wire goes through the host; NCCL takes one rank per
            card) each run gcn_forward on their block: (a) combined table,
@@ -118,7 +126,25 @@ Phases, one JSON line each; any failed check ends the run with exit code 1:
            alike; launches per step
            counted from zero just before the steps and read just after;
            wire rows per step (forward and backward exchanges); step ms,
-           one exchange's backward ms and peak memory per rank
+           one exchange's backward ms and peak memory per rank; then
+           `overlap_timeline` on the group (rank 0's trace)
+  hier     the same partition as 2 pods × 2 ranks on cuda:0 (gloo), bsr:
+           (h1) fp32 / bf16 / int8 wire forwards against their flat twins
+           and the unsharded forward; (h2) wire rows per rank per phase
+           against the plan, inter-pod rows crossing below the flat
+           schedule's; (h3) the sharded loss's gradient against the train
+           phase's; (h4) three AdamW steps against its losses (rank 0
+           checkpoints the last); launches per rank, ms per exchange phase,
+           step ms and peak memory per rank; `overlap_timeline` on the
+           2 × 2 groups
+  elastic  elastic_replan: a pure resize (8 healthy ranks) keeps the cached
+           plan, 0 evictions, the same object; a halving to 2 ranks evicts,
+           the partition is rebuilt at k = 2, and a 2-rank group restores the
+           hier phase's checkpoint: its first loss against the unsharded
+           loss at the checkpointed parameters (1e-4)
+  obs      the two overlap traces (a wire span encloses an interior span,
+           on the wire track), and torch_profiler_trace around K1 and K2
+           launches: one trace file that names the kernels
 
   deepfm_kernels  (d1) K3 against its plain version on the card at the
            recsys shapes serve_p99 (512), train_batch (65,536) and
@@ -177,7 +203,7 @@ then the card's name and power limit (nvidia-smi), the ``{"kernels": [...]}``
 line, and as the last line ``{"ok": true, "device": {...}}``. A kernel's
 ``launches`` there is its count over the main-path runs (inference
 forwards, training steps, the halo forwards and the halo training steps
-of all ranks; for K3 the DeepFM serving requests and training steps; for
+of all ranks, flat and hierarchical; for K3 the DeepFM serving requests and training steps; for
 K4 the LM prefills and the batcher's decode steps), each counted with the
 counts zeroed just before and read just after.
 """
@@ -190,6 +216,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -270,6 +297,14 @@ HALO_GRAD_RTOL = 1e-4          # (t1), (t3): first gradients vs the unsharded bs
 HALO_LOSS_RTOL = 1e-4          # (t1), (t3): five-step losses vs the unsharded bsr ones, relative
 HALO_BF16_GRAD_RTOL = 5e-2     # (t2) vs unsharded, (t4) bsr vs segment: the reference suite's bf16 tolerance
 HALO_QUANT_LOSS_RTOL = 1e-2    # (t4) bsr vs segment losses, relative (bf16 logits of the fused layer)
+
+HIER_PODS = 2                  # hier: the same 4 ranks as 2 pods × 2
+HIER_TRAIN_STEPS = 3           # (h4) AdamW steps (lr 1e-3); rank 0 checkpoints the last, for the elastic phase
+ELASTIC_HEALTHY = (8, 2)       # elastic: 8 healthy ranks keep the 4 model shards (a pure resize); 2 halve them
+AF_WIDE_F_IN = (241, 1433, 9029)   # af_wide: past one chunk; Cora's width (Table I); the reference's widest at 128
+AF_WIDE_F_OUT = 128
+AF_WIDE_RTOL = 2e-5            # af_wide: fp32 kernel vs plain, · max |plain|
+AF_WIDE_BF16_RTOL = 5e-2       # af_wide: bf16 operands vs plain, · max |plain| (the parity contract's bf16 rule)
 
 
 def emit(phase: str, **fields) -> None:
@@ -520,7 +555,7 @@ def build_plan(data: dict) -> dict:
                                       interior=split["interior"]["nnz_blocks_max_device"] * tile / 1e9,
                                       boundary=split["boundary"]["nnz_blocks_max_device"] * tile / 1e9),
          host_build_s=host_s)
-    return dict(plan=plan, widths=table_widths(plan))
+    return dict(plan=plan, part=part, widths=table_widths(plan))
 
 
 def rank_operands(data: dict, halo: dict, ops: dict, generator: torch.Generator) -> dict:
@@ -1277,12 +1312,14 @@ HALO_TRAIN_LAUNCHES = {
 }
 
 
-def run_halo(host: dict, halo: dict, main: dict, train: dict) -> tuple[dict, dict]:
+def run_halo(host: dict, halo: dict, main: dict, train: dict) -> dict:
     """The sharded forward and sharded training on HALO_K ranks sharing the
     card, in one group: the forward against the unsharded bsr forward, the
-    training (`halo_train` line) against the unsharded bsr train phase;
-    returns each kernel's launches summed over the ranks' forwards (one per
-    variant) and over their training steps."""
+    training (`halo_train` line) against the unsharded bsr train phase, and
+    at the end `overlap_timeline` (rank 0 traces); returns each kernel's
+    launches summed over the ranks' forwards (one per variant) and over their
+    training steps, each variant's restored logits, the unsharded reference
+    and rank 0's trace recorder."""
     from repro_torch.configs.coin_gcn import make_config
     from repro_torch.dist.halo import restore_node_array
     from repro_torch.graph.structure import restore_rows
@@ -1298,7 +1335,8 @@ def run_halo(host: dict, halo: dict, main: dict, train: dict) -> tuple[dict, dic
     t0 = time.perf_counter()
     jobs = rank_jobs(plan, host["features"], params, cfg.layer_dims, variants, quant=cfg.quant,
                      time_reps=HALO_REPS, labels=host["labels"], mask=host["train_mask"],
-                     train_variants=halo_train_variants(), steps=HALO_TRAIN_STEPS, lr=HALO_TRAIN_LR)
+                     train_variants=halo_train_variants(), steps=HALO_TRAIN_STEPS, lr=HALO_TRAIN_LR,
+                     obs_trace=True)
     spec = GroupSpec(k=HALO_K, backend="gloo", devices=("cuda:0",), timeout_s=HALO_TIMEOUT_S)
     print(f"halo group: {spec.describe()}", flush=True)
     results = run_group(spec, halo_rank, jobs)
@@ -1354,7 +1392,8 @@ def run_halo(host: dict, halo: dict, main: dict, train: dict) -> tuple[dict, dic
          launches_all_ranks=launches, timing=f"CUDA events after a group barrier, median of {HALO_REPS}; "
          f"{HALO_K} ranks share one card, so these are not multi-card times")
     require(ok, "halo", f"checks {checks}")
-    return launches, check_halo_train(results, plan, cfg, train, seconds)
+    return dict(launches=launches, train_launches=check_halo_train(results, plan, cfg, train, seconds),
+                logits=logits, ref=ref, tracer=results[0]["obs"]["tracer"])
 
 
 def check_halo_train(results: list, plan, cfg, train: dict, seconds: float) -> dict:
@@ -1427,6 +1466,341 @@ def check_halo_train(results: list, plan, cfg, train: dict, seconds: float) -> d
          f"{HALO_K} ranks share one card")
     require(ok, "halo_train", f"checks {checks}")
     return launches
+
+
+# -------------------------------------------------------- hierarchical halo
+def hier_variants():
+    from repro_torch.launch.distributed_gcn import HaloVariant as V
+
+    return V("h_fp32"), V("h_bf16", payload="bf16"), V("h_int8", payload="int8")
+
+
+# Each hierarchical variant's flat twin in the halo phase (the same backend,
+# wire and tables), and the launches per rank of one forward and one step:
+# the flat path's (HALO_LAUNCHES, HALO_TRAIN_LAUNCHES): only the exchange differs.
+HIER_FLAT_TWIN = {"h_fp32": "a_fp32", "h_bf16": "b_bf16", "h_int8": "d_int8"}
+HIER_LAUNCHES = {name: HALO_LAUNCHES[twin] for name, twin in HIER_FLAT_TWIN.items()}
+HIER_TRAIN_LAUNCHES = {"h_fp32": HALO_TRAIN_LAUNCHES["t1_fp32"]}
+
+
+def overlap_enclosure(tracer) -> dict:
+    """The reference's check on a trace of `overlap_timeline`: some
+    ``halo.exchange.boundary_collective`` span encloses an
+    ``overlap.interior_compute`` span, and every wire span is on the ``wire``
+    track; with the spans' durations."""
+    ev = tracer.events()
+    wire = [e for e in ev if e.get("name") == "halo.exchange.boundary_collective"]
+    interior = [e for e in ev if e.get("name") == "overlap.interior_compute"]
+    tracks = {e["tid"]: e["args"]["name"] for e in ev if e["ph"] == "M" and e["name"] == "thread_name"}
+    return dict(wire_spans=len(wire), interior_spans=len(interior),
+                encloses=any(w["ts"] <= i["ts"] and i["ts"] + i["dur"] <= w["ts"] + w["dur"]
+                             for w in wire for i in interior),
+                on_wire_track=bool(wire) and all(tracks.get(e["tid"]) == "wire" for e in wire),
+                wire_ms=[e["dur"] / 1e3 for e in wire], interior_ms=[e["dur"] / 1e3 for e in interior])
+
+
+def run_hier(host: dict, halo: dict, flat: dict, train: dict, ckpt_dir: str) -> dict:
+    """The hierarchical (pod, model) exchange at Nell's widths: the same
+    partition as the halo phase, as HIER_PODS pods × 2 ranks sharing the
+    card (gloo), bsr, fp32 / bf16 / int8 wire; (h1) each variant against its
+    flat twin and the unsharded forward, (h2) wire rows per phase against
+    the plan, (h3) the sharded loss's gradient against the unsharded train
+    phase's, (h4) HIER_TRAIN_STEPS AdamW steps against its losses (rank 0
+    checkpoints the last into ``ckpt_dir``), then `overlap_timeline` on the
+    2 × 2 groups; returns the launches of the forwards and of the steps,
+    rank 0's trained parameters and its trace recorder."""
+    from repro_torch.configs.coin_gcn import make_config
+    from repro_torch.dist.halo import get_halo_plan, restore_node_array
+    from repro_torch.kernels import fused_gcn as fg
+    from repro_torch.launch.distributed_gcn import HaloVariant, halo_rank, rank_jobs
+    from repro_torch.launch.mesh import GroupSpec, run_group
+    from repro_torch.models.gcn import gcn_init
+
+    t0 = time.perf_counter()
+    plan = get_halo_plan(halo["part"], host["edge_index"], host["weights"], pods=HIER_PODS)
+    plan_s = time.perf_counter() - t0
+    cfg = make_config(dataset=DATASET)
+    params = {k: v.numpy() for k, v in gcn_init(torch.Generator().manual_seed(SEED), cfg, device="cpu").items()}
+    variants = hier_variants()
+    jobs = rank_jobs(plan, host["features"], params, cfg.layer_dims, variants, quant=cfg.quant,
+                     time_reps=HALO_REPS, labels=host["labels"], mask=host["train_mask"],
+                     train_variants=(HaloVariant("h_fp32"),), steps=HIER_TRAIN_STEPS, lr=HALO_TRAIN_LR,
+                     ckpt_dir=ckpt_dir, ckpt_every=HIER_TRAIN_STEPS, obs_trace=True)
+    spec = GroupSpec(k=plan.k, backend="gloo", devices=("cuda:0",), timeout_s=HALO_TIMEOUT_S)
+    results = run_group(spec, halo_rank, jobs)
+    seconds = time.perf_counter() - t0
+    ref, ref_scale = flat["ref"], float(np.abs(flat["ref"]).max())
+    n_layers = cfg.n_layers
+    checks, per_variant = {}, {}
+    launches = {name: 0 for name in fg.LAUNCHES}
+    train_launches = {name: 0 for name in fg.LAUNCHES}
+    for v in variants:
+        recs = [r["variants"][v.name] for r in results]
+        logits = restore_node_array(plan, np.stack([rec["logits"] for rec in recs]))
+        twin = flat["logits"][HIER_FLAT_TWIN[v.name]]
+        for rec in recs:
+            for name, n in rec["launches"].items():
+                launches[name] += n
+        diff_u, diff_f = logits - ref, logits - twin
+        err_u, err_f = float(np.abs(diff_u).max()), float(np.abs(diff_f).max())
+        if v.payload == "int8":
+            rel_u = float(np.linalg.norm(diff_u) / np.linalg.norm(ref))
+            rel_f = float(np.linalg.norm(diff_f) / np.linalg.norm(twin))
+            checks[f"{v.name}_vs_unsharded"] = err_u < HALO_INT8_ABS and rel_u <= HALO_INT8_REL_L2
+            checks[f"{v.name}_vs_flat"] = err_f < HALO_INT8_ABS and rel_f <= HALO_INT8_REL_L2
+            bounds = dict(max_abs_bound=HALO_INT8_ABS, rel_l2_bound=HALO_INT8_REL_L2, rel_l2_vs_unsharded=rel_u,
+                          rel_l2_vs_flat=rel_f)
+        else:
+            rtol = HALO_BF16_RTOL if v.payload == "bf16" else HALO_LOGIT_RTOL
+            checks[f"{v.name}_vs_unsharded"] = err_u <= rtol * ref_scale
+            checks[f"{v.name}_vs_flat"] = err_f <= rtol * ref_scale
+            bounds = dict(rtol=rtol)
+        checks[f"{v.name}_finite"] = all(rec["finite"] for rec in recs) and bool(np.isfinite(logits).all())
+        checks[f"{v.name}_launches"] = all(rec["launches"] == HIER_LAUNCHES[v.name] for rec in recs)
+        checks[f"{v.name}_wire_rows"] = all(
+            rec["wire_rows_inter_pod"] == n_layers * plan.inter_pod_rows_per_device
+            and rec["wire_rows_intra_pod"] == n_layers * plan.intra_pod_rows_per_device
+            and rec["wire_rows"] == n_layers * plan.halo_rows_per_device for rec in recs)
+        per_variant[v.name] = dict(
+            payload=v.payload or "fp32", flat_twin=HIER_FLAT_TWIN[v.name], max_abs_err_vs_unsharded=err_u,
+            max_abs_err_vs_flat=err_f, **bounds, launches_per_rank=[rec["launches"] for rec in recs],
+            wire_rows_inter_pod_per_rank=[rec["wire_rows_inter_pod"] for rec in recs],
+            wire_rows_intra_pod_per_rank=[rec["wire_rows_intra_pod"] for rec in recs],
+            wire_bytes_per_rank=[rec["wire_bytes"] for rec in recs],
+            forward_ms_per_rank=[rec.get("forward_ms") for rec in recs])
+    checks["inter_pod_crossing_below_flat"] = plan.inter_pod_rows_crossing < plan.flat_inter_pod_rows_crossing
+    # (h3), (h4): the training variant against the unsharded train phase.
+    recs = [r["train"]["h_fp32"] for r in results]
+    for rec in recs:
+        for name, n in rec["launches"].items():
+            train_launches[name] += n
+    grads = train["grads_bsr_quant_off"]
+    grad_err = {n: max(float(np.abs(rec["grads"][n] - grads[n]).max()) for rec in recs) / float(np.abs(grads[n]).max())
+                for n in grads}
+    ref_losses = train["losses_bsr_quant_off"][:HIER_TRAIN_STEPS]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(recs[0]["losses"], ref_losses))
+    expected = {k: n * HIER_TRAIN_STEPS for k, n in HIER_TRAIN_LAUNCHES["h_fp32"].items()}
+    checks.update(
+        h3_grads_vs_unsharded=all(e <= HALO_GRAD_RTOL for e in grad_err.values()),
+        h4_losses_vs_unsharded=len(recs[0]["losses"]) == HIER_TRAIN_STEPS and loss_rel <= HALO_LOSS_RTOL,
+        h4_ranks_agree=all(rec["losses"] == recs[0]["losses"] for rec in recs),
+        h4_launches=all(rec["launches"] == expected for rec in recs),
+        h4_wire_rows=all(rec["wire_rows"] == 2 * n_layers * plan.halo_rows_per_device * HIER_TRAIN_STEPS
+                         for rec in recs),
+        h4_finite=all(rec["finite"] for rec in recs))
+    ok = all(checks.values())
+    emit("hier", ok=ok, checks=checks, pods=plan.n_pods, ranks_per_pod=plan.k_model, group=spec.describe(),
+         shared_card="cuda:0", wire="gloo through the host; phase 1 over each rank's pod group, phase 2 over "
+         "its model group", seconds=seconds, plan_host_build_s=plan_s, s_loc=plan.s_loc, s_rem=plan.s_rem,
+         block_rows=plan.block_rows, rows_per_rank_per_exchange=dict(
+             inter_pod=plan.inter_pod_rows_per_device, intra_pod=plan.intra_pod_rows_per_device,
+             total=plan.halo_rows_per_device, flat=HALO_K * plan.s_max),
+         inter_pod_rows_crossing=dict(hierarchical=plan.inter_pod_rows_crossing,
+                                      flat=plan.flat_inter_pod_rows_crossing),
+         exchanges_per_forward=n_layers, max_abs_logit_unsharded=ref_scale, variants=per_variant,
+         exchange_ms_per_rank={p: [r["exchange_ms"][p] for r in results] for p in results[0].get("exchange_ms", {})},
+         exchange_phase_ms_per_rank={p: [r["exchange_phase_ms"][p] for r in results]
+                                     for p in results[0].get("exchange_phase_ms", {})},
+         exchange_width=cfg.layer_dims[1],
+         train=dict(steps=HIER_TRAIN_STEPS, optimizer=f"adamw(lr={HALO_TRAIN_LR})", losses=recs[0]["losses"],
+                    reference_losses=ref_losses, loss_max_rel_diff=loss_rel, loss_rtol=HALO_LOSS_RTOL,
+                    grad_rel_err_vs_unsharded=grad_err, grad_rtol=HALO_GRAD_RTOL,
+                    launches_per_rank_per_step=HIER_TRAIN_LAUNCHES["h_fp32"],
+                    step_ms_per_rank=[rec.get("step_ms") for rec in recs],
+                    exchange_backward_ms_per_rank={p: [r["train"]["exchange_backward_ms"][p] for r in results]
+                                                   for p in results[0]["train"].get("exchange_backward_ms", {})},
+                    checkpoint=f"rank 0, step {HIER_TRAIN_STEPS}"),
+         peak_memory_gb_per_rank=[r.get("peak_memory_gb") for r in results],
+         profile_first_variant_per_rank=[r.get("profile") for r in results],
+         launches_all_ranks=launches, train_launches_all_ranks=train_launches,
+         timing=f"CUDA events after a group barrier, median of {HALO_REPS}; step: host clock after a barrier; "
+                f"{plan.k} ranks share one card, so these are not multi-card times")
+    require(ok, "hier", f"checks {checks}")
+    return dict(launches=launches, train_launches=train_launches, params=recs[0]["params"],
+                tracer=results[0]["obs"]["tracer"], plan=plan)
+
+
+def run_elastic(host: dict, halo: dict, hier: dict, ckpt_dir: str, device: torch.device) -> None:
+    """The contract of `repro_torch.train.elastic` at Nell's partition: a
+    pure resize keeps the cached plan (0 evictions, the same object); a
+    model-degree halving from HALO_K to HALO_K / 2 evicts, the partition is
+    rebuilt at the new k, and a group of that many ranks restores the
+    hierarchical run's rank-0 checkpoint: its first loss equals the
+    unsharded loss at the checkpointed parameters."""
+    from repro_torch.configs.coin_gcn import make_config
+    from repro_torch.core.partition import partition_graph
+    from repro_torch.dist.halo import get_halo_plan, plan_cache_stats
+    from repro_torch.graph.structure import GraphData, to_padded
+    from repro_torch.launch.distributed_gcn import HaloVariant, halo_train_rank, rank_jobs
+    from repro_torch.launch.mesh import GroupSpec, run_group
+    from repro_torch.models.gcn import GCNConfig, gcn_init, gcn_loss
+    from repro_torch.train.elastic import elastic_replan
+
+    t0 = time.perf_counter()
+    edges, weights = host["edge_index"], host["weights"]
+    n = len(host["labels"])
+    stats0 = plan_cache_stats()
+    keep = elastic_replan(ELASTIC_HEALTHY[0], HALO_K)
+    same = get_halo_plan(halo["part"], edges, weights) is halo["plan"]
+    stats1 = plan_cache_stats()
+    shrink = elastic_replan(ELASTIC_HEALTHY[1], HALO_K)
+    stats2 = plan_cache_stats()
+    k_new = shrink.shape[1]
+    part = partition_graph(n, edges, k_new, method="bfs", seed=0, refine=True)
+    plan = get_halo_plan(part, edges, weights)
+    replan_s = time.perf_counter() - t0
+    cfg = make_config(dataset=DATASET)
+    params = {k: v.numpy() for k, v in gcn_init(torch.Generator().manual_seed(SEED), cfg, device="cpu").items()}
+    jobs = rank_jobs(plan, host["features"], params, cfg.layer_dims, (), labels=host["labels"],
+                     mask=host["train_mask"], train_variants=(HaloVariant("e_fp32"),), steps=HIER_TRAIN_STEPS + 1,
+                     lr=HALO_TRAIN_LR, ckpt_dir=ckpt_dir, ckpt_every=10 * HIER_TRAIN_STEPS)
+    spec = GroupSpec(k=k_new, backend="gloo", devices=("cuda:0",), timeout_s=HALO_TIMEOUT_S)
+    recs = [r["train"]["e_fp32"] for r in run_group(spec, halo_train_rank, jobs)]
+    first = recs[0]["losses"][0]
+    # The unsharded loss (segment path on the card) at rank 0's checkpointed parameters.
+    pg = to_padded(GraphData(n, edges), weights=weights, device=device)
+    with torch.inference_mode():
+        ref = float(gcn_loss({k: torch.from_numpy(v).to(device) for k, v in hier["params"].items()},
+                             torch.from_numpy(host["features"]).to(device).float(), pg.senders, pg.receivers,
+                             pg.edge_weight, torch.from_numpy(host["labels"]).to(device),
+                             torch.from_numpy(host["train_mask"]).to(device),
+                             GCNConfig(layer_dims=cfg.layer_dims, backend="segment")))
+    del pg
+    rel = abs(first - ref) / abs(ref)
+    checks = dict(
+        resize_keeps_model_shards=tuple(keep.shape) == (ELASTIC_HEALTHY[0] // HALO_K, HALO_K),
+        resize_keeps_plan=same and stats1["evictions"] == stats0["evictions"],
+        halving_evicts=stats2["evictions"] >= stats0["evictions"] + 1,
+        halving_model_shards=k_new == HALO_K // 2 and plan.k == k_new,
+        restored_on_every_rank=all(rec["resumed"] and rec["step"] == HIER_TRAIN_STEPS + 1 for rec in recs),
+        ranks_agree=all(rec["losses"] == recs[0]["losses"] for rec in recs),
+        first_loss_vs_unsharded=rel <= HALO_LOSS_RTOL)
+    ok = all(checks.values())
+    emit("elastic", ok=ok, checks=checks, healthy=list(ELASTIC_HEALTHY), model_shards_before=HALO_K,
+         resize_shape=list(keep.shape), halving_shape=list(shrink.shape),
+         plan_cache=dict(before=stats0, after_resize=stats1, after_halving=stats2),
+         new_plan=dict(k=plan.k, n_local=plan.n_local, s_max=plan.s_max, halo_rows_per_rank=plan.halo_rows_per_device),
+         group=spec.describe(), checkpoint=f"the hier phase's rank 0, step {HIER_TRAIN_STEPS}",
+         first_loss=first, unsharded_loss_at_checkpoint=ref, rel_diff=rel, loss_rtol=HALO_LOSS_RTOL,
+         losses=recs[0]["losses"], replan_host_s=replan_s, seconds=time.perf_counter() - t0)
+    require(ok, "elastic", f"checks {checks}")
+
+
+def profile_kernels(data: dict, ops: dict) -> dict:
+    """`torch_profiler_trace` around one launch of K1 and of each K2 body
+    on Nell's shapes: the trace file it writes, and which kernels it names."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import bsr_spmm as k1
+    from repro_torch.kernels import fused_gcn as fg
+    from repro_torch.obs.trace import torch_profiler_trace
+
+    vals, cols, lens = data["vals"], data["cols"], data["lens"]
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    try:
+        with torch.inference_mode(), torch_profiler_trace(log_dir):
+            z = fg.ff_transform(ops["x"], ops["w1"])
+            fg.ff_aggregate(vals, cols, lens, z, ops["b1"], True)
+            fg.af_layer(vals, cols, lens, ops["h1"], ops["w2"], ops["b2"], True)
+            k1.bsr_spmm(vals, cols, lens, ops["h1"])
+            torch.cuda.synchronize()
+        files = glob.glob(os.path.join(log_dir, "*.json"))
+        names = set()
+        for f in files:
+            with open(f) as fh:
+                names.update(str(e.get("name", "")) for e in json.load(fh)["traceEvents"] if e.get("cat") == "kernel")
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    found = {kernel: any(key in name for name in names) for kernel, key in (
+        ("k2_ff_transform", "xw_kernel"), ("k2_ff_aggregate", "ragged_layer_kernel<0"),
+        ("k2_af_layer", "ragged_layer_kernel<1"), ("k1_bsr_spmm", "ragged_layer_kernel<2"))}
+    return dict(files=len(files), device_kernels=len(names), names=found)
+
+
+def run_obs(flat_tracer, hier_tracer, profile: dict) -> None:
+    """`overlap_timeline` on the flat 4-rank group and the 2 × 2 groups
+    (rank 0's traces), and the `torch_profiler_trace` of `profile_kernels`."""
+    flat, hier = overlap_enclosure(flat_tracer), overlap_enclosure(hier_tracer)
+    checks = dict(flat_encloses=flat["encloses"] and flat["on_wire_track"],
+                  hier_encloses=hier["encloses"] and hier["on_wire_track"],
+                  profiler_trace_written=profile["files"] == 1,
+                  profiler_names_k1_or_k2=any(profile["names"].values()))
+    ok = all(checks.values())
+    emit("obs", ok=ok, checks=checks, overlap_flat=flat, overlap_hier=hier, profiler=profile,
+         note="overlap spans: host clock, span edges synchronize the card; 4 ranks share it")
+    require(ok, "obs", f"checks {checks}")
+
+
+def run_af_wide(data: dict) -> dict:
+    """K2's aggregation-first kernel past one chunk of F_in, on unsharded
+    Nell's table at F_out = AF_WIDE_F_OUT: each width of AF_WIDE_F_IN and
+    each operand mode against its plain version (fp32 within AF_WIDE_RTOL of
+    max, bf16 operands within AF_WIDE_BF16_RTOL), the same bits on two calls,
+    the reference's error one column past its bound; ms (the kernel and the
+    plain version), bound and what the compiler gave each instantiation at
+    its chunk width."""
+    from repro_torch.kernels import fused_gcn as fg
+
+    vals, cols, lens = data["vals"], data["cols"], data["lens"]
+    device = vals.device
+    R, B, f_out = cols.shape[0], 128, AF_WIDE_F_OUT
+    nnz = int(lens.sum())
+    gen = torch.Generator(device).manual_seed(SEED + 3)
+    vals16 = None
+    cases, ok = [], True
+    for f_in in AF_WIDE_F_IN:
+        x = torch.randn((R * B, f_in), generator=gen, device=device)
+        w = torch.randn((f_in, f_out), generator=gen, device=device) / f_in ** 0.5
+        b = torch.randn((f_out,), generator=gen, device=device)
+        ft, chunks = fg.af_chunk(f_in)
+        for sfx, (vd, xd, wd) in {"": (torch.float32,) * 3, **BF16_COMBOS}.items():
+            if vd == torch.bfloat16 and vals16 is None:
+                vals16 = vals.to(torch.bfloat16)
+            v = vals16 if vd == torch.bfloat16 else vals
+            xs, ws = x.to(xd), w.to(wd)
+            with torch.inference_mode():
+                out = fg.af_layer(v, cols, lens, xs, ws, b, True)
+                again = fg.af_layer(v, cols, lens, xs, ws, b, True)
+                ref = fg.af_layer_plain(v, cols, lens, xs, ws, b, True)
+                torch.cuda.synchronize()
+                err, scale = max_err(out.float(), ref.float())
+                rtol = AF_WIDE_RTOL if sfx == "" else AF_WIDE_BF16_RTOL
+                case = dict(kernel=f"k2_af_layer{sfx}", f_in=f_in, f_out=f_out, chunk=ft, chunks=chunks,
+                            max_abs_err=err, max_abs_plain=scale, rtol=rtol, ok=err <= rtol * scale,
+                            same_bits=bool(torch.equal(out, again)), finite=bool(torch.isfinite(out.float()).all()))
+                n_bytes = (vd.itemsize * nnz * B * B + xd.itemsize * R * B * (f_in + f_out) + wd.itemsize * f_in * f_out
+                           + 4.0 * (R + nnz + f_out))
+                case.update(
+                    ms=cuda_ms(lambda: fg.af_layer(v, cols, lens, xs, ws, b, True), reps=3, warmup=1),
+                    plain_ms=cuda_ms(lambda: fg.af_layer_plain(v, cols, lens, xs, ws, b, True), reps=3, warmup=1),
+                    bound=bound(n_bytes, 2.0 * nnz * B * B * f_in + 2.0 * R * B * f_in * f_out,
+                                BF16_FLOP_PER_S if sfx == "_bf16_all" else FP32_FLOP_PER_S),
+                    compiler=fg.ragged_attributes(f"k2_af_layer{sfx}", ft))
+            ok = ok and case["ok"] and case["same_bits"] and case["finite"]
+            cases.append(case)
+            del out, again, ref, xs, ws
+        del x, w, b
+    del vals16
+    torch.cuda.empty_cache()
+    # One column past the reference's bound (resident = 4·(F_in·F_out + 2·128·F_in + 128·F_out + 128²)
+    # > 14e6: F_in 9,030 at F_out 128) raises its error, on the card too.
+    over = int((fg.AF_RESIDENT_LIMIT / 4 - B * f_out - B * B) // (f_out + 2 * B)) + 1
+    try:
+        fg.af_layer(vals, cols, lens, torch.zeros((B, over), device=device), torch.zeros((over, f_out), device=device),
+                    torch.zeros((f_out,), device=device))
+        raised = ""
+    except ValueError as exc:
+        raised = str(exc)
+    refuses = "VMEM-resident" in raised
+    emit("af_wide", ok=ok and refuses, cases=cases, refuses_past_the_bound=dict(f_in=over, f_out=f_out, error=raised),
+         table=dict(block_rows=R, nnz_tiles=nnz), timing="CUDA events, median of 3 after a warm-up",
+         note="a chunk streams the row's tiles again: vals are read once per chunk")
+    require(ok and refuses, "af_wide", f"cases {[c for c in cases if not (c['ok'] and c['same_bits'])]}, "
+                                       f"raised {raised!r}")
+    return {c["kernel"] + f"@{c['f_in']}": c for c in cases}
 
 
 # ------------------------------------------------------------------- DeepFM
@@ -2021,16 +2395,28 @@ def main() -> int:
     rank = rank_operands(data, halo, ops, torch.Generator().manual_seed(SEED + 2))
     rows.update(time_bf16_kernels(rank, ops))
     profile_train_steps(train_run)
+    profile = profile_kernels(data, ops)
+    del rank
+    torch.cuda.empty_cache()
+    run_af_wide(data)
 
     # The ranks share the card: free the unsharded tables first.
     host, inference, train = data["host"], main_run["launches"], train_run["launches"]
     halo_ref = {k: train_run[k] for k in ("grads_bsr_quant_off", "grads_bsr_quant_off_bf16_logits",
                                           "losses_bsr_quant_off")}
     main_run.pop("forward")
-    del data, ops, rank, train_run
+    del data, ops, train_run
     gc.collect()
     torch.cuda.empty_cache()
-    sharded, sharded_train = run_halo(host, halo, main_run, halo_ref)
+    flat = run_halo(host, halo, main_run, halo_ref)
+    sharded, sharded_train = flat["launches"], flat["train_launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
+        hier = run_hier(host, halo, flat, halo_ref, ckpt_dir)
+        run_elastic(host, halo, hier, ckpt_dir, device)
+    run_obs(flat["tracer"], hier["tracer"], profile)
+    del flat
     gc.collect()
     torch.cuda.empty_cache()
     fm_serve, fm_train, fm = run_deepfm(device)
@@ -2042,10 +2428,12 @@ def main() -> int:
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=XW_SOURCE if name.startswith("k2_ff_transform") else KERNEL_SOURCE,
              replaces=REPLACES[name],
-             launches=inference[name] + train[name] + sharded[name] + sharded_train[name],
+             launches=inference[name] + train[name] + sharded[name] + sharded_train[name]
+             + hier["launches"][name] + hier["train_launches"][name],
              launches_inference=inference[name], launches_train=train[name],
              launches_per_train_step=train[name] / TRAIN_STEPS, launches_halo=sharded[name],
-             launches_halo_train=sharded_train[name], max_abs_err=worst[name], ms=row["ms"],
+             launches_halo_train=sharded_train[name], launches_hier=hier["launches"][name],
+             launches_hier_train=hier["train_launches"][name], max_abs_err=worst[name], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound"][0], bound_by=row["bound"][1],
              library_ms=row["library_ms"],
              **({"composition_ms": row["composition_ms"]} if "composition_ms" in row else {}),

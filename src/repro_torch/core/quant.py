@@ -96,7 +96,11 @@ def quantize_payload(
     if payload == "int8":
         amax = x.abs().max()
         scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax)).float()
-        q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+        # The division runs in the promoted type (fp32 for bf16 input), as
+        # JAX promotes x / scale: torch would keep a dimensioned bf16 x
+        # against the 0-dim fp32 scale in bf16.
+        q = torch.clamp(torch.round(x.to(torch.promote_types(x.dtype, scale.dtype)) / scale), -127, 127)
+        q = q.to(torch.int8)
         return q, scale.reshape(1, 1)
     payload_bits(payload)  # raises the canonical error
     raise AssertionError  # pragma: no cover

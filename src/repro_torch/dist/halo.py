@@ -23,8 +23,10 @@ process group. `halo_exchange` lowers the flat plan to one collective:
 ``all_gather``, or ``ppermute`` — a ring of k−1 send/recv steps. A group
 whose backend cannot carry device tensors (``gloo``) gets the wire block
 copied to the host and back: the exchange's wire goes through the group,
-all compute stays on the rank's device. The hierarchical two-phase
-exchange (``hier_halo_exchange``) is not ported yet (ROADMAP).
+all compute stays on the rank's device. `hier_halo_exchange` runs a
+hierarchical plan's two phases over the rank's (pod, model) subgroups
+(`repro_torch.launch.mesh.halo_groups`): the ``send_rem`` rows across pods,
+then ``[send_loc rows ‖ phase-1 block]`` across pod-mates.
 
 The exchange is differentiable, with the backward JAX's transposes give:
 the collective acts on the wire tensor (`_AxisGather`), and the wire's
@@ -38,7 +40,11 @@ which ``amax`` hands to the largest element of each export block (ties
 split evenly, as ``jnp.max`` splits them). The transpose of
 ``h[send_idx]`` is autograd's scatter-add into the exporting rows.
 `halo_block`, `halo_aggregate` and `split_halo_aggregate` then
-differentiate with no code of their own.
+differentiate with no code of their own, and so does the two-phase
+exchange: phase 2's transpose, the split of its cotangent into the
+``send_loc`` rows and the relayed block, phase 1's transpose on the
+latter, then both scatter-adds into h (a row exported on both tiers gets
+both).
 """
 from __future__ import annotations
 
@@ -65,7 +71,9 @@ __all__ = [
     "pod_map_order",
     "pod_map_fingerprint",
     "halo_exchange",
+    "hier_halo_exchange",
     "halo_aggregate",
+    "hier_halo_aggregate",
     "split_halo_aggregate",
     "graph_fingerprint",
     "cached_halo_plan",
@@ -99,8 +107,8 @@ class HaloPlan:
     * ``axes == ("pod", "model")`` — the **hierarchical** plan: ``k ==
       n_pods · k_model`` devices arranged pod-major (device ``g`` sits in
       pod ``g // k_model`` as member ``g % k_model``, pod-major as the
-      reference's ``(pod, model)`` mesh ravels them). Its two-phase
-      exchange is not ported yet (ROADMAP); the plan itself is.
+      reference's ``(pod, model)`` mesh ravels them), exchanged in two
+      phases by :func:`hier_halo_exchange`.
 
     Array layout shared by both (leading axis k = one slice per device):
 
@@ -1109,26 +1117,50 @@ def _ring_peer(group, r: int) -> int:
     return r if group is None else dist.get_global_rank(group, r)
 
 
-def _gather(wire: torch.Tensor, group, via: str) -> torch.Tensor:
-    """Every rank's (s, d) block of ``wire`` → (k·s, d), slots in rank order
-    (``wire`` already where the group's backend carries it)."""
+def _gather_start(wire: torch.Tensor, group, via: str) -> Callable[[], torch.Tensor]:
+    """Dispatch :func:`_gather` of ``wire`` without waiting for it: returns
+    the call that waits and gives the (k·s, d) result. ``all_gather`` is
+    one collective with ``async_op=True``; the ring has its first step in
+    flight and runs the rest in the wait."""
     k = dist.get_world_size(group)
     if via == "all_gather":
         blocks = [torch.empty_like(wire) for _ in range(k)]
-        dist.all_gather(blocks, wire, group=group)
-        return torch.cat(blocks)
+        work = dist.all_gather(blocks, wire, group=group, async_op=True)
+
+        def finish() -> torch.Tensor:
+            work.wait()
+            return torch.cat(blocks)
+
+        return finish
     i = dist.get_rank(group)
-    ring, cur = [wire], wire
-    for _ in range(k - 1):
-        nxt = torch.empty_like(cur)
-        reqs = [dist.isend(cur, _ring_peer(group, (i - 1) % k), group=group),
+    ring = [wire]
+
+    def step():
+        nxt = torch.empty_like(ring[-1])
+        reqs = [dist.isend(ring[-1], _ring_peer(group, (i - 1) % k), group=group),
                 dist.irecv(nxt, _ring_peer(group, (i + 1) % k), group=group)]
-        for req in reqs:
-            req.wait()
-        ring.append(nxt)
-        cur = nxt
-    # ring[t] on rank i is rank (i+t) mod k's export: slot j is ring[(j−i) mod k].
-    return torch.cat([ring[(j - i) % k] for j in range(k)])
+        return nxt, reqs
+
+    pending = step() if k > 1 else None
+
+    def finish_ring() -> torch.Tensor:
+        cur = pending
+        while cur is not None:
+            nxt, reqs = cur
+            for req in reqs:
+                req.wait()
+            ring.append(nxt)
+            cur = step() if len(ring) < k else None
+        # ring[t] on rank i is rank (i+t) mod k's export: slot j is ring[(j−i) mod k].
+        return torch.cat([ring[(j - i) % k] for j in range(k)])
+
+    return finish_ring
+
+
+def _gather(wire: torch.Tensor, group, via: str) -> torch.Tensor:
+    """Every rank's (s, d) block of ``wire`` → (k·s, d), slots in rank order
+    (``wire`` already where the group's backend carries it)."""
+    return _gather_start(wire, group, via)()
 
 
 def _gather_transpose(ct: torch.Tensor, group, via: str) -> torch.Tensor:
@@ -1161,21 +1193,19 @@ def _gather_transpose(ct: torch.Tensor, group, via: str) -> torch.Tensor:
 
 
 class _AxisGather(torch.autograd.Function):
-    """:func:`_gather` as a differentiable collective. The wire crosses the
-    group in its own dtype both ways (a bf16 wire's cotangent is bf16), and
-    through the host where the backend needs it, as in the forward. With
-    ``count_rows`` (the exchanged rows, not the int8 scales) and metrics on,
-    the backward's received rows and bytes add to ``halo.wire_rows`` and
-    ``halo.wire_bytes``: the cotangent block, k·s rows, the same as the
-    forward's."""
+    """:func:`_gather` as a differentiable collective: the forward takes the
+    already-dispatched gather's wait (:func:`_axis_gather_start`). The wire
+    crosses the group in its own dtype both ways (a bf16 wire's cotangent is
+    bf16), and through the host where the backend needs it, as in the
+    forward. With ``count_rows`` (the exchanged rows, not the int8 scales)
+    and metrics on, the backward's received rows and bytes add to
+    ``halo.wire_rows`` and ``halo.wire_bytes``: the cotangent block, k·s
+    rows, the same as the forward's."""
 
     @staticmethod
-    def forward(ctx, export, group, via, count_rows):
+    def forward(ctx, export, group, via, count_rows, finish):
         ctx.group, ctx.via, ctx.count_rows = group, via, count_rows
-        wire = export.contiguous()
-        on_host = _wire_on_host(wire, group)
-        out = _gather(wire.cpu() if on_host else wire, group, via)
-        return out.to(export.device) if on_host else out
+        return finish()
 
     @staticmethod
     def backward(ctx, ct):
@@ -1185,7 +1215,30 @@ class _AxisGather(torch.autograd.Function):
             _obs_metrics.inc("halo.wire_rows", int(wire.shape[0]))
             _obs_metrics.inc("halo.wire_bytes", wire.numel() * wire.element_size())
         out = _gather_transpose(wire.cpu() if on_host else wire, ctx.group, ctx.via)
-        return (out.to(ct.device) if on_host else out), None, None, None
+        return (out.to(ct.device) if on_host else out), None, None, None, None
+
+
+def _axis_gather_start(export: torch.Tensor, group=None, via: str = "all_gather",
+                       count_rows: bool = False) -> Callable[[], torch.Tensor]:
+    """Dispatch :func:`_axis_gather` without waiting for it: the wire is
+    copied to the host first where the backend needs it, then the
+    collective starts (:func:`_gather_start`). Returns the call that waits
+    and gives the differentiable ``(k·s, d)`` block on ``export``'s
+    device."""
+    if export.shape[0] == 0:
+        # Nothing crosses this tier, and (k·0, d) == (0, d) anyway.
+        return lambda: export
+    if via not in ("all_gather", "ppermute"):
+        raise ValueError(f"unknown exchange lowering: {via!r}")
+    wire = export.contiguous()
+    on_host = _wire_on_host(wire, group)
+    finish = _gather_start(wire.cpu() if on_host else wire, group, via)
+
+    def received() -> torch.Tensor:
+        out = finish()
+        return out.to(export.device) if on_host else out
+
+    return lambda: _AxisGather.apply(export, group, via, count_rows, received)
 
 
 def _axis_gather(export: torch.Tensor, group=None, via: str = "all_gather",
@@ -1199,12 +1252,23 @@ def _axis_gather(export: torch.Tensor, group=None, via: str = "all_gather",
     different lowering. Their backwards are a reduce-scatter and the ring
     in reverse.
     """
-    if export.shape[0] == 0:
-        # Nothing crosses this tier, and (k·0, d) == (0, d) anyway.
-        return export
-    if via not in ("all_gather", "ppermute"):
-        raise ValueError(f"unknown exchange lowering: {via!r}")
-    return _AxisGather.apply(export, group, via, count_rows)
+    return _axis_gather_start(export, group, via, count_rows)()
+
+
+def _quantized_gather_start(
+    export: torch.Tensor, group, via: str, payload: str | None
+) -> Callable[[], torch.Tensor]:
+    """Dispatch :func:`_quantized_gather` without waiting for it: the export
+    is encoded and its collectives (the rows, and for int8 the scales) are
+    in flight on return. Returns the call that waits and decodes."""
+    if payload in (None, "fp32") or export.shape[0] == 0:
+        return _axis_gather_start(export, group, via, count_rows=True)
+    wire, scale = quantize_payload(export, payload)
+    rows = _axis_gather_start(wire, group, via, count_rows=True)
+    if scale is None:                                     # bf16: plain upcast
+        return lambda: rows().to(export.dtype)
+    scales = _axis_gather_start(scale, group, via)        # (k, 1) fp32
+    return lambda: dequantize_payload(rows(), scales(), export.dtype)
 
 
 def _quantized_gather(
@@ -1217,14 +1281,7 @@ def _quantized_gather(
     the compute dtype on receive, so callers see the same shapes and dtypes
     as on the fp32 path — only wire bytes change (× bits/32).
     """
-    if payload in (None, "fp32") or export.shape[0] == 0:
-        return _axis_gather(export, group, via, count_rows=True)
-    wire, scale = quantize_payload(export, payload)
-    gathered = _axis_gather(wire, group, via, count_rows=True)
-    if scale is None:                                     # bf16: plain upcast
-        return gathered.to(export.dtype)
-    scales = _axis_gather(scale, group, via)              # (k, 1) fp32
-    return dequantize_payload(gathered, scales, export.dtype)
+    return _quantized_gather_start(export, group, via, payload)()
 
 
 def halo_exchange(
@@ -1258,6 +1315,72 @@ def halo_exchange(
         _obs_metrics.inc("halo.wire_rows", rows)
         _obs_metrics.inc("halo.wire_bytes", rows * int(h.shape[1]) * payload_bits(payload) / 8)
     return halo
+
+
+def hier_halo_exchange(
+    h: torch.Tensor,
+    send_loc: torch.Tensor,
+    send_rem: torch.Tensor,
+    groups: tuple,
+    via: str = "all_gather",
+    payload: str | None = None,
+) -> torch.Tensor:
+    """Two-phase (pod, model) boundary exchange, called by every rank of
+    the group.
+
+    h        — (n_local, d) this rank's block.
+    send_loc — (s_loc,) local rows some pod-mate reads.
+    send_rem — (s_rem,) local rows some rank of ANOTHER pod reads (the
+               deduplicated inter-pod segment: the only rows that cross the
+               expensive tier).
+    groups   — (pod group, model group) of this rank
+               (`repro_torch.launch.mesh.halo_groups`): the ranks of its
+               member index across pods, and the ranks of its pod.
+
+    Phase 1 (pod group): gather the ``(s_rem, d)`` remote exports across
+    pods → ``(n_pods·s_rem, d)``. Phase 2 (model group): gather
+    ``[h[send_loc] ‖ phase-1 block]`` across pod-mates, which both
+    distributes the local boundary rows and relays every remote row to the
+    pod-mates that need it. Returns the ``(k_model·B, d)`` halo block, ``B
+    = s_loc + n_pods·s_rem``, in the member-block layout of
+    :class:`HaloPlan`.
+
+    ``payload`` quantizes both phases' wire blocks independently: under
+    int8 the relayed rows are dequantized after phase 1 and quantized again
+    into phase 2, as the reference does; bf16 is closed under the relay (a
+    bf16 value cast to bf16 again is itself), so it adds no second rounding.
+
+    With metrics on, counts the rows and bytes this rank received in both
+    phases (``halo.wire_rows``, ``halo.wire_bytes``; per phase under the
+    label ``phase`` = ``inter_pod`` / ``intra_pod``) and the exchanges
+    (``halo.exchanges_run``).
+    """
+    pod_group, model_group = groups
+    inter = _hier_phase1_start(h, send_rem, pod_group, via, payload)()
+    halo = _hier_phase2(h, send_loc, inter, model_group, via, payload)
+    if _obs_metrics.enabled():
+        bytes_per_row = int(h.shape[1]) * payload_bits(payload) / 8
+        _obs_metrics.inc("halo.exchanges_run")
+        for phase, rows in (("inter_pod", int(inter.shape[0])), ("intra_pod", int(halo.shape[0]))):
+            _obs_metrics.inc("halo.wire_rows", rows)
+            _obs_metrics.inc("halo.wire_bytes", rows * bytes_per_row)
+            _obs_metrics.inc("halo.wire_rows", rows, (("phase", phase),))
+    return halo
+
+
+def _hier_phase1_start(h: torch.Tensor, send_rem: torch.Tensor, pod_group, via: str,
+                       payload: str | None) -> Callable[[], torch.Tensor]:
+    """Dispatch phase 1 of :func:`hier_halo_exchange` (``h[send_rem]`` over
+    the pod group); returns the wait that gives the ``(n_pods·s_rem, d)``
+    block."""
+    return _quantized_gather_start(h[send_rem.long()], pod_group, via, payload)
+
+
+def _hier_phase2(h: torch.Tensor, send_loc: torch.Tensor, inter: torch.Tensor, model_group,
+                 via: str, payload: str | None) -> torch.Tensor:
+    """Phase 2 of :func:`hier_halo_exchange`: gather ``[h[send_loc] ‖
+    inter]`` (phase 1's block, relayed) over the model group."""
+    return _quantized_gather(torch.cat([h[send_loc.long()], inter]), model_group, via, payload)
 
 
 def split_halo_aggregate(
@@ -1317,6 +1440,30 @@ def halo_aggregate(
     :func:`split_halo_aggregate`.
     """
     halo = halo_exchange(z, send_idx, group, via=via, payload=payload)
+    if overlap:
+        return split_halo_aggregate(z, halo, senders, receivers, edge_w)
+    full = torch.cat([z, halo])                           # [local ‖ halo]
+    return aggregate(full, senders, receivers, z.shape[0], edge_w)
+
+
+def hier_halo_aggregate(
+    z: torch.Tensor,
+    send_loc: torch.Tensor,
+    send_rem: torch.Tensor,
+    senders: torch.Tensor,
+    receivers: torch.Tensor,
+    edge_w: torch.Tensor,
+    groups: tuple,
+    via: str = "all_gather",
+    payload: str | None = None,
+    overlap: bool = False,
+) -> torch.Tensor:
+    """:func:`halo_aggregate` over the two-phase (pod, model) exchange: the
+    ``senders`` here come from a hierarchical plan (they index the
+    member-block table of :func:`hier_halo_exchange`, < n_local +
+    k_model·B). ``payload``/``overlap`` behave as on :func:`halo_aggregate`.
+    """
+    halo = hier_halo_exchange(z, send_loc, send_rem, groups, via=via, payload=payload)
     if overlap:
         return split_halo_aggregate(z, halo, senders, receivers, edge_w)
     full = torch.cat([z, halo])                           # [local ‖ halo]

@@ -15,10 +15,12 @@ The reference names a mesh axis; the port names a process group (``None``
 is the default group). Models call ``policy.neighbor_table(x)`` before
 every sender-side gather and work identically under both modes (and under
 :data:`NO_POLICY`). The halo mode only activates once the rank binds its
-export rows with ``bind_halo``. ``constrain`` is the identity: there is no
-mesh to place activations on, and the call keeps the model code in step
-with the reference. The hierarchical (pod, model) exchange is not ported
-yet (ROADMAP, slice 5).
+export rows with ``bind_halo``: a flat plan's ``send_idx``, or a
+hierarchical plan's ``send_loc``/``send_rem`` pair, whose two-phase
+exchange runs over ``halo_groups``, the rank's (pod, model) subgroups
+(`repro_torch.launch.mesh.halo_groups`; the reference's ``halo_axes``).
+``constrain`` is the identity: there is no mesh to place activations on,
+and the call keeps the model code in step with the reference.
 
 Training under halo needs two more pieces of the reference's ``shard_map``
 (`replicate` and `psum`, and the policy's methods of those names). There
@@ -29,6 +31,8 @@ hands each device's cotangent back to its own term. `replicate` is the
 identity with an all-reduce (sum) over the group as its backward, `psum`
 an all-reduce (sum) whose backward is the identity: together every rank
 gets the unsharded gradient, and no other gradient all-reduce is needed.
+Both run over ``group``, the whole group, under the hierarchical exchange
+too: the reference's ``psum`` over both the pod and the model axis.
 """
 from __future__ import annotations
 
@@ -98,6 +102,9 @@ class ShardingPolicy:
     halo_send_idx: Any = None          # (s_max,) rank export rows; bound via bind_halo
     halo_payload: str | None = None    # wire format: None/"fp32" | "bf16" | "int8"
     halo_overlap: bool = True          # split interior/boundary aggregation
+    halo_groups: Any = None            # hierarchical: this rank's (pod group, model group)
+    halo_send_loc: Any = None          # hierarchical (s_loc,) intra-pod export rows
+    halo_send_rem: Any = None          # hierarchical (s_rem,) inter-pod export rows
 
     def constrain(self, x: torch.Tensor, name: str) -> torch.Tensor:
         """The identity: the port places no activation on a mesh. Kept so
@@ -108,8 +115,11 @@ class ShardingPolicy:
     @property
     def is_halo(self) -> bool:
         """True once halo mode is armed: comm == "halo" AND the rank's export
-        rows are bound."""
-        return self.comm == "halo" and self.halo_send_idx is not None
+        rows (flat, or the hierarchical pair) are bound."""
+        return self.comm == "halo" and (
+            self.halo_send_idx is not None
+            or (self.halo_send_loc is not None and self.halo_send_rem is not None)
+        )
 
     def bind_halo(
         self,
@@ -118,30 +128,33 @@ class ShardingPolicy:
         send_loc: torch.Tensor | None = None,
         send_rem: torch.Tensor | None = None,
     ) -> "ShardingPolicy":
-        """Copy with this rank's export rows bound: its (s_max,) slice of
-        ``HaloPlan.send_idx``. The hierarchical ``send_loc``/``send_rem``
-        pair is checked as the reference checks it, then refused: its
-        two-phase exchange is not ported yet."""
+        """Copy with this rank's export rows bound.
+
+        Flat: pass ``send_idx``, the rank's (s_max,) slice of
+        ``HaloPlan.send_idx``. Hierarchical: pass the keyword pair
+        ``send_loc``/``send_rem``, the rank's (s_loc,) and (s_rem,) slices
+        of ``HaloPlan.send_loc``/``send_rem``; ``neighbor_table`` then runs
+        the two-phase exchange over ``halo_groups``. Exactly one of the two
+        forms must be given."""
         if send_idx is not None and (send_loc is not None or send_rem is not None):
             raise ValueError("bind_halo takes send_idx OR (send_loc, send_rem), not both")
         if send_idx is None and (send_loc is None) != (send_rem is None):
             raise ValueError("hierarchical bind_halo needs BOTH send_loc and send_rem")
         if send_idx is None and send_loc is None:
             raise ValueError("bind_halo needs send_idx or the (send_loc, send_rem) pair")
-        if send_idx is None:
-            raise NotImplementedError(
-                "the hierarchical (pod, model) halo exchange is not ported yet: "
-                "ROADMAP.md, port slice 5 (hierarchical exchange)"
-            )
-        return dataclasses.replace(self, halo_send_idx=send_idx)
+        return dataclasses.replace(
+            self, halo_send_idx=send_idx, halo_send_loc=send_loc, halo_send_rem=send_rem
+        )
 
     def neighbor_table(self, x: torch.Tensor) -> torch.Tensor:
         """The table sender indices gather from.
 
         Broadcast / NO_POLICY / unbound halo: ``x`` itself (senders are
-        global rows). Armed halo: ``[x ‖ halo_exchange(x)]`` of shape
-        ``(n_local + k·s_max, d)``, which the plan's re-localized senders
-        index — and whose column space is exactly that of the per-rank
+        global rows). Armed flat halo: ``[x ‖ halo_exchange(x)]`` of shape
+        ``(n_local + k·s_max, d)``; armed hierarchical halo: ``[x ‖
+        hier_halo_exchange(x)]`` of shape ``(n_local + k_model·(s_loc +
+        n_pods·s_rem), d)``. Either way the plan's re-localized senders
+        index it, and its column space is exactly that of the per-rank
         blocked tables of `repro_torch.dist.halo.plan_blocked_rank`."""
         if not self.is_halo:
             return x
@@ -163,8 +176,16 @@ class ShardingPolicy:
         halo only) — the overlapped schedule consumes this directly. The
         wire is encoded per :attr:`halo_payload` and decoded here, so
         callers always see ``x.dtype`` rows."""
-        from repro_torch.dist.halo import halo_exchange
+        from repro_torch.dist.halo import halo_exchange, hier_halo_exchange
 
+        if self.halo_send_loc is not None:
+            if self.halo_groups is None:
+                raise ValueError("a hierarchical halo binding needs halo_groups, the rank's "
+                                 "(pod group, model group) from repro_torch.launch.mesh.halo_groups")
+            return hier_halo_exchange(
+                x, self.halo_send_loc, self.halo_send_rem, self.halo_groups,
+                via=self.halo_via, payload=self.halo_payload,
+            )
         return halo_exchange(
             x, self.halo_send_idx, self.group, via=self.halo_via, payload=self.halo_payload,
         )

@@ -27,10 +27,15 @@
 // width grid_x (the wrapper picks one wave from k2_ragged_attributes),
 // row_weight (the positions that stand for a row's epilogue), min_tiles
 // (the fewest positions a block takes), and the workspace of the split
-// schedule: `part` (2 · grid_x · grid_y · 128 · ftp floats), `arrivals`
+// schedule: `part` (2 · grid_x · grid_y · nch · 128 · ftp floats, nch the
+// aggregation-first layer's chunks of F_in and 1 elsewhere), `arrivals`
 // (R · grid_y ints, zeroed by the caller for each launch) and `prods` (K1 with
 // a bf16 Z only: R · (T + row_weight) · grid_y · 128 · ftp bf16 values),
-// where ftp is ft rounded up to a multiple of 16.
+// where ftp is ft rounded up to a multiple of 16. The aggregation-first
+// launchers also take ft, the width of one chunk of F_in (F_in itself, or a
+// multiple of 16 when F_in takes several), and `osum` (grid_x · 128 · f_out
+// floats when F_in > ft, else unused): each block's running output sum
+// between chunks.
 
 #include <cstdint>
 
@@ -63,7 +68,7 @@ template <int MODE, typename TV, typename TS, typename TW, typename TO>
 int launch_layer(const TV* vals, const int* cols, const int* ends, int R, int T,
                  int n_src_blocks, const TS* src, int f_src, int ft, int grid_y,
                  const TW* w, const float* b, TO* out, int f_out, int relu, Split sp,
-                 void* stream) {
+                 float* osum, void* stream) {
     const long long smem = k2::kernel_smem_bytes<MODE, TS, TO>(ft);
     cudaError_t err = allow_smem(k2::ragged_layer_kernel<MODE, TV, TS, TW, TO>, smem);
     if (err != cudaSuccess) return (int)err;
@@ -71,7 +76,7 @@ int launch_layer(const TV* vals, const int* cols, const int* ends, int R, int T,
     dim3 grid(sp.grid_x, grid_y);
     k2::ragged_layer_kernel<MODE, TV, TS, TW, TO><<<grid, k2::THREADS, smem, (cudaStream_t)stream>>>(
         vals, cols, ends, R, T, n_src_blocks, src, f_src, ft, w, b, out, f_out, relu, sp.row_weight, sp.min_tiles,
-        sp.part, sp.arrivals, sp.prods);
+        sp.part, sp.arrivals, sp.prods, osum);
     return (int)cudaGetLastError();
 }
 
@@ -148,17 +153,19 @@ int ff_aggregate(const TV* vals, const int* cols, const int* ends, int R, int T,
                  int f_out, int ft, int relu, Split sp, void* stream) {
     const int grid_y = (f_out + ft - 1) / ft;
     return launch_layer<0, TV, TV, float, TO>(vals, cols, ends, R, T, n_src_blocks, z, f_out, ft,
-                                              grid_y, nullptr, b, out, f_out, relu, sp, stream);
+                                              grid_y, nullptr, b, out, f_out, relu, sp, nullptr, stream);
 }
 
-// out (R·128, f_out) = act((Ã · X) · W + b), X (n_src_blocks·128, f_in); out
-// in X's type.
+// out (R·128, f_out) = act((Ã · X) · W + b), X (n_src_blocks·128, f_in)
+// taken in chunks of ft columns; out in X's type.
 template <typename TV, typename TX, typename TW>
 int af_layer(const TV* vals, const int* cols, const int* ends, int R, int T,
-             int n_src_blocks, const TX* x, int f_in, const TW* w,
-             const float* b, TX* out, int f_out, int relu, Split sp, void* stream) {
-    return launch_layer<1, TV, TX, TW, TX>(vals, cols, ends, R, T, n_src_blocks, x, f_in, f_in, 1,
-                                           w, b, out, f_out, relu, sp, stream);
+             int n_src_blocks, const TX* x, int f_in, int ft, const TW* w,
+             const float* b, TX* out, int f_out, int relu, Split sp, float* osum, void* stream) {
+    if (ft < 1 || ft > f_in) return (int)cudaErrorInvalidValue;
+    if (f_in > ft && (ft % k2::NC || osum == nullptr)) return (int)cudaErrorInvalidValue;
+    return launch_layer<1, TV, TX, TW, TX>(vals, cols, ends, R, T, n_src_blocks, x, f_in, ft, 1,
+                                           w, b, out, f_out, relu, sp, osum, stream);
 }
 
 // out (R·128, f) = Ã · Z, Z (n_src_blocks·128, f) — may hold more block-rows
@@ -168,7 +175,7 @@ int bsr_spmm(const TV* vals, const int* cols, const int* ends, int R, int T, int
              const TZ* z, TZ* out, int f, int ft, Split sp, void* stream) {
     const int grid_y = (f + ft - 1) / ft;
     return launch_layer<2, TV, TZ, float, TZ>(vals, cols, ends, R, T, n_src_blocks, z, f, ft,
-                                              grid_y, nullptr, nullptr, out, f, 0, sp, stream);
+                                              grid_y, nullptr, nullptr, out, f, 0, sp, nullptr, stream);
 }
 
 using bf16 = __nv_bfloat16;
@@ -208,19 +215,19 @@ int k2_ff_aggregate_bf16_all(const bf16* vals, const int* cols, const int* ends,
 }
 
 int k2_af_layer(const float* vals, const int* cols, const int* ends, int R, int T,
-                int n_src_blocks, const float* x, int f_in, const float* w,
-                const float* b, float* out, int f_out, int relu, SPLIT_ARGS, void* stream) {
-    return af_layer(vals, cols, ends, R, T, n_src_blocks, x, f_in, w, b, out, f_out, relu, SPLIT, stream);
+                int n_src_blocks, const float* x, int f_in, int ft, const float* w,
+                const float* b, float* out, int f_out, int relu, SPLIT_ARGS, float* osum, void* stream) {
+    return af_layer(vals, cols, ends, R, T, n_src_blocks, x, f_in, ft, w, b, out, f_out, relu, SPLIT, osum, stream);
 }
 int k2_af_layer_bf16(const float* vals, const int* cols, const int* ends, int R, int T,
-                     int n_src_blocks, const bf16* x, int f_in, const float* w,
-                     const float* b, bf16* out, int f_out, int relu, SPLIT_ARGS, void* stream) {
-    return af_layer(vals, cols, ends, R, T, n_src_blocks, x, f_in, w, b, out, f_out, relu, SPLIT, stream);
+                     int n_src_blocks, const bf16* x, int f_in, int ft, const float* w,
+                     const float* b, bf16* out, int f_out, int relu, SPLIT_ARGS, float* osum, void* stream) {
+    return af_layer(vals, cols, ends, R, T, n_src_blocks, x, f_in, ft, w, b, out, f_out, relu, SPLIT, osum, stream);
 }
 int k2_af_layer_bf16_all(const bf16* vals, const int* cols, const int* ends, int R, int T,
-                         int n_src_blocks, const bf16* x, int f_in, const bf16* w,
-                         const float* b, bf16* out, int f_out, int relu, SPLIT_ARGS, void* stream) {
-    return af_layer(vals, cols, ends, R, T, n_src_blocks, x, f_in, w, b, out, f_out, relu, SPLIT, stream);
+                         int n_src_blocks, const bf16* x, int f_in, int ft, const bf16* w,
+                         const float* b, bf16* out, int f_out, int relu, SPLIT_ARGS, float* osum, void* stream) {
+    return af_layer(vals, cols, ends, R, T, n_src_blocks, x, f_in, ft, w, b, out, f_out, relu, SPLIT, osum, stream);
 }
 
 int k1_bsr_spmm(const float* vals, const int* cols, const int* ends, int R, int T,

@@ -222,14 +222,25 @@ __device__ inline void load16(const __nv_bfloat16* p, float e[16]) {
 // read before anyone resets it), so it is called where the whole block is.
 // Each output sums over k in order, as the TPU kernel's dot; stores are
 // consecutive across a warp.
+//
+// MODE 1 takes F_in in nch chunks of ft columns: `sum` is chunk ch's
+// aggregate, and the call adds its product with W's rows [ch·ft, ch·ft +
+// ft) to the output sum, continuing the FMA chain of chunk ch − 1 (kept in
+// `osum`, this block's TILE × f_out fp32 slot in global memory, between the
+// calls), so the sum over k runs in ascending k across chunks, as one pass
+// would; bias and activation apply after the last chunk. Each thread owns
+// the same outputs in every call, so it reads back only what it wrote. With
+// one chunk (F_in ≤ 240) `osum` is never touched.
 template <int MODE, typename TW, typename TO>
 struct Epilogue {
     const TW* w;
     const float* b;
     TO* out;
     int f_out, relu, ft, f0;
+    float* osum;                 // MODE 1 with nch > 1: this block's running output sum
+    int f_in, nch;               // MODE 1: the input width and its chunks
 
-    __device__ inline void operator()(const float* sum, int ldc, int r, int tid) const {
+    __device__ inline void operator()(const float* sum, int ldc, int r, int tid, int ch = 0) const {
         __syncthreads();
         TO* o = out + (long long)r * TILE * f_out;
         if (MODE == 1) {
@@ -237,15 +248,25 @@ struct Epilogue {
             // lane l the columns c0 + l and c0 + 32 + l, in register tiles of
             // 4 rows × 2 columns (6 loads for 8 FMAs).
             const int lane = tid % 32, r_begin = (tid / 32) * 32;
+            const int k0 = ch * ft, kw = f_in - k0 < ft ? f_in - k0 : ft;
+            const bool first = ch == 0, last = ch == nch - 1;
             for (int c0 = 0; c0 < f_out; c0 += 64) {
                 const int ca = c0 + lane, cb = ca + 32;
                 if (ca >= f_out) continue;
                 const bool has_b = cb < f_out;
                 for (int r0 = r_begin; r0 < r_begin + 32; r0 += 4) {
                     float h[4][2] = {};
+                    if (!first) {
+#pragma unroll
+                        for (int i = 0; i < 4; ++i) {
+                            const float* srow = osum + (long long)(r0 + i) * f_out;
+                            h[i][0] = srow[ca];
+                            if (has_b) h[i][1] = srow[cb];
+                        }
+                    }
 #pragma unroll 4
-                    for (int k = 0; k < ft; ++k) {
-                        const TW* wrow = w + (long long)k * f_out;
+                    for (int k = 0; k < kw; ++k) {
+                        const TW* wrow = w + (long long)(k0 + k) * f_out;
                         const float wa = to_f32(wrow[ca]), wb = has_b ? to_f32(wrow[cb]) : 0.f;
 #pragma unroll
                         for (int i = 0; i < 4; ++i) {
@@ -253,6 +274,15 @@ struct Epilogue {
                             h[i][0] = fmaf(a, wa, h[i][0]);
                             h[i][1] = fmaf(a, wb, h[i][1]);
                         }
+                    }
+                    if (!last) {
+#pragma unroll
+                        for (int i = 0; i < 4; ++i) {
+                            float* srow = osum + (long long)(r0 + i) * f_out;
+                            srow[ca] = h[i][0];
+                            if (has_b) srow[cb] = h[i][1];
+                        }
+                        continue;
                     }
 #pragma unroll
                     for (int i = 0; i < 4; ++i) {
@@ -310,8 +340,16 @@ __device__ inline int first_row_reaching(const int* __restrict__ ends, int R, in
 // shared memory.
 //
 // MODE 0 (feature-first): src = Z (width f_src = f_out); out = act(acc + b).
-// MODE 1 (aggregation-first): src = X (width f_src = ft = f_in);
+// MODE 1 (aggregation-first): src = X (width f_src = f_in), taken in
+//                             nch = ⌈f_in / ft⌉ chunks of ft columns (ft =
+//                             f_in and nch = 1 up to 240 columns);
 //                             out = act(round_W(acc) · W + b), W (f_in, f_out).
+//                             A block runs each row's chunks one after another:
+//                             it streams the row's tiles (its share of them) once
+//                             per chunk, aggregating that chunk's columns, and
+//                             the epilogue adds the chunk's product with W to
+//                             the output sum (Epilogue, osum). Shared memory
+//                             holds one chunk, so any F_in runs.
 // MODE 2 (K1, the plain product): src = Z (width f_src = f_out); out = acc,
 //                             with no bias and no activation (w, b unused).
 //                             With a bf16 output the running sum is rounded
@@ -319,12 +357,15 @@ __device__ inline int first_row_reaching(const int* __restrict__ ends, int R, in
 // TV, TS, TW, TO are the element types of vals, src, W and out; b is fp32.
 //
 // Workspace, allocated by the caller: `part` holds 2 · gridDim.x ·
-// gridDim.y slots of TILE × ftp floats (a block's partial of the row it
-// starts inside, slot 0, and of the row it leaves unfinished, slot 1);
+// gridDim.y · nch slots of TILE × ftp floats (a block's partial of the row it
+// starts inside, slot 0, and of the row it leaves unfinished, slot 1, for
+// each chunk: a block writes a chunk's partial as soon as it has aggregated
+// it, and the finishing block reads all of them);
 // `arrivals` R · gridDim.y ints, zero on entry; `prods` (per
 // tile rounding only) one TILE × ftp slot of bf16 values per position and
 // feature tile, each thread's ftp contiguous: the rounded products of split
-// rows.
+// rows; `osum` (MODE 1 with nch > 1 only) gridDim.x slots of TILE × f_out
+// floats, each block's running output sum.
 //
 // Column ids outside [0, n_src_blocks) are clamped, so a malformed table
 // cannot read outside the operands; the host side (BlockedAdjacency.arrays)
@@ -338,7 +379,7 @@ ragged_layer_kernel(const TV* __restrict__ vals, const int* __restrict__ cols,
                     const TW* __restrict__ w, const float* __restrict__ b,
                     TO* __restrict__ out, int f_out, int relu, int row_weight, int min_tiles,
                     float* __restrict__ part, int* __restrict__ arrivals,
-                    unsigned short* __restrict__ prods) {
+                    unsigned short* __restrict__ prods, float* __restrict__ osum) {
     extern __shared__ float smem[];
     const int ftp = padded_width(ft);
     const int ldc = ftp + 1;             // odd stride: each thread's row sits in its own banks
@@ -349,13 +390,15 @@ ragged_layer_kernel(const TV* __restrict__ vals, const int* __restrict__ cols,
     float* run = acc + TILE * ldc;                                         // TILE × ldc rounded sum (per_tile only)
     const int tid = threadIdx.x;
     const int y = blockIdx.y, gy = gridDim.y;
-    const int f0 = y * ft;               // first source/output column of this block
-    const Epilogue<MODE, TW, TO> epilogue{w, b, out, f_out, relu, ft, f0};
+    const int f0 = y * ft;               // first source/output column of this block (MODE 0, 2)
+    const int nch = MODE == 1 ? (f_src + ft - 1) / ft : 1;     // chunks of F_in (MODE 1)
 
     const int n = R > 0 ? ends[R - 1] : 0;
     const int G = split_blocks(n, gridDim.x, min_tiles);
     const int g = blockIdx.x;
     if (g >= G) return;                  // a block with no share (uniform across the block)
+    const Epilogue<MODE, TW, TO> epilogue{w, b, out, f_out, relu, ft, f0,
+                                          nch > 1 ? osum + (long long)g * TILE * f_out : nullptr, f_src, nch};
     const int lo = (int)((long long)g * n / G), hi = (int)((long long)(g + 1) * n / G);
 
     float* crow = acc + tid * ldc;       // this thread's accumulator row
@@ -377,11 +420,14 @@ ragged_layer_kernel(const TV* __restrict__ vals, const int* __restrict__ cols,
     const int first = first_row_reaching(ends, R, lo + 1);     // the row holding position lo
 
     // The copy cursor runs STAGES − 1 chunks ahead of the compute loop, over
-    // the same sequence: (row kr, tile kt of [kt, kt1), chunk kc).
-    int kr = first, kt = 0, kt1 = 0, kc = 0, issued = 0;
+    // the same sequence: (row kr, feature chunk kch, tile kt of [kt0, kt1),
+    // chunk kc of the tile).
+    int kr = first, kt = 0, kt0 = 0, kt1 = 0, kc = 0, kch = 0, issued = 0;
     auto seek = [&]() {                  // from row kr on, the next row with a tile of this block
+        kch = 0;
         for (; kr < R && row_start(ends, kr) < hi; ++kr) {
-            tiles_in(kr, kt, kt1);
+            tiles_in(kr, kt0, kt1);
+            kt = kt0;
             if (kt < kt1) return;
         }
         kt = kt1 = 0;
@@ -393,13 +439,17 @@ ragged_layer_kernel(const TV* __restrict__ vals, const int* __restrict__ cols,
             int cb = cols[tile];
             cb = cb < 0 ? 0 : (cb >= n_src_blocks ? n_src_blocks - 1 : cb);
             stage_tile_chunk(vals + tile * (TILE * TILE), kc * KC, as + st * TILE * LDA, tid);
-            stage_src_rows(src + (long long)cb * TILE * f_src, f_src, ft, ftp, f0, kc * KC, vec,
-                           ss + st * KC * ftp, tid);
+            stage_src_rows(src + (long long)cb * TILE * f_src, f_src, ft, ftp, f0 + kch * ft,
+                           kc * KC, vec, ss + st * KC * ftp, tid);
             if (++kc == CPT) {
                 kc = 0;
                 if (++kt == kt1) {
-                    ++kr;
-                    seek();
+                    if (++kch < nch) {
+                        kt = kt0;
+                    } else {
+                        ++kr;
+                        seek();
+                    }
                 }
             }
         }
@@ -409,19 +459,19 @@ ragged_layer_kernel(const TV* __restrict__ vals, const int* __restrict__ cols,
     // Thread tid's ftp rounded products of position p (K1 bf16, split rows).
     auto prod_slot = [&](int p) { return prods + (((long long)p * gy + y) * TILE + tid) * ftp; };
 
-    // Finish row r (positions [s, e)), split over blocks g_first..g_last:
-    // hand in this block's share, and if it is the last to arrive, add the
-    // shares in block order and write the epilogue.
+    // Block gg's workspace slot of feature chunk ch of a split row whose
+    // first block is g_first.
+    auto slot_of = [&](int gg, int g_first, int ch) {
+        const int k = gg == g_first ? 1 : 0;       // the first block leaves the row unfinished; the others start inside it
+        return part + ((((long long)(2 * gg + k) * nch + ch) * gy + y) * ftp * TILE);
+    };
+
+    // Finish row r (positions [s, e)), split over blocks g_first..g_last,
+    // whose shares (every chunk's) are in the workspace: arrive, and if this
+    // block is the last to arrive, add the shares in block order and write
+    // the epilogue, chunk by chunk.
     auto finish_split = [&](int r, int s, int e) {
         const int g_first = owner_block(s, n, G), g_last = owner_block(e - 1, n, G);
-        auto slot_of = [&](int gg) {
-            const int k = gg == g_first ? 1 : 0;   // the first block leaves the row unfinished; the others start inside it
-            return part + ((long long)(2 * gg + k) * gy + y) * ftp * TILE;
-        };
-        if (!per_tile) {
-            float* dst = slot_of(g);
-            for (int c = 0; c < ftp; ++c) dst[c * TILE + tid] = crow[c];
-        }
         __threadfence();                 // this block's share (or products) before its arrival
         __syncthreads();
         int is_last = 0;
@@ -450,12 +500,14 @@ ragged_layer_kernel(const TV* __restrict__ vals, const int* __restrict__ cols,
             }
             epilogue(run, ldc, r, tid);
         } else {
-            for (int c = 0; c < ftp; ++c) {
-                float v = 0.f;
-                for (int gg = g_first; gg <= g_last; ++gg) v += __ldcg(slot_of(gg) + c * TILE + tid);
-                crow[c] = v;
+            for (int ch = 0; ch < nch; ++ch) {
+                for (int c = 0; c < ftp; ++c) {
+                    float v = 0.f;
+                    for (int gg = g_first; gg <= g_last; ++gg) v += __ldcg(slot_of(gg, g_first, ch) + c * TILE + tid);
+                    crow[c] = v;
+                }
+                epilogue(acc, ldc, r, tid, ch);
             }
-            epilogue(acc, ldc, r, tid);
         }
     };
 
@@ -467,57 +519,71 @@ ragged_layer_kernel(const TV* __restrict__ vals, const int* __restrict__ cols,
         const bool split = s < lo || e > hi;             // other blocks hold some of the row's positions
         int t0, t1;
         tiles_in(r, t0, t1);
-        for (int t = t0; t < t1; ++t) {
-            for (int c = 0; c < CPT; ++c, ++q) {
-                copy_next();
-                __pipeline_wait_prior(STAGES - 1);       // chunk q has landed; the ones after it may be in flight
-                __syncthreads();
-                const float* arow = as + (q % STAGES) * TILE * LDA + tid * LDA;
-                const TS* sst = ss + (q % STAGES) * KC * ftp;
-                for (int fc = 0; fc < ftp; fc += NC) {
-                    float a_acc[NC];
+        for (int ch = 0; ch < nch; ++ch) {
+            for (int t = t0; t < t1; ++t) {
+                for (int c = 0; c < CPT; ++c, ++q) {
+                    copy_next();
+                    __pipeline_wait_prior(STAGES - 1);       // chunk q has landed; the ones after it may be in flight
+                    __syncthreads();
+                    const float* arow = as + (q % STAGES) * TILE * LDA + tid * LDA;
+                    const TS* sst = ss + (q % STAGES) * KC * ftp;
+                    for (int fc = 0; fc < ftp; fc += NC) {
+                        float a_acc[NC];
 #pragma unroll
-                    for (int k = 0; k < NC; ++k) a_acc[k] = crow[fc + k];
+                        for (int k = 0; k < NC; ++k) a_acc[k] = crow[fc + k];
 #pragma unroll 2
-                    for (int j4 = 0; j4 < KC; j4 += 4) {
-                        const float4 a4 = *reinterpret_cast<const float4*>(arow + j4);
-                        const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+                        for (int j4 = 0; j4 < KC; j4 += 4) {
+                            const float4 a4 = *reinterpret_cast<const float4*>(arow + j4);
+                            const float av[4] = {a4.x, a4.y, a4.z, a4.w};
 #pragma unroll
-                        for (int u = 0; u < 4; ++u) {
-                            float ev[NC];
-                            load16(sst + (j4 + u) * ftp + fc, ev);
+                            for (int u = 0; u < 4; ++u) {
+                                float ev[NC];
+                                load16(sst + (j4 + u) * ftp + fc, ev);
 #pragma unroll
-                            for (int k = 0; k < NC; ++k) a_acc[k] = fmaf(av[u], ev[k], a_acc[k]);
+                                for (int k = 0; k < NC; ++k) a_acc[k] = fmaf(av[u], ev[k], a_acc[k]);
+                            }
                         }
-                    }
 #pragma unroll
-                    for (int k = 0; k < NC; ++k) crow[fc + k] = a_acc[k];
+                        for (int k = 0; k < NC; ++k) crow[fc + k] = a_acc[k];
+                    }
+                    __syncthreads();                         // this stage is refilled by a later copy
                 }
-                __syncthreads();                         // this stage is refilled by a later copy
+                if (per_tile) {
+                    // Tile t is complete: the TPU kernel's out += dot(a,
+                    // z).astype(out.dtype) in out's (bf16) type, in the block for
+                    // a whole row; a split row's product goes to the workspace
+                    // for the finishing block.
+                    if (split) {
+                        float4* pp = reinterpret_cast<float4*>(prod_slot(s + t));
+                        for (int v = 0; v < ftp / 8; ++v) {
+                            float4 raw;
+                            __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&raw);
+#pragma unroll
+                            for (int k = 0; k < 8; ++k) h[k] = __float2bfloat16_rn(crow[8 * v + k]);
+                            pp[v] = raw;
+                        }
+                    } else {
+                        for (int c = 0; c < ftp; ++c) rrow[c] = round_to<TO>(rrow[c] + round_to<TO>(crow[c]));
+                    }
+                    for (int c = 0; c < ftp; ++c) crow[c] = 0.f;
+                }
             }
-            if (per_tile) {
-                // Tile t is complete: the TPU kernel's out += dot(a,
-                // z).astype(out.dtype) in out's (bf16) type, in the block for
-                // a whole row; a split row's product goes to the workspace
-                // for the finishing block.
+            // Chunk ch of this block's part of row r is done: hand in a split
+            // row's share, or add the chunk to the output of a whole row.
+            if (!per_tile) {
                 if (split) {
-                    float4* pp = reinterpret_cast<float4*>(prod_slot(s + t));
-                    for (int v = 0; v < ftp / 8; ++v) {
-                        float4 raw;
-                        __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&raw);
-#pragma unroll
-                        for (int k = 0; k < 8; ++k) h[k] = __float2bfloat16_rn(crow[8 * v + k]);
-                        pp[v] = raw;
-                    }
+                    float* dst = slot_of(g, owner_block(s, n, G), ch);
+                    for (int c = 0; c < ftp; ++c) dst[c * TILE + tid] = crow[c];
                 } else {
-                    for (int c = 0; c < ftp; ++c) rrow[c] = round_to<TO>(rrow[c] + round_to<TO>(crow[c]));
+                    epilogue(acc, ldc, r, tid, ch);
                 }
-                for (int c = 0; c < ftp; ++c) crow[c] = 0.f;
+                if (nch > 1)
+                    for (int c = 0; c < ftp; ++c) crow[c] = 0.f;
             }
         }
         // This block's part of row r is done.
         if (split) finish_split(r, s, e);
-        else epilogue(per_tile ? run : acc, ldc, r, tid);
+        else if (per_tile) epilogue(run, ldc, r, tid);
         for (int c = 0; c < ftp; ++c) crow[c] = 0.f;
         if (per_tile)
             for (int c = 0; c < ftp; ++c) rrow[c] = 0.f;

@@ -37,9 +37,15 @@ tiles) that is 1.42 GB + 0.76 GB = 2.19 GB, 0.65 ms at 3.35 TB/s, against
   (FMAs on the CUDA cores for fp32 and bf16 X, `mma.sync` fed by
   `ldmatrix` when every operand is bf16), and the warps' partials are added
   in warp order at the end of each group.
-* Aggregation-first is one launch: Ã·X accumulates in shared memory
-  (128 × F_in fp32), then the same block multiplies by W and adds bias and
-  activation. F_in is bounded by shared memory: at most `AF_MAX_F_IN`.
+* Aggregation-first is one launch: Ã·X accumulates in shared memory, then
+  the same block multiplies by W and adds bias and activation. Shared
+  memory holds 128 × `AF_MAX_F_IN` fp32 sums at most, so a wider F_in is
+  taken in chunks (`af_chunk`): the block streams each row's tiles once per
+  chunk, and adds each chunk's product with W's matching rows to the row's
+  fp32 output sum, in ascending k (one FMA chain over k, as a single pass
+  would run it; the sum lives in a per-block workspace between chunks),
+  with bias and activation after the last chunk. Any F_in runs; the only
+  limit is the reference's (`check_af_resident`).
 * **The grid divides the valid tiles, not the block-rows.** Nell's
   block-rows are skewed (the longest holds 299 tiles, the median 19), so a
   block per block-row would leave the card idle while the longest row
@@ -100,6 +106,9 @@ __all__ = [
     "LAUNCHES",
     "reset_launch_counts",
     "AF_MAX_F_IN",
+    "AF_RESIDENT_LIMIT",
+    "af_chunk",
+    "check_af_resident",
     "layer_smem_bytes",
     "MIN_TILES",
     "ragged_split",
@@ -161,8 +170,39 @@ def layer_smem_bytes(ft: int, src_dtype=torch.float32) -> int:
     return 4 * (_STAGES * TILE * (_KC + 4) + TILE * (ftp + 1)) + _STAGES * _KC * ftp * src_dtype.itemsize
 
 
-# The widest aggregation-first input every dtype combination takes (the fp32 stage is the larger).
+# The widest chunk of the aggregation-first input one block aggregates at once,
+# for every dtype combination (the fp32 stage is the larger).
 AF_MAX_F_IN = max(f for f in range(_NC, 4096, _NC) if layer_smem_bytes(f) <= SMEM_LIMIT)
+
+# The reference's bound on the aggregation-first layer's VMEM-resident set
+# (`repro/kernels/ops.py::fused_gcn_layer`), bytes.
+AF_RESIDENT_LIMIT = 14_000_000
+
+
+def check_af_resident(f_in: int, f_out: int, block: int = TILE) -> None:
+    """Raise the reference's ValueError where its aggregation-first layer
+    refuses the widths: the weight, two (block, F_in) and one (block, F_out)
+    fp32 buffers and one tile past 14 MB. The kernels here take any width;
+    the port refuses what the reference refuses, and nothing else."""
+    resident = 4 * (f_in * f_out + 2 * block * f_in + block * f_out + block * block)
+    if resident > AF_RESIDENT_LIMIT:
+        raise ValueError(
+            f"aggregation_first fused layer needs ~{resident / 1e6:.0f} MB "
+            f"VMEM-resident (F_in={f_in}, F_out={f_out}) — past the ~16 MB "
+            "budget; use order='feature_first' or the unfused bsr_spmm path"
+        )
+
+
+def af_chunk(f_in: int) -> tuple[int, int]:
+    """(chunk width, chunks) of the aggregation-first kernel at input width
+    ``f_in``: one chunk of F_in itself up to `AF_MAX_F_IN`, else the fewest
+    chunks of at most `AF_MAX_F_IN` columns, all of one width, a multiple of
+    16 (the last one narrower)."""
+    if f_in <= AF_MAX_F_IN:
+        return f_in, 1
+    n = -(-f_in // AF_MAX_F_IN)
+    ft = _padded(-(-f_in // n))
+    return ft, -(-f_in // ft)
 
 
 def xw_rows(x_dtype) -> int:
@@ -240,16 +280,26 @@ def operand_suffix(kernel: str, vals_dtype, x_dtype, w_dtype) -> str:
 # ----------------------------------------------------------------- plain versions
 # fp32 arithmetic on widened operands, rounded where the kernels round; for
 # fp32 operands every cast below is the identity.
+_PLAIN_GATHER = 1 << 28     # elements of gathered source blocks the plain version holds at once
+
+
 def _ragged_aggregate_plain(vals, cols, lens, src):
     """Σ_{t < lens[r]} vals[r, t] @ src_block[cols[r, t]] as (R·B, F) in fp32,
-    reading only the valid tiles."""
+    reading only the valid tiles; the source blocks are gathered a slice of
+    columns at a time, so that a wide F (Nell's valid tiles at F = 9,029:
+    54 GB at once) fits the card."""
     R, T, B, _ = vals.shape
     F = src.shape[1]
     valid = torch.arange(T, device=vals.device)[None, :] < lens[:, None]
     r_idx, t_idx = valid.nonzero(as_tuple=True)
     tiles = vals[r_idx, t_idx].float()                                   # (nnz, B, B)
-    blocks = src.reshape(-1, B, F)[cols[r_idx, t_idx].long()].float()   # (nnz, B, F)
-    acc = tiles.new_zeros((R, B, F)).index_add_(0, r_idx, torch.bmm(tiles, blocks))
+    rows = cols[r_idx, t_idx].long()
+    src_blocks = src.reshape(-1, B, F)
+    step = max(1, _PLAIN_GATHER // max(rows.numel() * B, 1))
+    acc = tiles.new_zeros((R, B, F))
+    for f0 in range(0, F, step):
+        blocks = src_blocks[rows, :, f0:f0 + step].float()              # (nnz, B, ≤ step)
+        acc[:, :, f0:f0 + step].index_add_(0, r_idx, torch.bmm(tiles, blocks))
     return acc.reshape(R * B, F)
 
 
@@ -292,7 +342,7 @@ def _lib() -> ctypes.CDLL:
     args = {
         "k2_ff_transform": [P, P, P, I, I, I, P],
         "k2_ff_aggregate": [P, P, P, I, I, I, P, P, P, I, I, I, *split, P],
-        "k2_af_layer": [P, P, P, I, I, I, P, I, P, P, P, I, I, *split, P],
+        "k2_af_layer": [P, P, P, I, I, I, P, I, I, P, P, P, I, I, *split, P, P],
     }
     signatures = {f"{k}{sfx}": a for k, a in args.items() for sfx in _SUFFIX.values()}
     signatures.update({name: [P, P, P, I, I, I, P, P, I, I, *split, P] for name in K1_NAMES.values()})
@@ -373,11 +423,15 @@ def ragged_grid(name: str, ft: int, device_index: int) -> int:
     return max(1, sms * ragged_attributes(name, ft)["blocks_per_sm"])
 
 
-def _split_args(name: str, cols, lens, ft: int, grid_y: int, f_out: int, device: torch.device):
+def _split_args(name: str, cols, lens, ft: int, grid_y: int, f_out: int, device: torch.device,
+                chunks: int = 1):
     """(tensors to keep alive, the launcher's leading ``ends`` pointer and
     trailing split arguments): the prefix sum of lens clamped to [0, T] plus
     the row weight, and the workspace, made on the card without reading
-    anything back: fresh arrival counters, zeroed, for every launch.
+    anything back: fresh arrival counters, zeroed, for every launch. The
+    aggregation-first layer's split-row partials take one slot per chunk of
+    F_in (``chunks``): 2 · grid · chunks · 128 · ftp floats, 128 × F_in a
+    block and side in all (at F_in = 9,029 on 132 blocks, 1.2 GB).
 
     K1 with a bf16 Z keeps the rounded product of every tile of a split row
     in ``prods``, indexed by position. Without reading lens back, the wrapper
@@ -401,7 +455,8 @@ def _split_args(name: str, cols, lens, ft: int, grid_y: int, f_out: int, device:
                 f"{free} bytes the card has outside torch's allocations; an fp32 Z needs no such workspace"
             )
     ends = torch.cumsum(lens.clamp(0, T) + weight, 0, dtype=torch.int32)
-    part = torch.empty(0 if per_tile else 2 * grid_x * grid_y * TILE * ftp, dtype=torch.float32, device=device)
+    part = torch.empty(0 if per_tile else 2 * grid_x * grid_y * chunks * TILE * ftp, dtype=torch.float32,
+                       device=device)
     arrivals = torch.zeros(R * grid_y, dtype=torch.int32, device=device)
     prods = torch.empty(n_prods, dtype=torch.int16, device=device)
     keep = (ends, part, arrivals, prods)
@@ -491,27 +546,26 @@ def ff_aggregate(vals, cols, lens, z, b, relu: bool = True, out_dtype=torch.floa
 
 
 def af_layer(vals, cols, lens, x, w, b, relu: bool = True) -> torch.Tensor:
-    """act((Ã · X) · W + b) on the card, one launch; output in X's dtype."""
+    """act((Ã · X) · W + b) on the card, one launch, F_in in chunks of
+    `af_chunk`; output in X's dtype."""
     device = _check("af_layer", vals=vals, cols=cols, lens=lens, x=x, w=w, b=b)
     sfx = operand_suffix("af_layer", vals.dtype, x.dtype, w.dtype)
     f_in, f_out = w.shape
     if x.shape[1] != f_in or f_in < 1:
         raise ValueError(f"af_layer: x {tuple(x.shape)} does not match w {tuple(w.shape)}")
-    if f_in > AF_MAX_F_IN:
-        raise ValueError(
-            f"af_layer: F_in={f_in} needs {layer_smem_bytes(f_in)} bytes of shared memory "
-            f"per block, past the card's {SMEM_LIMIT}; the aggregation-first kernel takes "
-            f"F_in ≤ {AF_MAX_F_IN} (use order='feature_first')"
-        )
+    check_af_resident(f_in, f_out)
     _check_table("af_layer", vals, cols, lens, x, f_out, b)
     _require_cuda("af_layer", device)
     R, T = cols.shape
     name = f"k2_af_layer{sfx}"
+    ft, chunks = af_chunk(f_in)
     out = torch.empty((R * TILE, f_out), dtype=x.dtype, device=device)
-    _keep, ends, split = _split_args(name, cols, lens, f_in, 1, f_out, device)
+    keep, ends, split = _split_args(name, cols, lens, ft, 1, f_out, device, chunks)
+    grid_x = split[0]
+    osum = torch.empty(grid_x * TILE * f_out if chunks > 1 else 0, dtype=torch.float32, device=device)
     _launch(
-        name, vals.data_ptr(), cols.data_ptr(), ends, R, T, x.shape[0] // TILE, x.data_ptr(), f_in,
-        w.data_ptr(), b.data_ptr(), out.data_ptr(), f_out, int(relu), *split, _stream(device),
+        name, vals.data_ptr(), cols.data_ptr(), ends, R, T, x.shape[0] // TILE, x.data_ptr(), f_in, ft,
+        w.data_ptr(), b.data_ptr(), out.data_ptr(), f_out, int(relu), *split, osum.data_ptr(), _stream(device),
     )
     return out
 

@@ -60,7 +60,12 @@ from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.fm_interaction import fm_interaction as fm_interaction_cuda
 from repro_torch.kernels.fm_interaction import fm_interaction_plain
 from repro_torch.kernels.bsr_spmm import bsr_spmm_plain, k1_name
-from repro_torch.kernels.fused_gcn import fused_gcn_layer_cuda, fused_gcn_layer_plain, operand_suffix
+from repro_torch.kernels.fused_gcn import (
+    check_af_resident,
+    fused_gcn_layer_cuda,
+    fused_gcn_layer_plain,
+    operand_suffix,
+)
 
 __all__ = ["bsr_spmm", "fused_gcn_layer", "fm_interaction", "flash_attention"]
 
@@ -224,6 +229,8 @@ def fused_gcn_layer(vals, cols, lens, x, w, b, order: str = "feature_first",
     R, T, B, _ = vals.shape
     if order not in _ORDERS:
         raise ValueError(f"unknown dataflow order: {order!r}")
+    if order == "aggregation_first":
+        check_af_resident(w.shape[0], w.shape[1], B)   # the reference's bound, on every device
     if lens is None:
         lens = torch.full((R,), T, dtype=torch.int32, device=vals.device)
     b = b.reshape(-1)

@@ -3,6 +3,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.distributed_gcn --device cpu --steps 60
     PYTHONPATH=src python -m repro_torch.launch.distributed_gcn --k 4 --payload bf16 --backend bsr
+    PYTHONPATH=src python -m repro_torch.launch.distributed_gcn --device cpu --pods 2 \
+        --steps 12 --trace trace.json --metrics metrics.json
 
 The graph (``make_dataset("cora", reduced=True)``, symmetrized, with
 self-loops and sym-norm weights) is partitioned over ``--k`` ranks (BFS +
@@ -20,6 +22,17 @@ asserts: the loss falls, and the plan cache saw a hit and a miss. With
 instead, with its largest logit difference from the unsharded forward.
 Parameters come from a seeded `torch.Generator`.
 
+``--pods P`` (P > 1, dividing ``--k``) switches to the hierarchical (pod,
+model) schedule: the plan splits each rank's boundary set into intra- and
+inter-pod tiers, the exchange runs in two phases over the rank's subgroups
+(`repro_torch.launch.mesh.halo_groups`), and the script prints the
+reference's ``s_loc``/``s_rem`` line and the rows that cross the inter-pod
+tier, hierarchical against flat. ``--metrics`` / ``--trace``
+(`repro_torch.launch.obsflags`) record rank 0's telemetry: the training
+steps, the plan's wire accounting and cache stats, and — at the end of a
+traced run — `overlap_timeline`, whose ``halo.exchange.boundary_collective``
+span on the ``wire`` track encloses ``overlap.interior_compute``.
+
 The ranks run on ``--device`` (the CUDA card unless ``--device cpu``); on
 one card all k ranks share it and the group's backend is ``gloo``, whose
 wire goes through the host. `halo_rank` (forwards) and `halo_train_rank`
@@ -31,6 +44,7 @@ its times.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import statistics
 import tempfile
@@ -57,9 +71,10 @@ from repro_torch.dist.halo import (
 from repro_torch.dist.policy import ShardingPolicy
 from repro_torch.graph.generators import make_dataset
 from repro_torch.graph.structure import to_padded
-from repro_torch.launch.mesh import GroupSpec, run_group
+from repro_torch.launch.mesh import GroupSpec, halo_groups, run_group
+from repro_torch.launch.obsflags import add_obs_args, obs_session
 from repro_torch.models.gcn import GCNConfig, gcn_forward, gcn_init
-from repro_torch.obs import metrics
+from repro_torch.obs import metrics, trace
 from repro_torch.obs.trace import device_time_summary
 from repro_torch.train.loop import Trainer, TrainerConfig, value_and_grad
 from repro_torch.train.optimizer import adamw
@@ -108,6 +123,8 @@ class RankJob:
     ckpt_dir: str | None = None          # rank 0 writes, every rank resumes
     ckpt_every: int = 50
     verbose: bool = False                # rank 0 prints the resume line and a log line every 20 steps
+    obs_metrics: bool = False            # rank 0 records metrics and returns its registry
+    obs_trace: bool = False              # rank 0 traces, ends with overlap_timeline, returns its recorder
 
 
 def table_widths(plan: HaloPlan) -> dict:
@@ -198,8 +215,11 @@ class _Rank:
 
     def __init__(self, rank: int, device: torch.device, job: RankJob):
         self.rank, self.device, self.job = rank, device, job
-        send_idx, senders, receivers, edge_w = job.plan.rank_arrays(rank, device)
-        self.send_idx = send_idx
+        arrs = job.plan.rank_arrays(rank, device)
+        send, (senders, receivers, edge_w) = arrs[:-3], arrs[-3:]
+        # Flat: send_idx; hierarchical: send_loc, send_rem and the rank's (pod, model) groups.
+        self.send = {"send_loc": send[0], "send_rem": send[1]} if len(send) == 2 else {"send_idx": send[0]}
+        self.groups = halo_groups(job.plan.n_pods)
         self.batch = {"x": torch.from_numpy(job.x).to(device).float(), "senders": senders,
                       "receivers": receivers, "edge_w": edge_w}
         if job.labels is not None:
@@ -214,12 +234,16 @@ class _Rank:
             self._tables[part] = ba.arrays(device=self.device)
         return self._tables[part]
 
+    def policy(self, **kw) -> ShardingPolicy:
+        """An armed halo policy of this rank (flat or hierarchical, as the
+        plan is) with the fields ``kw``."""
+        return ShardingPolicy(comm="halo", halo_groups=self.groups, **kw).bind_halo(**self.send)
+
     def setup(self, v: HaloVariant) -> tuple[GCNConfig, ShardingPolicy, dict]:
         """The config, armed policy and table arguments of ``v``."""
         cfg = GCNConfig(layer_dims=self.job.layer_dims, dataflow=v.dataflow, backend=v.backend,
                         quant=self.job.quant if v.quant else QuantConfig(enabled=False))
-        policy = ShardingPolicy(comm="halo", halo_via=v.via, halo_payload=v.payload,
-                                halo_overlap=v.overlap).bind_halo(self.send_idx)
+        policy = self.policy(halo_via=v.via, halo_payload=v.payload, halo_overlap=v.overlap)
         kw = {}
         if v.backend == "bsr":
             kw["adjacency"] = self.table("interior" if v.split else "combined")
@@ -236,6 +260,56 @@ def _launches() -> dict:
     from repro_torch.kernels import fused_gcn as fg
 
     return {name: n for name, n in fg.LAUNCHES.items() if n}
+
+
+@contextlib.contextmanager
+def _wire_counter():
+    """Yields ``read()``: the wire rows and bytes this rank has received so
+    far (``halo.wire_rows``, ``halo.wire_bytes``, and the hierarchical
+    exchange's rows per phase), to be read as differences, from the
+    registry already enabled (``--metrics``) or from one enabled for the
+    block."""
+    own = not metrics.enabled()
+    registry = metrics.enable(metrics.MetricsRegistry()) if own else metrics.default_registry()
+    counters = {"wire_rows": registry.counter("halo.wire_rows"),
+                "wire_bytes": registry.counter("halo.wire_bytes"),
+                "wire_rows_inter_pod": registry.counter("halo.wire_rows", (("phase", "inter_pod"),)),
+                "wire_rows_intra_pod": registry.counter("halo.wire_rows", (("phase", "intra_pod"),))}
+    try:
+        yield lambda: {name: int(c.value) for name, c in counters.items()}
+    finally:
+        if own:
+            metrics.disable()
+
+
+def _since(now: dict, then: dict) -> dict:
+    return {name: now[name] - then[name] for name in now}
+
+
+def _obs_start(rank: int, job: RankJob) -> None:
+    """Rank 0 turns on the telemetry the job asks for."""
+    if rank == 0 and job.obs_metrics:
+        metrics.enable(metrics.MetricsRegistry())
+    if rank == 0 and job.obs_trace:
+        trace.set_default_tracer(trace.TraceRecorder(process_name="repro_torch rank 0"))
+
+
+def _obs_end(r: "_Rank", out: dict) -> None:
+    """End of a rank's run with telemetry: rank 0 folds the plan's wire
+    model into its registry; every rank runs `overlap_timeline` (its
+    collective needs the whole group), and rank 0 records it. Rank 0's
+    registry and recorder go into ``out``."""
+    from repro_torch.obs.instrument import overlap_timeline, record_exchange
+
+    job = r.job
+    if r.rank == 0 and job.obs_metrics:
+        record_exchange(job.plan, int(r.batch["x"].shape[1]))
+    if job.obs_trace:
+        tracer = trace.default_tracer() if r.rank == 0 else trace.TraceRecorder()
+        overlap_timeline(job.plan, r.batch["x"], r.groups, tracer=tracer)
+    if r.rank == 0:
+        out["obs"] = {"registry": metrics.default_registry() if job.obs_metrics else None,
+                      "tracer": trace.default_tracer() if job.obs_trace else None}
 
 
 def halo_rank(rank: int, k: int, device: torch.device, job: RankJob) -> dict:
@@ -256,31 +330,29 @@ def halo_rank(rank: int, k: int, device: torch.device, job: RankJob) -> dict:
     """
     from repro_torch.kernels import fused_gcn as fg
 
+    _obs_start(rank, job)
     r = _Rank(rank, device, job)
     plan, b = job.plan, r.batch
-    registry = metrics.enable(metrics.MetricsRegistry())
-    wire = registry.counter("halo.wire_rows")
-    wire_bytes = registry.counter("halo.wire_bytes")
     out: dict = {"rank": rank, "variants": {}}
     runs = {}
-    for v in job.variants:
-        cfg, policy, kw = r.setup(v)
+    with _wire_counter() as wire:
+        for v in job.variants:
+            cfg, policy, kw = r.setup(v)
 
-        def forward(cfg=cfg, policy=policy, kw=kw):
-            return gcn_forward(r.params, b["x"], b["senders"], b["receivers"], b["edge_w"], cfg, policy, **kw)
+            def forward(cfg=cfg, policy=policy, kw=kw):
+                return gcn_forward(r.params, b["x"], b["senders"], b["receivers"], b["edge_w"], cfg, policy, **kw)
 
-        with torch.inference_mode():
-            r.sync()
-            fg.reset_launch_counts()
-            rows0, bytes0 = wire.value, wire_bytes.value
-            logits = forward()
-            r.sync()
-            out["variants"][v.name] = {
-                "logits": logits.float().cpu().numpy(), "dtype": str(logits.dtype).removeprefix("torch."),
-                "launches": _launches(), "wire_rows": int(wire.value - rows0),
-                "wire_bytes": int(wire_bytes.value - bytes0), "finite": bool(torch.isfinite(logits).all())}
-        runs[v.name] = forward
-    metrics.disable()
+            with torch.inference_mode():
+                r.sync()
+                fg.reset_launch_counts()
+                before = wire()
+                logits = forward()
+                r.sync()
+                out["variants"][v.name] = {
+                    "logits": logits.float().cpu().numpy(), "dtype": str(logits.dtype).removeprefix("torch."),
+                    "launches": _launches(), **_since(wire(), before),
+                    "finite": bool(torch.isfinite(logits).all())}
+            runs[v.name] = forward
 
     if job.time_reps and device.type == "cuda":
         with torch.inference_mode():
@@ -290,20 +362,48 @@ def halo_rank(rank: int, k: int, device: torch.device, job: RankJob) -> dict:
                             generator=torch.Generator().manual_seed(rank)).to(device)
             out["exchange_ms"] = {}
             for payload in (None, "bf16", "int8"):
-                pol = ShardingPolicy(comm="halo", halo_payload=payload).bind_halo(r.send_idx)
+                pol = r.policy(halo_payload=payload)
                 out["exchange_ms"][payload or "fp32"] = _cuda_ms(lambda: pol.halo_block(z), device,
                                                                   job.time_reps)
+            if plan.is_hierarchical:
+                out["exchange_phase_ms"] = _phase_ms(r, z)
             out["profile"] = _profile(runs[job.variants[0].name], device)
         out["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
     if job.train_variants:
         out["train"] = _train_variants(r)
+    if job.obs_metrics or job.obs_trace:
+        _obs_end(r, out)
     dist.barrier()
     return out
 
 
+def _phase_ms(r: "_Rank", z: torch.Tensor) -> dict:
+    """CUDA-event ms of each phase of the hierarchical exchange of ``z`` per
+    payload: phase 1 gathers the ``send_rem`` rows over the pod group,
+    phase 2 the ``[send_loc ‖ phase-1]`` block over the model group."""
+    from repro_torch.dist.halo import _hier_phase1_start, _hier_phase2
+
+    pod, model = r.groups
+    loc, rem = r.send["send_loc"], r.send["send_rem"]
+    out = {}
+    for payload in (None, "bf16", "int8"):
+        inter = _hier_phase1_start(z, rem, pod, "all_gather", payload)()
+        out[payload or "fp32"] = {
+            "inter_pod": _cuda_ms(lambda: _hier_phase1_start(z, rem, pod, "all_gather", payload)(), r.device,
+                                  r.job.time_reps),
+            "intra_pod": _cuda_ms(lambda: _hier_phase2(z, loc, inter, model, "all_gather", payload), r.device,
+                                  r.job.time_reps)}
+    return out
+
+
 def halo_train_rank(rank: int, k: int, device: torch.device, job: RankJob) -> dict:
-    """The training body of one rank: `_train_variants` of ``job``."""
-    out = {"rank": rank, "train": _train_variants(_Rank(rank, device, job))}
+    """The training body of one rank: `_train_variants` of ``job``, then
+    the telemetry's end (``job.obs_metrics``, ``job.obs_trace``)."""
+    _obs_start(rank, job)
+    r = _Rank(rank, device, job)
+    out = {"rank": rank, "train": _train_variants(r)}
+    if job.obs_metrics or job.obs_trace:
+        _obs_end(r, out)
     dist.barrier()
     return out
 
@@ -345,16 +445,15 @@ def _train_variants(r: _Rank) -> dict:
                      TrainerConfig(ckpt_dir=job.ckpt_dir, ckpt_every=job.ckpt_every, log_every=20))
         resumed = tr.resume()
         log(f"checkpoints → {job.ckpt_dir} (resumed={resumed}, step={tr.step})")
-        registry = metrics.enable(metrics.MetricsRegistry())
-        r.sync()
-        fg.reset_launch_counts()
-        step0 = tr.step
-        losses = tr.fit(iter(lambda: b, None), max_steps=job.steps, log=log)
-        r.sync()
-        launches = _launches()
-        wire = {"wire_rows": int(registry.counter("halo.wire_rows").value),
-                "wire_bytes": int(registry.counter("halo.wire_bytes").value)}
-        metrics.disable()
+        with _wire_counter() as counts:
+            before = counts()
+            r.sync()
+            fg.reset_launch_counts()
+            step0 = tr.step
+            losses = tr.fit(iter(lambda: b, None), max_steps=job.steps, log=log)
+            r.sync()
+            launches = _launches()
+            wire = _since(counts(), before)
         with torch.inference_mode():
             logits = gcn_forward(tr.params, b["x"], b["senders"], b["receivers"], b["edge_w"], cfg, policy, **kw)
         rec = {"loss0": float(loss0), "grads": {n: g.float().cpu().numpy() for n, g in grads.items()},
@@ -399,7 +498,7 @@ def _exchange_backward_ms(r: _Rank) -> dict:
                     generator=torch.Generator().manual_seed(r.rank)).to(r.device).requires_grad_(True)
     out = {}
     for payload in (None, "bf16", "int8"):
-        pol = ShardingPolicy(comm="halo", halo_payload=payload).bind_halo(r.send_idx)
+        pol = r.policy(halo_payload=payload)
         halo = pol.halo_block(z)
         ct = torch.ones_like(halo)
         out[payload or "fp32"] = _cuda_ms(
@@ -408,13 +507,18 @@ def _exchange_backward_ms(r: _Rank) -> dict:
 
 
 def _plan_lines(spec, gs, plan) -> list[str]:
-    lines = [f"graph: {spec.name} n={gs.n_nodes} e={gs.n_edges} → k={plan.k} "
-             f"n_local={plan.n_local} s_max={plan.s_max}"]
+    hier = plan.is_hierarchical
+    lines = [f"graph: {spec.name} n={gs.n_nodes} e={gs.n_edges} → k={plan.k} n_local={plan.n_local} "
+             + (f"s_loc={plan.s_loc} s_rem={plan.s_rem}" if hier else f"s_max={plan.s_max}")]
     if plan.k > 1:
         lines.append(
             f"wire/device/layer: halo {plan.halo_rows_per_device} rows vs "
             f"broadcast {plan.broadcast_rows_per_device} rows "
             f"({plan.wire_fraction():.3f}× — DESIGN.md §8)")
+    if hier:
+        lines.append(
+            f"inter-pod crossing/device/layer: {plan.inter_pod_rows_crossing} rows "
+            f"hierarchical vs {plan.flat_inter_pod_rows_crossing} flat (docs/communication.md)")
     return lines
 
 
@@ -430,18 +534,30 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--steps", type=int, default=60,
                     help="training steps (0: evaluate the halo forward of untrained parameters)")
     ap.add_argument("--ckpt-dir", default=None, help="checkpoints (a fresh temporary directory if unset)")
+    ap.add_argument("--pods", type=int, default=1,
+                    help="pods for the hierarchical (pod, model) halo schedule "
+                         "(must divide --k; 1 = flat single-group)")
     ap.add_argument("--device", default=None, help="the CUDA card unless 'cpu'")
+    add_obs_args(ap)
     args = ap.parse_args(argv)
     if args.steps < 0:
         raise ValueError(f"--steps must be ≥ 0, got {args.steps}")
-    device = resolve_device(args.device)
+    if args.pods < 1 or args.k % args.pods:
+        raise SystemExit(f"--pods {args.pods} must divide the rank count {args.k}")
+    with obs_session(args):
+        return run(args)
 
+
+def run(args) -> dict:
+    """The example's body, inside the obs session of `main`."""
+    device = resolve_device(args.device)
     spec, g = make_dataset("cora", reduced=True)
     gs = g.symmetrized().with_self_loops()
     w = gs.sym_normalized_weights()
     part = partition_graph(gs.n_nodes, gs.edge_index, args.k, method="bfs", seed=0, refine=True)
-    plan = get_halo_plan(part, gs.edge_index, w)   # miss: builds the relocation
-    plan = get_halo_plan(part, gs.edge_index, w)   # hit: every reuse is free
+    pods_kw = {"pods": args.pods} if args.pods > 1 else {}
+    plan = get_halo_plan(part, gs.edge_index, w, **pods_kw)   # miss: builds the relocation
+    plan = get_halo_plan(part, gs.edge_index, w, **pods_kw)   # hit: every reuse is free
     for line in _plan_lines(spec, gs, plan):
         print(line)
 
@@ -458,12 +574,16 @@ def main(argv: list[str] | None = None) -> dict:
         from repro_torch.kernels import _build
 
         _build.build(["fused_gcn"])
-    print(f"group: {group.describe()}")
+    print(f"group: {group.describe()}" + (f" as {plan.n_pods} pods × {plan.k_model}" if args.pods > 1 else ""))
+    obs = {"obs_metrics": bool(args.metrics), "obs_trace": bool(args.trace)}
+    if args.trace:
+        print("tracing overlap: boundary collective (wire track) vs interior compute")
     if args.steps > 0:
-        return _train(args, spec, g, plan, cfg, np_params, variant, group)
+        return _train(args, spec, g, plan, cfg, np_params, variant, group, obs)
 
-    jobs = rank_jobs(plan, x, np_params, cfg.layer_dims, [variant])
+    jobs = rank_jobs(plan, x, np_params, cfg.layer_dims, [variant], **obs)
     results = run_group(group, halo_rank, jobs)
+    _install_rank0_obs(results[0])
     logits = restore_node_array(plan, np.stack([r["variants"]["run"]["logits"] for r in results]))
     with torch.inference_mode():
         pg = to_padded(gs, weights=w, device=device)
@@ -475,19 +595,35 @@ def main(argv: list[str] | None = None) -> dict:
     rows = results[0]["variants"]["run"]["wire_rows"]
     print(f"eval: halo forward backend={args.backend} payload={args.payload} overlap={args.overlap} "
           f"acc={acc:.3f} (untrained); max |logit − unsharded| = {diff:.2e}; "
-          f"wire rows/rank/forward = {rows} ({cfg.n_layers} × k·s_max)")
+          f"wire rows/rank/forward = {rows} ({cfg.n_layers} × {'k_model·B + n_pods·s_rem' if args.pods > 1 else 'k·s_max'})")
     return {"acc": acc, "max_abs_diff": diff, "wire_rows": rows, "plan": plan}
 
 
-def _train(args, spec, g, plan, cfg, params, variant, group) -> dict:
+def _install_rank0_obs(rank0: dict) -> None:
+    """Make rank 0's registry and recorder (the run's telemetry) the ones
+    the obs session exports, then mirror this process's plan cache into
+    the registry (the plans are built here, not in the ranks)."""
+    from repro_torch.obs.instrument import observe_plan_cache
+
+    obs = rank0.get("obs") or {}
+    if obs.get("registry") is not None:
+        metrics.set_default_registry(obs["registry"])
+        observe_plan_cache()
+    if obs.get("tracer") is not None:
+        trace.set_default_tracer(obs["tracer"])
+
+
+def _train(args, spec, g, plan, cfg, params, variant, group, obs) -> dict:
     """The training half of ``examples/train_distributed_gcn.py`` over the
     group: every rank's `Trainer` (AdamW, lr 1e-2, checkpoints every 50
     steps by rank 0) on `halo_loss`, then the halo forward of the trained
     parameters."""
     ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="coin_ckpt_")
     jobs = rank_jobs(plan, g.features.astype(np.float32), params, cfg.layer_dims, (), labels=g.labels,
-                     train_variants=(variant,), steps=args.steps, lr=1e-2, ckpt_dir=ckpt_dir, verbose=True)
+                     train_variants=(variant,), steps=args.steps, lr=1e-2, ckpt_dir=ckpt_dir, verbose=True,
+                     **obs)
     results = run_group(group, halo_train_rank, jobs)
+    _install_rank0_obs(results[0])
     runs = [r["train"]["run"] for r in results]
     losses = runs[0]["losses"]
     logits = restore_node_array(plan, np.stack([run["logits"] for run in runs]))

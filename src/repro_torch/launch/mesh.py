@@ -20,6 +20,13 @@ shapes the run is an explicit field of :class:`GroupSpec`, and
 Nothing falls back: a rank that raises, dies or outlasts the timeout ends
 the whole group (the other ranks are terminated) and `run_group` raises
 with that rank's traceback.
+
+Inside a rank, `halo_groups` gives the subgroups of the hierarchical
+(pod, model) halo exchange — the counterpart of the reference's
+``make_halo_mesh`` and ``halo_axes``: ranks are raveled pod-major, as the
+reference's ``(pod, model)`` mesh ravels its devices and as
+`repro_torch.dist.halo.build_halo_plan` assumes (global rank g is member
+``g % k_model`` of pod ``g // k_model``).
 """
 from __future__ import annotations
 
@@ -37,7 +44,7 @@ from typing import Any, Callable
 import torch
 import torch.distributed as dist
 
-__all__ = ["GroupSpec", "run_group"]
+__all__ = ["GroupSpec", "run_group", "grid_groups", "halo_groups"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +91,7 @@ def _rank_main(rank: int, spec: GroupSpec, init_file: str, fn: Callable, arg: An
         try:
             out = fn(rank, spec.k, device, arg)
         finally:
+            _GRID_GROUPS.clear()
             dist.destroy_process_group()
         results.put((rank, True, out))
     except BaseException:   # reported to the parent, which ends the group and raises
@@ -149,3 +157,46 @@ def run_group(spec: GroupSpec, fn: Callable, args: list) -> list:
         results.close()
         shutil.rmtree(workdir, ignore_errors=True)
     return [out[r] for r in range(spec.k)]
+
+
+# (world size, outer) → this rank's (outer group, inner group); built once
+# per group, since dist.new_group is itself a collective of every rank.
+_GRID_GROUPS: dict[tuple[int, int], tuple] = {}
+
+
+def grid_groups(outer: int) -> tuple:
+    """This rank's two subgroups when the k ranks of the group form an
+    ``outer × (k / outer)`` grid raveled outer-major (global rank g at
+    ``(g // inner, g % inner)``): the ranks with its inner index in every
+    outer slice, and the ranks of its own outer slice.
+
+    Every rank of the group must call this with the same ``outer``, in the
+    same order as its other collectives: it builds every slice's and every
+    inner index's subgroup, each rank in the same order (`dist.new_group`
+    needs all ranks; under gloo a rank that builds them in another order
+    hangs the group until `run_group`'s timeout ends it). The groups are
+    built once per ``(k, outer)`` and cached for the life of the group."""
+    k = dist.get_world_size()
+    if outer < 1 or k % outer:
+        raise ValueError(f"{outer} slices must divide the group's {k} ranks")
+    key = (k, outer)
+    if key not in _GRID_GROUPS:
+        inner, rank = k // outer, dist.get_rank()
+        slices = [dist.new_group(list(range(p * inner, (p + 1) * inner))) for p in range(outer)]
+        across = [dist.new_group(list(range(m, k, inner))) for m in range(inner)]
+        _GRID_GROUPS[key] = (across[rank % inner], slices[rank // inner])
+    return _GRID_GROUPS[key]
+
+
+def halo_groups(pods: int):
+    """The process groups this rank's halo exchange runs over: ``None``
+    (the whole group: the flat schedule) when ``pods`` is 1, as the
+    reference's ``halo_axes`` gives the flat axis for a pod axis of width 1;
+    else the rank's ``(pod group, model group)`` of `grid_groups` (pods ×
+    k_model, pod-major): the ranks with its member index across pods (phase
+    1 of `repro_torch.dist.halo.hier_halo_exchange`), and the ranks of its
+    own pod (phase 2). Called by every rank alike."""
+    k = dist.get_world_size()
+    if pods < 1 or k % pods:
+        raise ValueError(f"pods={pods} must divide the group's {k} ranks")
+    return None if pods == 1 else grid_groups(pods)

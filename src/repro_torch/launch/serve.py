@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.configs.registry import ALL_ARCHS, get_arch
 from repro_torch.device import resolve_device
+from repro_torch.launch.obsflags import add_obs_args, obs_session
 
 __all__ = ["serve_lm", "serve_recsys", "main"]
 
@@ -97,7 +98,13 @@ def main(argv=None) -> None:
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs on the host)")
+    add_obs_args(ap)
     args = ap.parse_args(argv)
+    with obs_session(args):
+        run(args)
+
+
+def run(args) -> None:
     arch = args.arch.replace("-", "_") if args.arch.replace("-", "_") in ALL_ARCHS else args.arch
     if arch in _WAITING:
         raise NotImplementedError(

@@ -26,6 +26,7 @@ import torch
 from repro_torch.configs.registry import ALL_ARCHS, get_arch
 from repro_torch.device import resolve_device
 from repro_torch.graph.generators import citation_like
+from repro_torch.launch.obsflags import add_obs_args, obs_session
 from repro_torch.models.gcn import gcn_init, gcn_loss
 from repro_torch.train.data import ShardedStream, click_batch_fn
 from repro_torch.train.loop import Trainer, TrainerConfig
@@ -101,8 +102,13 @@ def main(argv=None) -> None:
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs on the host)")
+    add_obs_args(ap)
     args = ap.parse_args(argv)
+    with obs_session(args):
+        run(args)
 
+
+def run(args) -> None:
     if args.arch not in _SETUPS:
         raise NotImplementedError(
             f"--arch {args.arch} is not ported to PyTorch yet; it comes with {_WAITING[args.arch]} "

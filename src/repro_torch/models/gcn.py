@@ -23,7 +23,9 @@ Communication: the aggregation gathers sender rows from
 ``policy.neighbor_table(z)``. Under an armed halo policy
 (`repro_torch.dist.policy`, one rank of a `torch.distributed` group over a
 `repro_torch.dist.halo.HaloPlan`) that table is ``[local ‖ halo]`` and only
-boundary rows cross the wire; otherwise it is the identity. The halo path
+boundary rows cross the wire (a flat plan's ``k·s_max`` rows, or a
+hierarchical plan's member blocks after its two phases); otherwise it is
+the identity. The halo path
 takes ``backend="segment"`` (with the overlapped `split_halo_aggregate`
 when ``policy.halo_overlap``) and ``backend="bsr"`` with this rank's
 blocked table over the ``[local ‖ halo]`` columns

@@ -255,6 +255,16 @@ class MetricsRegistry:
             self._series.clear()
             self._kinds.clear()
 
+    # A registry pickles without its lock, so that a rank process can hand
+    # its registry to the process that exports it.
+    def __getstate__(self) -> dict:
+        with self._lock:
+            return {"_series": dict(self._series), "_kinds": dict(self._kinds)}
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self._lock = threading.Lock()
+
     def __len__(self) -> int:
         with self._lock:
             return len(self._series)

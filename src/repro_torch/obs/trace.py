@@ -52,6 +52,7 @@ __all__ = [
     "counter",
     "export",
     "device_time_summary",
+    "torch_profiler_trace",
 ]
 
 
@@ -214,6 +215,16 @@ class TraceRecorder:
         with self._lock:
             return len(self._events)
 
+    # A recorder pickles without its lock, so that a rank process can hand
+    # its events to the process that exports them.
+    def __getstate__(self) -> dict:
+        with self._lock:
+            return {k: v for k, v in self.__dict__.items() if k != "_lock"}
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self._lock = threading.Lock()
+
 
 # ============================================================ module fast path
 _DEFAULT: TraceRecorder | None = None
@@ -344,3 +355,20 @@ def device_time_summary(events, steps: int = 1, top: int = 20) -> dict:
         device_idle_share=(1.0 - busy / window) if kernels and window > 0 else "not measured",
         top_kernels=[dict(name=name[:160], ms_per_step=us / steps / 1e3, launches_per_step=n / steps)
                      for name, (us, n) in ranked])
+
+
+@contextlib.contextmanager
+def torch_profiler_trace(log_dir: str):
+    """`torch.profiler` over the block, its trace written into ``log_dir``
+    (TensorBoard's profiler plugin layout, ``*.pt.trace.json``, which
+    Perfetto also loads) — the counterpart of the reference's
+    ``jax_profiler_trace``. It records the host and, where a CUDA card is
+    present, the card's kernels; it has no fallback: a profiler that cannot
+    start raises. Yields the running `torch.profiler.profile`."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof

@@ -1,5 +1,5 @@
-"""The rank bodies of the process groups of tests/test_torch_halo.py and
-tests/test_torch_halo_train.py.
+"""The rank bodies of the process groups of tests/test_torch_halo.py,
+tests/test_torch_halo_train.py and tests/test_torch_hier_halo.py.
 
 The spawned ranks import this module by name (the test directory is on
 their path), so it imports neither JAX nor `repro`: only torch, numpy and
@@ -96,3 +96,81 @@ def train_grads_and_resume(rank: int, k: int, device: torch.device, job: dict) -
             "grads": halo_train_rank(rank, k, device, job["grads"])["train"],
             "trajectory": halo_train_rank(rank, k, device, job["trajectory"])["train"],
             "resumed": halo_train_rank(rank, k, device, job["trajectory"])["train"]}
+
+
+def hang_on_rank(rank: int, k: int, device: torch.device, arg: int) -> int:
+    """Every rank but ``arg`` waits in a barrier that rank ``arg`` never
+    joins (it sleeps instead), as a group whose ranks built their subgroups
+    in different orders would hang."""
+    import time
+
+    import torch.distributed as dist
+
+    if rank == arg:
+        time.sleep(120)
+    else:
+        dist.barrier()
+    return rank
+
+
+def hier_checks(rank: int, k: int, device: torch.device, job: dict) -> dict:
+    """tests/test_torch_hier_halo.py's rank body, on 2 pods × 2 ranks.
+
+    ``job``: ``plan`` (hierarchical), ``flat_plan`` (the same partition,
+    flat), ``z`` (n_local, d) and ``ct`` (k_model·B, d) this rank's blocks
+    of a test matrix and of a cotangent, ``z16`` a bf16-exact block for the
+    flat int8 wire, and three `RankJob`s: ``hier`` (forwards and first
+    gradients on the hierarchical plan), ``flat`` (the same forwards on the
+    flat plan) and ``trajectory`` (a short training run, hierarchical).
+    Returns the rank's groups, the hierarchical halo block and its
+    pull-back per (lowering, wire format) with the rows each phase received,
+    the flat int8 block of the bf16 table, and the jobs' reports."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.halo import hier_halo_exchange
+    from repro_torch.launch.distributed_gcn import halo_train_rank
+    from repro_torch.launch.mesh import halo_groups
+    from repro_torch.obs import metrics
+    from repro_torch.train.elastic import MeshPlan
+
+    plan = job["plan"]
+    groups = halo_groups(plan.n_pods)
+    mesh = MeshPlan(shape=(plan.n_pods, plan.k_model), axes=("data", "model")).build()
+    out = {"groups": [dist.get_process_group_ranks(g) for g in groups],
+           "mesh": {a: dist.get_process_group_ranks(g) for a, g in mesh.items()},
+           "pods_1_is_flat": halo_groups(1) is None,
+           "halo": {}, "dz": {}, "phase_rows": {}}
+    send_loc, send_rem = plan.rank_arrays(rank, device)[:2]
+    ct = torch.from_numpy(job["ct"]).to(device)
+    for via in VIAS:
+        for payload in PAYLOADS:
+            z = torch.from_numpy(job["z"]).to(device).requires_grad_(True)
+            registry = metrics.enable(metrics.MetricsRegistry())
+            halo = hier_halo_exchange(z, send_loc, send_rem, groups, via=via, payload=payload)
+            out["phase_rows"][via, payload] = {
+                phase: int(registry.counter("halo.wire_rows", (("phase", phase),)).value)
+                for phase in ("inter_pod", "intra_pod")}
+            metrics.disable()
+            out["halo"][via, payload] = halo.detach().numpy()
+            out["dz"][via, payload] = torch.autograd.grad(halo, z, ct, retain_graph=payload is None)[0].numpy()
+            if payload is None:
+                out["dz_ones", via] = torch.autograd.grad(halo, z, torch.ones_like(halo))[0].numpy()
+    from repro_torch.dist.halo import halo_aggregate, hier_halo_aggregate
+    from repro_torch.obs.instrument import overlap_timeline
+    from repro_torch.obs.trace import TraceRecorder
+
+    z = torch.from_numpy(job["z"]).to(device)
+    flat_arrays = job["flat_plan"].rank_arrays(rank, device)
+    out["overlap"] = {
+        "hier": (overlap_timeline(plan, z, groups, tracer=TraceRecorder(), steps=1).numpy(),
+                 hier_halo_aggregate(z, *plan.rank_arrays(rank, device), groups).numpy()),
+        "flat": (overlap_timeline(job["flat_plan"], z, None, tracer=TraceRecorder(), steps=1, payload="bf16").numpy(),
+                 halo_aggregate(z, *flat_arrays, payload="bf16").numpy())}
+    flat_send = flat_arrays[0]
+    z16 = torch.from_numpy(job["z16"]).to(device, torch.bfloat16)
+    flat16 = halo_exchange(z16, flat_send, payload="int8")
+    out["flat_int8_bf16"] = (flat16.float().numpy(), str(flat16.dtype).removeprefix("torch."))
+    out["hier"] = halo_rank(rank, k, device, job["hier"])
+    out["flat"] = halo_rank(rank, k, device, job["flat"])
+    out["trajectory"] = halo_train_rank(rank, k, device, job["trajectory"])["train"]
+    return out

@@ -285,8 +285,9 @@ def test_every_rank_reports_wire_rows_dtypes_and_no_launch(case, group):
 
 # ---------------------------------------------------------------- validation
 def test_policy_binds_flat_and_refuses_the_hierarchical_pair():
-    """bind_halo's argument errors are the reference's; the hierarchical
-    pair names the ROADMAP slice that ports it."""
+    """bind_halo's argument errors are the reference's. The hierarchical
+    pair, once refused, now binds as the reference's does; what the port
+    still refuses is exchanging it without the rank's (pod, model) groups."""
     pol = ShardingPolicy(comm="halo")
     idx = torch.zeros(3, dtype=torch.int32)
     assert not pol.is_halo and pol.bind_halo(idx).is_halo
@@ -299,8 +300,10 @@ def test_policy_binds_flat_and_refuses_the_hierarchical_pair():
         pol.bind_halo(send_loc=idx)
     with pytest.raises(ValueError, match="needs send_idx"):
         pol.bind_halo()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, port slice 5"):
-        pol.bind_halo(send_loc=idx, send_rem=idx)
+    hier = pol.bind_halo(send_loc=idx, send_rem=idx)
+    assert hier.is_halo and not pol.is_halo and hier.halo_send_idx is None
+    with pytest.raises(ValueError, match="halo_groups"):
+        hier.neighbor_table(x)
 
 
 def test_gcn_halo_argument_validation(case):

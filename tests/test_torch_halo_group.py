@@ -1,10 +1,12 @@
 """The k-rank group launcher (`repro_torch.launch.mesh`) and the command
 line of sharded training (`repro_torch.launch.distributed_gcn`): one small
-group whose rank fails on purpose, the refusals that need no group, and
+group whose rank fails on purpose, one whose rank never joins a
+collective, the refusals that need no group, and
 three training steps of the command on 4 CPU ranks (tests/test_torch_halo.py
 and tests/test_torch_halo_train.py hold the forward and the gradients
 against the reference)."""
 import multiprocessing
+import time
 
 import pytest
 
@@ -19,6 +21,19 @@ def test_group_reports_a_failing_rank():
     spec = GroupSpec(k=2, backend="gloo", devices=("cpu",), timeout_s=120)
     with pytest.raises(RuntimeError, match="(?s)rank 1 failed.*planned failure on rank 1"):
         run_group(spec, _torch_halo_ranks.fail_on_rank, [1, 1])
+    assert not multiprocessing.active_children()
+
+
+def test_group_timeout_ends_a_hung_group():
+    """A rank that never joins its group's collective (as one that built its
+    subgroups in another order than the others, which gloo does not detect)
+    ends the group with an error inside the launcher's timeout, not a hang,
+    and no process is left behind."""
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="did not finish|failed"):
+        run_group(GroupSpec(k=2, backend="gloo", devices=("cpu",), timeout_s=5), _torch_halo_ranks.hang_on_rank,
+                  [0, 0])
+    assert time.monotonic() - t0 < 60
     assert not multiprocessing.active_children()
 
 

@@ -43,6 +43,7 @@ from repro_torch.kernels.fm_interaction import fm_interaction_plain, fm_smem_byt
 from repro_torch.kernels.fused_gcn import (
     FF_F_TILE,
     MIN_TILES,
+    af_chunk,
     af_layer_plain,
     ff_aggregate_plain,
     ff_transform_plain,
@@ -405,20 +406,24 @@ int ff_aggregate(const void* vals, const int* cols, const int* ends, int R, int 
     emu_launch(grid, k2::THREADS, [&] {
         k2::ragged_layer_kernel<0, TV, TV, float, TO>((const TV*)vals, cols, ends, R, T, n_src_blocks,
                                                       (const TV*)z, f_out, ft, nullptr, b, (TO*)out,
-                                                      f_out, relu, SPLIT_PASS);
+                                                      f_out, relu, SPLIT_PASS, nullptr);
     });
     return 0;
 }
 
+// F_in in chunks of ft columns (fused_gcn.cu's af_layer), each block's
+// running output sum in osum when f_in > ft.
 template <typename TV, typename TX, typename TW>
 int af_layer(const void* vals, const int* cols, const int* ends, int R, int T,
-             int n_src_blocks, const void* x, int f_in, const void* w,
-             const float* b, void* out, int f_out, int relu, SPLIT_ARGS) {
-    if (k2::kernel_smem_bytes<1, TX, TX>(f_in) > (long long)sizeof(k2::smem)) return 1;
+             int n_src_blocks, const void* x, int f_in, int ft, const void* w,
+             const float* b, void* out, int f_out, int relu, SPLIT_ARGS, float* osum) {
+    if (k2::kernel_smem_bytes<1, TX, TX>(ft) > (long long)sizeof(k2::smem)) return 1;
+    if (ft < 1 || ft > f_in) return 1;
+    if (f_in > ft && (ft % k2::NC || osum == nullptr)) return 1;
     emu_launch(dim3(grid_x, 1), k2::THREADS, [&] {
         k2::ragged_layer_kernel<1, TV, TX, TW, TX>((const TV*)vals, cols, ends, R, T, n_src_blocks,
-                                                   (const TX*)x, f_in, f_in, (const TW*)w, b,
-                                                   (TX*)out, f_out, relu, SPLIT_PASS);
+                                                   (const TX*)x, f_in, ft, (const TW*)w, b,
+                                                   (TX*)out, f_out, relu, SPLIT_PASS, osum);
     });
     return 0;
 }
@@ -440,10 +445,11 @@ extern "C" {
                                     ft, relu, grid_x, SPLIT_PASS);                          \
     }                                                                                       \
     int emu_af_layer##SFX(const void* vals, const int* cols, const int* ends, int R, int T, \
-                          int n_src_blocks, const void* x, int f_in, const void* w,         \
-                          const float* b, void* out, int f_out, int relu, SPLIT_ARGS) {     \
-        return af_layer<TV, TX, TW>(vals, cols, ends, R, T, n_src_blocks, x, f_in, w, b,    \
-                                    out, f_out, relu, grid_x, SPLIT_PASS);                  \
+                          int n_src_blocks, const void* x, int f_in, int ft, const void* w, \
+                          const float* b, void* out, int f_out, int relu, SPLIT_ARGS,       \
+                          float* osum) {                                                    \
+        return af_layer<TV, TX, TW>(vals, cols, ends, R, T, n_src_blocks, x, f_in, ft, w,   \
+                                    b, out, f_out, relu, grid_x, SPLIT_PASS, osum);         \
     }
 
 EMU_K2(, float, float, float)
@@ -462,7 +468,7 @@ EMU_K2(_bf16_all, bf16, bf16, bf16)
             k2::ragged_layer_kernel<2, TV, TZ, float, TZ>((const TV*)vals, cols, ends, R, T,    \
                                                           n_src_blocks, (const TZ*)z, f, ft,    \
                                                           nullptr, nullptr, (TZ*)out, f, 0,     \
-                                                          SPLIT_PASS);                          \
+                                                          SPLIT_PASS, nullptr);                 \
         });                                                                                     \
         return 0;                                                                               \
     }
@@ -665,7 +671,7 @@ def emu(tmp_path_factory):
     for sfx in SUFFIXES.values():
         getattr(lib, f"emu_ff_transform{sfx}").argtypes = [P, P, P, I, I, I, I]
         getattr(lib, f"emu_ff_aggregate{sfx}").argtypes = [P, P, P, I, I, I, P, P, P, I, I, I, *split]
-        getattr(lib, f"emu_af_layer{sfx}").argtypes = [P, P, P, I, I, I, P, I, P, P, P, I, I, *split]
+        getattr(lib, f"emu_af_layer{sfx}").argtypes = [P, P, P, I, I, I, P, I, I, P, P, P, I, I, *split, P]
     for sfx in K1_SUFFIXES.values():
         getattr(lib, f"emu_bsr_spmm{sfx}").argtypes = [P, P, P, I, I, I, P, P, I, I, *split]
     for name in ("emu_layer_smem_bytes", "emu_layer_smem_bytes_bf16"):
@@ -704,7 +710,7 @@ def _ff_transform(lib, x, w, z_dtype=F32, blocks=None):
 GRID, SPLIT_MIN = 4, 1
 
 
-def _split_args(cols, lens, ft, grid_y, grid, row_weight, min_tiles):
+def _split_args(cols, lens, ft, grid_y, grid, row_weight, min_tiles, chunks=1):
     """The ragged launchers' ``ends`` and split arguments, as the wrapper
     builds them (`fused_gcn._split_args`), with the workspace poisoned (NaN
     partials, NaN bf16 products) so that a slot read before it is written
@@ -712,20 +718,21 @@ def _split_args(cols, lens, ft, grid_y, grid, row_weight, min_tiles):
     R, T = cols.shape
     ftp = -(-ft // 16) * 16
     ends = torch.cumsum(lens.clamp(0, T) + row_weight, 0, dtype=torch.int32)
-    part = torch.full((2 * grid * grid_y * 128 * ftp,), float("nan"))
+    part = torch.full((2 * grid * grid_y * chunks * 128 * ftp,), float("nan"))
     arrivals = torch.zeros(R * grid_y, dtype=torch.int32)
     prods = torch.full((max(R * (T + row_weight), 1) * grid_y * 128 * ftp,), -1, dtype=torch.int16)  # bf16 NaN
     return (ends, part, arrivals, prods), _p(ends), (grid, row_weight, min_tiles, _p(part), _p(arrivals), _p(prods))
 
 
-def _ragged_call(lib, name, cols, lens, ft, grid_y, head, grid, row_weight, min_tiles, order):
+def _ragged_call(lib, name, cols, lens, ft, grid_y, head, grid, row_weight, min_tiles, order, chunks=1, tail=()):
     """One emulated ragged launch: ``head`` is the launcher's arguments
-    before the split ones, without ``ends`` (which follows vals and cols);
-    blocks run in the order seeded by ``order`` (0: index order)."""
-    _keep, ends, split = _split_args(cols, lens, ft, grid_y, grid, row_weight, min_tiles)
+    before the split ones, without ``ends`` (which follows vals and cols),
+    ``tail`` those after them; blocks run in the order seeded by ``order``
+    (0: index order)."""
+    _keep, ends, split = _split_args(cols, lens, ft, grid_y, grid, row_weight, min_tiles, chunks)
     lib.emu_set_block_order(order)
     try:
-        rc = getattr(lib, name)(*head[:2], ends, *head[2:], *split)
+        rc = getattr(lib, name)(*head[:2], ends, *head[2:], *split, *tail)
     finally:
         lib.emu_set_block_order(0)
     assert rc == 0
@@ -744,14 +751,20 @@ def _ff_aggregate(lib, vals, cols, lens, z, b, relu, out_dtype=F32, grid=GRID, m
     return out
 
 
-def _af_layer(lib, vals, cols, lens, x, w, b, relu, grid=GRID, min_tiles=SPLIT_MIN, order=0, row_weight=1):
+def _af_layer(lib, vals, cols, lens, x, w, b, relu, grid=GRID, min_tiles=SPLIT_MIN, order=0, row_weight=1,
+              ft=None):
+    """The emulated aggregation-first layer, F_in in the wrapper's chunks
+    (`af_chunk`) or in chunks of ``ft`` columns, the running output sums
+    NaN-poisoned (the first chunk must not read them)."""
     sfx = SUFFIXES[(vals.dtype, x.dtype, w.dtype)]
     R, T = cols.shape
     f_in, f_out = w.shape
+    ft, chunks = af_chunk(f_in) if ft is None else (ft, -(-f_in // ft))
     out = torch.full((R * 128, f_out), float("nan"), dtype=x.dtype)
-    _ragged_call(lib, f"emu_af_layer{sfx}", cols, lens, f_in, 1,
-                 (_p(vals), _p(cols), R, T, x.shape[0] // 128, _p(x), f_in, _p(w), _p(b), _p(out), f_out,
-                  int(relu)), grid, row_weight, min_tiles, order)
+    osum = torch.full((grid * 128 * f_out if chunks > 1 else 1,), float("nan"))
+    _ragged_call(lib, f"emu_af_layer{sfx}", cols, lens, ft, 1,
+                 (_p(vals), _p(cols), R, T, x.shape[0] // 128, _p(x), f_in, ft, _p(w), _p(b), _p(out), f_out,
+                  int(relu)), grid, row_weight, min_tiles, order, chunks, (_p(osum),))
     return out
 
 
@@ -1232,6 +1245,54 @@ def test_emulated_split_two_feature_tiles(emu, inst):
     each with its own workspace slots and counters; 16-byte staging."""
     out, ref, _ = _run_split(emu, inst, [13, 1, 2, 1, 3], 4, 1, f=72, order=3)
     _hold_split(inst, out, ref)
+
+
+AF = [p for p in RAGGED if p.id.startswith("af")]
+
+
+@pytest.mark.parametrize("f", [241, 256, 481])
+@pytest.mark.parametrize("inst", AF)
+def test_emulated_af_wide_split_matches_plain(emu, inst, f):
+    """F_in past one chunk (2, 2 and 3 chunks of `af_chunk`) on a table whose
+    long row splits over three blocks, NaN in the padding tiles and in the
+    running output sums before their first write: the plain version, and
+    act(b) on the empty block-row."""
+    lens = [9, 1, 0, 2, 1]
+    out, ref, empty = _run_split(emu, inst, lens, 5, 1, f=f, order=3, seed=f)
+    assert af_chunk(f)[1] > 1
+    assert torch.isfinite(out.float()).all()
+    _hold_split(inst, out, ref)
+    assert torch.equal(out[2 * 128:3 * 128], empty.expand(128, -1))
+
+
+@pytest.mark.parametrize("inst", AF)
+def test_emulated_af_wide_bits_do_not_depend_on_block_order(emu, inst):
+    """At F_in = 481 (three chunks), rows split over blocks give the same
+    bits whichever block arrives last: each chunk's partials are added in
+    block order."""
+    lens = [6, 1, 3, 0, 2]
+    outs = [_run_split(emu, inst, lens, 13, 1, f=481, order=order, seed=4)[0] for order in (0, 5, 9)]
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+@pytest.mark.parametrize("grid", [1, 4])
+@pytest.mark.parametrize("inst", AF)
+def test_emulated_af_wide_chunks_keep_one_chain_over_k(emu, inst, grid):
+    """Chunking F_in does not change a bit: at F_in = 96 the layer in three
+    chunks of 32 equals the layer in one pass, with rows whole (one block)
+    and split (four blocks): each chunk's aggregate is the one-pass
+    aggregate's columns, and the product with W continues one FMA chain over
+    k through the running output sum."""
+    kind, (vd, xd, wd) = inst
+    poisoned, _, cols, lens = _split_table([6, 1, 3, 0, 2], seed=8)
+    r = np.random.default_rng(9)
+    x = torch.from_numpy(r.standard_normal((5 * 128, 96)).astype(np.float32)).to(xd)
+    w = torch.from_numpy((0.2 * r.standard_normal((96, 40))).astype(np.float32)).to(wd)
+    b = torch.from_numpy(r.standard_normal(40).astype(np.float32))
+    pv = poisoned.to(vd).contiguous()
+    one = _af_layer(emu, pv, cols, lens, x, w, b, True, grid=grid)
+    three = _af_layer(emu, pv, cols, lens, x, w, b, True, grid=grid, ft=32)
+    assert torch.isfinite(one.float()).all() and torch.equal(three, one)
 
 
 @pytest.mark.parametrize("combo", K1_BF16)

@@ -304,16 +304,67 @@ def test_wrapper_rejects_what_the_kernels_do_not_take():
 
 
 def test_aggregation_first_width_limit():
-    """The aggregation-first kernel keeps a 128 × F_in accumulator in shared
-    memory; past its limit it raises instead of failing to launch."""
+    """The aggregation-first kernel aggregates at most `AF_MAX_F_IN` columns
+    of F_in at once (its shared-memory accumulator) and takes a wider F_in in
+    chunks; the only width it refuses is the reference's: resident =
+    4·(F_in·F_out + 2·128·F_in + 128·F_out + 128²) > 14e6, with the
+    reference's message (at F_out = 128: F_in 9,029 runs, 9,030 raises)."""
     assert fg.layer_smem_bytes(fg.AF_MAX_F_IN) <= fg.SMEM_LIMIT < fg.layer_smem_bytes(fg.AF_MAX_F_IN + 1)
     assert fg.AF_MAX_F_IN >= 210
     ba, _, _, _ = _case()
     vals, cols, lens = ba.arrays(device="cpu")
-    f_in = fg.AF_MAX_F_IN + 1
-    with pytest.raises(ValueError, match="F_in"):
-        fg.af_layer(vals, cols, lens, torch.zeros((ba.n_col_padded, f_in)), torch.zeros((f_in, 4)),
-                    torch.zeros(4))
+    for f_in, f_out in ((fg.AF_MAX_F_IN + 1, 4), (1433, 128), (9029, 128)):
+        # Past the width check: a CPU tensor then reaches the device check.
+        with pytest.raises(ValueError, match="launches a CUDA kernel"):
+            fg.af_layer(vals, cols, lens, torch.zeros((ba.n_col_padded, f_in)), torch.zeros((f_in, f_out)),
+                        torch.zeros(f_out))
+    for f_in, f_out in ((9030, 128), (241, 20_000)):
+        with pytest.raises(ValueError, match="VMEM-resident"):
+            fg.af_layer(vals, cols, lens, torch.zeros((ba.n_col_padded, f_in)), torch.zeros((f_in, f_out)),
+                        torch.zeros(f_out))
+
+
+def test_aggregation_first_resident_error_matches_jax(jx):
+    """`ops.fused_gcn_layer(order="aggregation_first")` raises where the
+    reference raises, with its message, on the CPU too; feature-first takes
+    the same widths."""
+    ba, _, _, _ = _case(n=130, e=300)
+    vals, cols, lens = ba.arrays(device="cpu")
+    for f_in, f_out in ((9030, 128), (4000, 1000)):
+        x, w, b = np.zeros((130, f_in), np.float32), np.zeros((f_in, f_out), np.float32), np.zeros(f_out, np.float32)
+        with pytest.raises(ValueError) as want:
+            jx.ops.fused_gcn_layer(*[jx.jnp.asarray(a) for a in (ba.block_vals, ba.block_cols, ba.row_nnzb, x, w, b)],
+                                   order="aggregation_first")
+        with pytest.raises(ValueError) as got:
+            fused_gcn_layer(vals, cols, lens, *(torch.from_numpy(a) for a in (x, w, b)), order="aggregation_first")
+        assert str(got.value) == str(want.value)
+
+
+def test_af_chunk_geometry():
+    """`af_chunk`: one chunk of F_in up to `AF_MAX_F_IN`; past it the fewest
+    chunks, of one width that is a multiple of 16 and fits shared memory,
+    covering F_in with a narrower last chunk."""
+    assert fg.af_chunk(16) == (16, 1) and fg.af_chunk(fg.AF_MAX_F_IN) == (fg.AF_MAX_F_IN, 1)
+    for f_in in (241, 256, 300, 481, 1433, 5414, 9029):
+        ft, n = fg.af_chunk(f_in)
+        assert ft % 16 == 0 and ft <= fg.AF_MAX_F_IN and n == -(-f_in // fg.AF_MAX_F_IN)
+        assert (n - 1) * ft < f_in <= n * ft
+        assert fg.layer_smem_bytes(ft) <= fg.SMEM_LIMIT
+    assert fg.af_chunk(241) == (128, 2) and fg.af_chunk(1433) == (240, 6) and fg.af_chunk(9029) == (240, 38)
+
+
+@pytest.mark.parametrize("f_in", [241, 300])
+@pytest.mark.parametrize("relu", [True, False])
+def test_wide_aggregation_first_matches_jax(jx, f_in, relu):
+    """Aggregation-first past one chunk of the kernel (F_in > `AF_MAX_F_IN`):
+    the port's layer on the CPU (its plain version) against the reference's
+    interpret-mode `fused_gcn_layer(order="aggregation_first")` at the bsr
+    tolerance; n = 260 (a tail block), F_out = 9."""
+    ba, x, w, b = _case(n=260, e=1200, d_in=f_in, d_out=9, seed=f_in)
+    ref = jx.ops.fused_gcn_layer(*[jx.jnp.asarray(a) for a in (ba.block_vals, ba.block_cols, ba.row_nnzb, x, w, b)],
+                                 order="aggregation_first", relu=relu)
+    out = fused_gcn_layer(*_torch_args(ba, x, w, b), order="aggregation_first", relu=relu)
+    _close(out[:260], np.asarray(ref)[:260])
 
 
 # ------------------------------------------------ the ragged kernels' split schedule
@@ -405,6 +456,27 @@ def test_cuda_aggregation_first_widths(cuda, d_in):
     ba, x, w, b = _case(d_in=d_in, d_out=24, seed=d_in)
     out = fused_gcn_layer(*_torch_args(ba, x, w, b, cuda), order="aggregation_first")
     _close(out.cpu(), fused_gcn_layer(*_torch_args(ba, x, w, b), order="aggregation_first"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combo", [pytest.param((F32, F32, F32), id="f32"), *BF16_COMBOS])
+@pytest.mark.parametrize("d_in", [241, 481, 1433])
+def test_cuda_wide_aggregation_first(cuda, d_in, combo):
+    """F_in past one chunk: the kernel against its plain version (fp32
+    within 2e-5 of max, bf16 operands within 5e-2), the same bits on a
+    second call."""
+    vd, xd, wd = combo
+    ba, x, w, b = _case(n=600, e=4000, d_in=d_in, d_out=128, seed=d_in)
+    vals, cols, lens, xt, wt, bt = _torch_args(ba, x, w, b, cuda)
+    vals, xt, wt = vals.to(vd).contiguous(), xt.to(xd), wt.to(wd)
+    xp = torch.cat([xt, xt.new_zeros((ba.n_col_padded - xt.shape[0], d_in))])
+    out, again = fg.af_layer(vals, cols, lens, xp, wt, bt), fg.af_layer(vals, cols, lens, xp, wt, bt)
+    ref = fg.af_layer_plain(vals, cols, lens, xp, wt, bt)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    scale = float(ref.float().abs().max())
+    tol = 2e-5 if xd == F32 else BF16_TOL
+    assert float((out.float() - ref.float()).abs().max()) <= tol * scale
 
 
 @pytest.mark.cuda

@@ -6,8 +6,9 @@ import pytest
 import torch
 
 from repro.core.quant import fake_quant as j_fake_quant
+from repro.core.quant import quantize_payload as j_quantize_payload
 from repro.graph import ops as j_ops
-from repro_torch.core.quant import QuantConfig, fake_quant
+from repro_torch.core.quant import QuantConfig, fake_quant, quantize_payload
 from repro_torch.graph import ops
 
 
@@ -56,6 +57,20 @@ def test_quant_config_matches_reference_defaults():
     q = QuantConfig()
     assert (q.weight_bits, q.act_bits, q.enabled, q.act_percentile) == (4, 4, True, 99.9)
     assert q.replace(act_bits=8).act_bits == 8
+
+
+@pytest.mark.parametrize("draw", range(5))
+def test_int8_payload_codes_on_bf16_input_match_jax(draw):
+    """The int8 wire codes of a bf16 export block equal the reference's bit
+    for bit: the division x / scale runs in fp32 in both packages (the
+    reference promotes bf16 x against the fp32 scale), and the scale is the
+    same. Five 300 × 16 draws of 3·N(0,1), numpy seed 0."""
+    x = (3.0 * np.random.default_rng(0).standard_normal((5, 300, 16))).astype(np.float32)[draw]
+    q_ref, s_ref = j_quantize_payload(jnp.asarray(x).astype(jnp.bfloat16), "int8")
+    q, s = quantize_payload(torch.from_numpy(x).to(torch.bfloat16), "int8")
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    np.testing.assert_array_equal(s.numpy(), np.asarray(s_ref))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(q_ref))
 
 
 def _edges():
