@@ -27,6 +27,12 @@ in layer 2's backward, K1 on the same table — under the bf16 wire its
 bf16 instantiation (``k1_bsr_spmm_bf16``, the running sum rounded to
 bf16 per tile as the TPU kernel does). Weights are random, from a seed.
 
+The same model serves node queries at Nell (`GraphBatcher`: sampled
+2-hop blocks, the hot-neighbor cache, plain torch on the card) while the
+graph mutates, and the sharded bsr forward and training follow a mutating
+graph: every rank keeps its own `DeltaPlanner` replica and its own rank
+tables, tile-patched or rebuilt per delta, with K1 and K2 on them.
+
 A fifth path, DeepFM (arXiv:1703.04247) at its full widths (39 fields,
 embed_dim 10, MLP 400-400-400, 1,000,000 rows per field: a 39 M × 10
 table), serves, retrieves and trains with its FM term in the CUDA kernel of
@@ -145,6 +151,44 @@ Phases, one JSON line each; any failed check ends the run with exit code 1:
   obs      the two overlap traces (a wire span encloses an interior span,
            on the wire track), and torch_profiler_trace around K1 and K2
            launches: one trace file that names the kernels
+  serve_graph  `GraphBatcher` on the card over the whole Nell graph with the
+           reference serve CLI's defaults (batch_seeds 8, fanout 4, cache
+           256, 4 parts; quant forced off): 512 hot_query_stream queries in
+           waves of 32, a cache-off twin serving the same stream; halfway
+           the CLI's churn burst (8 deltas of 2 % of the edges) to both
+           engines and to a mirrored DeltaPlanner under a RelocalizePolicy
+           (threshold 1.30 from this burst's drift readings) whose fire the
+           engines adopt. Cache on = cache off (1e-5 of max |logit|) before
+           and after the burst, and = a fresh cache-less engine on the
+           mutated graph; strictly fewer nodes + edges sampled per query
+           with the cache; one forward shape per engine; the policy fired.
+           p50/p99, queries/s, nodes and edges per query (on, off), hit
+           rate, residents, rows and bytes saved, each delta's
+           apply_graph_delta ms with residents dropped, the planner's
+           apply_ms, the drift readings and fires; the profiler's device
+           share of one wave
+  delta    (prepared while the unsharded table is still on the card) one
+           DeltaPlanner replica makes the script — a tile-patch delta (64
+           deletes, 64 inserts inside devices), a structural one (the flat
+           pad grows), rewiring deltas (the reference test's form at 1 % of
+           E) under a RelocalizePolicy (threshold 1.20) until it fires, one
+           more, then compact — and the data phase's global table, patched
+           through the same deltas (delta_update_blocked_adjacency), gives
+           the unsharded bsr forward at every stage and the AdamW losses.
+           Then the 4 ranks (gloo, one card), each with its own replica, flat
+           and 2 × 2 plans and its own rank tables (its tiles, every rank's
+           index), run at every stage the bsr forward of both schedules
+           against the unsharded one (1e-4 of max |logit|), launches counted
+           from zero; rank 0 holds its tables against fresh builds (tile for
+           tile; after compact array-equal at the shared width) and runs
+           K1 and K2 on its patched table against their plain versions and
+           with NaN padding; 3 AdamW steps after the tile-patch delta and
+           3 after the structural one against the unsharded losses (1e-4);
+           the plan checksums of all ranks and the replica agree; the
+           executed tiles fall at the fire; the blocks moved by
+           relocate_state_tree are bit-exact. Apply, patch, rebuild and
+           relocalize ms per rank, forward ms per stage and schedule, step
+           ms before and after, peak memory per rank, table host bytes
 
   deepfm_kernels  (d1) K3 against its plain version on the card at the
            recsys shapes serve_p99 (512), train_batch (65,536) and
@@ -203,7 +247,8 @@ then the card's name and power limit (nvidia-smi), the ``{"kernels": [...]}``
 line, and as the last line ``{"ok": true, "device": {...}}``. A kernel's
 ``launches`` there is its count over the main-path runs (inference
 forwards, training steps, the halo forwards and the halo training steps
-of all ranks, flat and hierarchical; for K3 the DeepFM serving requests and training steps; for
+of all ranks, flat and hierarchical, and the delta phase's forwards and
+steps of all ranks; for K3 the DeepFM serving requests and training steps; for
 K4 the LM prefills and the batcher's decode steps), each counted with the
 counts zeroed just before and read just after.
 """
@@ -305,6 +350,24 @@ AF_WIDE_F_IN = (241, 1433, 9029)   # af_wide: past one chunk; Cora's width (Tabl
 AF_WIDE_F_OUT = 128
 AF_WIDE_RTOL = 2e-5            # af_wide: fp32 kernel vs plain, · max |plain|
 AF_WIDE_BF16_RTOL = 5e-2       # af_wide: bf16 operands vs plain, · max |plain| (the parity contract's bf16 rule)
+
+SERVE_QUERIES, SERVE_WAVE = 512, 32   # serve_graph: hot_query_stream queries, submitted in waves
+SERVE_BATCH_SEEDS, SERVE_FANOUT = 8, 4    # the reference serve CLI's defaults
+SERVE_CACHE, SERVE_PARTS = 256, 4
+SERVE_CHURN_ROUNDS = 8         # the reference CLI's burst: 8 deltas of 2 % of the edges (default_rng(2))
+SERVE_RELOCALIZE = dict(threshold=1.30, patience=2, cooldown=3)   # the CLI's patience and cooldown; the
+                               # threshold sits inside this burst's drift readings at Nell (1.2613, 1.2966,
+                               # 1.3290, 1.3624, ... with no policy armed): the policy fires on the 4th delta
+SERVE_LOGIT_RTOL = 1e-5        # cache on vs off, vs a fresh cache-less engine: · max |logit| (the reference's 1e-5)
+
+DELTA_PATCH_OPS = 64           # delta: the tile-patch delta deletes 64 edges and inserts 64 inside devices
+DELTA_MEMBERS, DELTA_MAX_EDGES = 200, 2000   # the rewiring burst (the reference test's form at 1 % of E)
+DELTA_RELOCALIZE = dict(threshold=1.20, patience=2, cooldown=3)   # the burst's drift readings at Nell:
+                               # 1.0851, 1.1113, 1.1390, 1.1721, 1.2287, 1.2541, ...: fires on the 6th delta
+DELTA_MAX_BURST = 12
+DELTA_TRAIN_STEPS = (3, 3)     # AdamW steps after the tile-patch delta and after the structural one
+DELTA_LAUNCHES_PER_FORWARD = {"k1_bsr_spmm": 1, "k2_af_layer": 1}      # per schedule, as HALO_LAUNCHES["a_fp32"]
+DELTA_LAUNCHES_PER_STEP = {"k1_bsr_spmm": 2, "k2_af_layer": 1}
 
 
 def emit(phase: str, **fields) -> None:
@@ -521,7 +584,9 @@ def load_graph(device: torch.device) -> dict:
     return dict(spec=spec, n=g.n_nodes, vals=vals, cols=cols, lens=lens, pg=pg, x=x,
                 labels=torch.from_numpy(relocate_rows(perm, g.labels)).to(device),
                 test=torch.from_numpy(test).to(device),
+                ba=ba,
                 host=dict(edge_index=gs.edge_index, weights=weights, features=g.features, perm=perm,
+                          raw_edge_index=g.edge_index,
                           labels=g.labels, train_mask=restore_rows(perm, ~test).astype(np.float32)))
 
 
@@ -1686,6 +1751,336 @@ def run_elastic(host: dict, halo: dict, hier: dict, ckpt_dir: str, device: torch
     require(ok, "elastic", f"checks {checks}")
 
 
+def run_serve_graph(host: dict, device: torch.device) -> None:
+    """`GraphBatcher` serving at Nell on the card, with the reference serve
+    CLI's defaults (batch_seeds 8, fanout 4, cache 256, 4 parts; quant off,
+    as the engine forces it): SERVE_QUERIES degree-weighted queries in
+    waves, a cache-off twin serving the same stream; halfway, the CLI's
+    churn burst (8 deltas of 2 % of the edges) to both engines and to a
+    mirrored `DeltaPlanner` under a `RelocalizePolicy`, whose fires the
+    engines adopt. Checks: cache on = cache off (SERVE_LOGIT_RTOL of max
+    |logit|) before and after the burst, and = a fresh cache-less engine
+    on the mutated graph after it; strictly fewer sampled nodes + edges
+    per query with the cache; one forward shape per engine; the policy
+    fired."""
+    from repro_torch.configs.coin_gcn import make_config
+    from repro_torch.core.partition import partition_graph
+    from repro_torch.dist.delta import DeltaPlanner, RelocalizePolicy
+    from repro_torch.graph.structure import GraphData
+    from repro_torch.launch.serve import churn_delta
+    from repro_torch.models.gcn import gcn_init
+    from repro_torch.serve.graph import GraphBatcher, hot_query_stream
+
+    t_phase = time.perf_counter()
+    ei = host["raw_edge_index"]
+    n = len(host["labels"])
+    graph = GraphData(n, ei, features=np.asarray(host["features"], np.float32), labels=host["labels"])
+    cfg = make_config(dataset=DATASET)
+    params = gcn_init(torch.Generator().manual_seed(SEED), cfg, device=device)
+    part = partition_graph(n, ei, SERVE_PARTS, method="bfs", seed=SEED, refine=True)
+
+    def engine(cache: int, g=graph, partition=part):
+        return GraphBatcher(params, g, cfg, batch_seeds=SERVE_BATCH_SEEDS, fanout=SERVE_FANOUT,
+                            cache_capacity=cache, partition=partition, seed=SEED, device=device)
+
+    on, off = engine(SERVE_CACHE), engine(0)
+    planner = DeltaPlanner(part, ei, graph_key="serve-nell",
+                           relocalize_policy=RelocalizePolicy(**SERVE_RELOCALIZE))
+    nodes = hot_query_stream(graph, SERVE_QUERIES, seed=SEED + 1)
+    half = SERVE_QUERIES // 2
+    serve_s = {"on": 0.0, "off": 0.0}
+
+    def serve(engines: dict, queue) -> dict:
+        """Serve ``queue`` in waves on every engine; the logits per position."""
+        got = {name: [] for name in engines}
+        for i in range(0, len(queue), SERVE_WAVE):
+            for name, e in engines.items():
+                t0 = time.perf_counter()
+                start = len(e.finished)
+                for v in queue[i:i + SERVE_WAVE]:
+                    e.submit(int(v))
+                e.run_until_drained()
+                serve_s[name] = serve_s.get(name, 0.0) + time.perf_counter() - t0
+                got[name] += [q.logits for q in sorted(e.finished[start:], key=lambda q: q.qid)]
+        return {name: np.stack(v) for name, v in got.items()}
+
+    def rel_err(a, b) -> float:
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    first = serve({"on": on, "off": off}, nodes[:half])
+    burst = []
+    churn = np.random.default_rng(SEED + 2)
+    for _ in range(SERVE_CHURN_ROUNDS):
+        delta = churn_delta(planner, churn, n)
+        t0 = time.perf_counter()
+        eng = on.apply_graph_delta(delta)
+        engine_ms = (time.perf_counter() - t0) * 1e3
+        off.apply_graph_delta(delta)
+        rep = planner.apply(delta)
+        fired = rep["relocalized"] is not None
+        if fired:
+            on.adopt_partition(planner.part)
+            off.adopt_partition(planner.part)
+        burst.append(dict(inserts=rep["inserts"], deletes=rep["deletes"], apply_ms=rep["apply_ms"],
+                          drift_ratio=rep["drift"]["drift_ratio"], fired=fired,
+                          relocalize_ms=rep["relocalized"]["relocalize_ms"] if fired else None,
+                          apply_graph_delta_ms=engine_ms, residents_before=eng["residents_before"],
+                          residents_dropped=eng["residents_dropped"]))
+    second = serve({"on": on, "off": off}, nodes[half:])
+    fresh = engine(0, g=on.graph, partition=planner.part)
+    fresh_out = serve({"fresh": fresh}, nodes[half:])["fresh"]
+    # The card's share of one wave of the cache-on engine (host sampling, the
+    # forward's few small kernels), outside the counted stream.
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs.trace import device_time_summary
+
+    probe = engine(SERVE_CACHE, g=on.graph, partition=planner.part)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for v in nodes[:SERVE_WAVE]:
+            probe.submit(int(v))
+        probe.run_until_drained()
+        torch.cuda.synchronize()
+    wave_profile = device_time_summary(list(prof.events()), 1, top=6)
+    s_on, s_off = on.stats(), off.stats()
+    fires = sum(b["fired"] for b in burst)
+    errs = dict(before=rel_err(first["on"], first["off"]), after=rel_err(second["on"], second["off"]),
+                after_vs_fresh=rel_err(second["on"], fresh_out))
+    checks = dict(
+        cache_on_equals_off_before=errs["before"] <= SERVE_LOGIT_RTOL,
+        cache_on_equals_off_after=errs["after"] <= SERVE_LOGIT_RTOL,
+        cache_on_equals_fresh_after=errs["after_vs_fresh"] <= SERVE_LOGIT_RTOL,
+        fewer_sampled_with_cache=(on.nodes_sampled + on.edges_sampled) < (off.nodes_sampled + off.edges_sampled),
+        one_forward_shape=on.traces == off.traces == fresh.traces == 1,
+        policy_fired=fires >= 1,
+        finite=all(np.isfinite(v).all() for v in (*first.values(), *second.values(), fresh_out)),
+        served_all=s_on["queries"] == s_off["queries"] == SERVE_QUERIES)
+    ok = all(checks.values())
+    c = s_on["cache"]
+    emit("serve_graph", ok=ok, checks=checks, queries=SERVE_QUERIES, wave=SERVE_WAVE,
+         batch_seeds=SERVE_BATCH_SEEDS, fanout=SERVE_FANOUT, cache_capacity=SERVE_CACHE, parts=SERVE_PARTS,
+         n_nodes=n, n_edges=int(ei.shape[1]), micro_batches=s_on["micro_batches"], traces=s_on["traces"],
+         p50_ms=s_on["p50_ms"], p99_ms=s_on["p99_ms"], p50_ms_cache_off=s_off["p50_ms"],
+         p99_ms_cache_off=s_off["p99_ms"], queries_per_s=SERVE_QUERIES / serve_s["on"],
+         queries_per_s_cache_off=SERVE_QUERIES / serve_s["off"],
+         nodes_per_query=dict(on=s_on["nodes_per_query"], off=s_off["nodes_per_query"]),
+         edges_per_query=dict(on=s_on["edges_per_query"], off=s_off["edges_per_query"]),
+         hit_rate=c["hit_rate"], hits=c["hits"], misses=c["misses"], residents=c["resident"],
+         evictions=c["evictions"], rows_saved=c["rows_saved"], bytes_saved=c["bytes_saved"],
+         residents_dropped=c["nodes_dropped"], foreign_rows=s_on["foreign_rows"],
+         max_rel_logit_diff=errs, logit_rtol=SERVE_LOGIT_RTOL, policy=SERVE_RELOCALIZE, fires=fires,
+         drift_readings=[b["drift_ratio"] for b in burst], burst=burst,
+         residual_drift=planner.locality_drift()["drift_ratio"],
+         profile_one_wave=dict(micro_batches=probe.micro_batches, **wave_profile),
+         timing="host clock; p50/p99 per query from submit to logits, a wave submitted at once",
+         seconds=time.perf_counter() - t_phase)
+    require(ok, "serve_graph", f"checks {checks}")
+
+
+def prepare_delta(data: dict, halo: dict) -> dict:
+    """The delta phase's script and its unsharded references, made while
+    the unsharded table is still here: `mutation_script` on a replica of
+    the ranks' planner (flat and 2 × 2 plans of the plan phase's
+    partition), then, on the data phase's global table patched through the
+    same deltas by `delta_update_blocked_adjacency` (in the locality
+    order), the unsharded bsr forward (fp32, quant off) at every stage
+    and the AdamW losses across the structural delta."""
+    from repro_torch.configs.coin_gcn import make_config
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.dist.delta import GraphDelta, apply_delta_to_graph, delta_update_blocked_adjacency
+    from repro_torch.graph.structure import GraphData, permute_edge_index, restore_rows, to_padded
+    from repro_torch.launch.distributed_gcn import mutation_script
+    from repro_torch.models.gcn import gcn_forward, gcn_init, gcn_loss
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.train.optimizer import adamw
+
+    t0 = time.perf_counter()
+    host, device = data["host"], data["x"].device
+    script = mutation_script(halo["part"], host["edge_index"], host["weights"], pods=HIER_PODS, seed=SEED,
+                             patch_ops=DELTA_PATCH_OPS, members=DELTA_MEMBERS, max_edges=DELTA_MAX_EDGES,
+                             policy=DELTA_RELOCALIZE, max_burst=DELTA_MAX_BURST, graph_key="delta-nell")
+    script_s = time.perf_counter() - t0
+    perm = host["perm"]
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.size)
+    ba = data["ba"]
+    cur = GraphData(data["n"], permute_edge_index(perm, host["edge_index"]), edge_weight=host["weights"])
+    cfg = dataclasses.replace(make_config(dataset=DATASET), backend="bsr", quant=QuantConfig(enabled=False))
+    params = gcn_init(torch.Generator().manual_seed(SEED), cfg, device=device)
+    mask = (~data["test"]).float()
+    burst, fired = script["burst"], script["fired_at"]
+    steps_between = {"v0": (), "delta1": script["deltas"][:1], "delta2": script["deltas"][1:],
+                     "relocalized": burst[:fired], "compact": burst[fired:]}
+    refs, patch_ms, widths, batches = {}, [], [], {}
+    for name, deltas in steps_between.items():
+        for d in deltas:
+            dp = GraphDelta(edge_inserts=inv[d.edge_inserts], edge_deletes=inv[d.edge_deletes], insert_w=d.insert_w)
+            cur = apply_delta_to_graph(cur, dp)
+            t1 = time.perf_counter()
+            delta_update_blocked_adjacency(ba, cur.edge_index, cur.edge_weight, dp)
+            patch_ms.append((time.perf_counter() - t1) * 1e3)
+        widths.append(ba.max_nnzb)
+        pg = to_padded(cur, device=device)
+        adjacency = ba.arrays(device=device)
+        with torch.inference_mode():
+            logits = gcn_forward(params, data["x"], pg.senders, pg.receivers, pg.edge_weight, cfg, adjacency=adjacency)
+        refs[name] = restore_rows(perm, logits.cpu().numpy())
+        if name in ("delta1", "delta2"):
+            batches[name] = dict(s=pg.senders, r=pg.receivers, w=pg.edge_weight, adj=adjacency)
+        else:
+            del adjacency
+        del pg
+        torch.cuda.empty_cache()
+
+    def loss(p, b):
+        return gcn_loss(p, data["x"], b["s"], b["r"], b["w"], data["labels"], mask, cfg, adjacency=b["adj"])
+
+    tr = Trainer(loss, adamw(HALO_TRAIN_LR), params, TrainerConfig(log_every=1 << 30))
+    losses = []
+    for name, steps in zip(("delta1", "delta2"), DELTA_TRAIN_STEPS):
+        losses += tr.fit(iter(lambda b=batches[name]: b, None), max_steps=tr.step + steps)
+    del batches, tr
+    data.pop("ba")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(script=script, part=halo["part"], refs=refs, losses=losses, script_s=script_s,
+                global_patch_ms=patch_ms,
+                global_widths=widths, prepare_s=time.perf_counter() - t0)
+
+
+def run_delta(host: dict, prep: dict) -> dict:
+    """The mutating graph on HALO_K ranks sharing the card (gloo): every rank
+    keeps its own `DeltaPlanner` replica and rank tables (`delta_rank`) and
+    runs the script of `prepare_delta`. Checks each stage's flat and 2 × 2
+    forwards against the unsharded bsr forward on the same edges
+    (HALO_LOGIT_RTOL), the ranks' plan checksums against each other and
+    the replica's, which path kept each table (patch, then rebuild on the
+    structural delta), rank 0's tables against fresh builds, K1 and K2 on
+    its patched table against their plain versions and with NaN padding,
+    the training losses across the structural delta (HALO_LOSS_RTOL), the
+    policy's fire with fewer executed tiles after it, the moved blocks
+    bit-exact, and `compact`. Returns each kernel's launches over the
+    forwards and over the training steps of all ranks."""
+    from repro_torch.configs.coin_gcn import make_config
+    from repro_torch.dist.halo import node_mask, relocate_node_array, restore_node_array
+    from repro_torch.kernels import fused_gcn as fg
+    from repro_torch.launch.distributed_gcn import DeltaJob, array_checksum, delta_rank
+    from repro_torch.launch.mesh import GroupSpec, run_group
+    from repro_torch.models.gcn import gcn_init
+
+    t0 = time.perf_counter()
+    script = prep["script"]
+    stages = script["stages"]
+    cfg = make_config(dataset=DATASET)
+    params = {k: v.numpy() for k, v in gcn_init(torch.Generator().manual_seed(SEED), cfg, device="cpu").items()}
+    layout0 = stages["v0"]["layout"]
+    xb = relocate_node_array(layout0, host["features"])
+    lb = relocate_node_array(layout0, np.asarray(host["labels"], np.int64))
+    mb = relocate_node_array(layout0, host["train_mask"]) * node_mask(layout0)
+    jobs = [DeltaJob(part=prep["part"], edge_index=host["edge_index"], w=host["weights"], x=xb[r], labels=lb[r],
+                     mask=mb[r], params=params, layer_dims=cfg.layer_dims, deltas=script["deltas"],
+                     train_steps=DELTA_TRAIN_STEPS, lr=HALO_TRAIN_LR, pods=HIER_PODS, policy=DELTA_RELOCALIZE,
+                     burst=script["burst"], time_reps=HALO_REPS,
+                     graph_key="delta-nell")
+            for r in range(HALO_K)]
+    del xb
+    spec = GroupSpec(k=HALO_K, backend="gloo", devices=("cuda:0",), timeout_s=HALO_TIMEOUT_S)
+    results = run_group(spec, delta_rank, jobs)
+    seconds = time.perf_counter() - t0
+    names = [s["name"] for s in results[0]["stages"]]
+    checks, per_stage = {}, {}
+    launches = {name: 0 for name in fg.LAUNCHES}
+    train_launches = {name: 0 for name in fg.LAUNCHES}
+    for name in names:
+        recs = [next(s for s in r["stages"] if s["name"] == name) for r in results]
+        st, ref = stages[name], prep["refs"][name]
+        scale = float(np.abs(ref).max())
+        errs = {}
+        for sch in recs[0]["logits"]:
+            got = restore_node_array(st["layout"], np.stack([rec["logits"][sch] for rec in recs]))
+            errs[sch] = float(np.abs(got - ref).max())
+            checks[f"{name}_{sch}_vs_unsharded"] = got.shape == ref.shape and errs[sch] <= HALO_LOGIT_RTOL * scale
+        for rec in recs:
+            for k_name, v in rec["launches"].items():
+                launches[k_name] += v
+        expect = {k_name: n * len(recs[0]["logits"]) for k_name, n in DELTA_LAUNCHES_PER_FORWARD.items()}
+        checks[f"{name}_launches"] = all(rec["launches"] == expect for rec in recs)
+        checks[f"{name}_replicas_agree"] = {rec["checksum"] for rec in recs} == {st["checksum"]}
+        checks[f"{name}_rank0_tables_fresh"] = all(c["same"] for c in recs[0]["table_check"].values())
+        if "kernels" in recs[0]:
+            checks[f"{name}_rank0_kernels"] = all(c["ok"] for c in recs[0]["kernels"].values())
+        per_stage[name] = dict(
+            version=recs[0]["version"], pads=recs[0]["pads"], max_abs_err_vs_unsharded=errs, max_abs_logit=scale,
+            tables_per_rank=[rec["tables"] for rec in recs], launches_per_rank=[rec["launches"] for rec in recs],
+            forward_ms_per_rank=[rec.get("forward_ms") for rec in recs],
+            rank0_table_check=recs[0]["table_check"], rank0_kernels=recs[0].get("kernels"))
+    reps = script["reports"]
+    checks["tile_patch_delta"] = not reps[0]["structural"] and all(
+        r["reports"][0]["blocked_patched"] > 0 for r in results)
+    checks["tile_patch_path_ran"] = all(
+        t["last"] in ("patched", "unchanged") for r in results for t in r["stages"][1]["tables"].values()) and any(
+        t["last"] == "patched" for r in results for t in r["stages"][1]["tables"].values())
+    checks["structural_delta"] = reps[1]["structural"] and all(
+        r["stages"][2]["tables"]["flat"]["last"] == "rebuilt" for r in results)
+    train = [[v for t in r["train"] for v in t["losses"]] for r in results]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(train[0], prep["losses"])]
+    checks["losses_vs_unsharded"] = len(train[0]) == sum(DELTA_TRAIN_STEPS) and max(loss_rel) <= HALO_LOSS_RTOL
+    checks["ranks_agree_on_losses"] = all(t == train[0] for t in train)
+    for r in results:
+        for t in r["train"]:
+            for k_name, v in t["launches"].items():
+                train_launches[k_name] += v
+    expect_train = {k_name: n * sum(DELTA_TRAIN_STEPS) * HALO_K for k_name, n in DELTA_LAUNCHES_PER_STEP.items()}
+    checks["train_launches"] = {k_name: v for k_name, v in train_launches.items() if v} == expect_train
+    fired = [rep["relocalized"] for rep in reps if rep["relocalized"] is not None]
+    checks["policy_fired"] = len(fired) >= 1 and all(
+        sum(rep["relocalized"] is not None for rep in r["reports"]) == len(fired) for r in results)
+    checks["executed_tiles_fall"] = bool(fired) and fired[0]["executed_tiles_after"] < fired[0]["executed_tiles_before"]
+    layout = stages["relocalized"]["layout"]
+    want = {"x": relocate_node_array(layout, host["features"]).astype(np.float32),
+            "labels": relocate_node_array(layout, np.asarray(host["labels"], np.int64)),
+            "mask": relocate_node_array(layout, host["train_mask"]).astype(np.float32)}
+    checks["moved_blocks_bit_exact"] = all(
+        r["moved"] == {k_name: array_checksum(v[rank]) for k_name, v in want.items()}
+        for rank, r in enumerate(results))
+    del want
+    checks["compact"] = all(r["compact"]["version"] == stages["compact"]["version"] for r in results)
+    rank_gb = [max(t["host_gb"] for s in r["stages"] for t in s["tables"].values()) for r in results]
+    all_k_gb = max(t["host_gb"] for s in results[0]["stages"] for t in s["tables"].values()) * HALO_K
+    ok = all(checks.values())
+    emit("delta", ok=ok, checks=checks, ranks=HALO_K, group=spec.describe(), schedules=["flat", f"{HIER_PODS} pods × 2"],
+         stages=per_stage,
+         reports_rank0=[{k_name: v for k_name, v in rep.items() if k_name not in ("relocalized", "drift")}
+                        for rep in results[0]["reports"]],
+         apply_ms_per_rank=[[rep["apply_ms"] for rep in r["reports"]] for r in results],
+         burst_tables_per_rank=[r["burst_tables"] for r in results],
+         table_maintenance={name: {sch: [(t[sch]["last"], t[sch]["ms"]) for t in rec["tables_per_rank"]]
+                                   for sch in rec["tables_per_rank"][0]} for name, rec in per_stage.items()},
+         relocalize_ms_per_rank=[[rep["relocalized"]["relocalize_ms"] for rep in r["reports"] if rep["relocalized"]]
+                                 for r in results],
+         executed_tiles=dict(before=fired[0]["executed_tiles_before"], after=fired[0]["executed_tiles_after"])
+         if fired else None,
+         drift_readings=script["drift"], policy=DELTA_RELOCALIZE, fired_at_burst_delta=script["fired_at"],
+         burst_deltas=len(script["burst"]), compact=results[0]["compact"],
+         losses=train[0], losses_unsharded=prep["losses"], loss_max_rel_diff=max(loss_rel),
+         step_ms_per_rank=dict(before=[r["step_ms_before"] for r in results],
+                               after=[r.get("step_ms_after") for r in results]),
+         peak_memory_gb_per_rank=[r.get("peak_memory_gb") for r in results],
+         rank_table_host_gb_max_per_rank=rank_gb, all_rank_table_gb_not_held=all_k_gb,
+         global_table=dict(patch_ms=prep["global_patch_ms"], widths=prep["global_widths"]),
+         launches_all_ranks=launches, train_launches_all_ranks=train_launches,
+         script_host_s=prep["script_s"], prepare_s=prep["prepare_s"], seconds=seconds,
+         timing=f"CUDA events after a group barrier, median of {HALO_REPS}; host clock for apply, patch and "
+                f"rebuild; {HALO_K} ranks share one card")
+    require(ok, "delta", f"checks {checks}")
+    kernel_errs = {}
+    for rec in per_stage.values():
+        for case, c in (rec["rank0_kernels"] or {}).items():
+            if "max_abs_err" in c:
+                kernel_errs[case] = max(kernel_errs.get(case, 0.0), c["max_abs_err"])
+    return dict(launches=launches, train_launches=train_launches, kernel_errs=kernel_errs)
+
+
 def profile_kernels(data: dict, ops: dict) -> dict:
     """`torch_profiler_trace` around one launch of K1 and of each K2 body
     on Nell's shapes: the trace file it writes, and which kernels it names."""
@@ -2399,6 +2794,7 @@ def main() -> int:
     del rank
     torch.cuda.empty_cache()
     run_af_wide(data)
+    delta_prep = prepare_delta(data, halo)
 
     # The ranks share the card: free the unsharded tables first.
     host, inference, train = data["host"], main_run["launches"], train_run["launches"]
@@ -2419,21 +2815,31 @@ def main() -> int:
     del flat
     gc.collect()
     torch.cuda.empty_cache()
+    run_serve_graph(host, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    delta = run_delta(host, delta_prep)
+    del delta_prep
+    gc.collect()
+    torch.cuda.empty_cache()
     fm_serve, fm_train, fm = run_deepfm(device)
     gc.collect()
     torch.cuda.empty_cache()
     lm_prefill_run, lm_decode_run, lm = run_lm(device)
 
+    worst = {name: max(err, delta["kernel_errs"].get(name, 0.0)) for name, err in worst.items()}
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=XW_SOURCE if name.startswith("k2_ff_transform") else KERNEL_SOURCE,
              replaces=REPLACES[name],
              launches=inference[name] + train[name] + sharded[name] + sharded_train[name]
-             + hier["launches"][name] + hier["train_launches"][name],
+             + hier["launches"][name] + hier["train_launches"][name] + delta["launches"][name]
+             + delta["train_launches"][name],
              launches_inference=inference[name], launches_train=train[name],
              launches_per_train_step=train[name] / TRAIN_STEPS, launches_halo=sharded[name],
              launches_halo_train=sharded_train[name], launches_hier=hier["launches"][name],
-             launches_hier_train=hier["train_launches"][name], max_abs_err=worst[name], ms=row["ms"],
+             launches_hier_train=hier["train_launches"][name], launches_delta=delta["launches"][name],
+             launches_delta_train=delta["train_launches"][name], max_abs_err=worst[name], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound"][0], bound_by=row["bound"][1],
              library_ms=row["library_ms"],
              **({"composition_ms": row["composition_ms"]} if "composition_ms" in row else {}),

@@ -4,7 +4,8 @@ The port keeps its own copy of the functions that the blocked-adjacency
 path and the quickstart need: `bfs_traversal_order` (the default locality
 permutation), `partition_graph` with its BFS region growing and boundary
 refinement (the ``method="partition"`` permutation), the `Partition`
-statistics and `measured_probabilities`. Outputs are array-equal to the
+statistics, `partition_from_assignment` (the online re-localization's
+wrapper) and `measured_probabilities`. Outputs are array-equal to the
 reference's.
 """
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 __all__ = [
     "Partition",
     "partition_graph",
+    "partition_from_assignment",
     "measured_probabilities",
     "refine_partition",
     "bfs_traversal_order",
@@ -273,6 +275,33 @@ def partition_graph(
         part_sizes=np.bincount(assignment, minlength=k).astype(np.int64),
         edge_counts=counts,
         n_nodes=int(n_nodes),
+        n_edges=int(src.shape[0]),
+    )
+
+
+def partition_from_assignment(
+    assignment: np.ndarray,
+    k: int,
+    edge_index: np.ndarray,
+) -> Partition:
+    """Wrap an externally-computed node→CE assignment as a :class:`Partition`.
+
+    Online re-localization (`repro_torch.dist.delta.DeltaPlanner.relocalize`)
+    derives its assignment from a BFS locality order of the MUTATED edge
+    list rather than from any `partition_graph` method; this constructor
+    attaches the edge statistics every Partition consumer expects (the same
+    tail `partition_graph` runs on its own assignments).
+    """
+    assignment = np.asarray(assignment, dtype=np.int32)
+    src = np.asarray(edge_index[0], dtype=np.int64)
+    dst = np.asarray(edge_index[1], dtype=np.int64)
+    counts = _edge_count_matrix(assignment, int(k), src, dst)
+    return Partition(
+        assignment=assignment,
+        k=int(k),
+        part_sizes=np.bincount(assignment, minlength=k).astype(np.int64),
+        edge_counts=counts,
+        n_nodes=int(assignment.shape[0]),
         n_edges=int(src.shape[0]),
     )
 

@@ -717,7 +717,7 @@ def register_halo_plan(
     """Install an already-built plan under the cache key the lazy lookups
     use — the write-side counterpart of :func:`cached_halo_plan`.
 
-    The reference's `repro.dist.delta` repairs plan objects in place and re-registers them
+    `repro_torch.dist.delta.DeltaPlanner` repairs plan objects in place and re-registers them
     here under the mutated graph's new versioned key, so the next
     ``cached_halo_plan``/``get_halo_plan`` with that key is a HIT and never
     re-runs the builder. Overwriting an existing entry is allowed (latest
@@ -739,7 +739,7 @@ def invalidate_halo_plans(graph_key: str | None = None, *, k: int | None = None)
     model-parallel degree: the node→CE partition is stale, so every plan
     derived from it is too. The next ``get_halo_plan``/``cached_halo_plan``
     rebuilds from scratch. Graph mutations that keep the partition should
-    prefer the incremental path (the reference's `repro.dist.delta`, not ported yet), which repairs the
+    prefer the incremental path (`repro_torch.dist.delta`), which repairs the
     plan objects and moves them to the new key via :func:`register_halo_plan`
     instead of rebuilding.
     """
@@ -823,10 +823,10 @@ class PlanLayout:
     :func:`relocate_node_array` / :func:`restore_node_array` only read
     ``k / n_local / n_nodes / perm / part_sizes``, so this snapshot is a
     drop-in "plan" for them. An in-place re-localization
-    (the reference's `DeltaPlanner.relocalize`) mutates the live plan
+    (`repro_torch.dist.delta.DeltaPlanner.relocalize`) mutates the live plan
     objects — a PlanLayout captured beforehand is the only remaining handle
     on the OLD row order, which is exactly what
-    the reference's `relocate_state_tree` needs to carry live per-node
+    `repro_torch.train.elastic.relocate_state_tree` needs to carry live per-node
     state across the swap.
     """
 

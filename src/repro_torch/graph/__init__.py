@@ -1,1 +1,1 @@
-"""Graph substrate: host-side containers and blocking, synthetic Table I datasets, segment ops."""
+"""Graph substrate: host-side containers and blocking, synthetic Table I datasets, segment ops, the fanout sampler."""

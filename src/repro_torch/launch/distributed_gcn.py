@@ -46,9 +46,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import hashlib
 import statistics
 import tempfile
 import time
+from typing import Any
 
 import numpy as np
 import torch
@@ -79,8 +81,8 @@ from repro_torch.obs.trace import device_time_summary
 from repro_torch.train.loop import Trainer, TrainerConfig, value_and_grad
 from repro_torch.train.optimizer import adamw
 
-__all__ = ["HaloVariant", "RankJob", "halo_loss", "halo_rank", "halo_train_rank", "rank_jobs",
-           "table_widths", "main"]
+__all__ = ["HaloVariant", "RankJob", "DeltaJob", "halo_loss", "halo_rank", "halo_train_rank", "delta_rank",
+           "rank_jobs", "table_widths", "main"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -503,6 +505,437 @@ def _exchange_backward_ms(r: _Rank) -> dict:
         ct = torch.ones_like(halo)
         out[payload or "fp32"] = _cuda_ms(
             lambda: torch.autograd.grad(halo, z, ct, retain_graph=True), r.device, job.time_reps)
+    return out
+
+
+# ==================================================== a mutating graph's ranks
+@dataclasses.dataclass
+class DeltaJob:
+    """What one rank needs to follow a mutating graph (`delta_rank`): the
+    inputs of its `DeltaPlanner` replica — every rank builds its own from
+    the same ``(part, edge_index, w)`` and applies the same pickled
+    deltas, so the replicas stay identical and no process holds another
+    rank's tiles —, this rank's blocks under the first layout, the
+    parameters, and the mutation script: each of ``deltas`` followed by
+    ``train_steps[i]`` AdamW steps (one `Trainer` throughout), then the
+    ``burst`` under a `RelocalizePolicy` of fields ``policy``, then
+    `DeltaPlanner.compact`."""
+
+    part: Any
+    edge_index: np.ndarray
+    w: np.ndarray
+    x: np.ndarray                        # (n_local, F) this rank's features, first layout
+    labels: np.ndarray                   # (n_local,)
+    mask: np.ndarray                     # (n_local,) loss weights, 0 on padding
+    params: dict
+    layer_dims: tuple[int, ...]
+    deltas: tuple = ()
+    train_steps: tuple[int, ...] = ()
+    lr: float = 1e-3
+    pods: int = 2                        # the hierarchical plan beside the flat one (1: flat only)
+    policy: dict | None = None
+    burst: tuple = ()
+    time_reps: int = 0                   # > 0 on the card: forward and step ms
+    graph_key: str = "delta"
+
+
+def rewire_weight(planner, edge_index: np.ndarray) -> np.ndarray:
+    """Weights of inserted edges: an edge the graph already holds gets the
+    weight of its instances, a new one a pure function of (u, v). Every
+    instance of an edge then has one weight, so whichever instance a delete
+    takes — a re-localized store orders parallel instances anew — every
+    replica and the plain edge list agree."""
+    ei = np.asarray(edge_index, np.int64)
+    w = (0.1 + (ei[0] * 131 + ei[1] * 17) % 97 / 97.0).astype(np.float32)
+    cur = planner.edge_index()
+    key_cur = cur[0] * planner.n + cur[1]
+    order = np.argsort(key_cur, kind="stable")
+    key_ins = ei[0] * planner.n + ei[1]
+    pos = np.minimum(np.searchsorted(key_cur[order], key_ins), max(order.size - 1, 0))
+    if order.size:
+        hit = key_cur[order][pos] == key_ins
+        w[hit] = planner.edge_weights()[order][pos[hit]]
+    return w
+
+
+def patch_delta(planner, rng: np.random.Generator, n_ops: int):
+    """A delta no tier can grow on: delete ``n_ops`` existing edges and
+    insert ``n_ops`` edges between two nodes of one device — the tile-patch
+    path (new tiles append, emptied tiles are tombstoned)."""
+    from repro_torch.dist.delta import GraphDelta
+
+    ei = planner.edge_index()
+    drop = rng.choice(ei.shape[1], n_ops, replace=False)
+    a = planner.assignment
+    dev = rng.integers(0, planner.k, n_ops)
+    members = [np.flatnonzero(a == d) for d in range(planner.k)]
+    ins = np.stack([np.array([m[rng.integers(0, m.size)] for m in (members[d] for d in dev)]),
+                    np.array([m[rng.integers(0, m.size)] for m in (members[d] for d in dev)])])
+    return GraphDelta(edge_inserts=ins, edge_deletes=ei[:, drop], insert_w=rewire_weight(planner, ins))
+
+
+def structural_delta(planner):
+    """A delta that grows the flat export pad (a structural repair): the
+    device with the most exported rows gets new cut edges from rows it does
+    not export yet, one more than the pad has room for, each into the first
+    row of the next device."""
+    from repro_torch.dist.delta import GraphDelta
+
+    ei = planner.edge_index()
+    a = planner.assignment
+    cut = a[ei[0]] != a[ei[1]]
+    pad = int(planner.plan().s_max)
+    exported = [np.unique(ei[0][cut & (a[ei[0]] == d)]) for d in range(planner.k)]
+    d = int(np.argmax([e.size for e in exported]))
+    fresh = np.setdiff1d(np.flatnonzero(a == d), exported[d])[: pad - exported[d].size + 1]
+    dst = np.full(fresh.size, int(np.flatnonzero(a == (d + 1) % planner.k)[0]), np.int64)
+    ins = np.stack([fresh.astype(np.int64), dst])
+    return GraphDelta(edge_inserts=ins, insert_w=rewire_weight(planner, ins))
+
+
+def rewire_delta(planner, rng: np.random.Generator, members: int, max_edges: int):
+    """The rewiring churn of the reference's online-maintenance test: sever
+    up to ``max_edges`` edges incident to ``members`` random nodes and
+    re-insert as many among those nodes (no self-loops) — locality decays
+    while E stays fixed."""
+    from repro_torch.dist.delta import GraphDelta
+
+    cur = planner.edge_index()
+    mem = rng.choice(planner.n, members, replace=False)
+    inc = np.flatnonzero(np.isin(cur[0], mem) | np.isin(cur[1], mem))[:max_edges]
+    s = mem[rng.integers(0, mem.size, inc.size)]
+    d = mem[rng.integers(0, mem.size, inc.size)]
+    bad = s == d
+    d[bad] = mem[(np.searchsorted(np.sort(mem), d[bad]) + 1) % mem.size]
+    ins = np.stack([s, d])
+    return GraphDelta(edge_inserts=ins, edge_deletes=cur[:, inc], insert_w=rewire_weight(planner, ins))
+
+
+def mutation_script(part, edge_index: np.ndarray, w: np.ndarray, *, pods: int = 2, seed: int = 0,
+                    patch_ops: int = 64, members: int = 20, max_edges: int = 24, policy: dict,
+                    max_burst: int = 24, graph_key: str = "delta") -> dict:
+    """The mutation script of a `DeltaJob`, made and checked on a replica
+    of the ranks' planner (flat and, with ``pods`` > 1, hierarchical plans;
+    no tables): a `patch_delta` that must not be structural, a
+    `structural_delta` that must be, then `rewire_delta`s under a
+    `RelocalizePolicy` of fields ``policy`` until it fires and one delta
+    more (inside the cooldown, so that `compact` finds slack), then
+    `compact`. Returns the deltas, the burst, each stage's edges, weights,
+    layout and `plan_checksum` (the stages `delta_rank` reports), the
+    reports and the drift readings of the burst. Raises if the policy never
+    fires within ``max_burst`` deltas."""
+    from repro_torch.dist.delta import DeltaPlanner, RelocalizePolicy
+    from repro_torch.dist.halo import plan_layout
+
+    rng = np.random.default_rng(seed)
+    planner = DeltaPlanner(part, edge_index, w, graph_key=graph_key)
+    plans = {"flat": planner.plan()}
+    if pods > 1:
+        plans["hier"] = planner.plan(("pod", "model"), pods=pods)
+    stages = {}
+
+    def snap(name):
+        stages[name] = {"edge_index": planner.edge_index(), "w": planner.edge_weights(),
+                        "layout": plan_layout(planner), "checksum": plan_checksum(planner, plans),
+                        "version": planner.version}
+
+    snap("v0")
+    deltas = (patch_delta(planner, rng, patch_ops), None)
+    reports = [planner.apply(deltas[0])]
+    snap("delta1")
+    deltas = (deltas[0], structural_delta(planner))
+    reports.append(planner.apply(deltas[1]))
+    snap("delta2")
+    if reports[0]["structural"] or not reports[1]["structural"]:
+        raise RuntimeError(f"mutation script: expected a tile-patch then a structural delta, got "
+                           f"{[r['structural'] for r in reports]}")
+    planner.relocalize_policy = RelocalizePolicy(**policy)
+    burst, drift, fired = [], [], None
+    while len(burst) < max_burst:
+        burst.append(rewire_delta(planner, rng, members, max_edges))
+        rep = planner.apply(burst[-1])
+        reports.append(rep)
+        drift.append(rep["drift"]["drift_ratio"])
+        if rep["relocalized"] is not None:
+            fired = len(burst)
+            snap("relocalized")
+            burst.append(rewire_delta(planner, rng, members, max_edges))
+            reports.append(planner.apply(burst[-1]))
+            break
+    if fired is None:
+        raise RuntimeError(f"mutation script: the policy never fired over {max_burst} deltas "
+                           f"(drift readings {drift})")
+    compact = planner.compact()
+    snap("compact")
+    return {"deltas": deltas, "burst": tuple(burst), "stages": stages, "reports": reports,
+            "drift": drift, "compact": compact, "fired_at": fired, "planner": planner}
+
+
+TABLE_KERNEL_RTOL = 1e-4                 # kernel vs plain on a patched table: max |diff| ≤ this · max |plain|
+
+
+def plan_checksum(planner, plans: dict) -> str:
+    """sha1 over the planner's version, layout and every plan's index
+    tables — equal on every rank iff the replicas agree."""
+    h = hashlib.sha1(np.int64(planner.version).tobytes())
+    h.update(np.ascontiguousarray(planner.perm).tobytes())
+    for name in sorted(plans):
+        p = plans[name]
+        for a in (p.send_idx, p.send_loc, p.send_rem, p.senders_l, p.receivers_l, p.edge_w):
+            if a is not None:
+                h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def array_checksum(a: np.ndarray) -> str:
+    return hashlib.sha1(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def same_tiles(a, b) -> bool:
+    """Two `BlockedAdjacency` tables hold the same tiles: per block-row the
+    same set of column blocks, each with the same 128×128 tile, whatever
+    their order in the ragged row and whatever the padding width — what
+    densifying both would compare, tile for tile."""
+    if not np.array_equal(a.row_nnzb, b.row_nnzb) or a.n_block_cols != b.n_block_cols:
+        return False
+
+    def valid(t):
+        mask = np.arange(t.max_nnzb)[None, :] < t.row_nnzb[:, None]
+        rows, slots = np.nonzero(mask)
+        keys = rows * t.n_block_cols + t.block_cols[rows, slots]
+        order = np.argsort(keys, kind="stable")
+        return keys[order], rows[order], slots[order]
+
+    ka, ra, sa = valid(a)
+    kb, rb, sb = valid(b)
+    if not np.array_equal(ka, kb):
+        return False
+    step = 512                               # compare in chunks: no second copy of every tile
+    return all(np.array_equal(a.block_vals[ra[i:i + step], sa[i:i + step]],
+                              b.block_vals[rb[i:i + step], sb[i:i + step]])
+               for i in range(0, ka.size, step))
+
+
+def table_kernel_checks(ba, x: torch.Tensor, params: dict, rtol: float, device: torch.device,
+                        seed: int = 0) -> dict:
+    """K2's three kernels and K1 on one rank's table ``ba`` against their
+    plain versions (max |diff| ≤ ``rtol`` · max |plain|), then with NaN in
+    every padding tile (`poison_padding`): finite and bit-equal to the
+    clean run. Operands at the rank's shapes: its feature block ``x``
+    (layer 1's transform), random 16-wide tables over the table's column
+    space (the aggregations and K1), the parameters of both layers. On the
+    CPU, where no kernel runs, the plain versions stand in for the kernels
+    (the poisoned runs still prove that no padding tile is read)."""
+    from repro_torch.kernels import bsr_spmm as k1
+    from repro_torch.kernels import fused_gcn as fg
+    from repro_torch.kernels.ref import poison_padding
+
+    vals, cols, lens = ba.arrays(device=device)
+    g = torch.Generator().manual_seed(seed)
+    w0, b0, w1, b1 = (params[n] for n in ("w0", "b0", "w1", "b1"))
+    x_pad = torch.zeros((ba.n_padded, x.shape[1]), device=device)
+    x_pad[: x.shape[0]] = x
+    z = torch.randn((ba.n_col_padded, w0.shape[1]), generator=g).to(device)
+    table = torch.randn((ba.n_col_padded, w1.shape[0]), generator=g).to(device)
+    out: dict = {}
+
+    def hold(name, got, ref):
+        err = float((got.float() - ref.float()).abs().nan_to_num(nan=float("inf")).max())
+        scale = float(ref.float().abs().max())
+        out[name] = {"max_abs_err": err, "max_abs_ref": scale, "ok": err <= rtol * scale}
+
+    cuda = device.type == "cuda"
+    ff_transform, ff_aggregate, af_layer, bsr_spmm = (
+        (fg.ff_transform, fg.ff_aggregate, fg.af_layer, k1.bsr_spmm) if cuda
+        else (fg.ff_transform_plain, fg.ff_aggregate_plain, fg.af_layer_plain, k1.bsr_spmm_plain))
+    with torch.inference_mode():
+        hold("k2_ff_transform", ff_transform(x_pad, w0), fg.ff_transform_plain(x_pad, w0))
+        runs = {
+            "k2_ff_aggregate": (lambda v: ff_aggregate(v, cols, lens, z, b0, True),
+                                fg.ff_aggregate_plain(vals, cols, lens, z, b0, True)),
+            "k2_af_layer": (lambda v: af_layer(v, cols, lens, table, w1, b1, True),
+                            fg.af_layer_plain(vals, cols, lens, table, w1, b1, True)),
+            "k1_bsr_spmm": (lambda v: bsr_spmm(v, cols, lens, table),
+                            k1.bsr_spmm_plain(vals, cols, lens, table)),
+        }
+        poisoned = poison_padding(vals, lens)
+        for name, (run, ref) in runs.items():
+            clean = run(vals)
+            hold(name, clean, ref)
+            dirty = run(poisoned)
+            out[name + " (poisoned padding)"] = {
+                "finite": bool(torch.isfinite(dirty).all()), "same_bits": bool(torch.equal(dirty, clean)),
+                "ok": bool(torch.isfinite(dirty).all()) and bool(torch.equal(dirty, clean))}
+    return out
+
+
+def delta_rank(rank: int, k: int, device: torch.device, job: DeltaJob) -> dict:
+    """The body of one rank following a mutating graph (`run_group`).
+
+    The rank builds its `DeltaPlanner` replica, the flat plan and (``pods``
+    > 1) the hierarchical one, and its own rank table of each
+    (`DeltaPlanner.rank_table`: its tiles, every rank's index). At every
+    stage — before any delta, after each of ``deltas``, after the
+    relocalize the burst's policy fires, after `compact` — it re-binds its
+    send tables, ``(senders, receivers, edge_w)`` and tables, and runs the
+    bsr forward (fp32, quant off) of each schedule, with the kernel
+    launches counted from zero just before and read just after. After each
+    of ``deltas`` it takes ``train_steps[i]`` AdamW steps of one `Trainer`
+    on `halo_loss` (flat schedule), launches counted likewise. After a
+    re-localization its feature, label and mask blocks move to the new
+    layout through `relocate_state_tree` (the blocks of every rank
+    all-gathered, moved, this rank's taken).
+
+    Returns per stage: the logits per schedule, launches, each table's
+    maintenance (``patched`` / ``unchanged`` / ``rebuilt``, its ms, width,
+    growths), the planner's version and `plan_checksum`; on rank 0 also
+    each table against a fresh `plan_blocked_rank` of the repaired
+    plan (`same_tiles`; after `compact`, array-equal at the width a fresh
+    build shares) and, after each of ``deltas``, `table_kernel_checks` on
+    its flat table; every apply's report and, for the burst's deltas,
+    each table's maintenance, width and host bytes; the training losses
+    and launches; checksums of the moved blocks; with ``time_reps`` on the
+    card: forward ms per stage and schedule, step ms before the deltas and
+    after `compact`, and the rank's peak device memory."""
+    from repro_torch.dist.delta import DeltaPlanner, RelocalizePolicy
+    from repro_torch.dist.halo import plan_layout
+    from repro_torch.kernels import fused_gcn as fg
+    from repro_torch.train.elastic import relocate_state_tree
+
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    planner = DeltaPlanner(job.part, job.edge_index, job.w, graph_key=job.graph_key)
+    plans = {"flat": planner.plan()}
+    if job.pods > 1:
+        plans["hier"] = planner.plan(("pod", "model"), pods=job.pods)
+    groups = {name: halo_groups(p.n_pods) for name, p in plans.items()}
+    tables = {name: planner.rank_table(p, rank) for name, p in plans.items()}
+    cfg = GCNConfig(layer_dims=job.layer_dims, backend="bsr", quant=QuantConfig(enabled=False))
+    params = {n: torch.from_numpy(np.asarray(v)).to(device) for n, v in job.params.items()}
+    state = {"x": np.asarray(job.x, np.float32), "labels": np.asarray(job.labels, np.int64),
+             "mask": np.asarray(job.mask, np.float32)}
+    out: dict = {"rank": rank, "stages": [], "reports": [], "train": [], "moved": None}
+    checking = rank == 0                 # rank 0 holds its tables against fresh builds
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    def bind() -> dict:
+        x = torch.from_numpy(state["x"]).to(device)
+        labels = torch.from_numpy(state["labels"]).to(device)
+        mask = torch.from_numpy(state["mask"]).to(device)
+        batches = {}
+        for name, p in plans.items():
+            arrs = p.rank_arrays(rank, device)
+            send = ({"send_loc": arrs[0], "send_rem": arrs[1]} if p.is_hierarchical
+                    else {"send_idx": arrs[0]})
+            batches[name] = {
+                "x": x, "senders": arrs[-3], "receivers": arrs[-2], "edge_w": arrs[-1],
+                "labels": labels, "mask": mask,
+                "policy": ShardingPolicy(comm="halo", halo_groups=groups[name]).bind_halo(**send),
+                "adjacency": tables[name].blocked().arrays(device=device)}
+        return batches
+
+    def forward(b):
+        return gcn_forward(params, b["x"], b["senders"], b["receivers"], b["edge_w"], cfg, b["policy"],
+                           adjacency=b["adjacency"])
+
+    def loss_fn(p, b):
+        return halo_loss(p, b, cfg, b["policy"], adjacency=b["adjacency"])
+
+    def stage(name: str, kernels: bool = False, final: bool = False) -> dict:
+        batches = bind()
+        rec = {"name": name, "version": planner.version, "checksum": plan_checksum(planner, plans),
+               "pads": {n: {"s_max": p.s_max, "s_loc": p.s_loc, "s_rem": p.s_rem, "n_local": p.n_local,
+                            "e_local": p.e_local} for n, p in plans.items()},
+               "tables": {n: {"last": t.last, "ms": t.maintain_ms, "max_nnzb": t.max_nnzb,
+                              "tiles": int(t.lens[rank].sum()), "grown": t.grown,
+                              "host_gb": t.nbytes / 1e9} for n, t in tables.items()},
+               "logits": {}}
+        with torch.inference_mode():
+            sync()
+            fg.reset_launch_counts()
+            for n, b in batches.items():
+                rec["logits"][n] = forward(b).float().cpu().numpy()
+            sync()
+            rec["launches"] = _launches()
+            if job.time_reps and cuda:
+                rec["forward_ms"] = {n: _cuda_ms(lambda b=b: forward(b), device, job.time_reps)
+                                     for n, b in batches.items()}
+        if checking:
+            rec["table_check"] = {}
+            for n, p in plans.items():
+                t0 = time.perf_counter()
+                if final:
+                    width = plan_blocked_shape(p)["max_nnzb"]
+                    fresh = plan_blocked_rank(p, rank, max_nnzb=width)
+                    mine = tables[n].blocked()
+                    same = (tables[n].max_nnzb == width and np.array_equal(mine.block_vals, fresh.block_vals)
+                            and np.array_equal(mine.block_cols, fresh.block_cols)
+                            and np.array_equal(mine.row_nnzb, fresh.row_nnzb))
+                else:
+                    fresh = plan_blocked_rank(p, rank)
+                    same = same_tiles(tables[n].blocked(), fresh)
+                rec["table_check"][n] = {"same": bool(same), "fresh_build_ms": (time.perf_counter() - t0) * 1e3}
+                del fresh
+            if kernels:
+                rec["kernels"] = table_kernel_checks(tables["flat"].blocked(), batches["flat"]["x"], params,
+                                                     TABLE_KERNEL_RTOL, device, seed=len(out["stages"]))
+        out["stages"].append(rec)
+        return batches
+
+    def move_state(old_layout) -> dict:
+        """All-gather every rank's blocks, move them into the new layout,
+        keep this rank's; returns their checksums."""
+        tree = {}
+        for key, arr in state.items():
+            t = torch.from_numpy(np.ascontiguousarray(arr))
+            parts = [torch.empty_like(t) for _ in range(k)]
+            dist.all_gather(parts, t)
+            tree[key] = np.stack([q.numpy() for q in parts])
+        moved = relocate_state_tree(old_layout, plan_layout(planner), tree)
+        state.update({key: np.ascontiguousarray(v[rank]) for key, v in moved.items()})
+        return {key: array_checksum(v) for key, v in state.items()}
+
+    def timed_steps() -> float | None:
+        if not (job.time_reps and cuda):
+            return None
+        tr = Trainer(loss_fn, adamw(job.lr), params, TrainerConfig(log_every=1 << 30))
+        return _step_ms(tr, bind()["flat"], device, job.time_reps)
+
+    batches = stage("v0")
+    out["step_ms_before"] = timed_steps()
+    trainer = Trainer(loss_fn, adamw(job.lr), params, TrainerConfig(log_every=1 << 30))
+    for i, delta in enumerate(job.deltas):
+        out["reports"].append(planner.apply(delta))
+        batches = stage(f"delta{i + 1}", kernels=True)
+        steps = job.train_steps[i] if i < len(job.train_steps) else 0
+        if steps:
+            sync()
+            fg.reset_launch_counts()
+            losses = trainer.fit(iter(lambda: batches["flat"], None), max_steps=trainer.step + steps)
+            sync()
+            out["train"].append({"after": f"delta{i + 1}", "losses": losses, "launches": _launches()})
+    if job.policy is not None:
+        planner.relocalize_policy = RelocalizePolicy(**job.policy)
+    out["burst_tables"] = []
+    for delta in job.burst:
+        rep = planner.apply(delta)
+        out["reports"].append(rep)
+        out["burst_tables"].append({n: {"last": t.last, "ms": t.maintain_ms, "max_nnzb": t.max_nnzb,
+                                        "grown": t.grown, "host_gb": t.nbytes / 1e9} for n, t in tables.items()})
+        if rep["relocalized"] is not None:
+            out["moved"] = move_state(rep["relocalized"]["old_layout"])
+            stage("relocalized")
+    if job.burst:
+        out["compact"] = planner.compact()
+        stage("compact", final=True)
+        out["step_ms_after"] = timed_steps()
+    if cuda:
+        out["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    dist.barrier()
     return out
 
 

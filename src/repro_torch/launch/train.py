@@ -4,6 +4,8 @@ port has reached:
     PYTHONPATH=src python -m repro_torch.launch.train --arch coin_gcn --steps 50
     PYTHONPATH=src python -m repro_torch.launch.train --arch coin_gcn --steps 50 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm --steps 50 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch coin_gcn --steps 60 --device cpu \
+        --relocalize-threshold 1.01
 
 Runs the REDUCED config of ``--arch`` on one device (the CUDA card unless
 ``--device`` names another): synthetic data → eager train step → AdamW →
@@ -15,10 +17,19 @@ is ``_recsys_setup``: the reduced DeepFM config (8 fields, MLP 32-32-32),
 batches of 256 from the seeded `click_batch_fn` stream and `deepfm_loss`
 (its FM term runs K3 on the card). Parameters come from a seeded
 `torch.Generator`, so they differ from the reference's.
+
+``--relocalize-threshold T`` (> 0, ``coin_gcn`` only) churns the training
+graph as the reference does: every 10 steps one delta deletes 1 % of the
+edges and inserts as many among 16 random nodes (E stays fixed), applied
+to a `DeltaPlanner` over a 4-part BFS partition whose `RelocalizePolicy`
+(threshold T, patience 2, cooldown 3) re-localizes online; each fire prints
+the reference's ``relocalize @ step N: executed tiles A → B`` line, and the
+batch takes the planner's current edges and weights.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 
 import numpy as np
 import torch
@@ -44,9 +55,10 @@ _WAITING = {
 }
 
 
-def _gcn_setup(spec, device: torch.device):
+def _gcn_setup(spec, device: torch.device, relocalize_threshold: float = 0.0):
     """(params, loss_fn, batches) of the reduced coin_gcn on the reference's
-    synthetic citation graph."""
+    synthetic citation graph; churned under a relocalize policy when
+    ``relocalize_threshold`` > 0 (module docstring)."""
     cfg = spec.make_reduced()
     g = citation_like(256, 1024, seed=0)
     rng = np.random.default_rng(0)
@@ -66,9 +78,46 @@ def _gcn_setup(spec, device: torch.device):
         return gcn_loss(params, b["feats"], b["senders"], b["receivers"], b["edge_weight"],
                         b["labels"], b["label_mask"], cfg)
 
+    if relocalize_threshold <= 0:
+        def batches():
+            while True:
+                yield batch
+
+        return params, loss, batches
+
+    from repro_torch.core.partition import partition_graph
+    from repro_torch.dist.delta import DeltaPlanner, GraphDelta, RelocalizePolicy
+
+    part = partition_graph(g.n_nodes, g.edge_index, 4, "bfs", seed=0, refine=True)
+    planner = DeltaPlanner(
+        part, g.edge_index, graph_key=f"launch-train-{spec.arch_id}",
+        relocalize_policy=RelocalizePolicy(threshold=relocalize_threshold, patience=2, cooldown=3))
+    churn = np.random.default_rng(1)
+
     def batches():
+        step = 0
         while True:
             yield batch
+            step += 1
+            if step % 10:
+                continue
+            ei = planner.edge_index()
+            m = max(ei.shape[1] // 100, 2)
+            drop = churn.choice(ei.shape[1], m, replace=False)
+            mem = churn.choice(g.n_nodes, 16, replace=False)
+            s = mem[churn.integers(0, mem.size, m)]
+            d = mem[churn.integers(0, mem.size, m)]
+            bad = s == d
+            d[bad] = mem[(np.searchsorted(np.sort(mem), d[bad]) + 1) % mem.size]
+            rep = planner.apply(GraphDelta(edge_inserts=np.stack([s, d]), edge_deletes=ei[:, drop]))
+            if rep["relocalized"] is not None:
+                r = rep["relocalized"]
+                print(f"  relocalize @ step {step}: executed tiles "
+                      f"{r['executed_tiles_before']} → {r['executed_tiles_after']}")
+            new_ei = planner.edge_index()
+            batch["senders"] = torch.from_numpy(new_ei[0].astype(np.int32)).to(device)
+            batch["receivers"] = torch.from_numpy(new_ei[1].astype(np.int32)).to(device)
+            batch["edge_weight"] = torch.from_numpy(planner.edge_weights()).to(device)
 
     return params, loss, batches
 
@@ -100,6 +149,9 @@ def main(argv=None) -> None:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--compress-grads", action="store_true")
+    ap.add_argument("--relocalize-threshold", type=float, default=0.0,
+                    help="drift ratio beyond which the churned training graph "
+                         "re-localizes online (0 = static graph; coin_gcn only)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs on the host)")
     add_obs_args(ap)
@@ -114,7 +166,12 @@ def run(args) -> None:
             f"--arch {args.arch} is not ported to PyTorch yet; it comes with {_WAITING[args.arch]} "
             "(ROADMAP.md)"
         )
-    params, loss_fn, batches = _SETUPS[args.arch](get_arch(args.arch), resolve_device(args.device))
+    setup = _SETUPS[args.arch]
+    if args.relocalize_threshold > 0:
+        if args.arch != "coin_gcn":
+            raise SystemExit("--relocalize-threshold churns a graph: coin_gcn only")
+        setup = functools.partial(setup, relocalize_threshold=args.relocalize_threshold)
+    params, loss_fn, batches = setup(get_arch(args.arch), resolve_device(args.device))
     tr = Trainer(
         loss_fn,
         adamw(args.lr),

@@ -5,8 +5,8 @@ Nothing here invents a number: every gauge is fed from a value an existing
 layer already computes — `repro_torch.dist.halo.HaloPlan` wire properties,
 `repro_torch.core.dataflow.exchange_cost`, `plan_cache_stats`,
 `PlanBlockedAdjacency.stats` / `plan_blocked_shape`, and the delta,
-relocalize and compact reports (plain dicts, as the reference's
-``DeltaPlanner`` returns them). Every recorder returns at once when metrics
+relocalize and compact reports (the plain dicts
+`repro_torch.dist.delta.DeltaPlanner` returns). Every recorder returns at once when metrics
 are disabled, before it touches its source object. `overlap_timeline`
 draws the overlapped exchange schedule of one rank as a trace.
 
@@ -100,7 +100,7 @@ def record_blocked(stats, scope: str = "plan") -> None:
 
 
 def record_delta_report(report: dict) -> None:
-    """Fold a delta-apply report (the reference's ``DeltaPlanner.apply``
+    """Fold a delta-apply report (``DeltaPlanner.apply``
     dict) into ``delta.*`` series: edit/remap counters, dirty-device gauge,
     the structural flag, repair latency (``delta.apply_ms`` histogram, if
     timed), and the executed-tile locality-drift gauge

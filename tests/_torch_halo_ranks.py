@@ -1,5 +1,6 @@
 """The rank bodies of the process groups of tests/test_torch_halo.py,
-tests/test_torch_halo_train.py and tests/test_torch_hier_halo.py.
+tests/test_torch_halo_train.py, tests/test_torch_hier_halo.py and
+tests/test_torch_delta_group.py.
 
 The spawned ranks import this module by name (the test directory is on
 their path), so it imports neither JAX nor `repro`: only torch, numpy and
@@ -173,4 +174,19 @@ def hier_checks(rank: int, k: int, device: torch.device, job: dict) -> dict:
     out["hier"] = halo_rank(rank, k, device, job["hier"])
     out["flat"] = halo_rank(rank, k, device, job["flat"])
     out["trajectory"] = halo_train_rank(rank, k, device, job["trajectory"])["train"]
+    return out
+
+
+def delta_group(rank: int, k: int, device: torch.device, job) -> dict:
+    """tests/test_torch_delta_group.py's rank body: `delta_rank` on a
+    `DeltaJob` (flat and 2 × 2 plans over one planner replica), plus the
+    rank's groups, so the test can see the hierarchical schedule ran on
+    its own subgroups."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.distributed_gcn import delta_rank
+    from repro_torch.launch.mesh import halo_groups
+
+    out = delta_rank(rank, k, device, job)
+    out["pod_groups"] = [dist.get_process_group_ranks(g) for g in halo_groups(job.pods)]
     return out

@@ -383,7 +383,7 @@ def test_launch_serve_deepfm_cpu(capsys):
     assert out.startswith("deepfm: batch=512 p50≈") and "examples/s" in out
 
 
-@pytest.mark.parametrize("arch,slice_", [("coin-gcn", "GraphBatcher"), ("coin_gcn", "GraphBatcher"),
+@pytest.mark.parametrize("arch,slice_", [("egnn", "other GNN families"), ("graphcast", "other GNN families"),
                                          ("olmoe-1b-7b", "MoE slice"), ("pna", "other GNN families")])
 def test_launch_serve_names_the_slice_that_brings_it(arch, slice_):
     from repro_torch.launch import serve
