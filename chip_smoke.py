@@ -12,8 +12,9 @@ Four paths of the paper's GCN (``coin_gcn``) run at the widths of Nell
 (Table I: 65,755 nodes, 5,414 → 16 → 210, 4-bit fake quant) with the
 blocked (bsr) backend: full-graph inference, full-graph training, and
 sharded (halo) inference and training over 4 ranks, flat and as 2 pods ×
-2 ranks (the hierarchical exchange), and the elastic re-plan after a
-model-degree halving. The forward of each unsharded layer
+2 ranks (the hierarchical exchange; its inference also on the pod map the
+autotuner chooses), and the elastic re-plan after a model-degree halving.
+The forward of each unsharded layer
 runs the hand-written CUDA kernels of `repro_torch.kernels.fused_gcn` (K2):
 layer 1 feature-first (``k2_ff_transform`` then ``k2_ff_aggregate``),
 layer 2 aggregation-first (``k2_af_layer``). The backward of layer 2
@@ -143,6 +144,27 @@ Phases, one JSON line each; any failed check ends the run with exit code 1:
            checkpoints the last); launches per rank, ms per exchange phase,
            step ms and peak memory per rank; `overlap_timeline` on the
            2 × 2 groups
+  autotune  placement (`repro_torch.core.autotune`): (a) the CLI
+           `repro_torch.launch.autotune` at its defaults (16,384 nodes, k
+           32, 2 pods) on the host: exit code 0, no predicted field off its
+           measured twin, the chosen config, the inter-pod crossing rows
+           default → tuned, host seconds; (b) the halo phase's partition
+           of Nell as 2 pods: `map_parts_to_pods`, the tuned plan beside the
+           default one, no more crossing rows on the tuned one,
+           `exchange_accounting`'s predicted fields equal to the measured
+           ones on both (fp32, and int8 with overlap, at the exchanged
+           width 16), `autotune_config`'s choice and history; (c) the hier
+           phase's group, after its own work, runs the 2 × 2 bsr fp32
+           forward on the tuned plan (K1 and K2 af on every rank): its
+           logits against the default plan's and the unsharded forward
+           (1e-4 of max |logit|), the wire rows per rank per phase against
+           the tuned plan's, launches; forward and per-phase exchange ms of
+           both maps (no gate: one card, gloo); (d) not gated: the H100
+           planner's compute and HBM terms for unsharded Nell beside the
+           measured quant-off forward, and the inputs of
+           `BACKEND_EFFICIENCY` (one fp32 aggregation at F = 16 and 210
+           through K1 and through the segment path, measured before the
+           halo phase while the unsharded table is on the card)
   elastic  elastic_replan: a pure resize (8 healthy ranks) keeps the cached
            plan, 0 evictions, the same object; a halving to 2 ranks evicts,
            the partition is rebuilt at k = 2, and a 2-rank group restores the
@@ -247,8 +269,8 @@ then the card's name and power limit (nvidia-smi), the ``{"kernels": [...]}``
 line, and as the last line ``{"ok": true, "device": {...}}``. A kernel's
 ``launches`` there is its count over the main-path runs (inference
 forwards, training steps, the halo forwards and the halo training steps
-of all ranks, flat and hierarchical, and the delta phase's forwards and
-steps of all ranks; for K3 the DeepFM serving requests and training steps; for
+of all ranks, flat and hierarchical, the forwards on the autotuned pod
+map, and the delta phase's forwards and steps of all ranks; for K3 the DeepFM serving requests and training steps; for
 K4 the LM prefills and the batcher's decode steps), each counted with the
 counts zeroed just before and read just after.
 """
@@ -346,6 +368,8 @@ HALO_QUANT_LOSS_RTOL = 1e-2    # (t4) bsr vs segment losses, relative (bf16 logi
 HIER_PODS = 2                  # hier: the same 4 ranks as 2 pods × 2
 HIER_TRAIN_STEPS = 3           # (h4) AdamW steps (lr 1e-3); rank 0 checkpoints the last, for the elastic phase
 ELASTIC_HEALTHY = (8, 2)       # elastic: 8 healthy ranks keep the 4 model shards (a pure resize); 2 halve them
+AUTOTUNE_CELLS = ((None, False), ("int8", True))   # autotune (b): exchange_accounting's (payload, overlap)
+AUTOTUNE_WIDTHS = (16, 210)    # autotune (d): one aggregation per width, K1 and the segment path
 AF_WIDE_F_IN = (241, 1433, 9029)   # af_wide: past one chunk; Cora's width (Table I); the reference's widest at 128
 AF_WIDE_F_OUT = 128
 AF_WIDE_RTOL = 2e-5            # af_wide: fp32 kernel vs plain, · max |plain|
@@ -1099,7 +1123,7 @@ def run_training(data: dict) -> dict:
                 losses_bsr_quant_off=trajectory["bsr"])
 
 
-def time_everything(data: dict, ops: dict, main: dict, train: dict) -> dict:
+def time_everything(data: dict, ops: dict, main: dict, train: dict) -> tuple[dict, dict]:
     from repro_torch.core.quant import fake_quant
     from repro_torch.kernels import bsr_spmm as k1
     from repro_torch.kernels import fused_gcn as fg
@@ -1198,7 +1222,7 @@ def time_everything(data: dict, ops: dict, main: dict, train: dict) -> dict:
          spills=sum(c["local_bytes"] for c in compiler.values()),
          note="cudaFuncGetAttributes and cudaOccupancyMaxActiveBlocksPerMultiprocessor of each "
               "ragged_layer_kernel instantiation at Nell's 16-wide accumulator")
-    return rows
+    return rows, totals
 
 
 def bsr_library_ms(vals, cols, lens, z) -> dict:
@@ -1564,7 +1588,7 @@ def overlap_enclosure(tracer) -> dict:
                 wire_ms=[e["dur"] / 1e3 for e in wire], interior_ms=[e["dur"] / 1e3 for e in interior])
 
 
-def run_hier(host: dict, halo: dict, flat: dict, train: dict, ckpt_dir: str) -> dict:
+def run_hier(host: dict, halo: dict, flat: dict, train: dict, ckpt_dir: str, tuned_plan) -> dict:
     """The hierarchical (pod, model) exchange at Nell's widths: the same
     partition as the halo phase, as HIER_PODS pods × 2 ranks sharing the
     card (gloo), bsr, fp32 / bf16 / int8 wire; (h1) each variant against its
@@ -1572,12 +1596,16 @@ def run_hier(host: dict, halo: dict, flat: dict, train: dict, ckpt_dir: str) -> 
     the plan, (h3) the sharded loss's gradient against the unsharded train
     phase's, (h4) HIER_TRAIN_STEPS AdamW steps against its losses (rank 0
     checkpoints the last into ``ckpt_dir``), then `overlap_timeline` on the
-    2 × 2 groups; returns the launches of the forwards and of the steps,
-    rank 0's trained parameters and its trace recorder."""
+    2 × 2 groups. The same group then runs the fp32 forward on
+    ``tuned_plan`` (the autotuned pod map) for the `autotune` line. Returns
+    the launches of the forwards and of the steps, rank 0's trained
+    parameters and its trace recorder, and for the `autotune` line the
+    tuned plan's rank results, the default plan's h_fp32 logits, forward
+    and per-phase exchange ms, and the unsharded reference."""
     from repro_torch.configs.coin_gcn import make_config
     from repro_torch.dist.halo import get_halo_plan, restore_node_array
     from repro_torch.kernels import fused_gcn as fg
-    from repro_torch.launch.distributed_gcn import HaloVariant, halo_rank, rank_jobs
+    from repro_torch.launch.distributed_gcn import HaloVariant, halo_ranks, rank_jobs
     from repro_torch.launch.mesh import GroupSpec, run_group
     from repro_torch.models.gcn import gcn_init
 
@@ -1591,17 +1619,21 @@ def run_hier(host: dict, halo: dict, flat: dict, train: dict, ckpt_dir: str) -> 
                      time_reps=HALO_REPS, labels=host["labels"], mask=host["train_mask"],
                      train_variants=(HaloVariant("h_fp32"),), steps=HIER_TRAIN_STEPS, lr=HALO_TRAIN_LR,
                      ckpt_dir=ckpt_dir, ckpt_every=HIER_TRAIN_STEPS, obs_trace=True)
+    tuned_jobs = rank_jobs(tuned_plan, host["features"], params, cfg.layer_dims, (HaloVariant("h_fp32"),),
+                           quant=cfg.quant, time_reps=HALO_REPS)
     spec = GroupSpec(k=plan.k, backend="gloo", devices=("cuda:0",), timeout_s=HALO_TIMEOUT_S)
-    results = run_group(spec, halo_rank, jobs)
+    both = run_group(spec, halo_ranks, list(zip(jobs, tuned_jobs)))
+    results, tuned = [r[0] for r in both], [r[1] for r in both]
     seconds = time.perf_counter() - t0
     ref, ref_scale = flat["ref"], float(np.abs(flat["ref"]).max())
     n_layers = cfg.n_layers
-    checks, per_variant = {}, {}
+    checks, per_variant, restored = {}, {}, {}
     launches = {name: 0 for name in fg.LAUNCHES}
     train_launches = {name: 0 for name in fg.LAUNCHES}
     for v in variants:
         recs = [r["variants"][v.name] for r in results]
         logits = restore_node_array(plan, np.stack([rec["logits"] for rec in recs]))
+        restored[v.name] = logits
         twin = flat["logits"][HIER_FLAT_TWIN[v.name]]
         for rec in recs:
             for name, n in rec["launches"].items():
@@ -1682,7 +1714,184 @@ def run_hier(host: dict, halo: dict, flat: dict, train: dict, ckpt_dir: str) -> 
                 f"{plan.k} ranks share one card, so these are not multi-card times")
     require(ok, "hier", f"checks {checks}")
     return dict(launches=launches, train_launches=train_launches, params=recs[0]["params"],
-                tracer=results[0]["obs"]["tracer"], plan=plan)
+                tracer=results[0]["obs"]["tracer"], plan=plan, tuned=tuned, ref=ref, n_layers=n_layers,
+                logits_h_fp32=restored["h_fp32"], forward_ms_h_fp32=per_variant["h_fp32"]["forward_ms_per_rank"],
+                exchange_phase_ms={p: [r["exchange_phase_ms"][p] for r in results]
+                                   for p in results[0].get("exchange_phase_ms", {})})
+
+
+def measure_engines(data: dict, totals: dict) -> dict:
+    """(d) of the `autotune` line, while the unsharded table is on the card:
+    the H100 planner's terms for unsharded Nell (k = 1) beside the measured
+    quant-off forward, and the inputs of `BACKEND_EFFICIENCY`: one fp32
+    aggregation Ã·Z at Nell per width in AUTOTUNE_WIDTHS through K1 and
+    through the segment path (gather + `index_add_`, as the segment backend
+    aggregates), each as the cost model's multiplies (bsr: valid tiles ·
+    128² · F; segment: E · F) over `PEAK_FLOPS` × its CUDA-event time. The
+    two outputs' largest difference is reported beside them. Not gated."""
+    from repro_torch.core import autotune as at
+    from repro_torch.core.planner import GPUHardware, coin_objective_gpu
+    from repro_torch.graph.ops import aggregate_padded
+    from repro_torch.kernels import bsr_spmm as k1
+
+    vals, cols, lens, pg, n = data["vals"], data["cols"], data["lens"], data["pg"], data["n"]
+    spec, nnz, e = data["spec"], int(lens.sum()), pg.n_real_edges
+    dims = (spec.n_features, spec.hidden, spec.n_labels)
+    hw = GPUHardware()
+    compute_s, hbm_s, link_s = coin_objective_gpu(n, e, dims, 1, hw)
+    generator = torch.Generator().manual_seed(SEED + 3)
+    engines = {}
+    with torch.inference_mode():
+        for f in AUTOTUNE_WIDTHS:
+            z = torch.randn((cols.shape[0] * 128, f), generator=generator).to(vals.device)
+            out, ref = k1.bsr_spmm(vals, cols, lens, z)[:n], aggregate_padded(z[:n], pg.senders, pg.receivers, n,
+                                                                             pg.edge_weight)
+            err, scale = max_err(out, ref)
+            k1_ms = cuda_ms(lambda: k1.bsr_spmm(vals, cols, lens, z))
+            seg_ms = cuda_ms(lambda: aggregate_padded(z[:n], pg.senders, pg.receivers, n, pg.edge_weight))
+            bsr_mult, seg_mult = float(nnz) * 128 * 128 * f, float(e) * f
+            engines[f"F{f}"] = dict(
+                k1_ms=k1_ms, segment_ms=seg_ms, bsr_multiplies=bsr_mult, segment_multiplies=seg_mult,
+                bsr=bsr_mult / (at.PEAK_FLOPS * k1_ms / 1e3), segment=seg_mult / (at.PEAK_FLOPS * seg_ms / 1e3),
+                max_abs_diff_k1_vs_segment=err, max_abs_segment=scale)
+            del z, out, ref
+    return dict(planner=dict(hardware=dataclasses.asdict(hw), k=1, layer_dims=list(dims), n_nodes=n, n_edges=e,
+                             compute_ms=compute_s * 1e3, hbm_ms=hbm_s * 1e3, link_ms=link_s * 1e3,
+                             measured_forward_bsr_quant_off_ms=totals["forward_bsr_noquant_ms"]),
+                backend_efficiency=engines, peak_flops=at.PEAK_FLOPS,
+                backend_efficiency_in_use=dict(at.BACKEND_EFFICIENCY))
+
+
+def prepare_autotune(host: dict, halo: dict) -> dict:
+    """(a) and (b) of the `autotune` line, on the host. (a) The CLI
+    (`repro_torch.launch.autotune`) at its defaults: the JSON record it
+    writes, its exit code and seconds. (b) The halo phase's partition of
+    Nell as HIER_PODS pods: the quotient-graph pod map, the tuned plan
+    beside the default one (the hier phase's, from the plan cache),
+    `exchange_accounting`'s predicted fields against the measured ones on
+    both plans for each cell of AUTOTUNE_CELLS at the exchanged width, and
+    `autotune_config`'s choice there."""
+    import types
+
+    from repro_torch.configs.coin_gcn import make_config
+    from repro_torch.core.autotune import BLOCK_GRID, BoundaryIndex, autotune_config, map_parts_to_pods
+    from repro_torch.core.energy import model_from_gcn
+    from repro_torch.dist.halo import build_halo_plan, get_halo_plan, plan_blocked_shape
+    from repro_torch.launch import autotune as cli
+    from repro_torch.launch.dryrun import exchange_accounting
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_autotune_") as tmp:
+        path = pathlib.Path(tmp) / "autotune.json"
+        t0 = time.perf_counter()
+        rc = cli.main(["--out", str(path)])
+        cli_s = time.perf_counter() - t0
+        rec = json.loads(path.read_text())
+    md, mt = rec["measured"]["default"], rec["measured"]["autotuned"]
+
+    part, edges, w = halo["part"], host["edge_index"], host["weights"]
+    dims = make_config(dataset=DATASET).layer_dims
+    t0 = time.perf_counter()
+    index = BoundaryIndex(part, edges)
+    pod_map = map_parts_to_pods(part, edges, HIER_PODS, index=index)
+    map_s = time.perf_counter() - t0
+    default = get_halo_plan(part, edges, w, pods=HIER_PODS)
+    t0 = time.perf_counter()
+    tuned = build_halo_plan(part, edges, w, axes=("pod", "model"), pods=HIER_PODS, pod_map=pod_map)
+    plan_s = time.perf_counter() - t0
+    calibration = {}
+    for name, plan in (("default", default), ("tuned", tuned)):
+        for payload, overlap in AUTOTUNE_CELLS:
+            cell = types.SimpleNamespace(comm="halo", halo_plan=plan, halo_payload=payload, halo_overlap=overlap)
+            acc = exchange_accounting(cell, types.SimpleNamespace(d_feat=dims[1]))
+            pred = acc["predicted"]
+            calibration[f"{name}_{payload or 'fp32'}{'_overlap' if overlap else ''}"] = {
+                f: [pred[f], acc[f]] for f in sorted(pred.keys() & acc.keys()) if pred[f] != acc[f]}
+    t0 = time.perf_counter()
+    nnz = {b: plan_blocked_shape(default, block=b)["nnz_blocks"] for b in BLOCK_GRID}
+    result = autotune_config(part, edges, pods=HIER_PODS, d_feat=dims[1], layer_dims=dims, nnz_blocks_for=nnz,
+                             energy_model=model_from_gcn(part.n_nodes, dims))
+    tune_s = time.perf_counter() - t0
+    terms = ("compute_s", "wire_s", "noc_latency_s", "noc_energy_j", "coin_energy_j", "objective_s")
+
+    def geometry(plan):
+        return dict(s_loc=plan.s_loc, s_rem=plan.s_rem, halo_rows_per_rank=plan.halo_rows_per_device,
+                    inter_pod_rows_per_rank=plan.inter_pod_rows_per_device,
+                    intra_pod_rows_per_rank=plan.intra_pod_rows_per_device,
+                    inter_pod_rows_crossing=plan.inter_pod_rows_crossing)
+
+    return dict(
+        plan=tuned,
+        cli=dict(rc=rc, host_s=cli_s, graph=rec["graph"], config=rec["config"], history=rec["history"],
+                 inter_pod_rows_crossing=[md["inter_pod_rows_crossing"], mt["inter_pod_rows_crossing"]],
+                 halo_rows_per_device=[md["halo_rows_per_device"], mt["halo_rows_per_device"]],
+                 improvement=rec["improvement"], calibration_mismatches=rec["calibration_mismatches"]),
+        nell=dict(pods=HIER_PODS, k=part.k, pod_map=pod_map.tolist(), map_host_s=map_s, tuned_plan_host_s=plan_s,
+                  default=geometry(default), tuned=geometry(tuned), d_feat=dims[1],
+                  calibration_mismatches=calibration, nnz_blocks_for=nnz,
+                  autotune_config=dict(config=dataclasses.asdict(result.config), history=result.history,
+                                       baseline={t: result.baseline[t] for t in terms},
+                                       chosen={t: result.predicted[t] for t in terms}, host_s=tune_s)))
+
+
+def run_autotune_line(tune: dict, hier: dict, engines: dict) -> dict:
+    """The `autotune` line: (a) and (b) from `prepare_autotune`; (c) the 2 ×
+    2 bsr fp32 forward on the tuned plan, run by the hier phase's group after
+    its own work (`halo_ranks`): its restored logits against the default
+    plan's (the hier phase's h_fp32) and the unsharded forward under the
+    hier phase's rule, and the wire rows each rank counted per phase against
+    the tuned plan's; forward and per-phase exchange ms for both maps (4
+    ranks share one card and gloo has no slow tier: no gate); (d) from
+    `measure_engines`. Returns each kernel's launches in (c), all ranks."""
+    from repro_torch.dist.halo import restore_node_array
+    from repro_torch.kernels import fused_gcn as fg
+
+    plan, cli, nell = tune["plan"], tune["cli"], tune["nell"]
+    results = hier["tuned"]
+    recs = [r["variants"]["h_fp32"] for r in results]
+    logits = restore_node_array(plan, np.stack([rec["logits"] for rec in recs]))
+    ref, default = hier["ref"], hier["logits_h_fp32"]
+    scale = float(np.abs(ref).max())
+    err_default, err_unsharded = float(np.abs(logits - default).max()), float(np.abs(logits - ref).max())
+    n_layers = hier["n_layers"]
+    launches = {name: 0 for name in fg.LAUNCHES}
+    for rec in recs:
+        for name, n in rec["launches"].items():
+            launches[name] += n
+    checks = dict(
+        a_cli_exit_code=cli["rc"] == 0, a_cli_calibration=cli["calibration_mismatches"] == {},
+        b_tuned_crossing_le_default=nell["tuned"]["inter_pod_rows_crossing"]
+        <= nell["default"]["inter_pod_rows_crossing"],
+        b_calibration=all(m == {} for m in nell["calibration_mismatches"].values()),
+        c_vs_default=err_default <= HALO_LOGIT_RTOL * scale,
+        c_vs_unsharded=err_unsharded <= HALO_LOGIT_RTOL * scale,
+        c_finite=all(rec["finite"] for rec in recs) and bool(np.isfinite(logits).all()),
+        c_shape=logits.shape == ref.shape,
+        c_launches=all(rec["launches"] == HIER_LAUNCHES["h_fp32"] for rec in recs),
+        c_wire_rows=all(rec["wire_rows_inter_pod"] == n_layers * plan.inter_pod_rows_per_device
+                        and rec["wire_rows_intra_pod"] == n_layers * plan.intra_pod_rows_per_device
+                        and rec["wire_rows"] == n_layers * plan.halo_rows_per_device for rec in recs))
+    ok = all(checks.values())
+    emit("autotune", ok=ok, checks=checks, cli=cli, nell=nell,
+         forward=dict(variant="h_fp32 (bsr, fp32 wire, combined table)", pods=plan.n_pods, ranks_per_pod=plan.k_model,
+                      max_abs_err_vs_default=err_default, max_abs_err_vs_unsharded=err_unsharded,
+                      rtol=HALO_LOGIT_RTOL, max_abs_logit_unsharded=scale,
+                      launches_per_rank=[rec["launches"] for rec in recs],
+                      wire_rows_inter_pod_per_rank=[rec["wire_rows_inter_pod"] for rec in recs],
+                      wire_rows_intra_pod_per_rank=[rec["wire_rows_intra_pod"] for rec in recs],
+                      expected_wire_rows_per_forward=dict(inter_pod=n_layers * plan.inter_pod_rows_per_device,
+                                                          intra_pod=n_layers * plan.intra_pod_rows_per_device),
+                      forward_ms_per_rank=dict(default=hier["forward_ms_h_fp32"],
+                                               tuned=[rec.get("forward_ms") for rec in recs]),
+                      exchange_phase_ms_per_rank=dict(default=hier["exchange_phase_ms"], tuned={
+                          p: [r["exchange_phase_ms"][p] for r in results]
+                          for p in results[0].get("exchange_phase_ms", {})}),
+                      launches_all_ranks=launches,
+                      timing=f"CUDA events after a group barrier, median of {HALO_REPS}; {plan.k} ranks share one "
+                             f"card and the wire is gloo through the host, so no time here is a multi-card time"),
+         **engines)
+    require(ok, "autotune", f"checks {checks}")
+    return launches
+
 
 
 def run_elastic(host: dict, halo: dict, hier: dict, ckpt_dir: str, device: torch.device) -> None:
@@ -2786,7 +2995,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     main_run = run_main_path(data)
     train_run = run_training(data)
-    rows = time_everything(data, ops, main_run, train_run)
+    rows, totals = time_everything(data, ops, main_run, train_run)
+    engines = measure_engines(data, totals)
     rank = rank_operands(data, halo, ops, torch.Generator().manual_seed(SEED + 2))
     rows.update(time_bf16_kernels(rank, ops))
     profile_train_steps(train_run)
@@ -2808,8 +3018,10 @@ def main() -> int:
     sharded, sharded_train = flat["launches"], flat["train_launches"]
     gc.collect()
     torch.cuda.empty_cache()
+    tune = prepare_autotune(host, halo)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
-        hier = run_hier(host, halo, flat, halo_ref, ckpt_dir)
+        hier = run_hier(host, halo, flat, halo_ref, ckpt_dir, tune["plan"])
+        tuned = run_autotune_line(tune, hier, engines)
         run_elastic(host, halo, hier, ckpt_dir, device)
     run_obs(flat["tracer"], hier["tracer"], profile)
     del flat
@@ -2833,12 +3045,13 @@ def main() -> int:
         dict(name=name, route="cuda", source=XW_SOURCE if name.startswith("k2_ff_transform") else KERNEL_SOURCE,
              replaces=REPLACES[name],
              launches=inference[name] + train[name] + sharded[name] + sharded_train[name]
-             + hier["launches"][name] + hier["train_launches"][name] + delta["launches"][name]
+             + hier["launches"][name] + hier["train_launches"][name] + tuned[name] + delta["launches"][name]
              + delta["train_launches"][name],
              launches_inference=inference[name], launches_train=train[name],
              launches_per_train_step=train[name] / TRAIN_STEPS, launches_halo=sharded[name],
              launches_halo_train=sharded_train[name], launches_hier=hier["launches"][name],
-             launches_hier_train=hier["train_launches"][name], launches_delta=delta["launches"][name],
+             launches_hier_train=hier["train_launches"][name], launches_autotune=tuned[name],
+             launches_delta=delta["launches"][name],
              launches_delta_train=delta["train_launches"][name], max_abs_err=worst[name], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound"][0], bound_by=row["bound"][1],
              library_ms=row["library_ms"],

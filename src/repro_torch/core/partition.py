@@ -5,8 +5,9 @@ path and the quickstart need: `bfs_traversal_order` (the default locality
 permutation), `partition_graph` with its BFS region growing and boundary
 refinement (the ``method="partition"`` permutation), the `Partition`
 statistics, `partition_from_assignment` (the online re-localization's
-wrapper) and `measured_probabilities`. Outputs are array-equal to the
-reference's.
+wrapper), `measured_probabilities` and `quotient_graph` (the autotuner's
+contraction of a partitioned graph to its parts). Outputs are array-equal
+to the reference's.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ __all__ = [
     "measured_probabilities",
     "refine_partition",
     "bfs_traversal_order",
+    "quotient_graph",
 ]
 
 
@@ -238,6 +240,38 @@ def refine_partition(
             break
         cut_before = cut_after
     return assignment
+
+
+def quotient_graph(part: Partition, edge_index: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Contract a partitioned graph to its k-super-node quotient.
+
+    Super-node i is CE/part i. The weight of quotient edge (i, j), i ≠ j, is
+    the number of DEDUPLICATED boundary rows part i exports to part j: the
+    count of distinct source nodes in i that appear on at least one cut edge
+    into j. That is exactly the per-pair quantity the halo plan's export
+    tiers pad and ship (each distinct (source device, source row) pair
+    occupies one slot), so partitioning this quotient minimizes shipped rows
+    rather than raw cut edges.
+
+    Returns ``(q_edge_index, q_weights)``: a (2, Eq) int64 directed edge list
+    over ``part.k`` super-nodes and the matching (Eq,) int64 weights.
+    Self-loops (intra-part edges) are dropped.
+    """
+    k = int(part.k)
+    a = part.assignment.astype(np.int64)
+    src = np.asarray(edge_index[0], dtype=np.int64)
+    dst = np.asarray(edge_index[1], dtype=np.int64)
+    a_s, a_d = a[src], a[dst]
+    cut = a_s != a_d
+    s, dpart = src[cut], a_d[cut]
+    # One boundary row per distinct (source node, destination part) pair.
+    uniq = np.unique(s * k + dpart)
+    q_src = a[uniq // k]
+    q_dst = uniq % k
+    counts = np.bincount(q_src * k + q_dst, minlength=k * k).reshape(k, k)
+    i, j = np.nonzero(counts)
+    q_edge_index = np.stack([i, j]).astype(np.int64)
+    return q_edge_index, counts[i, j].astype(np.int64)
 
 
 def partition_graph(

@@ -1,20 +1,25 @@
 """Fake quantization of weights and activations (paper §V-B, Fig. 7).
 
 Twin of `repro.core.quant`: symmetric per-tensor fake quantization with a
-straight-through estimator, and the wire payload codecs of the halo
-exchange (`repro_torch.dist.halo`).
+straight-through estimator (per tensor, or over every tensor of a
+parameter tree), and the wire payload codecs of the halo exchange
+(`repro_torch.dist.halo`).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
 
 import torch
+
+from repro_torch.train.tree import tree_map
 
 __all__ = [
     "QuantConfig",
     "PAYLOAD_BITS",
     "fake_quant",
+    "quantize_tree",
     "payload_bits",
     "quantize_payload",
     "dequantize_payload",
@@ -57,6 +62,18 @@ def fake_quant(x: torch.Tensor, bits: int, percentile: float | None = None) -> t
     q = torch.clamp(torch.round(x / scale), -qmax - 1, qmax) * scale
     # Straight-through estimator: forward q, backward identity.
     return x + (q - x).detach()
+
+
+def quantize_tree(params: Any, bits: int, percentile: float | None = None) -> Any:
+    """Fake-quantize every floating tensor of a parameter tree (a nested
+    dict, list or tuple); every other leaf is returned as it is.
+    ``percentile`` reaches every leaf's calibration."""
+    def leaf(p):
+        if isinstance(p, torch.Tensor) and p.is_floating_point():
+            return fake_quant(p, bits, percentile=percentile)
+        return p
+
+    return tree_map(leaf, params)
 
 
 # --------------------------------------------------------- halo wire payloads

@@ -39,7 +39,7 @@ wire goes through the host. `halo_rank` (forwards) and `halo_train_rank`
 (training) are the rank bodies, shared with `chip_smoke.py` and the tests:
 they run lists of `HaloVariant`s and return each one's logits or
 gradients and losses, its kernel launches and wire rows, and optionally
-its times.
+its times; `halo_ranks` runs `halo_rank` on several plans in one group.
 """
 from __future__ import annotations
 
@@ -81,8 +81,8 @@ from repro_torch.obs.trace import device_time_summary
 from repro_torch.train.loop import Trainer, TrainerConfig, value_and_grad
 from repro_torch.train.optimizer import adamw
 
-__all__ = ["HaloVariant", "RankJob", "DeltaJob", "halo_loss", "halo_rank", "halo_train_rank", "delta_rank",
-           "rank_jobs", "table_widths", "main"]
+__all__ = ["HaloVariant", "RankJob", "DeltaJob", "halo_loss", "halo_rank", "halo_ranks", "halo_train_rank",
+           "delta_rank", "rank_jobs", "table_widths", "main"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -376,6 +376,19 @@ def halo_rank(rank: int, k: int, device: torch.device, job: RankJob) -> dict:
     if job.obs_metrics or job.obs_trace:
         _obs_end(r, out)
     dist.barrier()
+    return out
+
+
+def halo_ranks(rank: int, k: int, device: torch.device, jobs: tuple[RankJob, ...]) -> list[dict]:
+    """`halo_rank` on each of ``jobs`` in turn, in one group: plans of the
+    same k and pods (a default and an autotuned pod map) without starting
+    another group. Each job's tables are freed before the next one's are
+    built, and each job's peak memory is its own."""
+    out = []
+    for job in jobs:
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        out.append(halo_rank(rank, k, device, job))
     return out
 
 
