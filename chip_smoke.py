@@ -44,7 +44,13 @@ heads over 8 kv heads of 240, d_ff 15,360, vocab 262,144; 11.62 B fp32
 parameters, 46.5 GB; nothing cut), serves: prefill with every layer's
 causal / sliding-window attention in the CUDA kernel of
 `repro_torch.kernels.flash_attention` (K4, ``k4_flash_attention``), then
-KV-cache decode through `ContinuousBatcher`, which never reaches K4.
+KV-cache decode through `ContinuousBatcher`, which never reaches K4. The
+same widths cut to 6 layers (one 5 local : 1 global period) train: K4 in
+every layer's forward, its gradient `flash_attention_vjp` (torch ops: the
+reference has no backward kernel), AdamW. A seventh path, the MoE LM
+olmoe-1b-7b (16 layers, d_model 2,048, 64 experts top-8; 6.82 B fp32
+parameters, 27.3 GB; nothing cut), serves — prefill with K4 at d 128 in
+every layer, KV-cache decode — and trains with its depth cut to 4 layers.
 
 Phases, one JSON line each; any failed check ends the run with exit code 1:
 
@@ -264,6 +270,36 @@ Phases, one JSON line each; any failed check ends the run with exit code 1:
            prompt position against lm_prefill's (1e-3 of max |logit|) and
            their first token against its argmax; peak memory; the
            profiler's device time over three decode steps of every slot
+  lm_train  the serving weights freed, gemma3-12b's widths cut to 6 layers
+           (reduced: n_layers 48 → 6), B 2 × S 2,048 from token_batch_fn,
+           the same batch every step: (a) one lm_loss gradient at B 1 with
+           K4 in the forward and flash_attention_vjp behind it against the
+           same loss with the plain attention and autograd (1e-4 of each
+           leaf's largest |g|); K4 against its plain version at this path's
+           shapes (32 query / 16 kv heads × 2,048 × 240, both windows);
+           (b) five AdamW steps (lr 1e-3) of a Trainer with the launch
+           counts zeroed just before and read just after: finite losses,
+           the last below the first, 6 launches a step (5 at window 1,024,
+           1 global); (c) one more step's forward, backward and update
+           timed apart: 6 launches after the forward and none added by the
+           backward; (d) host-clock step times, the attention backward's
+           ms a layer against K4's forward (CUDA events), peak memory, the
+           profiler's device time by kernel and idle share over 2 steps
+  moe_serve  lm_init(olmoe-1b-7b FULL): parameter count; (a) teacher-forced
+           decode of 2 × 64 tokens against lm_forward on the same tokens
+           (2e-4 of max |logit|; both drop-free, T ≤ 512); K4 against its
+           plain version at 16 heads × 4,096 × 128; (b) lm_prefill at
+           1 × 4,096, one warm-up and three CUDA-event-timed runs with the
+           launch counts zeroed just before and read just after (16 global
+           launches each), the (token, expert) pairs capacity (640) drops
+           in each layer
+  moe_decode  (c) lm_decode's batcher checks on olmoe-1b-7b: step p50, the
+           profiler's idle share, no K4 launch
+  moe_train  (d) olmoe-1b-7b's widths cut to 4 layers (reduced: n_layers
+           16 → 4), B 2 × S 2,048, five AdamW steps with the launch counts
+           zeroed just before and read just after (4 a step): finite
+           losses, the last below the first; aux and dropped pairs a step,
+           step ms, peak memory
 
 then the card's name and power limit (nvidia-smi), the ``{"kernels": [...]}``
 line, and as the last line ``{"ok": true, "device": {...}}``. A kernel's
@@ -271,8 +307,11 @@ line, and as the last line ``{"ok": true, "device": {...}}``. A kernel's
 forwards, training steps, the halo forwards and the halo training steps
 of all ranks, flat and hierarchical, the forwards on the autotuned pod
 map, and the delta phase's forwards and steps of all ranks; for K3 the DeepFM serving requests and training steps; for
-K4 the LM prefills and the batcher's decode steps), each counted with the
-counts zeroed just before and read just after.
+K4 the LM prefills, the batcher's decode steps, gemma3's training steps
+(``launches_lm_train``) and olmoe's prefills, decode and training steps
+(``launches_moe``)), each counted with the counts zeroed just before and
+read just after. K4's counts are forward launches only: its backward,
+`flash_attention_vjp`, launches no K4.
 """
 from __future__ import annotations
 
@@ -350,6 +389,17 @@ LM_PROMPT_LEN = (16, 64)       # (l3) prompt lengths, inclusive
 LM_DECODE_RTOL = 1e-3          # (l3) batcher logits at the last prompt position vs lm_prefill's, · max |logit|:
                                # another summation order (the plain einsum over the cache against K4) and other
                                # cuBLAS shapes (4 rows against the prompt's), through 48 fp32 layers
+LM_TRAIN_LAYERS = 6            # lm_train: gemma3-12b's depth cut 48 → 6 (one 5 local : 1 global period), widths whole
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 2, 2048   # lm_train: B × S (+1 token for the labels), the same batch every step
+LM_TRAIN_STEPS = 5             # lm_train (b): AdamW steps of a Trainer
+LM_TRAIN_LR = 1e-3
+LM_TRAIN_GRAD_RTOL = 1e-4      # lm_train (a): K4 + flash_attention_vjp vs the plain attention's autograd, · max per leaf
+LM_TRAIN_PROFILE_STEPS = 2     # lm_train (d): steps under torch.profiler
+MOE_DECODE_BATCH, MOE_DECODE_LEN = 2, 64   # moe (a): teacher-forced decode against lm_forward (drop-free: T ≤ 512)
+MOE_DECODE_RTOL = 2e-4         # moe (a): tests/test_models.py's decode-vs-forward tolerance, · max |logit|
+MOE_PREFILL_SEQ = 4096         # moe (b): prefill 1 × 4,096 (capacity 640 a layer)
+MOE_TRAIN_LAYERS = 4           # moe (d): olmoe-1b-7b's depth cut 16 → 4 for training, widths whole
+MOE_TRAIN_STEPS = 5            # moe (d): AdamW steps at LM_TRAIN_BATCH × LM_TRAIN_SEQ
 
 HALO_K = 4
 HALO_REPS = 5                  # timed forwards / exchanges per variant and rank
@@ -2859,11 +2909,11 @@ def lm_prefill_phase(params: dict, cfg) -> dict:
     return launches
 
 
-def lm_decode_phase(params: dict, cfg) -> dict:
+def lm_decode_phase(params: dict, cfg, phase: str = "lm_decode") -> dict:
     """(l3): a ContinuousBatcher of LM_SLOTS slots serves LM_REQUESTS
     requests with the launch counts zeroed just before and read just after
     (the decode never reaches K4); step times; two requests' logits at their
-    last prompt position against lm_prefill's."""
+    last prompt position against lm_prefill's. Emits the line ``phase``."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import flash_attention as k4
@@ -2932,7 +2982,7 @@ def lm_decode_phase(params: dict, cfg) -> dict:
         logits_vs_prefill=all(h["ok"] for h in held), first_tokens=all(h["first_token_ok"] for h in held),
     )
     step_p50 = statistics.median(step_ms)
-    emit("lm_decode", ok=all(checks.values()), checks=checks, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+    emit(phase, ok=all(checks.values()), checks=checks, slots=LM_SLOTS, max_len=LM_MAX_LEN,
          requests=LM_REQUESTS, prompt_lens=[int(n) for n in lens], new_tokens=LM_NEW_TOKENS, steps=cb.steps_run,
          launches=launches, step_ms_p50=step_p50, step_ms_min=min(step_ms), step_ms_max=max(step_ms),
          full_step_tokens_per_s=LM_SLOTS / step_p50 * 1e3, generated_tokens=generated, total_s=total_s,
@@ -2941,7 +2991,7 @@ def lm_decode_phase(params: dict, cfg) -> dict:
          profile=dict(decode_steps=3, **device_time_summary(list(prof.events()), 3)),
          timing="host clock around each engine step (admit, one decode step of every slot, the logits' copy to "
                 "the host, sampling); a step feeds either a prompt token or a generated one")
-    require(all(checks.values()), "lm_decode", f"checks {checks}")
+    require(all(checks.values()), phase, f"checks {checks}")
     return launches
 
 
@@ -2966,6 +3016,321 @@ def run_lm(device: torch.device) -> tuple[dict, dict, dict]:
     decode = lm_decode_phase(params, FULL)
     emit("lm", ok=True, seconds=time.perf_counter() - t0)
     return prefill, decode, dict(rows=rows, worst=worst)
+
+
+def k4_hold(q, k, v, window: int) -> tuple[float, float]:
+    """(max |K4 − plain|, max |plain|) of one K4 call on the card (outside the
+    counted runs: each resets the counts just before it)."""
+    from repro_torch.kernels import flash_attention as k4
+
+    with torch.inference_mode():
+        return max_err(k4.flash_attention(q, k, v, window=window), k4.flash_attention_plain(q, k, v, window=window))
+
+
+def lm_tokens(vocab: int, batch: int, seq: int, device: torch.device) -> torch.Tensor:
+    """(batch, seq + 1) tokens of `token_batch_fn` from the script's seed."""
+    from repro_torch.train.data import token_batch_fn
+
+    return torch.from_numpy(token_batch_fn(vocab, seq)(np.random.default_rng(SEED), batch)).to(device, torch.int64)
+
+
+def train_split(tr, loss_fn, batch) -> tuple[dict, dict, dict]:
+    """One step of ``tr``'s work in three timed parts (host clock, each ended
+    by a synchronisation): the loss's forward, its backward, the optimizer's
+    update (computed and dropped: the trainer's state is left as it was).
+    Returns (ms by part, K4 launches after the forward, after the backward)."""
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.train.tree import tree_leaves, tree_unflatten
+
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(tr.params)]
+    params = tree_unflatten(tr.params, leaves)
+    torch.cuda.synchronize()
+    k4.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss = loss_fn(params, batch)
+    float(loss.detach())
+    t1 = time.perf_counter()
+    after_forward = dict(k4.LAUNCHES, windows={str(w): n for (_, w), n in k4.WINDOWS.items()})
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    after_backward = dict(k4.LAUNCHES, windows={str(w): n for (_, w), n in k4.WINDOWS.items()})
+    del loss, params, leaves
+    with torch.no_grad():
+        update = tr.opt.update(tree_unflatten(tr.params, list(grads)), tr.opt_state, tr.params)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    del update, grads
+    return (dict(forward_ms=(t1 - t0) * 1e3, backward_ms=(t2 - t1) * 1e3, optimizer_ms=(t3 - t2) * 1e3),
+            after_forward, after_backward)
+
+
+def timed_fit(tr, batch, steps: int) -> tuple[list, list]:
+    """``steps`` Trainer steps on ``batch``, one `fit` call each: (losses,
+    host-clock ms per step; each step ends in the loss's read-back)."""
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses += tr.fit(iter([batch]), max_steps=tr.step + 1, log=lambda line: None)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, step_ms
+
+
+def profile_fit(tr, batch, steps: int) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs.trace import device_time_summary
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tr.fit(iter([batch] * steps), max_steps=tr.step + steps, log=lambda line: None)
+        torch.cuda.synchronize()
+    return dict(steps=steps, **device_time_summary(list(prof.events()), steps))
+
+
+def run_lm_train(device: torch.device) -> tuple[dict, float]:
+    """lm_train: gemma3-12b at its full widths, depth cut to LM_TRAIN_LAYERS:
+    (a) one lm_loss gradient at B = 1 with K4 in the forward and
+    flash_attention_vjp behind it against the same loss with the plain
+    attention and autograd; (b) a Trainer's AdamW steps with the launch
+    counts zeroed just before and read just after; (c) K4's launches in one
+    step's forward (one a layer, by window) and none in its backward;
+    (d) step times, the forward / backward / optimizer split, the attention
+    backward's ms a layer against K4's forward, peak memory, the profile.
+    Returns (K4's launches over the Trainer's steps, the worst K4 error)."""
+    from repro_torch.configs.gemma3_12b import FULL
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.models.transformer_lm import lm_init, lm_loss
+    from repro_torch.train.loop import Trainer, TrainerConfig, value_and_grad
+    from repro_torch.train.optimizer import adamw
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(FULL, n_layers=LM_TRAIN_LAYERS)
+    reduced = {"n_layers": f"{FULL.n_layers} → {LM_TRAIN_LAYERS}"}
+    params = lm_init(torch.Generator(device=device).manual_seed(SEED), cfg, device=device)
+    n_params = sum(p.numel() for p in named_leaves(params).values())
+    require(n_params == cfg.param_count(), "lm_train", f"{n_params} parameters, config says {cfg.param_count()}")
+    tokens = lm_tokens(cfg.vocab, LM_TRAIN_BATCH, LM_TRAIN_SEQ, device)
+    windows = [int(w) for w in cfg.window_sizes()]
+    loss_fn = lambda p, b: lm_loss(p, b, cfg)
+
+    # (a) the gradient through K4 and flash_attention_vjp against the plain attention's autograd, at B = 1
+    k4.reset_launch_counts()
+    loss_k4, g_k4 = value_and_grad(loss_fn, params, tokens[:1])
+    grad_launches = dict(k4.LAUNCHES)
+    loss_plain, g_plain = value_and_grad(lambda p, b: lm_loss(p, b, cfg, kernel=k4.flash_attention_plain),
+                                         params, tokens[:1])
+    leaf_errs, got = {}, named_leaves(g_k4)
+    for name, want in named_leaves(g_plain).items():
+        err, scale = max_err(got[name], want)
+        leaf_errs[name] = dict(max_abs_err=err, max_abs_grad=scale, rel=err / scale if scale else float("inf"))
+    del g_k4, g_plain, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # K4 against its plain version at this path's shapes (B = 2: 32 query heads over 16 kv heads)
+    H, Hk, d = LM_TRAIN_BATCH * cfg.n_heads, LM_TRAIN_BATCH * cfg.n_kv_heads, cfg.attn.head_dim
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    q, k, v = (torch.randn((n, LM_TRAIN_SEQ, d), generator=gen, device=device) for n in (H, Hk, Hk))
+    g = torch.randn((H, LM_TRAIN_SEQ, d), generator=gen, device=device)
+    held, attn = {}, {}
+    for tag, window in (("local", cfg.window), ("global", global_window())):
+        err, scale = k4_hold(q, k, v, window)
+        held[tag] = dict(max_abs_err=err, max_abs_ref=scale, ok=err <= KERNEL_RTOL * scale)
+        with torch.inference_mode():
+            out = k4.flash_attention(q, k, v, window=window)
+            attn[tag] = dict(window=window, k4_forward_ms=cuda_ms(lambda: k4.flash_attention(q, k, v, window=window),
+                                                                  reps=5),
+                             vjp_ms=cuda_ms(lambda: k4.flash_attention_vjp(q, k, v, out, g, window), reps=3,
+                                            warmup=1))
+        attn[tag]["vjp_over_forward"] = attn[tag]["vjp_ms"] / attn[tag]["k4_forward_ms"]
+    k4.reset_launch_counts()
+    del q, k, v, g, out
+    torch.cuda.empty_cache()
+
+    # (b) the Trainer's steps, counted from zero
+    tr = Trainer(loss_fn, adamw(LM_TRAIN_LR), params, TrainerConfig(log_every=10**9))
+    del params
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k4.reset_launch_counts()
+    losses, step_ms = timed_fit(tr, tokens, LM_TRAIN_STEPS)
+    launches = dict(k4.LAUNCHES)
+    by_window = {str(w): n for (_, w), n in k4.WINDOWS.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # (c) one step's work split; K4 launches after its forward and after its backward
+    split, after_forward, after_backward = train_split(tr, loss_fn, tokens)
+    k4.reset_launch_counts()
+    # (d) the profile
+    prof = profile_fit(tr, tokens, LM_TRAIN_PROFILE_STEPS)
+    k4.reset_launch_counts()
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    n_local = sum(w == cfg.window for w in windows)
+    per_forward = {"k4_flash_attention": LM_TRAIN_LAYERS, "k4_flash_attention_bf16": 0,
+                   "windows": {str(cfg.window): n_local, str(global_window()): LM_TRAIN_LAYERS - n_local}}
+    expected = {"k4_flash_attention": LM_TRAIN_STEPS * LM_TRAIN_LAYERS, "k4_flash_attention_bf16": 0}
+    expected_windows = {k: LM_TRAIN_STEPS * n for k, n in per_forward["windows"].items()}
+    worst_rel = max(e["rel"] for e in leaf_errs.values())
+    checks = dict(
+        gradient_vs_plain_attention=worst_rel <= LM_TRAIN_GRAD_RTOL,
+        gradient_launches=grad_launches == {k: v for k, v in per_forward.items() if k != "windows"},
+        loss_vs_plain_attention=abs(float(loss_k4) - float(loss_plain)) <= LM_TRAIN_GRAD_RTOL * abs(float(loss_plain)),
+        k4_vs_plain=all(h["ok"] for h in held.values()),
+        finite_losses=all(np.isfinite(losses)), loss_falls=losses[-1] < losses[0],
+        launches=launches == expected, windows=by_window == expected_windows,
+        forward_launches=after_forward == per_forward, no_backward_launch=after_backward == after_forward,
+    )
+    emit("lm_train", ok=all(checks.values()), checks=checks, config=dataclasses.asdict(cfg), reduced=reduced,
+         parameters=n_params, parameter_gb=n_params * 4 / 1e9, batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ,
+         windows=windows, loss_k4=float(loss_k4), loss_plain_attention=float(loss_plain),
+         gradient_rel_err_max=worst_rel, gradient_rtol=LM_TRAIN_GRAD_RTOL, gradient_by_leaf=leaf_errs,
+         k4_vs_plain=held, losses=losses, step_ms=step_ms, step_ms_median=statistics.median(step_ms),
+         tokens_per_s=LM_TRAIN_BATCH * LM_TRAIN_SEQ / statistics.median(step_ms) * 1e3,
+         split=split, launches=launches, expected_launches=expected, launches_by_window=by_window,
+         launches_after_forward=after_forward, launches_after_backward=after_backward,
+         attention_per_layer=attn, peak_memory_gb=peak_gb, profile=prof, seconds=time.perf_counter() - t0,
+         timing="host clock around each Trainer step (ends in the loss's read-back); the split: one more step's "
+                "forward, backward and update, each ended by a synchronisation; attention: CUDA-event medians at "
+                "B = 2 (32 query / 16 kv heads × 2,048 × 240) of K4's forward and of flash_attention_vjp")
+    require(all(checks.values()), "lm_train", f"checks {checks}")
+    return launches, max(h["max_abs_err"] for h in held.values())
+
+
+def run_moe(device: torch.device) -> tuple[dict, float]:
+    """moe: olmoe-1b-7b. At its full config (16 layers, served whole): (a)
+    teacher-forced decode against lm_forward; (b) prefill 1 × 4,096 with
+    the launch counts zeroed just before and read just after, the (token,
+    expert) pairs capacity drops in each layer; (c) the ContinuousBatcher
+    (`lm_decode_phase`, line ``moe_decode``). Then (d) training at its
+    widths with the depth cut to MOE_TRAIN_LAYERS. Returns (K4's launches
+    over the prefills and the training steps, the worst K4 error)."""
+    from repro_torch.configs.olmoe_1b_7b import FULL
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.models.transformer_lm import lm_decode_step, lm_forward, lm_init, lm_init_cache, lm_loss, lm_prefill
+    from repro_torch.nn import moe
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.train.optimizer import adamw
+
+    t0 = time.perf_counter()
+    cfg = FULL
+    params = lm_init(torch.Generator(device=device).manual_seed(SEED), cfg, device=device)
+    n_params = sum(p.numel() for p in named_leaves(params).values())
+    require(n_params == cfg.param_count(), "moe_serve", f"{n_params} parameters, config says {cfg.param_count()}")
+    init_gb = torch.cuda.memory_allocated() / 1e9
+
+    # (a) teacher-forced decode against the forward on the same tokens
+    toks = lm_tokens(cfg.vocab, MOE_DECODE_BATCH, MOE_DECODE_LEN, device)[:, :MOE_DECODE_LEN]
+    with torch.inference_mode():
+        cache = lm_init_cache(cfg, MOE_DECODE_BATCH, MOE_DECODE_LEN, device=device)
+        steps = [lm_decode_step(params, cache, toks[:, t], t, cfg)[0] for t in range(MOE_DECODE_LEN)]
+        forward, _ = lm_forward(params, toks, cfg)
+        dec_err, dec_scale = max_err(torch.stack(steps, 1), forward)
+        same_argmax = float((torch.stack(steps, 1).argmax(-1) == forward.argmax(-1)).float().mean())
+    del cache, steps, forward
+
+    # (b) prefill 1 × MOE_PREFILL_SEQ: K4 at d 128, every layer global; the pairs capacity drops
+    tokens = lm_tokens(cfg.vocab, 1, MOE_PREFILL_SEQ, device)[:, :MOE_PREFILL_SEQ]
+    H, d = cfg.n_heads, cfg.attn.head_dim
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    q, k, v = (torch.randn((H, MOE_PREFILL_SEQ, d), generator=gen, device=device) for _ in range(3))
+    err, scale = k4_hold(q, k, v, global_window())
+    held = dict(max_abs_err=err, max_abs_ref=scale, ok=err <= KERNEL_RTOL * scale,
+                shape=f"{H}/{H} heads × {MOE_PREFILL_SEQ} × {d}, global")
+    del q, k, v
+    n_runs = 1 + LM_PREFILL_REPS
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms = []
+    with torch.inference_mode():
+        k4.reset_launch_counts()
+        lm_prefill(params, tokens, cfg)                                # warm-up
+        for _ in range(LM_PREFILL_REPS):
+            moe.RECORD = []
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits = lm_prefill(params, tokens, cfg)
+            end.record()
+            end.synchronize()
+            prefill_ms.append(start.elapsed_time(end))
+        launches_prefill = dict(k4.LAUNCHES)
+        by_window = {str(w): n for (_, w), n in k4.WINDOWS.items()}
+    dropped = [int(r["dropped"]) for r in moe.RECORD]
+    moe.RECORD = None
+    peak_prefill_gb = torch.cuda.max_memory_allocated() / 1e9
+    capacity = cfg.moe_cfg().capacity(MOE_PREFILL_SEQ)
+    expected_prefill = {"k4_flash_attention": n_runs * cfg.n_layers, "k4_flash_attention_bf16": 0}
+    checks = dict(
+        parameters=n_params == cfg.param_count(),
+        decode_vs_forward=dec_err <= MOE_DECODE_RTOL * dec_scale,
+        k4_vs_plain=held["ok"], launches=launches_prefill == expected_prefill,
+        windows=by_window == {str(global_window()): n_runs * cfg.n_layers},
+        logits=tuple(logits.shape) == (1, cfg.vocab) and bool(torch.isfinite(logits).all()),
+        dropped_per_layer=len(dropped) == cfg.n_layers,
+    )
+    emit("moe_serve", ok=all(checks.values()), checks=checks, config=dataclasses.asdict(cfg),
+         parameters=n_params, param_count=cfg.param_count(), parameter_gb=n_params * 4 / 1e9,
+         memory_allocated_gb=init_gb, decode_tokens=[MOE_DECODE_BATCH, MOE_DECODE_LEN],
+         decode_max_abs_err=dec_err, max_abs_logit=dec_scale, decode_rtol=MOE_DECODE_RTOL,
+         decode_same_argmax=same_argmax, k4_vs_plain=held, prefill_seq=MOE_PREFILL_SEQ, prefills=n_runs,
+         prefill_ms=prefill_ms, prefill_p50_ms=statistics.median(prefill_ms), launches=launches_prefill,
+         expected_launches=expected_prefill, launches_by_window=by_window, capacity=capacity,
+         dropped_pairs_per_layer=dropped, assignments_per_layer=MOE_PREFILL_SEQ * cfg.moe_top_k,
+         dropped_share=sum(dropped) / (cfg.n_layers * MOE_PREFILL_SEQ * cfg.moe_top_k),
+         peak_memory_gb=peak_prefill_gb,
+         timing="CUDA events around each of three prefills after one warm-up")
+    require(all(checks.values()), "moe_serve", f"checks {checks}")
+
+    # (c) the ContinuousBatcher
+    decode_launches = lm_decode_phase(params, cfg, phase="moe_decode")
+    del params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) training at MOE_TRAIN_LAYERS layers
+    tcfg = dataclasses.replace(cfg, n_layers=MOE_TRAIN_LAYERS)
+    params = lm_init(torch.Generator(device=device).manual_seed(SEED), tcfg, device=device)
+    batch = lm_tokens(tcfg.vocab, LM_TRAIN_BATCH, LM_TRAIN_SEQ, device)
+    tr = Trainer(lambda p, b: lm_loss(p, b, tcfg), adamw(LM_TRAIN_LR), params, TrainerConfig(log_every=10**9))
+    del params
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k4.reset_launch_counts()
+    losses, step_ms, aux, dropped = [], [], [], []
+    for _ in range(MOE_TRAIN_STEPS):
+        moe.RECORD = []
+        step_losses, ms = timed_fit(tr, batch, 1)
+        losses += step_losses
+        step_ms += ms
+        aux.append(float(sum(r["aux"] for r in moe.RECORD)))
+        dropped.append(int(sum(r["dropped"] for r in moe.RECORD)))
+    moe.RECORD = None
+    launches_train = dict(k4.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_train = sum(p.numel() for p in named_leaves(tr.params).values())
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    expected_train = {"k4_flash_attention": MOE_TRAIN_STEPS * MOE_TRAIN_LAYERS, "k4_flash_attention_bf16": 0}
+    tchecks = dict(finite_losses=all(np.isfinite(losses)), loss_falls=losses[-1] < losses[0],
+                   launches=launches_train == expected_train, parameters=n_train == tcfg.param_count())
+    emit("moe_train", ok=all(tchecks.values()), checks=tchecks, config=dataclasses.asdict(tcfg),
+         reduced={"n_layers": f"{cfg.n_layers} → {MOE_TRAIN_LAYERS}"}, parameters=n_train,
+         parameter_gb=n_train * 4 / 1e9, batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ,
+         capacity=tcfg.moe_cfg().capacity(LM_TRAIN_BATCH * LM_TRAIN_SEQ), losses=losses, aux_per_step=aux,
+         dropped_pairs_per_step=dropped, step_ms=step_ms, step_ms_median=statistics.median(step_ms),
+         launches=launches_train, expected_launches=expected_train, peak_memory_gb=peak_gb,
+         timing="host clock around each Trainer step (ends in the loss's read-back)")
+    require(all(tchecks.values()), "moe_train", f"checks {tchecks}")
+    launches = {name: launches_prefill[name] + decode_launches[name] + launches_train[name] for name in k4.LAUNCHES}
+    emit("moe", ok=True, seconds=time.perf_counter() - t0)
+    return launches, held["max_abs_err"]
 
 
 def main() -> int:
@@ -3038,6 +3403,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lm_prefill_run, lm_decode_run, lm = run_lm(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_train_run, lm_train_err = run_lm_train(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_run, moe_err = run_moe(device)
+    lm["worst"]["k4_flash_attention"] = max(lm["worst"]["k4_flash_attention"], lm_train_err, moe_err)
 
     worst = {name: max(err, delta["kernel_errs"].get(name, 0.0)) for name, err in worst.items()}
     print(card_line(), flush=True)
@@ -3071,9 +3443,11 @@ def main() -> int:
         for name, row in fm["rows"].items()
     ] + [
         dict(name=name, route="cuda", source=K4_SOURCE, replaces=REPLACES[name],
-             launches=lm_prefill_run[name] + lm_decode_run[name], launches_lm_prefill=lm_prefill_run[name],
+             launches=lm_prefill_run[name] + lm_decode_run[name] + lm_train_run[name] + moe_run[name],
+             launches_lm_prefill=lm_prefill_run[name],
              launches_per_prefill=lm_prefill_run[name] / (1 + LM_PREFILL_REPS),
-             launches_lm_decode=lm_decode_run[name], max_abs_err=lm["worst"][name], ms=row["ms"],
+             launches_lm_decode=lm_decode_run[name], launches_lm_train=lm_train_run[name],
+             launches_moe=moe_run[name], max_abs_err=lm["worst"][name], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound"][0], bound_by=row["bound"][1],
              library_ms=row["library_ms"],
              shape=f"gemma3-12b attention, one sequence: 16 query / 8 kv heads × {row['S']} × 240, causal, "

@@ -16,11 +16,14 @@ The sharded (halo) GCN inference and training run over `torch.distributed`
 `recsys.embedding`, `nn.layers` and the click stream of `train.data`)
 serves (`launch.serve`), retrieves and trains (`launch.train`) with its FM
 term in a hand-written CUDA kernel (`kernels/csrc/fm_interaction.cu`). The
-dense LMs (`models.transformer_lm`, `nn.attention`; gemma3-12b, stablelm-12b
-and granite-34b) serve: prefill with the causal / sliding-window attention
-in a hand-written CUDA kernel (`kernels/csrc/flash_attention.cu`), KV-cache
-decode and continuous batching (`serve.scheduler`), driven by
-`launch.serve` and the `launch.serve_lm` twin of `examples/serve_lm.py`.
+LMs (`models.transformer_lm`, `nn.attention`, `nn.moe`; gemma3-12b,
+stablelm-12b, granite-34b and the MoE LMs olmoe-1b-7b and
+moonshot-v1-16b-a3b) serve: prefill with the causal / sliding-window
+attention in a hand-written CUDA kernel (`kernels/csrc/flash_attention.cu`),
+KV-cache decode and continuous batching (`serve.scheduler`), driven by
+`launch.serve` and the `launch.serve_lm` twin of `examples/serve_lm.py`;
+and train (`lm_loss`, `launch.train`) with that kernel in the forward and
+its gradient in torch ops (`kernels.flash_attention.flash_attention_vjp`).
 
 Entry points that create tensors take ``device=None``, which means the CUDA
 card and raises when there is none (`repro_torch.device.resolve_device`);

@@ -81,6 +81,8 @@ ALL_ARCHS: tuple[str, ...] = (
 )
 
 _MODULES = {
+    "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "gemma3-12b": "repro_torch.configs.gemma3_12b",
     "granite-34b": "repro_torch.configs.granite_34b",
     "stablelm-12b": "repro_torch.configs.stablelm_12b",
@@ -88,7 +90,7 @@ _MODULES = {
     "coin_gcn": "repro_torch.configs.coin_gcn",
 }
 # The slice of the port (ROADMAP.md) that brings each architecture not ported yet.
-_WAITING = dict.fromkeys(("moonshot-v1-16b-a3b", "olmoe-1b-7b"), "the MoE slice (nn/moe.py)")
+_WAITING = dict.fromkeys(("egnn", "graphcast", "equiformer-v2", "pna"), "the slice of the other GNN families")
 
 
 def get_arch(arch_id: str) -> ArchSpec:

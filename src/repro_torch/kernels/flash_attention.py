@@ -71,6 +71,14 @@ On CPU tensors `repro_torch.kernels.ops.flash_attention` runs
 raises. The wrapper adds one to its launcher's entry of ``LAUNCHES``
 (``k4_flash_attention``, ``k4_flash_attention_bf16``) where it launches, and
 to ``WINDOWS[(name, window)]`` beside it.
+
+**The gradient.** The reference's K4 has no VJP and no backward kernel: its
+models differentiate ``_chunked_attention``. `flash_attention_vjp` is the
+gradient of the function K4 computes, in plain torch ops that run the same
+on both devices: it recomputes P from q and k with the kernel's mask,
+in blocks of key/value heads and query rows so that no more than
+``VJP_SCORE_BYTES`` of scores live at once, and launches no K4 (so
+``LAUNCHES`` and ``WINDOWS`` count forwards only).
 """
 from __future__ import annotations
 
@@ -83,7 +91,8 @@ import torch
 from repro_torch.kernels._build import library
 
 __all__ = ["LAUNCHES", "WINDOWS", "reset_launch_counts", "K4_BLOCK_ROWS", "K4_TILE_KEYS", "K4_THREADS",
-           "K4_MAX_D", "k4_smem_bytes", "k_tiles", "kernel_attributes", "flash_attention", "flash_attention_plain"]
+           "K4_MAX_D", "k4_smem_bytes", "k_tiles", "kernel_attributes", "flash_attention", "flash_attention_plain",
+           "flash_attention_vjp", "VJP_SCORE_BYTES"]
 
 F32, BF16 = torch.float32, torch.bfloat16
 K4_BLOCK_ROWS = {F32: 128, BF16: 64}     # query rows per block (k4::F32_BQ, k4::BF16_BQ)
@@ -156,6 +165,60 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, win
         w = torch.softmax(torch.where(valid, s, masked), dim=-1)
         out[bh] = (w @ v[bh // G].float()).to(q.dtype)
     return out
+
+
+VJP_SCORE_BYTES = 2**27      # one (heads, G, rows, S) fp32 block of the backward: 128 MiB; ≤ 5 live at once
+
+
+def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, g: torch.Tensor,
+                        window: int | None = None, causal: bool = True):
+    """(dq, dk, dv) of ``out = flash_attention(q, k, v, window, causal)`` for
+    the cotangent ``g``, each in its input's dtype, computed in fp32:
+
+        P = softmax(mask(q·kᵀ·d^-0.5)),  D = rowsum(g ∘ out),
+        dV = Pᵀ·g,  dS = P ∘ (g·Vᵀ − D) on valid pairs (0 on masked ones),
+        dQ = dS·K·d^-0.5,  dK = dSᵀ·Q·d^-0.5,
+
+    with dK and dV summed over the G query heads that read each key/value
+    row (``bh // G``). A masked score is the constant −1e30, so it passes
+    no gradient; a row with no valid key averages v, and its P still
+    reaches dV. Works through blocks of key/value heads and of query rows
+    so that a score block holds at most `VJP_SCORE_BYTES`."""
+    G = _groups(q, k, v)
+    BH, S, d = q.shape
+    BHk = k.shape[0]
+    win = S if window is None else int(window)
+    scale = d ** -0.5
+    pos = torch.arange(S, device=q.device)
+    masked = torch.tensor(-1e30, device=q.device)
+    dq = torch.empty_like(q)
+    dk = torch.zeros((BHk, S, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    heads = max(1, min(BHk, VJP_SCORE_BYTES // (4 * G * S * S)))
+    rows = max(1, min(S, VJP_SCORE_BYTES // (4 * G * heads * S)))
+    for h0 in range(0, BHk, heads):
+        h1 = min(h0 + heads, BHk)
+        kb, vb = k[h0:h1].float(), v[h0:h1].float()                               # (h, S, d)
+        for r0 in range(0, S, rows):
+            r1 = min(r0 + rows, S)
+            qb = q[h0 * G:h1 * G, r0:r1].float().unflatten(0, (h1 - h0, G))       # (h, G, r, d)
+            gb = g[h0 * G:h1 * G, r0:r1].float().unflatten(0, (h1 - h0, G))
+            ob = out[h0 * G:h1 * G, r0:r1].float().unflatten(0, (h1 - h0, G))
+            qpos = pos[r0:r1, None]
+            valid = pos[None, :] > qpos - win
+            if causal:
+                valid &= pos[None, :] <= qpos
+            s = torch.einsum("hgrd,hsd->hgrs", qb, kb) * scale
+            p = torch.softmax(torch.where(valid, s, masked), dim=-1)
+            del s
+            dv[h0:h1] += torch.einsum("hgrs,hgrd->hsd", p, gb)
+            dp = torch.einsum("hgrd,hsd->hgrs", gb, vb)
+            D = (gb * ob).sum(dim=-1, keepdim=True)
+            ds = torch.where(valid, p * (dp - D), 0.0)
+            del p, dp
+            dq[h0 * G:h1 * G, r0:r1] = (torch.einsum("hgrs,hsd->hgrd", ds, kb) * scale).flatten(0, 1).to(q.dtype)
+            dk[h0:h1] += torch.einsum("hgrs,hgrd->hsd", ds, qb) * scale
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
 @functools.cache

@@ -43,12 +43,17 @@ The reference wrapper halves ``b_tile`` until it divides B; the kernel
 takes any B, so the port's wrapper has no tile argument.
 
 `flash_attention` is the LM's causal / sliding-window attention over
-(BH, S, d) (K4 on the card, `repro_torch.kernels.flash_attention`). It is
-forward only, as the reference's (no VJP, no backward kernel): a CUDA input
-that requires a gradient raises. Its k and v may have BH / G rows for G
-query heads per key/value head (grouped-query attention, no copy per
-group). The kernel takes any S, so the reference's ``bq`` / ``bk`` tile
-arguments and its ``interpret`` flag have no counterpart.
+(BH, S, d) (K4 on the card, `repro_torch.kernels.flash_attention`). The
+reference's K4 has no VJP (its models differentiate `_chunked_attention`),
+so the port's gradient is `flash_attention_vjp`, the gradient of the
+function K4 computes, in torch ops on both devices: when a gradient is
+recorded the call goes through `_FlashAttention`, whose forward is K4 on
+CUDA tensors (the plain version on CPU tensors) and whose backward launches
+no K4; under `torch.no_grad` / `inference_mode` it is the bare forward. Its
+k and v may have BH / G rows for G query heads per key/value head
+(grouped-query attention, no copy per group). The kernel takes any S, so
+the reference's ``bq`` / ``bk`` tile arguments and its ``interpret`` flag
+have no counterpart.
 """
 from __future__ import annotations
 
@@ -56,7 +61,7 @@ import torch
 
 from repro_torch.kernels.bsr_spmm import bsr_spmm as bsr_spmm_cuda
 from repro_torch.kernels.flash_attention import flash_attention as flash_attention_cuda
-from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.flash_attention import flash_attention_plain, flash_attention_vjp
 from repro_torch.kernels.fm_interaction import fm_interaction as fm_interaction_cuda
 from repro_torch.kernels.fm_interaction import fm_interaction_plain
 from repro_torch.kernels.bsr_spmm import bsr_spmm_plain, k1_name
@@ -270,15 +275,33 @@ def fm_interaction(emb: torch.Tensor) -> torch.Tensor:
     return _FmInteraction.apply(emb.contiguous())
 
 
-# ---------------------------------------------------------- flash_attention
+# ---------------------------------------------------- flash_attention (+ VJP)
+def _flash_forward(q, k, v, window, causal) -> torch.Tensor:
+    return _on_device("flash_attention", flash_attention_plain, flash_attention_cuda, q, k, v,
+                      window=window, causal=causal)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, window, causal):
+        out = _flash_forward(q, k, v, window, causal)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.window, ctx.causal = window, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_vjp(q, k, v, out, g, ctx.window, ctx.causal)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None = None,
                     causal: bool = True) -> torch.Tensor:
     """Causal (optionally sliding-window) attention of q (BH, S, d) over
     k, v (BH / G, S, d), scale d^-0.5, output in q's dtype; ``window`` None
-    means S. Forward only."""
-    if q.device.type == "cuda" and any(t.requires_grad for t in (q, k, v)) and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "flash_attention is forward only, as the reference's K4: its backward comes with the LM "
-            "training slice (ROADMAP.md)")
-    return _on_device("flash_attention", flash_attention_plain, flash_attention_cuda,
-                      q.contiguous(), k.contiguous(), v.contiguous(), window=window, causal=causal)
+    means S. Differentiable in q, k and v (`flash_attention_vjp`)."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, window, causal)
+    return _flash_forward(q, k, v, window, causal)

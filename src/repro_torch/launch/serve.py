@@ -1,5 +1,5 @@
 """Serving entry point — twin of `repro.launch.serve` for the architectures
-the port has reached: batched greedy decode for the dense LMs, batched
+the port has reached: batched greedy decode for the LMs, batched
 scoring for DeepFM, and online GCN node-query serving with the hot-neighbor
 cache.
 
@@ -13,7 +13,8 @@ cache.
 
 Runs the REDUCED config on one device (the CUDA card unless ``--device``
 names another), with parameters from a seeded `torch.Generator`. An LM
-(gemma3-12b, stablelm-12b, granite-34b) decodes ``--tokens`` greedy tokens
+(gemma3-12b, stablelm-12b, granite-34b, and the MoE LMs olmoe-1b-7b and
+moonshot-v1-16b-a3b) decodes ``--tokens`` greedy tokens
 for a batch of 4 streams through `lm_decode_step` from seeded first tokens
 and prints the tokens per second. DeepFM scores one batch of 512 examples of
 seeded ids: one warm-up forward, then ``--requests`` forwards, each ended by
@@ -29,7 +30,7 @@ times is the reference's, since none depends on the parameters. With
 graph halfway through the stream: each goes to the engine
 (`apply_graph_delta`) and to a mirrored `DeltaPlanner` whose
 `RelocalizePolicy` (patience 2, cooldown 3) may re-localize it; the engine
-then adopts the new partition. The MoE LMs and the other GNN families come
+then adopts the new partition. The other GNN families come
 with later slices of the port and raise `NotImplementedError` naming them.
 """
 from __future__ import annotations
@@ -48,10 +49,7 @@ from repro_torch.launch.obsflags import add_obs_args, obs_session
 __all__ = ["serve_lm", "serve_recsys", "build_graph_engine", "serve_graph", "main"]
 
 # The slice of the port (ROADMAP.md) that brings serving for each architecture.
-_WAITING = {
-    **dict.fromkeys(("moonshot-v1-16b-a3b", "olmoe-1b-7b"), "the MoE slice (nn/moe.py)"),
-    **dict.fromkeys(("egnn", "graphcast", "equiformer-v2", "pna"), "the slice of the other GNN families"),
-}
+_WAITING = dict.fromkeys(("egnn", "graphcast", "equiformer-v2", "pna"), "the slice of the other GNN families")
 
 
 def _sync(device: torch.device) -> None:

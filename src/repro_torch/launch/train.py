@@ -4,6 +4,7 @@ port has reached:
     PYTHONPATH=src python -m repro_torch.launch.train --arch coin_gcn --steps 50
     PYTHONPATH=src python -m repro_torch.launch.train --arch coin_gcn --steps 50 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm --steps 50 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b --steps 20 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch coin_gcn --steps 60 --device cpu \
         --relocalize-threshold 1.01
 
@@ -15,7 +16,12 @@ under ``--ckpt-dir``. For ``coin_gcn`` this is the reference's
 GCN config (segment backend, 4-bit QAT) and `gcn_loss`. For ``deepfm`` it
 is ``_recsys_setup``: the reduced DeepFM config (8 fields, MLP 32-32-32),
 batches of 256 from the seeded `click_batch_fn` stream and `deepfm_loss`
-(its FM term runs K3 on the card). Parameters come from a seeded
+(its FM term runs K3 on the card). For an LM id (gemma3-12b,
+stablelm-12b, granite-34b, olmoe-1b-7b, moonshot-v1-16b-a3b) it is
+``_lm_setup``: the reduced config, batches of 4 sequences of 64 tokens (+1
+for the labels) from the seeded `token_batch_fn` stream and `lm_loss` (its
+attention runs K4 on the card, its gradient `flash_attention_vjp`; the MoE
+configs add the load-balance loss). Parameters come from a seeded
 `torch.Generator`, so they differ from the reference's.
 
 ``--relocalize-threshold T`` (> 0, ``coin_gcn`` only) churns the training
@@ -39,20 +45,14 @@ from repro_torch.device import resolve_device
 from repro_torch.graph.generators import citation_like
 from repro_torch.launch.obsflags import add_obs_args, obs_session
 from repro_torch.models.gcn import gcn_init, gcn_loss
-from repro_torch.train.data import ShardedStream, click_batch_fn
+from repro_torch.train.data import ShardedStream, click_batch_fn, token_batch_fn
 from repro_torch.train.loop import Trainer, TrainerConfig
 from repro_torch.train.optimizer import adamw
 
 __all__ = ["main"]
 
 # The slice of the port (ROADMAP.md) that brings each architecture not ported yet.
-_WAITING = {
-    **dict.fromkeys(("gemma3-12b", "granite-34b", "stablelm-12b"),
-                    "the LM slice's training part (lm_loss gradients and an attention backward for K4)"),
-    **dict.fromkeys(("moonshot-v1-16b-a3b", "olmoe-1b-7b"),
-                    "the LM slice's training part and the MoE slice (nn/moe.py)"),
-    **dict.fromkeys(("egnn", "graphcast", "equiformer-v2", "pna"), "the slice of the other GNN families"),
-}
+_WAITING = dict.fromkeys(("egnn", "graphcast", "equiformer-v2", "pna"), "the slice of the other GNN families")
 
 
 def _gcn_setup(spec, device: torch.device, relocalize_threshold: float = 0.0):
@@ -139,7 +139,25 @@ def _recsys_setup(spec, device: torch.device, batch: int = 256):
     return params, (lambda p, b: deepfm_loss(p, b["ids"], b["labels"], cfg)), batches
 
 
-_SETUPS = {"coin_gcn": _gcn_setup, "deepfm": _recsys_setup}
+def _lm_setup(spec, device: torch.device, batch: int = 4, seq: int = 64):
+    """(params, loss_fn, batches) of the reduced LM on the seeded token
+    stream; tokens go to the device as int64 once per batch."""
+    from repro_torch.models.transformer_lm import lm_init, lm_loss
+
+    cfg = spec.make_reduced()
+    params = lm_init(torch.Generator().manual_seed(0), cfg, device=device)
+    stream = ShardedStream(token_batch_fn(cfg.vocab, seq), global_batch=batch, seed=0)
+
+    def batches():
+        for b in stream:
+            yield torch.from_numpy(b).to(device, torch.int64)
+
+    return params, (lambda p, b: lm_loss(p, b, cfg)), batches
+
+
+_SETUPS = {"coin_gcn": _gcn_setup, "deepfm": _recsys_setup,
+           **dict.fromkeys(("gemma3-12b", "granite-34b", "stablelm-12b", "moonshot-v1-16b-a3b", "olmoe-1b-7b"),
+                           _lm_setup)}
 
 
 def main(argv=None) -> None:

@@ -1,4 +1,4 @@
-"""Models: the paper's GCN, DeepFM and the dense decoder-only LM."""
+"""Models: the paper's GCN, DeepFM and the decoder-only LM (dense and MoE)."""
 
 from repro_torch.models.gcn import GCNConfig, gcn_forward, gcn_init, gcn_loss
 from repro_torch.models.transformer_lm import (
@@ -7,6 +7,7 @@ from repro_torch.models.transformer_lm import (
     lm_forward,
     lm_init,
     lm_init_cache,
+    lm_loss,
     lm_prefill,
 )
 
@@ -18,6 +19,7 @@ __all__ = [
     "LMConfig",
     "lm_init",
     "lm_forward",
+    "lm_loss",
     "lm_prefill",
     "lm_decode_step",
     "lm_init_cache",

@@ -1,5 +1,4 @@
-"""Basic layers and GQA attention — twin of `repro.nn` (its MoE layer comes
-with a later slice)."""
+"""Basic layers, GQA attention and the MoE FFN — twin of `repro.nn`."""
 
 from repro_torch.nn.attention import (
     AttentionConfig,
@@ -18,6 +17,7 @@ from repro_torch.nn.layers import (
     rms_norm,
     silu,
 )
+from repro_torch.nn.moe import MoEConfig, moe_apply, moe_init
 
 __all__ = [
     "dense_init",
@@ -33,4 +33,7 @@ __all__ = [
     "attention_apply",
     "attention_decode",
     "rope",
+    "MoEConfig",
+    "moe_init",
+    "moe_apply",
 ]

@@ -12,6 +12,13 @@ is applied to the scores after the dot, where `_chunked_attention` applies
 it to q first; the two round differently, within the reference suite's
 3e-5 (`tests/test_kernels.py::test_flash_matches_model_attention`).
 
+The gradient: the reference differentiates `_chunked_attention`; here
+`ops.flash_attention` is an autograd function whose backward is
+`repro_torch.kernels.flash_attention.flash_attention_vjp` (torch ops, the
+same on both devices; K4 has no backward kernel, as the reference's has
+none). ``attention_apply(..., kernel=flash_attention_plain)`` is ordinary
+autograd through the plain version, the yardstick of the card's check.
+
 The decode path (`attention_decode`) is the reference's plain einsum and
 softmax over the cache, with no kernel, as there. It writes this step's key
 and value into the cache in place (the reference returns an updated copy)
@@ -99,7 +106,8 @@ def attention_apply(
     positions: torch.Tensor | None = None,
     kernel=None,
 ) -> torch.Tensor:
-    """Causal (optionally sliding-window) self-attention for prefill.
+    """Causal (optionally sliding-window) self-attention for the training
+    forward and prefill.
 
     ``kernel`` computes the attention of (B·H, S, Dh) queries over
     (B·Hk, S, Dh) keys and values; it defaults to `ops.flash_attention` (K4 on

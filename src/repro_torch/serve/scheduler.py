@@ -50,11 +50,10 @@ def decode_multi_pos(params, cache, tokens, positions, cfg):
     tokens: (B,) int; positions: (B,) int. Built on the same layer math as
     `lm_decode_step`, with the cache write and the mask indexed per slot.
     Returns (logits (B, V) fp32, the cache updated in place)."""
-    from repro_torch.models.transformer_lm import _ffn, _head, _layer, _refuse_moe
+    from repro_torch.models.transformer_lm import _ffn, _head, _layer
     from repro_torch.nn.attention import NEG_INF, rope
     from repro_torch.nn.layers import rms_norm
 
-    _refuse_moe(cfg)
     B = tokens.shape[0]
     acfg = cfg.attn
     hd, Hk, G = acfg.head_dim, cfg.n_kv_heads, acfg.q_groups

@@ -9,6 +9,9 @@ Functional interface over trees of tensors (`repro_torch.train.tree`):
 
 State mirrors params (+ a scalar int32 step), so it checkpoints like the
 params themselves. Updates return new tensors and leave their inputs alone.
+Adam and AdamW make the moments and the new parameter one leaf at a time,
+so a step never holds a whole tree of updates: the largest LM trained on
+one card (gemma3-12b's widths, 9.3 GB of parameters) needs that headroom.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.train.tree import tree_leaves, tree_map
+from repro_torch.train.tree import tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["Optimizer", "sgd", "adam", "adamw", "lamb"]
 
@@ -58,14 +61,24 @@ def sgd(lr: float = 1e-2, momentum: float = 0.0, nesterov: bool = False) -> Opti
     return Optimizer(init, update, "sgd")
 
 
-def _adam_core(grads, state, b1, b2, eps):
+def _adam_leafwise(grads, state, params, b1, b2, eps, new_param):
+    """Adam's moments and ``new_param(p, update)`` leaf by leaf, the
+    reference's formulas term for term: each leaf's update lives only while
+    its new parameter is made."""
     step = state["step"] + 1
-    m = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state["m"], grads)
-    v = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, state["v"], grads)
     t = step.to(torch.float32)
     c1, c2 = 1 - b1**t, 1 - b2**t
-    upd = tree_map(lambda mm, vv: (mm / c1) / (torch.sqrt(vv / c2) + eps), m, v)
-    return upd, {"m": m, "v": v, "step": step}
+    new_m, new_v, new_p = [], [], []
+    for g, m, v, p in zip(*(tree_leaves(x) for x in (grads, state["m"], state["v"], params)), strict=True):
+        if p is None:
+            new_m.append(None), new_v.append(None), new_p.append(None)
+            continue
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
+        new_m.append(m), new_v.append(v)
+        new_p.append(new_param(p, (m / c1) / (torch.sqrt(v / c2) + eps)))
+    return tree_unflatten(params, new_p), {"m": tree_unflatten(state["m"], new_m),
+                                           "v": tree_unflatten(state["v"], new_v), "step": step}
 
 
 def adam(lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Optimizer:
@@ -73,9 +86,7 @@ def adam(lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8
         return {"m": _zeros_like_tree(params), "v": _zeros_like_tree(params), "step": _step0(params)}
 
     def update(grads, state, params):
-        upd, new_state = _adam_core(grads, state, b1, b2, eps)
-        new_params = tree_map(lambda p, u: p - lr * u, params, upd)
-        return new_params, new_state
+        return _adam_leafwise(grads, state, params, b1, b2, eps, lambda p, u: p - lr * u)
 
     return Optimizer(init, update, "adam")
 
@@ -87,9 +98,7 @@ def adamw(
     base = adam(lr, b1, b2, eps)
 
     def update(grads, state, params):
-        upd, new_state = _adam_core(grads, state, b1, b2, eps)
-        new_params = tree_map(lambda p, u: p - lr * (u + weight_decay * p), params, upd)
-        return new_params, new_state
+        return _adam_leafwise(grads, state, params, b1, b2, eps, lambda p, u: p - lr * (u + weight_decay * p))
 
     return Optimizer(base.init, update, "adamw")
 
@@ -102,8 +111,6 @@ def lamb(
     base = adam(lr, b1, b2, eps)
 
     def update(grads, state, params):
-        upd, new_state = _adam_core(grads, state, b1, b2, eps)
-
         def apply(p, u):
             u = u + weight_decay * p
             pn = torch.linalg.vector_norm(p.reshape(-1))
@@ -111,6 +118,6 @@ def lamb(
             trust = torch.where((pn > 0) & (un > 0), pn / un, torch.ones_like(pn))
             return p - lr * trust * u
 
-        return tree_map(apply, params, upd), new_state
+        return _adam_leafwise(grads, state, params, b1, b2, eps, apply)
 
     return Optimizer(base.init, update, "lamb")

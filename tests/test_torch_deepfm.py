@@ -384,7 +384,7 @@ def test_launch_serve_deepfm_cpu(capsys):
 
 
 @pytest.mark.parametrize("arch,slice_", [("egnn", "other GNN families"), ("graphcast", "other GNN families"),
-                                         ("olmoe-1b-7b", "MoE slice"), ("pna", "other GNN families")])
+                                         ("equiformer-v2", "other GNN families"), ("pna", "other GNN families")])
 def test_launch_serve_names_the_slice_that_brings_it(arch, slice_):
     from repro_torch.launch import serve
 

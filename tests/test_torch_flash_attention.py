@@ -114,11 +114,22 @@ def test_plain_groups_kv_heads():
 
 
 def test_plain_is_forward_only_on_the_card_only():
-    """On the CPU the plain version is ordinary autograd; the CUDA wrapper
-    refuses a gradient (the reference's K4 has no VJP)."""
-    q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in _qkv(1, 8, 16, seed=1))
-    ops.flash_attention(q, k, v).sum().backward()
-    assert q.grad is not None and torch.isfinite(q.grad).all()
+    """A call that records a gradient goes through `ops._FlashAttention`
+    (the plain forward here, K4 on the card) whose backward is
+    `flash_attention_vjp`, the same code on both devices: its gradients
+    equal autograd through the plain version; without a gradient the call
+    is the bare forward."""
+    q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in _qkv(4, 8, 16, seed=1, bh_kv=2))
+    out = ops.flash_attention(q, k, v, window=3)
+    assert out.grad_fn is not None and type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+    g = torch.from_numpy(np.random.default_rng(2).standard_normal(out.shape).astype(np.float32))
+    got = torch.autograd.grad(out, (q, k, v), g)
+    want = torch.autograd.grad(flash_attention_plain(q, k, v, window=3), (q, k, v), g)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=TOL, atol=TOL * float(b.abs().max()))
+    with torch.no_grad():
+        assert ops.flash_attention(q, k, v).grad_fn is None
 
 
 def test_kernel_wrapper_takes_cuda_tensors_only():

@@ -1055,13 +1055,27 @@ def test_cuda_flash_attention_refuses_unaligned_inputs(cuda, dtype):
 
 @pytest.mark.cuda
 def test_cuda_flash_attention_is_forward_only(cuda):
-    q, k, v = _k4_inputs(cuda, 64, d=16, bh=2, bh_kv=2)
-    with pytest.raises(NotImplementedError, match="LM training slice"):
-        flash_attention(q.requires_grad_(True), k, v)
+    """K4 itself is forward only: under autograd `ops.flash_attention`
+    launches it once in the forward and none in the backward
+    (`flash_attention_vjp`, torch ops), whose gradients equal autograd
+    through the plain version; without a gradient it is the bare launch."""
+    q, k, v = _k4_inputs(cuda, 300, d=48, bh=4, bh_kv=2)
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    before = k4.LAUNCHES["k4_flash_attention"]
+    out = flash_attention(q, k, v, window=24)
+    assert k4.LAUNCHES["k4_flash_attention"] == before + 1
+    g = torch.randn(out.shape, generator=torch.Generator(device=cuda).manual_seed(5), device=cuda)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    torch.cuda.synchronize()
+    assert k4.LAUNCHES["k4_flash_attention"] == before + 1
+    want = torch.autograd.grad(k4.flash_attention_plain(q, k, v, window=24), (q, k, v), g)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= K4_TOL * float(b.abs().max())
     with torch.no_grad():
-        flash_attention(q, k, v)
+        assert flash_attention(q, k, v).grad_fn is None
+    assert k4.LAUNCHES["k4_flash_attention"] == before + 2
     with pytest.raises(ValueError, match="multiple of 4"):
-        k4.flash_attention(*(t[..., :14].contiguous() for t in (q, k, v)))
+        k4.flash_attention(*(t.detach()[..., :14].contiguous() for t in (q, k, v)))
 
 
 @pytest.mark.cuda

@@ -193,15 +193,26 @@ def test_lm_forward_can_take_the_plain_attention(lm):
 
 
 def test_moe_and_policies_are_refused():
+    """The MoE config runs (init, forward, loss and decode: the MoE slice
+    lifted its refusal); a policy other than NO_POLICY is still refused, by
+    the LM and by `moe_apply`."""
     from repro_torch.dist.policy import ShardingPolicy
+    from repro_torch.nn import moe as t_moe
 
     moe = t_lm.LMConfig("m", 2, 32, 4, 4, 48, 67, moe_experts=4, moe_top_k=2)
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        t_lm.lm_init(torch.Generator().manual_seed(0), moe, device="cpu")
+    p = t_lm.lm_init(torch.Generator().manual_seed(0), moe, device="cpu")
+    assert tuple(p["layers"]["moe"]["w_down"].shape) == (2, 4, 48, 32) and "mlp" not in p["layers"]
+    tokens = torch.zeros(1, 5, dtype=torch.long)
+    logits, aux = t_lm.lm_forward(p, tokens[:, :4], moe)
+    assert logits.shape == (1, 4, 67) and torch.isfinite(logits).all() and float(aux) > 0
+    assert torch.isfinite(t_lm.lm_loss(p, tokens, moe))
+    with pytest.raises(NotImplementedError, match="NO_POLICY"):
+        t_lm.lm_forward(p, tokens, moe, policy=ShardingPolicy(comm="halo"))
+    with pytest.raises(NotImplementedError, match="item 6"):
+        t_moe.moe_apply({k: v[0] for k, v in p["layers"]["moe"].items()}, torch.zeros(4, 32), moe.moe_cfg(),
+                        policy=ShardingPolicy(comm="halo"))
     dense = CONFIGS["dense"][1]
     p = t_lm.lm_init(torch.Generator().manual_seed(0), dense, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        t_lm.lm_forward(p, torch.zeros(1, 4, dtype=torch.long), moe)
     with pytest.raises(NotImplementedError, match="NO_POLICY"):
         t_lm.lm_forward(p, torch.zeros(1, 4, dtype=torch.long), dense, policy=ShardingPolicy(comm="halo"))
 
@@ -383,9 +394,24 @@ def test_gemma3_full_config():
 
 
 def test_registry_names_the_moe_slice():
-    for arch in ("moonshot-v1-16b-a3b", "olmoe-1b-7b"):
-        with pytest.raises(NotImplementedError, match="MoE slice"):
-            t_registry.get_arch(arch)
+    """The MoE ids resolve to the port's configs, equal to the reference's
+    field for field (FULL and REDUCED), with the same source and shapes."""
+    from repro.configs import moonshot_v1_16b_a3b as j_moonshot, olmoe_1b_7b as j_olmoe
+    from repro_torch.configs import moonshot_v1_16b_a3b as t_moonshot, olmoe_1b_7b as t_olmoe
+
+    for j_mod, t_mod in ((j_moonshot, t_moonshot), (j_olmoe, t_olmoe)):
+        for which in ("FULL", "REDUCED"):
+            j_cfg, t_cfg = getattr(j_mod, which), getattr(t_mod, which)
+            assert dataclasses.asdict(t_cfg) == dataclasses.asdict(j_cfg)
+            assert t_cfg.param_count() == j_cfg.param_count()
+            assert t_cfg.active_param_count() == j_cfg.active_param_count()
+            assert dataclasses.asdict(t_cfg.moe_cfg()) == dataclasses.asdict(j_cfg.moe_cfg())
+        spec_j, spec_t = j_mod.SPEC, t_mod.SPEC
+        assert (spec_t.arch_id, spec_t.family, spec_t.source) == (spec_j.arch_id, spec_j.family, spec_j.source)
+        assert {k: dataclasses.asdict(v) for k, v in spec_t.shapes.items()} == {
+            k: {f: getattr(v, f) for f in dataclasses.asdict(spec_t.shapes[k])} for k, v in spec_j.shapes.items()}
+        assert t_registry.get_arch(spec_j.arch_id) is spec_t
+    assert t_olmoe.FULL.param_count() == 6_816_073_728           # 27.3 GB in fp32: one card serves it
     assert t_registry.lm_shapes(True)["long_500k"].skip_reason is None
     assert t_registry.lm_shapes(False)["long_500k"].skip_reason == j_registry.lm_shapes(False)["long_500k"].skip_reason
 
@@ -401,11 +427,13 @@ def test_launch_serve_lm_cpu(arch, capsys):
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "moonshot-v1-16b-a3b"])
-def test_launch_serve_moe_names_its_slice(arch):
+def test_launch_serve_moe_names_its_slice(arch, capsys):
+    """The MoE ids serve through `serve_lm` as the dense ones do."""
     from repro_torch.launch import serve
 
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        serve.main(["--arch", arch, "--device", "cpu"])
+    serve.main(["--arch", arch, "--device", "cpu", "--tokens", "4"])
+    out = capsys.readouterr().out
+    assert out.startswith(f"{arch}: 4×4 tokens in ") and "tok/s" in out
 
 
 def test_serve_lm_example_twin(capsys):
