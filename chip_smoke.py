@@ -51,6 +51,13 @@ reference has no backward kernel), AdamW. A seventh path, the MoE LM
 olmoe-1b-7b (16 layers, d_model 2,048, 64 experts top-8; 6.82 B fp32
 parameters, 27.3 GB; nothing cut), serves — prefill with K4 at d 128 in
 every layer, KV-cache decode — and trains with its depth cut to 4 layers.
+Then the sharded LM and DeepFM (`repro_torch.launch.steps.build_cell` on
+a `Grid`, `repro_torch.launch.shardings`): one group of 4 ranks sharing
+the card (gloo) serves gemma3-12b (tensor parallel, 1 × 4) and
+moonshot-v1-16b-a3b (expert parallel; 55.5 GB in bf16, whole on the card
+only when sharded) in bf16 at full depth with K4's bf16 body, decodes
+granite-34b (8 layers) against a sequence-sharded cache, trains gemma3-12b
+(6 layers, fp32) and serves, retrieves and trains DeepFM on 2 × 2.
 
 Phases, one JSON line each; any failed check ends the run with exit code 1:
 
@@ -301,6 +308,49 @@ Phases, one JSON line each; any failed check ends the run with exit code 1:
            losses, the last below the first; aux and dropped pairs a step,
            step ms, peak memory
 
+  sharded_kernels  K4 (fp32 and bf16) and K3 against their plain versions
+           at the shapes one rank of the group gives them (gemma3's 4 / 2
+           heads × 4,096 × 240 bf16 at both windows, moonshot's 4 / 4 × 4,096
+           × 128 bf16, the training rank's 8 / 4 × 2,048 × 240 fp32, K3 at
+           256 / 32,768 / 131,072 × 39 × 10), with K4's, the plain version's
+           and SDPA's times beside the bound (the parent alone on the card)
+  lm_tp, moe_ep, lm_seq, lm_tp_train, deepfm_sharded  first every phase's
+           unsharded counterpart alone (the same cells on a 1 × 1 grid, the
+           same weights drawn block by block from the seed; the host keeps
+           the logits, gradients and losses), then one group of 4 ranks on
+           the card (gloo) runs every phase's cells (`Cell.bind` on the
+           rank's data and model groups). lm_tp: gemma3-12b FULL bf16 on
+           1 × 4, prefill 1 × 4,096 (counted: 48 K4 bf16 launches a prefill
+           a rank, 40 local, 8 global) and 8 decode
+           steps at B 4 on a kv-head-sharded 4,096-slot cache, held against
+           the unsharded run (5e-2 of max |logit|, the same argmax up to
+           ties within it); moe_ep: moonshot-v1-16b-a3b FULL bf16, 16
+           experts a rank: each of the 48 MoE layers alone on one seeded
+           4,096-token input whose tokens share a direction (so capacity
+           drops pairs), expert parallel against unsharded (the same
+           expert ids and dropped pairs in every layer, the output within
+           5e-2 of its largest entry), then the model as lm_tp (end to end a
+           decode row's logits are held only where its routing matched the
+           unsharded run's: bf16 router logits tie, and a reassociated sum
+           flips a tie; the dropped pairs per layer equal to the unsharded
+           run's up to the first layer routed differently and, in both runs
+           and every layer, to the capacity rule applied to that run's
+           routing, with the routing margin); lm_seq:
+           granite-34b cut to 8 layers (reduced: n_layers 88 → 8), 8 decode
+           steps at B 4 on a seeded 32,768-slot cache sharded by sequence,
+           the positions crossing a shard's boundary; lm_tp_train: gemma3-12b
+           fp32 cut to 6 layers, B 2 × 2,048: the first gradient of every
+           rank's shard within 1e-4 of each leaf's largest entry, then 3
+           steps of the cell (AdamW, updating in place; 18 K4 fp32 launches
+           a rank), every step's loss within 1e-4 of the unsharded run's;
+           deepfm_sharded: DeepFM FULL on 2 × 2: serve 512, bulk 262,144,
+           retrieval 1 × 10⁶ (1e-5 of max), the first gradient per leaf
+           (1e-4), 5 steps of the cell, every loss within 1e-4 (K3
+           launches a rank). Each line: per-rank ms, the collectives a step
+           (count, bytes, host ms, share of the step), the card's idle
+           share over one profiled step, peak memory per rank, and the
+           unsharded run's numbers beside
+
 then the card's name and power limit (nvidia-smi), the ``{"kernels": [...]}``
 line, and as the last line ``{"ok": true, "device": {...}}``. A kernel's
 ``launches`` there is its count over the main-path runs (inference
@@ -309,8 +359,10 @@ of all ranks, flat and hierarchical, the forwards on the autotuned pod
 map, and the delta phase's forwards and steps of all ranks; for K3 the DeepFM serving requests and training steps; for
 K4 the LM prefills, the batcher's decode steps, gemma3's training steps
 (``launches_lm_train``) and olmoe's prefills, decode and training steps
-(``launches_moe``)), each counted with the counts zeroed just before and
-read just after. K4's counts are forward launches only: its backward,
+(``launches_moe``), and the 4 ranks' counted runs of the sharded phases
+(``launches_lm_tp``, ``launches_moe_ep``, ``launches_lm_seq``,
+``launches_lm_tp_train``; K3's ``launches_deepfm_sharded``)), each counted
+with the counts zeroed just before and read just after. K4's counts are forward launches only: its backward,
 `flash_attention_vjp`, launches no K4.
 """
 from __future__ import annotations
@@ -318,6 +370,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -3333,6 +3386,767 @@ def run_moe(device: torch.device) -> tuple[dict, float]:
     return launches, held["max_abs_err"]
 
 
+# ------------------------------------------------- the sharded LM and DeepFM (build_cell over a 4-rank group)
+SHARDED_K = 4
+SHARDED_TIMEOUT_S = 720.0
+SHARDED_SEQ = 4096               # lm_tp, moe_ep: prefill 1 × 4,096
+SHARDED_CACHE = 4096             # lm_tp, moe_ep: the decode cell's cache length (seeded, as a prefill's keys/values)
+SHARDED_DECODE_BATCH = 4         # every decode phase: B 4
+SHARDED_DECODE_STEPS = 8
+SHARDED_PREFILLS = 1             # counted prefills a rank (gloo makes each ~8 s); a decode step is profiled
+LM_SEQ_CACHE = 32_768            # lm_seq: granite-34b's cache, sharded by sequence (4 slices of 8,192)
+LM_SEQ_LAYERS = 8                # lm_seq: granite-34b's depth cut 88 → 8 (93.9 GB bf16 whole fits no card)
+SHARDED_LOGIT_RTOL = 5e-2        # bf16 sharded vs unsharded logits, · max |logit| (the parity contract)
+SHARDED_TRAIN_STEPS = 3          # lm_tp_train: AdamW steps (the cell's lr 3e-4)
+SHARDED_GRAD_RTOL = 1e-4         # lm_tp_train, deepfm_sharded: first gradients vs unsharded, · max per leaf
+SHARDED_LOSS_RTOL = 1e-4         # lm_tp_train, deepfm_sharded: every loss (before and after each step) vs unsharded, relative
+MOE_LAYER_RTOL = 5e-2            # moe_ep: each MoE layer alone on one input, expert parallel vs unsharded, · max |out|
+                                 # of the layer (the parity contract's bf16 rule: the same routing, the bf16 combine's
+                                 # sum reassociated over 8 M outputs)
+MOE_LAYER_SHARED = 0.3           # moe_ep: the weight of one direction every token of that input shares (the rest
+                                 # unit noise): tokens that lean alike load some experts past capacity, as a model's
+                                 # hidden states do (≈ 13 % of pairs dropped, simulating moonshot's router at random init)
+DEEPFM_SHARDED_STEPS = 5         # deepfm_sharded: AdamW steps at train_batch (the cell's lr 1e-3)
+
+
+def sharded_phases() -> list[dict]:
+    """The five phases of the 4-rank group, as picklable descriptions."""
+    return [
+        dict(name="lm_tp", family="lm", arch="gemma3-12b", layers=None, dtype="bfloat16", grid=(1, 4),
+             prefill=True, cache=SHARDED_CACHE),
+        dict(name="moe_ep", family="lm", arch="moonshot-v1-16b-a3b", layers=None, dtype="bfloat16", grid=(1, 4),
+             prefill=True, cache=SHARDED_CACHE),
+        dict(name="lm_seq", family="lm", arch="granite-34b", layers=LM_SEQ_LAYERS, dtype="bfloat16", grid=(1, 4),
+             prefill=False, cache=LM_SEQ_CACHE),
+        dict(name="lm_tp_train", family="lm_train", arch="gemma3-12b", layers=LM_TRAIN_LAYERS, dtype="float32",
+             grid=(1, 4)),
+        dict(name="deepfm_sharded", family="recsys", arch="deepfm", layers=None, dtype="float32", grid=(2, 2)),
+    ]
+
+
+def phase_cells(phase: dict, grid) -> dict:
+    """The phase's cells (`build_cell`) on ``grid``, by role."""
+    from repro_torch.configs.registry import ShapeSpec, get_arch, recsys_shapes
+    from repro_torch.launch.steps import build_cell
+
+    spec = get_arch(phase["arch"])
+    if phase["layers"]:
+        cut = dataclasses.replace(spec.make_config(), n_layers=phase["layers"])
+        spec = dataclasses.replace(spec, make_config=lambda shape=None, c=cut: c)
+    dtype = getattr(torch, phase["dtype"])
+    build = lambda shape: build_cell(spec, shape, grid, dtype=dtype)
+    if phase["family"] == "lm":
+        cells = {"decode": build(ShapeSpec("decode", "decode", seq_len=phase["cache"],
+                                           global_batch=SHARDED_DECODE_BATCH))}
+        if phase["prefill"]:
+            cells["prefill"] = build(ShapeSpec("prefill", "prefill", seq_len=SHARDED_SEQ, global_batch=1))
+        return cells
+    if phase["family"] == "lm_train":
+        return {"train": build(ShapeSpec("train", "train", seq_len=LM_TRAIN_SEQ, global_batch=LM_TRAIN_BATCH))}
+    shapes = recsys_shapes()
+    return {"serve": build(shapes["serve_p99"]), "bulk": build(shapes["serve_bulk"]),
+            "retrieval": build(shapes["retrieval_cand"]), "train": build(shapes["train_batch"])}
+
+
+def phase_reduced(phase: dict) -> dict:
+    from repro_torch.configs.registry import get_arch
+
+    out = {}
+    if phase["layers"]:
+        out["n_layers"] = f"{get_arch(phase['arch']).make_config().n_layers} → {phase['layers']}"
+    if phase["family"] == "lm":
+        out["decode"] = f"B {SHARDED_DECODE_BATCH} × a {phase['cache']}-slot cache, {SHARDED_DECODE_STEPS} steps"
+        if phase["prefill"]:
+            out["prefill"] = f"prefill_32k's 32 × 32,768 → 1 × {SHARDED_SEQ}"
+    if phase["family"] == "lm_train":
+        out["batch"] = f"train_4k's 256 × 4,096 → {LM_TRAIN_BATCH} × {LM_TRAIN_SEQ}"
+    return out
+
+
+def decode_tokens(vocab: int, step: int) -> np.ndarray:
+    """The B tokens fed at decode step ``step`` (the same in every run)."""
+    return np.random.default_rng(SEED + 20 + step).integers(0, vocab, SHARDED_DECODE_BATCH).astype(np.int64)
+
+
+def step_profile(events: list) -> dict:
+    """`device_time_summary` of one profiled step, with the kernels' own busy
+    ms beside: the device timeline also holds the copies that stage every
+    gloo collective through the host, which run on the copy engines, beside
+    the other ranks' kernels."""
+    from repro_torch.obs.trace import device_time_summary
+
+    out = device_time_summary(events, 1, top=5)
+    busy, copies, last = 0.0, 0.0, float("-inf")
+    spans = []
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.name.startswith("ProfilerStep"):
+            continue
+        if e.name.startswith(("Memcpy", "Memset")):
+            copies += e.time_range.elapsed_us()
+        else:
+            spans.append((e.time_range.start, e.time_range.end))
+    for start, end in sorted(spans):
+        busy += max(0.0, end - max(start, last))
+        last = max(last, end)
+    return dict(out, kernel_busy_ms=busy / 1e3, copy_ms=copies / 1e3)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _timed(fn, device: torch.device):
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _host_tree(tree) -> dict:
+    """Every leaf as an fp32 host tensor: a rank's result crosses to the
+    parent through shared memory (torch's queue reductions), where numpy
+    arrays would stream through a pipe (170 s for lm_tp_train's 9.3 GB)."""
+    return {name: leaf.detach().float().cpu() for name, leaf in named_leaves(tree).items()}
+
+
+def run_lm_serve(cells: dict, phase: dict, device: torch.device, policy=None) -> dict:
+    """Prefill (counted) and SHARDED_DECODE_STEPS decode steps (the last
+    once more under the profiler) of one LM cell pair — unsharded in the parent, a rank's share in
+    the group (``policy`` bound). Returns the outputs (the vocab shards
+    gathered), times, K4 launches, the dropped pairs per layer and the
+    routing margin, the collectives a step and the peak memory; for an MoE
+    model also `run_moe_layers`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.dist import policy as pol
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.nn import moe
+    from repro_torch.obs.trace import device_time_summary
+
+    gather = (lambda x: policy.model_gather(x)) if policy is not None else (lambda x: x)
+    out = {}
+    dec = cells["decode"]
+    params = None
+    if "prefill" in cells:
+        params, tokens = cells["prefill"].make_inputs(SEED, device)
+    params, cache, _, pos0 = dec.make_inputs(SEED, device, params=params)
+    cfg = dec.cfg
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        if "prefill" in cells:
+            fn = cells["prefill"].fn
+            k4.reset_launch_counts()
+            moe.RECORD, pol.STATS, ms = [], {}, []
+            for _ in range(SHARDED_PREFILLS):
+                moe.RECORD = []
+                pol.STATS = {}
+                logits, t = _timed(lambda: fn(params, tokens), device)
+                ms.append(t)
+            stats, record = pol.STATS, moe.RECORD
+            moe.RECORD = pol.STATS = None
+            out["prefill_launches"] = dict(k4.LAUNCHES)
+            out["prefill_windows"] = {str(w): n for (_, w), n in k4.WINDOWS.items()}
+            out["prefill_ms"] = ms
+            out["prefill_collectives"] = stats
+            out["dropped_per_layer"] = [int(r["dropped"]) for r in record]
+            out["margin_per_layer"] = [float(r["margin"]) for r in record]
+            out["experts_per_layer"] = [r["experts"].cpu().numpy() for r in record]
+            out["prefill_logits"] = gather(logits).float().cpu().numpy()
+            del logits, tokens
+        fn = dec.fn
+        k4.reset_launch_counts()
+        steps, ms, stats, experts = [], [], [], []
+        for step in range(SHARDED_DECODE_STEPS):
+            whole = decode_tokens(cfg.vocab, step)
+            tok_spec = dec.in_specs[2]
+            token = torch.from_numpy(np.ascontiguousarray(dec.cut(whole, tok_spec))).to(device)
+            pol.STATS, moe.RECORD = {}, ([] if cfg.is_moe else None)
+            (logits, cache), t = _timed(lambda: fn(params, cache, token, pos0 + step), device)
+            stats.append(pol.STATS)
+            if cfg.is_moe:
+                experts.append(np.stack([r["experts"].cpu().numpy() for r in moe.RECORD]))
+            pol.STATS = moe.RECORD = None
+            ms.append(t)
+            steps.append(gather(logits).float().cpu().numpy())
+        out["decode_launches"] = dict(k4.LAUNCHES)
+        if experts:
+            out["decode_experts"] = np.stack(experts)          # (steps, layers, B, K)
+        out["decode_ms"] = ms
+        out["decode_collectives"] = stats[-1]
+        out["decode_logits"] = np.stack(steps)
+        out["positions"] = [pos0 + s for s in range(SHARDED_DECODE_STEPS)]
+        with profile(activities=[ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda"
+                                                          else [])) as prof:
+            fn(params, cache, token, pos0)           # the last step again, under the profiler
+            _sync(device)
+        out["decode_profile"] = step_profile(list(prof.events()))
+        if cfg.is_moe:
+            out.update(run_moe_layers(params, cfg, device, policy))
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None
+    out["parameters_gb"] = sum(p.numel() * p.element_size() for p in named_leaves(params).values()) / 1e9
+    del params, cache
+    return out
+
+
+def run_moe_layers(params: dict, cfg, device: torch.device, policy=None) -> dict:
+    """Every MoE layer of the model alone (`moe_apply` on its weights, the
+    rank's experts under ``policy``) on one seeded (SHARDED_SEQ, d_model)
+    input whose tokens share a direction (MOE_LAYER_SHARED), so that
+    capacity drops pairs: with the same input the routing is the same in the unsharded
+    and the expert-parallel run, and the two functions differ only by the
+    combine's sum over the model group. Returns each layer's output (bf16,
+    on the host), expert ids, dropped pairs and routing margin."""
+    from repro_torch.nn import moe
+
+    gen = torch.Generator().manual_seed(SEED + 30)
+    shared, noise = torch.randn((cfg.d_model,), generator=gen), torch.randn((SHARDED_SEQ, cfg.d_model), generator=gen)
+    x = (MOE_LAYER_SHARED * shared + (1.0 - MOE_LAYER_SHARED**2) ** 0.5 * noise).to(device, params["embed"].dtype)
+    stacked, moe_cfg = params["layers"]["moe"], cfg.moe_cfg()
+    outs, experts, dropped, margin = [], [], [], []
+    for i in range(cfg.n_layers):
+        moe.RECORD = []
+        y, _ = moe.moe_apply({name: leaf[i] for name, leaf in stacked.items()}, x, moe_cfg, policy)
+        (rec,), moe.RECORD = moe.RECORD, None
+        outs.append(y.cpu())
+        experts.append(rec["experts"].cpu().numpy())
+        dropped.append(int(rec["dropped"]))
+        margin.append(float(rec["margin"]))
+    return dict(moe_layer_out=torch.stack(outs), moe_layer_experts=np.stack(experts), moe_layer_dropped=dropped,
+                moe_layer_margin=margin)
+
+
+def moe_layer_hold(res: list, ref: dict) -> tuple[dict, dict]:
+    """`run_moe_layers` of every rank against the unsharded run's: the
+    expert ids and dropped pairs of every layer equal (and some pairs
+    dropped, so that the hold reaches the capacity rule), and every
+    layer's output within MOE_LAYER_RTOL of its largest entry."""
+    got, want = res[0]["moe_layer_out"].float(), ref["moe_layer_out"].float()
+    scale = want.abs().amax(dim=(1, 2))
+    rel = ((got - want).abs().amax(dim=(1, 2)) / scale).tolist()
+    line = dict(moe_layers_out_rel_err=rel, moe_layers_rtol=MOE_LAYER_RTOL,
+                moe_layers_dropped=res[0]["moe_layer_dropped"], unsharded_moe_layers_dropped=ref["moe_layer_dropped"],
+                moe_layers_margin_min=min(res[0]["moe_layer_margin"]),
+                unsharded_moe_layers_margin_min=min(ref["moe_layer_margin"]),
+                moe_layers_input=f"one seeded ({SHARDED_SEQ}, d_model) bf16 input through each of the layers, "
+                                 f"{MOE_LAYER_SHARED} of one shared direction + unit noise")
+    checks = dict(moe_layers_routing=all(np.array_equal(r["moe_layer_experts"], ref["moe_layer_experts"]) for r in res),
+                  moe_layers_dropped=all(r["moe_layer_dropped"] == ref["moe_layer_dropped"] for r in res)
+                  and sum(ref["moe_layer_dropped"]) > 0,
+                  moe_layers_out=got.shape == want.shape and bool(torch.isfinite(got).all())
+                  and max(rel) <= MOE_LAYER_RTOL)
+    return line, checks
+
+
+def run_lm_train_cell(cells: dict, device: torch.device, policy=None) -> dict:
+    """The first gradient of the train cell's loss (before any step), then
+    SHARDED_TRAIN_STEPS steps of its fn (AdamW), the last under the
+    profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.dist import policy as pol
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.models.transformer_lm import lm_loss
+    from repro_torch.obs.trace import device_time_summary
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.train.tree import tree_map
+
+    cell = cells["train"]
+    params, state, tokens = cell.make_inputs(SEED, device)
+    loss0, grads = value_and_grad(lambda p, b: lm_loss(p, b, cell.cfg, cell.policy), params, tokens)
+    if policy is not None and policy.n_data > 1:
+        grads = tree_map(policy.data_psum, grads)
+    out = {"grads": _host_tree(grads), "loss0": float(loss0)}
+    del grads
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    fn = cell.fn
+    k4.reset_launch_counts()
+    losses, ms, stats = [], [], []
+    for step in range(SHARDED_TRAIN_STEPS):
+        pol.STATS = {}
+        if step == SHARDED_TRAIN_STEPS - 1:
+            with profile(activities=[ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda"
+                                                              else [])) as prof:
+                (params, state, loss), t = _timed(lambda: fn(params, state, tokens), device)
+            out["profile"] = step_profile(list(prof.events()))
+        else:
+            (params, state, loss), t = _timed(lambda: fn(params, state, tokens), device)
+        stats.append(pol.STATS)
+        pol.STATS = None
+        losses.append(float(loss))
+        ms.append(t)
+    out.update(launches=dict(k4.LAUNCHES), windows={str(w): n for (_, w), n in k4.WINDOWS.items()}, losses=losses,
+               step_ms=ms, collectives=stats[0],
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None)
+    del params, state, tokens
+    return out
+
+
+def run_deepfm_cells(cells: dict, device: torch.device, policy=None) -> dict:
+    """serve_p99 (one warm-up, DEEPFM_REQUESTS timed), serve_bulk,
+    retrieval (1 × 10⁶) and the first gradient then DEEPFM_SHARDED_STEPS
+    AdamW steps at train_batch, the last under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.dist import policy as pol
+    from repro_torch.kernels import fm_interaction as k3
+    from repro_torch.models.deepfm import deepfm_loss
+    from repro_torch.obs.trace import device_time_summary
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.train.tree import tree_map
+
+    gather = (lambda x, dim=-1: policy.model_gather(x, dim)) if policy is not None else (lambda x, dim=-1: x)
+    out = {}
+    params, ids = cells["serve"].make_inputs(SEED, device)
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    k3.reset_launch_counts()
+    with torch.inference_mode():
+        fn = cells["serve"].fn
+        fn(params, ids)
+        ms = []
+        for _ in range(DEEPFM_REQUESTS):
+            pol.STATS = {}
+            logits, t = _timed(lambda: fn(params, ids), device)
+            ms.append(t)
+        out.update(serve_ms=ms, serve_collectives=pol.STATS, serve_logits=logits.cpu().numpy())
+        _, bulk_ids = cells["bulk"].make_inputs(SEED, device, params=params)
+        pol.STATS = {}
+        logits, t = _timed(lambda: cells["bulk"].fn(params, bulk_ids), device)
+        out.update(bulk_ms=t, bulk_collectives=pol.STATS, bulk_logits=logits.cpu().numpy())
+        del bulk_ids, logits
+        _, user, cands = cells["retrieval"].make_inputs(SEED, device, params=params)
+        pol.STATS = {}
+        scores, t = _timed(lambda: cells["retrieval"].fn(params, user, cands), device)
+        out.update(retrieval_ms=t, retrieval_collectives=pol.STATS,
+                   retrieval_scores=gather(scores, 1).cpu().numpy())
+        del user, cands, scores
+    pol.STATS = None
+    out["serve_launches"] = dict(k3.LAUNCHES)
+    cell = cells["train"]
+    _, state, ids, labels = cell.make_inputs(SEED, device, params=params)
+    loss0, grads = value_and_grad(lambda p, b: deepfm_loss(p, b[0], b[1], cell.cfg, cell.policy), params,
+                                  (ids, labels))
+    if policy is not None and policy.n_data > 1:
+        grads = tree_map(policy.data_psum, grads)
+    out.update(grads=_host_tree(grads), loss0=float(loss0))
+    del grads
+    fn = cell.fn
+    k3.reset_launch_counts()
+    losses, ms, stats = [], [], []
+    for step in range(DEEPFM_SHARDED_STEPS):
+        pol.STATS = {}
+        if step == DEEPFM_SHARDED_STEPS - 1:
+            with profile(activities=[ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda"
+                                                              else [])) as prof:
+                (params, state, loss), t = _timed(lambda: fn(params, state, ids, labels), device)
+            out["profile"] = step_profile(list(prof.events()))
+        else:
+            (params, state, loss), t = _timed(lambda: fn(params, state, ids, labels), device)
+        stats.append(pol.STATS)
+        pol.STATS = None
+        losses.append(float(loss))
+        ms.append(t)
+    out.update(train_launches=dict(k3.LAUNCHES), losses=losses, step_ms=ms, train_collectives=stats[0],
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None)
+    del params, state, ids, labels
+    return out
+
+
+PHASE_RUNNERS = {"lm": run_lm_serve, "lm_train": run_lm_train_cell, "recsys": run_deepfm_cells}
+
+
+def _free(device: torch.device) -> None:
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def sharded_rank(rank: int, k: int, device: torch.device, phases: list) -> dict:
+    """One rank of the 4-rank group: every phase's cells on its grid, bound
+    to the rank's groups, run as `run_lm_serve` / `run_lm_train_cell` /
+    `run_deepfm_cells` run them unsharded."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import Grid
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"_started_at": time.time()}
+    for phase in phases:
+        grid = Grid(("data", "model"), phase["grid"])
+        cells = {role: c.bind() for role, c in phase_cells(phase, grid).items()}
+        policy = next(iter(cells.values())).policy
+        dist.barrier()
+        at_start = dict(allocated_gb=torch.cuda.memory_allocated() / 1e9,
+                        reserved_gb=torch.cuda.memory_reserved() / 1e9) if device.type == "cuda" else {}
+        t0 = time.perf_counter()
+        if phase["family"] == "lm":
+            res = run_lm_serve(cells, phase, device, policy)
+        else:
+            res = PHASE_RUNNERS[phase["family"]](cells, device, policy)
+        res.update(seconds=time.perf_counter() - t0, coords=cells[next(iter(cells))].coords, memory_at_start=at_start)
+        if rank != 0:      # the gathered logits and scores are the same on every rank of a data slice
+            for key in ("prefill_logits", "decode_logits", "retrieval_scores", "experts_per_layer", "decode_experts",
+                        "moe_layer_out"):
+                res.pop(key, None)
+        if policy.model_index != 0:
+            for key in ("serve_logits", "bulk_logits"):
+                res.pop(key, None)
+        if policy.data_index != 0:
+            res.pop("grads", None)
+        out[phase["name"]] = res
+        del cells
+        _free(device)
+    out["_finished_at"] = time.time()
+    return out
+
+
+def sharded_references(device: torch.device) -> dict:
+    """Each phase's unsharded counterpart, alone on the card (a 1 × 1 grid:
+    the same cells, the same drawn weights); keeps on the host what the
+    checks need and frees the card after each."""
+    from repro_torch.launch.mesh import Grid
+
+    refs = {}
+    one = Grid(("data", "model"), (1, 1))
+    for phase in sharded_phases():
+        t0 = time.perf_counter()
+        cells = phase_cells(phase, one)
+        if phase["family"] == "lm":
+            refs[phase["name"]] = run_lm_serve(cells, phase, device)
+        else:
+            refs[phase["name"]] = PHASE_RUNNERS[phase["family"]](cells, device)
+        refs[phase["name"]]["seconds"] = time.perf_counter() - t0
+        del cells
+        _free(device)
+    return refs
+
+
+def _phase_times(results: list, key: str) -> list:
+    return [r[key] for r in results]
+
+
+def _collective_share(stats: dict, step_ms: float) -> dict:
+    return dict(count=stats.get("count", 0), bytes=stats.get("bytes", 0), ms=stats.get("seconds", 0.0) * 1e3,
+                share_of_step=stats.get("seconds", 0.0) * 1e3 / step_ms if step_ms else None)
+
+
+def _card_idle(profiles: list) -> dict:
+    """The card's idle share over one step, from every rank's own profile of
+    that step (the ranks run the step at once, meeting in every
+    collective): at least 1 − Σ the ranks' kernel-busy ms / the mean
+    window. A lower bound: the four contexts time-slice the SMs, and a
+    kernel's span includes the slices it waited, so the sum over-counts
+    (it exceeds the window when kernels are long). The staging copies run
+    on the copy engines and are reported apart."""
+    busy = [p["kernel_busy_ms"] for p in profiles]
+    window = [p["window_ms_per_step"] for p in profiles]
+    return dict(card_idle_share_at_least=max(0.0, 1.0 - sum(busy) / statistics.mean(window)),
+                kernel_busy_ms_per_rank=busy,
+                copy_ms_per_rank=[p["copy_ms"] for p in profiles], window_ms_per_rank=window,
+                top_kernels_rank0=profiles[0]["top_kernels"])
+
+
+def capacity_drops(experts: np.ndarray, n_experts: int, capacity: int) -> int:
+    """The (token, expert) pairs the reference's capacity rule drops for
+    one group's (T, K) expert ids: each expert keeps its first ``capacity``."""
+    return int(np.maximum(np.bincount(experts.reshape(-1), minlength=n_experts) - capacity, 0).sum())
+
+
+def _logits_hold(got: np.ndarray, want: np.ndarray, rows=None) -> dict:
+    """The logits within SHARDED_LOGIT_RTOL of max |logit| (on the rows
+    ``rows`` marks, when given) and the same argmax up to ties within it."""
+    g, w = torch.from_numpy(got.reshape(-1, got.shape[-1])), torch.from_numpy(want.reshape(-1, want.shape[-1]))
+    keep = torch.ones(g.shape[0], dtype=torch.bool) if rows is None else torch.from_numpy(np.asarray(rows).reshape(-1))
+    err, scale = max_err(g[keep], w[keep]) if bool(keep.any()) else (0.0, float(w.abs().max()))
+    agree, raw, tied = argmax_agreement(g, w, SHARDED_LOGIT_RTOL)
+    return dict(max_abs_err=err, max_abs_logit=scale, rtol=SHARDED_LOGIT_RTOL, argmax_agreement=agree,
+                raw_argmax_equal=raw, tied_rows=tied, rows_held=int(keep.sum()), rows=int(keep.numel()),
+                max_abs_err_all_rows=max_err(g, w)[0],
+                ok=err <= SHARDED_LOGIT_RTOL * scale and agree == 1.0
+                and bool(np.isfinite(got).all()) and got.shape == want.shape)
+
+
+def _grad_hold(results: list, ref: dict, phase: dict, cells: dict, grid) -> dict:
+    """Each rank's gradient shard against the same block of the unsharded
+    gradient, relative to the whole leaf's largest entry."""
+    from repro_torch.launch.shardings import shard_slices
+
+    specs = named_leaves(next(iter(cells.values())).param_specs)
+    worst = {}
+    for r, res in enumerate(results):
+        if "grads" not in res:
+            continue
+        for name, got in res["grads"].items():
+            got, want = got.numpy(), ref["grads"][name].numpy()
+            block = want[shard_slices(want.shape, specs[name], grid.coords(r))]
+            scale = float(np.abs(want).max())
+            rel = float(np.abs(got - block).max()) / scale if scale else float(np.abs(got).max())
+            worst[name] = max(worst.get(name, 0.0), rel)
+    return worst
+
+
+def check_sharded_kernels(device: torch.device) -> tuple[dict, dict]:
+    """K4 (fp32 and bf16) and K3 against their plain versions at the shapes
+    the group's ranks give them, with times, the plain version's, SDPA's
+    and the bound beside (the parent alone on the card)."""
+    from repro_torch.configs.gemma3_12b import FULL as gemma
+    from repro_torch.configs.moonshot_v1_16b_a3b import FULL as moonshot
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.kernels import fm_interaction as k3
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    rows, cases = {}, []
+    glob = global_window()
+    shapes = [("lm_tp", "k4_flash_attention_bf16", gemma.n_heads // 4, gemma.n_kv_heads // 4, SHARDED_SEQ,
+               gemma.attn.head_dim, ((("local", gemma.window), ("global", glob))), torch.bfloat16),
+              ("moe_ep", "k4_flash_attention_bf16", moonshot.n_heads // 4, moonshot.n_kv_heads // 4, SHARDED_SEQ,
+               moonshot.attn.head_dim, (("global", glob),), torch.bfloat16),
+              ("lm_tp_train", "k4_flash_attention", LM_TRAIN_BATCH * gemma.n_heads // 4,
+               LM_TRAIN_BATCH * gemma.n_kv_heads // 4, LM_TRAIN_SEQ, gemma.attn.head_dim,
+               (("local", gemma.window), ("global", glob)), torch.float32)]
+    with torch.inference_mode():
+        for phase, name, h, hk, S, d, windows, dtype in shapes:
+            q, k, v = (torch.randn((n, S, d), generator=gen, device=device).to(dtype) for n in (h, hk, hk))
+            for tag, window in windows:
+                out, ref = k4.flash_attention(q, k, v, window=window), k4.flash_attention_plain(q, k, v, window=window)
+                err, scale = max_err(out.float(), ref.float())
+                case = dict(kernel=name, phase=phase, case=f"{h}/{hk} heads × {S} × {d}, {tag}", max_abs_err=err,
+                            max_abs_ref=scale)
+                if dtype == torch.float32:
+                    case.update(rtol=KERNEL_RTOL, ok=err <= KERNEL_RTOL * scale)
+                else:
+                    be = float((out == ref).float().mean())
+                    case.update(rtol=K1_BF16_STEP, bit_equal=be,
+                                ok=err <= K1_BF16_STEP * scale and be >= K1_BF16_BIT_EQUAL)
+                cases.append(case)
+                lib, lib_err = sdpa_ms(q, k, v, window)
+                rows[f"{phase}_{tag}"] = dict(kernel=name, heads=[h, hk], S=S, d=d, window=window,
+                                              ms=cuda_ms(lambda: k4.flash_attention(q, k, v, window=window)),
+                                              plain_ms=cuda_ms(lambda: k4.flash_attention_plain(q, k, v, window=window),
+                                                               reps=5),
+                                              library_ms=lib, library_max_abs_err=lib_err,
+                                              bound=list(k4_bound(h, hk, S, d, window, 2 if dtype != torch.float32
+                                                                  else 4)))
+                del out, ref
+            del q, k, v
+        F, D = 39, 10
+        for tag, batch in (("serve_p99", 256), ("train_batch", 32_768), ("serve_bulk", 131_072)):
+            emb = torch.randn((batch, F, D), generator=gen, device=device)
+            out, ref = k3.fm_interaction(emb), k3.fm_interaction_plain(emb)
+            err, scale = max_err(out, ref)
+            cases.append(dict(kernel="k3_fm_interaction", phase="deepfm_sharded", case=f"{tag} a rank ({batch} × "
+                              f"{F} × {D})", max_abs_err=err, max_abs_ref=scale, rtol=KERNEL_RTOL,
+                              ok=err <= KERNEL_RTOL * scale))
+            rows[f"deepfm_sharded_{tag}"] = dict(
+                kernel="k3_fm_interaction", batch=batch, ms=device_ms(lambda: k3.fm_interaction(emb)),
+                plain_ms=device_ms(lambda: k3.fm_interaction_plain(emb)), library_ms=None,
+                bound=list(bound(4.0 * (batch * F * D + batch), 3.0 * batch * F * D + 3.0 * batch * D)))
+            del emb, out, ref
+    _free(device)
+    ok = all(c["ok"] for c in cases)
+    emit("sharded_kernels", ok=ok, cases=cases, times=rows,
+         timing="K4: CUDA-event medians of 10 (plain, SDPA: 5) after 2 warm-ups; K3: device_ms; at one rank's "
+                "shapes, the parent alone on the card")
+    require(ok, "sharded_kernels", "a kernel disagrees with its plain version at a rank's shapes")
+    worst = {}
+    for c in cases:
+        worst[c["kernel"]] = max(worst.get(c["kernel"], 0.0), c["max_abs_err"])
+    return worst, rows
+
+
+def run_sharded(device: torch.device) -> dict:
+    """The five phases of the sharded LM and DeepFM: every unsharded
+    counterpart alone first (host copies of what the checks need), the
+    kernels at a rank's shapes, then one group of SHARDED_K ranks sharing
+    the card (gloo) running every phase's cells; one line per phase.
+    Returns each phase's kernel launches summed over the ranks' counted
+    runs, and the kernels' worst errors and timing rows."""
+    from repro_torch.launch.mesh import Grid, GroupSpec, run_group
+
+    t0 = time.perf_counter()
+    refs = sharded_references(device)
+    worst, rows = check_sharded_kernels(device)
+    spec = GroupSpec(k=SHARDED_K, backend="gloo", devices=(str(device) if device.type == "cpu" else "cuda:0",),
+                     timeout_s=SHARDED_TIMEOUT_S)
+    parent = dict(allocated_gb=torch.cuda.memory_allocated() / 1e9,
+                  reserved_gb=torch.cuda.memory_reserved() / 1e9) if device.type == "cuda" else {}
+    print(f"sharded group: {spec.describe()}; the parent holds {parent}", flush=True)
+    t1, w1 = time.perf_counter(), time.time()
+    # Four caching allocators share the card: segments that grow in place leave less of it stranded.
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        results = run_group(spec, sharded_rank, [sharded_phases()] * SHARDED_K)
+    finally:
+        if alloc_conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    group_s = time.perf_counter() - t1
+    group_times = dict(seconds=group_s, start_up_s=max(r.pop("_started_at") for r in results) - w1,
+                       results_and_exit_s=time.time() - min(r.pop("_finished_at") for r in results),
+                       per_phase_rank0={name: r["seconds"] for name, r in results[0].items()})
+    print(json.dumps({"sharded_group": group_times}), flush=True)
+    launches = {}
+    for phase in sharded_phases():
+        name = phase["name"]
+        grid = Grid(("data", "model"), phase["grid"])
+        res, ref = [r[name] for r in results], refs[name]
+        cells = phase_cells(phase, grid)
+        line, checks = dict(config=phase["arch"], grid=dict(zip(("data", "model"), phase["grid"])),
+                            dtype=phase["dtype"], reduced=phase_reduced(phase),
+                            memory_at_start_per_rank=_phase_times(res, "memory_at_start"), parent_memory=parent,
+                            peak_memory_gb_per_rank=_phase_times(res, "peak_memory_gb"),
+                            unsharded_peak_memory_gb=ref["peak_memory_gb"], seconds_per_rank=_phase_times(res, "seconds"),
+                            unsharded_seconds=ref["seconds"]), {}
+        if phase["family"] == "lm":
+            dec = cells["decode"]
+            line.update(parameters_gb_per_rank=_phase_times(res, "parameters_gb"),
+                        unsharded_parameters_gb=ref["parameters_gb"], cache_spec=list(dec.policy.cache),
+                        positions=res[0]["positions"], decode_ms_per_rank=_phase_times(res, "decode_ms"),
+                        decode_ms_median_per_rank=[statistics.median(r["decode_ms"]) for r in res],
+                        unsharded_decode_ms_median=statistics.median(ref["decode_ms"]))
+            moe_rows = None
+            if dec.cfg.is_moe:
+                # The expert-parallel function itself is held layer by layer (moe_layer_hold). End to end, a
+                # row's logits are held where its routing matched the unsharded run's in every layer of every
+                # step so far (a flipped top-k choice is another function of the row, not an error).
+                hold, moe_checks = moe_layer_hold(res, ref)
+                line.update(hold)
+                checks.update(moe_checks)
+                same = np.sort(res[0]["decode_experts"], -1) == np.sort(ref["decode_experts"], -1)
+                moe_rows = np.logical_and.accumulate(same.all(axis=(1, 3)), axis=0)      # (steps, B)
+                line["decode_rows_routed_alike"] = moe_rows.tolist()
+            line["decode_vs_unsharded"] = _logits_hold(res[0]["decode_logits"], ref["decode_logits"], moe_rows)
+            checks["decode_vs_unsharded"] = line["decode_vs_unsharded"]["ok"]
+            checks["decode_no_k4"] = all(sum(r["decode_launches"].values()) == 0 for r in res)
+            step = statistics.median(res[0]["decode_ms"])
+            line["decode_collectives_per_step_rank0"] = _collective_share(res[0]["decode_collectives"], step)
+            line["decode_profile"] = _card_idle(_phase_times(res, "decode_profile"))
+            line["unsharded_decode_profile"] = ref["decode_profile"]
+            if phase["prefill"]:
+                cfg = cells["prefill"].cfg
+                n_global = int((cfg.window_sizes() == global_window()).sum())
+                per = {"k4_flash_attention": 0, "k4_flash_attention_bf16": SHARDED_PREFILLS * cfg.n_layers}
+                wins = {str(w): SHARDED_PREFILLS * n for w, n in
+                        ((cfg.window, cfg.n_layers - n_global), (global_window(), n_global)) if n}
+                line.update(prefill_ms_per_rank=_phase_times(res, "prefill_ms"), unsharded_prefill_ms=ref["prefill_ms"],
+                            prefill_launches_per_rank=_phase_times(res, "prefill_launches"), expected_launches=per,
+                            prefill_windows_per_rank=_phase_times(res, "prefill_windows"), expected_windows=wins,
+                            prefill_collectives_rank0=_collective_share(res[0]["prefill_collectives"],
+                                                                        res[0]["prefill_ms"][-1]))
+                line["prefill_vs_unsharded"] = _logits_hold(res[0]["prefill_logits"], ref["prefill_logits"])
+                checks["prefill_vs_unsharded"] = line["prefill_vs_unsharded"]["ok"]
+                checks["prefill_launches"] = all(r["prefill_launches"] == per for r in res)
+                checks["prefill_windows"] = all(r["prefill_windows"] == wins for r in res)
+                launches[name] = {k: sum(r["prefill_launches"][k] for r in res) for k in per}
+                if cfg.is_moe:
+                    moe_cfg = cfg.moe_cfg()
+                    cap = moe_cfg.capacity(SHARDED_SEQ)
+                    rule = lambda experts: [capacity_drops(e, moe_cfg.num_experts, cap) for e in experts]
+                    alike = [float((np.sort(a, -1) == np.sort(b, -1)).all(-1).mean())
+                             for a, b in zip(res[0]["experts_per_layer"], ref["experts_per_layer"])]
+                    first = next((i for i, a in enumerate(alike) if a < 1.0), cfg.n_layers)
+                    line.update(dropped_per_layer=res[0]["dropped_per_layer"],
+                                unsharded_dropped_per_layer=ref["dropped_per_layer"],
+                                routing_alike_share_per_layer=alike, first_layer_routed_differently=first,
+                                routing_margin_min=min(res[0]["margin_per_layer"]),
+                                unsharded_routing_margin_min=min(ref["margin_per_layer"]), capacity=cap)
+                    # Exact where the routing agrees; where a tie flipped, each run's drops are the
+                    # reference's capacity rule applied to its own routing.
+                    checks["dropped_per_layer"] = (
+                        all(r["dropped_per_layer"] == res[0]["dropped_per_layer"] for r in res)
+                        and res[0]["dropped_per_layer"][:first] == ref["dropped_per_layer"][:first]
+                        and res[0]["dropped_per_layer"] == rule(res[0]["experts_per_layer"])
+                        and ref["dropped_per_layer"] == rule(ref["experts_per_layer"]))
+            else:
+                launches[name] = {"k4_flash_attention": 0, "k4_flash_attention_bf16": 0}
+        elif phase["family"] == "lm_train":
+            cfg = cells["train"].cfg
+            grad = _grad_hold(res, ref, phase, cells, grid)
+            n_global = int((cfg.window_sizes() == global_window()).sum())
+            per = {"k4_flash_attention": SHARDED_TRAIN_STEPS * cfg.n_layers, "k4_flash_attention_bf16": 0}
+            line.update(gradient_rel_err_by_leaf=grad, gradient_rtol=SHARDED_GRAD_RTOL, loss0=res[0]["loss0"],
+                        unsharded_loss0=ref["loss0"], losses=res[0]["losses"], unsharded_losses=ref["losses"],
+                        step_ms_per_rank=_phase_times(res, "step_ms"), unsharded_step_ms=ref["step_ms"],
+                        launches_per_rank=_phase_times(res, "launches"), expected_launches=per,
+                        windows_rank0=res[0]["windows"],
+                        collectives_per_step_rank0=_collective_share(res[0]["collectives"], res[0]["step_ms"][0]),
+                        profile=_card_idle(_phase_times(res, "profile")), unsharded_profile=ref["profile"])
+            checks.update(gradient_vs_unsharded=max(grad.values()) <= SHARDED_GRAD_RTOL and
+                          len(grad) == len(ref["grads"]),
+                          loss0_vs_unsharded=abs(res[0]["loss0"] - ref["loss0"]) <= SHARDED_LOSS_RTOL * abs(ref["loss0"]),
+                          losses_vs_unsharded=all(len(r["losses"]) == len(ref["losses"]) and all(
+                              abs(a - b) <= SHARDED_LOSS_RTOL * abs(b) for a, b in zip(r["losses"], ref["losses"]))
+                              for r in res),
+                          finite_losses=all(np.isfinite(r["losses"]).all() for r in res),
+                          loss_falls=res[0]["losses"][-1] < res[0]["losses"][0],
+                          launches=all(r["launches"] == per for r in res),
+                          windows=res[0]["windows"] == {str(cfg.window): SHARDED_TRAIN_STEPS * (cfg.n_layers - n_global),
+                                                        str(global_window()): SHARDED_TRAIN_STEPS * n_global})
+            launches[name] = {k: sum(r["launches"][k] for r in res) for k in per}
+        else:
+            n_model = grid.shape["model"]
+            data_ranks = range(0, grid.size, n_model)
+            serve = np.concatenate([res[d]["serve_logits"] for d in data_ranks])
+            bulk = np.concatenate([res[d]["bulk_logits"] for d in data_ranks])
+            holds = {}
+            for key, got, want in (("serve", serve, ref["serve_logits"]), ("bulk", bulk, ref["bulk_logits"]),
+                                   ("retrieval", res[0]["retrieval_scores"], ref["retrieval_scores"])):
+                err, scale = max_err(torch.from_numpy(got), torch.from_numpy(want))
+                holds[key] = dict(max_abs_err=err, max_abs_ref=scale, rtol=DEEPFM_LOGIT_RTOL,
+                                  ok=got.shape == want.shape and err <= DEEPFM_LOGIT_RTOL * scale)
+                checks[f"{key}_vs_unsharded"] = holds[key]["ok"]
+            grad = _grad_hold(res, ref, phase, cells, grid)
+            per_serve = {"k3_fm_interaction": DEEPFM_REQUESTS + 2, "k3_fm_interaction_bf16": 0}
+            per_train = {"k3_fm_interaction": DEEPFM_SHARDED_STEPS, "k3_fm_interaction_bf16": 0}
+            line.update(holds=holds, gradient_rel_err_by_leaf=grad, gradient_rtol=SHARDED_GRAD_RTOL,
+                        loss0=res[0]["loss0"], unsharded_loss0=ref["loss0"], losses=res[0]["losses"],
+                        unsharded_losses=ref["losses"], serve_ms_per_rank=_phase_times(res, "serve_ms"),
+                        unsharded_serve_ms=ref["serve_ms"], bulk_ms_per_rank=_phase_times(res, "bulk_ms"),
+                        unsharded_bulk_ms=ref["bulk_ms"], retrieval_ms_per_rank=_phase_times(res, "retrieval_ms"),
+                        unsharded_retrieval_ms=ref["retrieval_ms"], step_ms_per_rank=_phase_times(res, "step_ms"),
+                        unsharded_step_ms=ref["step_ms"],
+                        launches_per_rank=dict(serve=_phase_times(res, "serve_launches"),
+                                               train=_phase_times(res, "train_launches")),
+                        collectives_rank0=dict(
+                            serve=_collective_share(res[0]["serve_collectives"], res[0]["serve_ms"][-1]),
+                            bulk=_collective_share(res[0]["bulk_collectives"], res[0]["bulk_ms"]),
+                            retrieval=_collective_share(res[0]["retrieval_collectives"], res[0]["retrieval_ms"]),
+                            train_step=_collective_share(res[0]["train_collectives"], res[0]["step_ms"][0])),
+                        profile=_card_idle(_phase_times(res, "profile")), unsharded_profile=ref["profile"])
+            checks.update(gradient_vs_unsharded=max(grad.values()) <= SHARDED_GRAD_RTOL and
+                          len(grad) == len(ref["grads"]),
+                          loss0_vs_unsharded=abs(res[0]["loss0"] - ref["loss0"]) <= SHARDED_LOSS_RTOL * abs(ref["loss0"]),
+                          losses_vs_unsharded=all(len(r["losses"]) == len(ref["losses"]) and all(
+                              abs(a - b) <= SHARDED_LOSS_RTOL * abs(b) for a, b in zip(r["losses"], ref["losses"]))
+                              for r in res),
+                          finite_losses=all(np.isfinite(r["losses"]).all() for r in res),
+                          loss_falls=res[0]["losses"][-1] < res[0]["losses"][0],
+                          launches=all(r["serve_launches"] == per_serve and r["train_launches"] == per_train
+                                       for r in res))
+            launches[name] = {k: sum(r["serve_launches"][k] + r["train_launches"][k] for r in res) for k in per_serve}
+        ok = all(checks.values())
+        emit(name, ok=ok, checks=checks, **line,
+             timing="host clock around each call, ended by a synchronisation (the collectives are synchronous); "
+                    f"{SHARDED_K} ranks share one card through gloo, so these are not multi-card times; "
+                    "collectives: count, bytes a rank puts on the wire, host ms (staging through the host "
+                    "included) and their share of the step; card_idle_share_at_least: 1 − Σ the ranks' own "
+                    "kernel-busy ms / the mean window of one profiled step (a decode or training step)")
+        require(ok, name, f"checks {checks}")
+    emit("sharded", ok=True, group=spec.describe(), group_seconds=group_times, seconds=time.perf_counter() - t0,
+         phases=[p["name"] for p in sharded_phases()])
+    return dict(launches=launches, worst=worst, rows=rows)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs on the card only",
@@ -3410,6 +4224,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_run, moe_err = run_moe(device)
     lm["worst"]["k4_flash_attention"] = max(lm["worst"]["k4_flash_attention"], lm_train_err, moe_err)
+    gc.collect()
+    torch.cuda.empty_cache()
+    shard_run = run_sharded(device)
+    for name, err in shard_run["worst"].items():
+        for rows_of in (lm, fm):
+            if name in rows_of["worst"]:
+                rows_of["worst"][name] = max(rows_of["worst"][name], err)
+    shard_launches = {phase: shard_run["launches"].get(phase, {}) for phase in
+                      ("lm_tp", "moe_ep", "lm_seq", "lm_tp_train", "deepfm_sharded")}
 
     worst = {name: max(err, delta["kernel_errs"].get(name, 0.0)) for name, err in worst.items()}
     print(card_line(), flush=True)
@@ -3433,8 +4256,12 @@ def main() -> int:
         for name, row in rows.items()
     ] + [
         dict(name=name, route="cuda", source=K3_SOURCE, replaces=REPLACES[name],
-             launches=fm_serve[name] + fm_train[name], launches_deepfm_serve=fm_serve[name],
+             launches=fm_serve[name] + fm_train[name] + shard_launches["deepfm_sharded"][name],
+             launches_deepfm_serve=fm_serve[name],
              launches_deepfm_train=fm_train[name], launches_per_train_step=fm_train[name] / DEEPFM_TRAIN_STEPS,
+             launches_deepfm_sharded=shard_launches["deepfm_sharded"][name],
+             by_shape_sharded={k: dict(ms=v["ms"], plain_ms=v["plain_ms"], bound_ms=v["bound"][0], batch=v["batch"])
+                               for k, v in shard_run["rows"].items() if v["kernel"] == name},
              max_abs_err=fm["worst"][name], ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound"][0],
              bound_by=row["bound"][1], library_ms=row["library_ms"], call_ms=row["call_ms"], timing="device",
              shape=f"DeepFM train_batch ({row['batch']} × 39 × 10, {'fp32' if name == 'k3_fm_interaction' else 'bf16'})",
@@ -3443,11 +4270,19 @@ def main() -> int:
         for name, row in fm["rows"].items()
     ] + [
         dict(name=name, route="cuda", source=K4_SOURCE, replaces=REPLACES[name],
-             launches=lm_prefill_run[name] + lm_decode_run[name] + lm_train_run[name] + moe_run[name],
+             launches=lm_prefill_run[name] + lm_decode_run[name] + lm_train_run[name] + moe_run[name]
+             + sum(shard_launches[p][name] for p in ("lm_tp", "moe_ep", "lm_seq", "lm_tp_train")),
              launches_lm_prefill=lm_prefill_run[name],
              launches_per_prefill=lm_prefill_run[name] / (1 + LM_PREFILL_REPS),
              launches_lm_decode=lm_decode_run[name], launches_lm_train=lm_train_run[name],
-             launches_moe=moe_run[name], max_abs_err=lm["worst"][name], ms=row["ms"],
+             launches_moe=moe_run[name], launches_lm_tp=shard_launches["lm_tp"][name],
+             launches_moe_ep=shard_launches["moe_ep"][name], launches_lm_seq=shard_launches["lm_seq"][name],
+             launches_lm_tp_train=shard_launches["lm_tp_train"][name],
+             by_shape_sharded={k: dict(heads=v["heads"], S=v["S"], d=v["d"], window=v["window"], ms=v["ms"],
+                                       plain_ms=v["plain_ms"], library_ms=v["library_ms"], bound_ms=v["bound"][0],
+                                       bound_by=v["bound"][1])
+                               for k, v in shard_run["rows"].items() if v["kernel"] == name},
+             max_abs_err=lm["worst"][name], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound"][0], bound_by=row["bound"][1],
              library_ms=row["library_ms"],
              shape=f"gemma3-12b attention, one sequence: 16 query / 8 kv heads × {row['S']} × 240, causal, "

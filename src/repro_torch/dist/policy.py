@@ -33,27 +33,116 @@ an all-reduce (sum) whose backward is the identity: together every rank
 gets the unsharded gradient, and no other gradient all-reduce is needed.
 Both run over ``group``, the whole group, under the hierarchical exchange
 too: the reference's ``psum`` over both the pod and the model axis.
+
+The sharded LM and DeepFM (`repro_torch.launch.shardings`, the cells of
+`repro_torch.launch.steps`) take a policy of the other kind: ``grid``
+names the reference's mesh shape (`repro_torch.launch.mesh.Grid`),
+``specs`` the reference's name → PartitionSpec contract (each spec a
+tuple of axis names per dimension), and `ShardingPolicy.bind` — called
+inside a rank — fills in the rank's data group and model group with its
+index on each. The models then run Megatron's tensor parallelism over the
+model group with the same pair: `replicate` (Megatron's *f*) where a
+tensor every rank holds alike enters a per-rank computation, `psum`
+(Megatron's *g*) where per-rank partial sums meet. Two more collectives,
+neither with a gradient: `all_reduce_max` (the vocab-parallel
+logsumexp's shift) and `all_gather` (the sharded logits gathered whole,
+the MoE's expert ids over the data group). ``cache`` is the KV cache's
+spec (`repro_torch.launch.shardings.cache_spec`): its kv-head entry or
+its sequence entry names the axes the decode path splits it over.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["ShardingPolicy", "NO_POLICY", "replicate", "psum"]
+__all__ = ["ShardingPolicy", "NO_POLICY", "replicate", "psum", "reduce_scatter", "all_reduce_max", "all_gather",
+           "STATS"]
+
+#: When a dict, every collective of this module adds to its ``count``,
+#: ``bytes`` (what the rank hands the collective: the whole tensor of an
+#: all-reduce, the rank's block of an all-gather, the blocks bound for the
+#: other ranks of an all-to-all) and ``seconds`` (host clock around the
+#: call, the staging through the host included).
+STATS: dict | None = None
 
 
-def _all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
-    """Σ over the ranks of ``group`` of ``x`` (a new tensor), through the
-    host where the backend carries host tensors only (gloo)."""
+def _note(t: torch.Tensor, t0: float, nbytes: int | None = None) -> None:
+    if STATS is not None:
+        STATS["count"] = STATS.get("count", 0) + 1
+        STATS["bytes"] = STATS.get("bytes", 0) + (t.numel() * t.element_size() if nbytes is None else nbytes)
+        STATS["seconds"] = STATS.get("seconds", 0.0) + time.perf_counter() - t0
+
+
+def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``op`` over the ranks of ``group`` of ``x`` (a new tensor), through
+    the host where the backend carries host tensors only (gloo)."""
     from repro_torch.dist.halo import _wire_on_host
 
+    t0 = time.perf_counter()
     on_host = _wire_on_host(x, group)
     out = (x.detach().cpu() if on_host else x.detach()).clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-    return out.to(x.device) if on_host else out
+    dist.all_reduce(out, op=op, group=group)
+    out = out.to(x.device) if on_host else out
+    _note(out, t0)
+    return out
+
+
+def all_reduce_max(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The elementwise max of ``x`` over the ranks of ``group``, with no
+    gradient (the shift of a logsumexp, whose value does not depend on it)."""
+    return _all_reduce(x, group, dist.ReduceOp.MAX)
+
+
+def all_gather(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+    """The ranks' ``x`` (one shape on every rank) concatenated along ``dim``
+    in the group's rank order, with no gradient; through the host under
+    gloo."""
+    from repro_torch.dist.halo import _wire_on_host
+
+    t0 = time.perf_counter()
+    on_host = _wire_on_host(x, group)
+    src = (x.detach().cpu() if on_host else x.detach()).contiguous()
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat(parts, dim=dim)
+    out = out.to(x.device) if on_host else out
+    _note(src, t0)
+    return out
+
+
+def _reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Σ of ``x`` over the ranks of ``group``, of which rank r keeps block r
+    along ``dim``: an all-to-all of the blocks, then a local sum in rank
+    order; through the host under gloo."""
+    from repro_torch.dist.halo import _wire_on_host
+
+    t0 = time.perf_counter()
+    k = dist.get_world_size(group)
+    on_host = _wire_on_host(x, group)
+    src = (x.detach().cpu() if on_host else x.detach()).movedim(dim, 0).contiguous()
+    if src.shape[0] % k:
+        raise ValueError(f"dim {dim} of size {src.shape[0]} does not split evenly over {k} ranks")
+    got = torch.empty_like(src)
+    dist.all_to_all_single(got, src, group=group)
+    out = got.reshape(k, src.shape[0] // k, *src.shape[1:]).sum(0).movedim(0, dim)
+    out = out.to(x.device) if on_host else out
+    _note(src, t0, src.numel() * src.element_size() * (k - 1) // k)
+    return out
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _reduce_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None
 
 
 class _Replicate(torch.autograd.Function):
@@ -64,13 +153,13 @@ class _Replicate(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce_sum(g, ctx.group), None
+        return _all_reduce(g, ctx.group), None
 
 
 class _Psum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        return _all_reduce_sum(x, group)
+        return _all_reduce(x, group)
 
     @staticmethod
     def backward(ctx, g):
@@ -91,11 +180,28 @@ def psum(x: torch.Tensor, group=None) -> torch.Tensor:
     return _Psum.apply(x, group)
 
 
+def reduce_scatter(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+    """Block r along ``dim`` of the Σ of ``x`` over the ranks of ``group``,
+    on rank r (``jax.lax.psum_scatter(..., tiled=True)``): a rank receives
+    its block only, 1/k of a `psum`'s result. Backward: the ranks'
+    cotangents gathered along ``dim``."""
+    return _ReduceScatter.apply(x, group, dim)
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardingPolicy:
     """The GNN communication mode (broadcast vs halo) and, for halo, the
-    process group, the wire format and the schedule of the exchange."""
+    process group, the wire format and the schedule of the exchange; for
+    the sharded LM and DeepFM, the grid, the named specs, the KV cache's
+    spec and (once bound) the rank's data and model groups."""
 
+    grid: Any = None                   # repro_torch.launch.mesh.Grid (the reference's mesh)
+    specs: Any = dataclasses.field(default_factory=dict)   # name → spec tuple
+    cache: tuple | None = None         # the KV cache's spec (launch.shardings.cache_spec)
+    data_group: Any = None             # bound: this rank's data group (torch.distributed)
+    model_group: Any = None            # bound: this rank's model group
+    data_index: int = 0                # bound: this rank's index in its data group (over every data axis)
+    model_index: int = 0               # bound: this rank's index in its model group
     group: Any = None                  # torch.distributed group; None = the default group
     comm: str = "broadcast"            # "broadcast" | "halo"
     halo_via: str = "all_gather"       # collective lowering (see halo_exchange)
@@ -107,9 +213,88 @@ class ShardingPolicy:
     halo_send_rem: Any = None          # hierarchical (s_rem,) inter-pod export rows
 
     def constrain(self, x: torch.Tensor, name: str) -> torch.Tensor:
-        """The identity: the port places no activation on a mesh. Kept so
-        the model reads like the reference."""
+        """The identity: each rank already holds its block of every named
+        activation. Kept so the model reads like the reference."""
         return x
+
+    # ------------------------------------------------- the sharded LM / DeepFM
+    @property
+    def n_model(self) -> int:
+        return 1 if self.grid is None else self.grid.n_model
+
+    @property
+    def n_data(self) -> int:
+        return 1 if self.grid is None else self.grid.n_data
+
+    @property
+    def is_bound(self) -> bool:
+        return self.model_group is not None
+
+    def bind(self) -> "ShardingPolicy":
+        """Copy with this rank's data and model groups and its index in each
+        (inside a rank of a group of ``grid.size`` ranks; every rank calls
+        it alike, since it may build the groups)."""
+        data_group, model_group = self.grid.groups()
+        rank = dist.get_rank()
+        return dataclasses.replace(self, data_group=data_group, model_group=model_group,
+                                   data_index=rank // self.n_model, model_index=rank % self.n_model)
+
+    def _check_bound(self) -> None:
+        if self.n_model * self.n_data > 1 and not self.is_bound:
+            raise ValueError("a sharded policy runs inside a rank: bind() it to the rank's groups first")
+
+    def model_replicate(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's *f* over the model group: the identity, whose backward
+        sums the model ranks' partial cotangents."""
+        self._check_bound()
+        return replicate(x, self.model_group) if self.n_model > 1 else x
+
+    def model_psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's *g* over the model group: Σ of the ranks' partial sums."""
+        self._check_bound()
+        return psum(x, self.model_group) if self.n_model > 1 else x
+
+    def data_psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Σ over the data group (backward: each rank's own share)."""
+        self._check_bound()
+        return psum(x, self.data_group) if self.n_data > 1 else x
+
+    def model_reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block along ``dim`` of Σ over the model group."""
+        self._check_bound()
+        return reduce_scatter(x, self.model_group, dim) if self.n_model > 1 else x
+
+    def model_max(self, x: torch.Tensor) -> torch.Tensor:
+        """Max over the model group, no gradient."""
+        self._check_bound()
+        return all_reduce_max(x, self.model_group) if self.n_model > 1 else x.detach()
+
+    def model_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The model ranks' shards of ``x`` put together along ``dim`` (no
+        gradient): the vocab-sharded logits whole, for a sampler or a test."""
+        self._check_bound()
+        return all_gather(x, self.model_group, dim) if self.n_model > 1 else x
+
+    def data_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The data ranks' ``x`` concatenated along ``dim`` (no gradient)."""
+        self._check_bound()
+        return all_gather(x, self.data_group, dim) if self.n_data > 1 else x
+
+    def cache_split(self) -> tuple[str, Any, int, int]:
+        """How ``cache``, the KV cache's (L, B, S, Hk, Dh) spec, splits it:
+        (``"heads"`` | ``"seq"`` | ``"none"``, the group the split runs
+        over, its size, this rank's index in it). Heads split over the model
+        group; the sequence over the model group, or over every axis (the
+        whole group, ranks in order: the batch-1 branch)."""
+        names = lambda e: () if e is None else (e,) if isinstance(e, str) else tuple(e)
+        if self.cache is None or not (names(self.cache[3]) or names(self.cache[2])):
+            return "none", None, 1, 0
+        kind, axes = ("heads", names(self.cache[3])) if names(self.cache[3]) else ("seq", names(self.cache[2]))
+        if axes == ("model",):
+            return kind, self.model_group, self.n_model, self.model_index
+        if self.grid is not None and set(axes) == set(self.grid.axis_names):
+            return kind, None, self.grid.size, self.data_index * self.n_model + self.model_index
+        raise NotImplementedError(f"a KV cache split over {axes} is not a layout the port runs")
 
     # ------------------------------------------------- GNN communication mode
     @property

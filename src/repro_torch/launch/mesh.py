@@ -21,6 +21,14 @@ Nothing falls back: a rank that raises, dies or outlasts the timeout ends
 the whole group (the other ranks are terminated) and `run_group` raises
 with that rank's traceback.
 
+`Grid` is the reference's device mesh as the port needs it: named axes
+and their sizes (``("data", "model")`` 2 × 2, or ``("pod", "data",
+"model")``), a rank's coordinates (global rank g raveled row-major over
+the axes, as ``jax.make_mesh`` ravels its devices), and, inside a rank,
+`Grid.groups`: the rank's data group and model group (`grid_groups` with
+the data axes' product as the outer size). The sharded LM and DeepFM of
+`repro_torch.launch.steps` run on it.
+
 Inside a rank, `halo_groups` gives the subgroups of the hierarchical
 (pod, model) halo exchange — the counterpart of the reference's
 ``make_halo_mesh`` and ``halo_axes``: ranks are raveled pod-major, as the
@@ -32,6 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import multiprocessing
 import os
 import queue
@@ -44,7 +53,7 @@ from typing import Any, Callable
 import torch
 import torch.distributed as dist
 
-__all__ = ["GroupSpec", "run_group", "grid_groups", "halo_groups"]
+__all__ = ["GroupSpec", "run_group", "grid_groups", "halo_groups", "Grid", "data_axes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,8 +86,11 @@ class GroupSpec:
 
 
 def _rank_main(rank: int, spec: GroupSpec, init_file: str, fn: Callable, arg: Any,
-               results) -> None:
-    """The body of one rank's process: join the group, run ``fn``, report."""
+               results, released) -> None:
+    """The body of one rank's process: join the group, run ``fn``, report,
+    and stay until the parent has taken every result (a host tensor in a
+    result crosses through shared memory, whose descriptor this process
+    hands over)."""
     try:
         torch.set_num_threads(1)      # k ranks share the host's cores
         device = torch.device(spec.device_of(rank))
@@ -94,6 +106,7 @@ def _rank_main(rank: int, spec: GroupSpec, init_file: str, fn: Callable, arg: An
             _GRID_GROUPS.clear()
             dist.destroy_process_group()
         results.put((rank, True, out))
+        released.wait(spec.timeout_s)
     except BaseException:   # reported to the parent, which ends the group and raises
         results.put((rank, False, traceback.format_exc()))
 
@@ -112,9 +125,9 @@ def run_group(spec: GroupSpec, fn: Callable, args: list) -> list:
     ctx = multiprocessing.get_context(spec.start_method)
     workdir = tempfile.mkdtemp(prefix="repro_torch_group_")
     init_file = os.path.join(workdir, "rendezvous")
-    results = ctx.Queue()
+    results, released = ctx.Queue(), ctx.Event()
     procs = [
-        ctx.Process(target=_rank_main, args=(r, spec, init_file, fn, args[r], results),
+        ctx.Process(target=_rank_main, args=(r, spec, init_file, fn, args[r], results, released),
                     name=f"rank{r}", daemon=True)
         for r in range(spec.k)
     ]
@@ -144,9 +157,11 @@ def run_group(spec: GroupSpec, fn: Callable, args: list) -> list:
             if not ok:
                 raise RuntimeError(f"rank {rank} failed ({spec.describe()}):\n{value}")
             out[rank] = value
+        released.set()
         for p in procs:
             p.join(timeout=60.0)
     finally:
+        released.set()
         for p in procs:
             if p.is_alive():
                 p.terminate()
@@ -200,3 +215,64 @@ def halo_groups(pods: int):
     if pods < 1 or k % pods:
         raise ValueError(f"pods={pods} must divide the group's {k} ranks")
     return None if pods == 1 else grid_groups(pods)
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """Named axes and their sizes: the reference's mesh shape. The axis
+    ``model`` carries tensor and expert parallelism; every other axis
+    carries the batch (`data_axes`). Global rank g sits at the row-major
+    coordinates of g over ``axes``."""
+
+    axes: tuple[str, ...] = ("data", "model")
+    sizes: tuple[int, ...] = (1, 1)
+
+    def __post_init__(self):
+        if len(self.axes) != len(self.sizes) or "model" not in self.axes:
+            raise ValueError(f"a grid names each axis once with its size, one of them 'model': {self}")
+        if self.axes[-1] != "model":
+            raise ValueError("the model axis is the innermost: a rank's model group is a run of consecutive ranks")
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return self.axes
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axes, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return int(math.prod(self.sizes))
+
+    @property
+    def n_model(self) -> int:
+        return self.shape["model"]
+
+    @property
+    def n_data(self) -> int:
+        return self.size // self.n_model
+
+    def coords(self, rank: int) -> dict[str, tuple[int, int]]:
+        """Axis → (this rank's index on it, the axis size)."""
+        out, rest = {}, rank
+        for axis, n in zip(reversed(self.axes), reversed(self.sizes)):
+            out[axis] = (rest % n, n)
+            rest //= n
+        return {axis: out[axis] for axis in self.axes}
+
+    def groups(self) -> tuple:
+        """This rank's (data group, model group) in a running group of
+        ``size`` ranks: the ranks with its model index across the data
+        axes, and the ranks of its own data slice. Called by every rank
+        alike (`grid_groups`)."""
+        if dist.get_world_size() != self.size:
+            raise ValueError(f"the group has {dist.get_world_size()} ranks; the grid {self.shape} needs {self.size}")
+        return grid_groups(self.n_data)
+
+
+def data_axes(grid: Grid) -> tuple[str, ...]:
+    """The batch-carrying axes: ``("pod", "data")`` on a multi-pod grid,
+    only the axes the grid has (the reference's `data_axes`)."""
+    names = grid.axis_names
+    return tuple(a for a in ("pod", "data") if a in names) or ("data",)

@@ -8,23 +8,27 @@ from repro_torch.nn.attention import (
     rope,
 )
 from repro_torch.nn.layers import (
+    Draw,
     dense_init,
+    init_tree,
     gelu,
     layer_norm,
     linear,
     mlp_apply,
-    mlp_init,
+    mlp_plan,
     rms_norm,
     silu,
 )
-from repro_torch.nn.moe import MoEConfig, moe_apply, moe_init
+from repro_torch.nn.moe import MoEConfig, moe_apply, moe_init, moe_param_plan
 
 __all__ = [
+    "Draw",
+    "init_tree",
     "dense_init",
     "linear",
     "rms_norm",
     "layer_norm",
-    "mlp_init",
+    "mlp_plan",
     "mlp_apply",
     "gelu",
     "silu",
@@ -34,6 +38,7 @@ __all__ = [
     "attention_decode",
     "rope",
     "MoEConfig",
+    "moe_param_plan",
     "moe_init",
     "moe_apply",
 ]

@@ -7,9 +7,16 @@ then move the result to ``device``: ``None`` is the CUDA card, and raises
 without one (`repro_torch.device.resolve_device`). The generator's numbers
 are not JAX's: to compute what the reference computes, carry its
 parameters across as numpy.
+
+A model describes its parameters once, as a plan: a dict tree of `Draw`
+leaves (shape, scale, and the blocks a seeded draw takes one at a time).
+`init_tree` draws a plan from a generator; `repro_torch.launch.steps.
+draw_tree` draws the same plan block by block from seeds, so that a rank
+of a sharded cell draws only its shard.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import torch
@@ -18,11 +25,13 @@ import torch.nn.functional as F
 from repro_torch.device import resolve_device
 
 __all__ = [
+    "Draw",
+    "init_tree",
     "dense_init",
     "linear",
     "rms_norm",
     "layer_norm",
-    "mlp_init",
+    "mlp_plan",
     "mlp_apply",
     "gelu",
     "silu",
@@ -34,6 +43,35 @@ def normal(generator: torch.Generator, shape: tuple[int, ...], dtype=torch.float
     """Standard normal draws on ``generator``'s device, moved to ``device``."""
     return torch.randn(shape, generator=generator, dtype=dtype, device=generator.device).to(
         resolve_device(device))
+
+
+@dataclasses.dataclass(frozen=True)
+class Draw:
+    """One leaf of a parameter plan: ``kind`` ``normal`` (× ``std``),
+    ``ones`` or ``zeros``; ``units``, the blocks along each axis that a
+    seeded draw (`repro_torch.launch.steps.draw_tree`) takes one at a time,
+    each from a seed of its own (one block per axis by default)."""
+
+    shape: tuple[int, ...]
+    kind: str = "normal"
+    std: float = 1.0
+    units: tuple[int, ...] | None = None
+
+
+def init_tree(generator: torch.Generator, plan: dict, dtype=torch.float32,
+              device: str | torch.device | None = None) -> dict:
+    """The parameters ``plan`` describes, every normal leaf drawn whole from
+    ``generator`` in the plan's order."""
+    device = resolve_device(device)
+
+    def walk(p):
+        if isinstance(p, dict):
+            return {k: walk(v) for k, v in p.items()}
+        if p.kind == "normal":
+            return normal(generator, p.shape, dtype, device).mul_(p.std)
+        return (torch.ones if p.kind == "ones" else torch.zeros)(p.shape, dtype=dtype, device=device)
+
+    return walk(plan)
 
 
 def dense_init(generator: torch.Generator, d_in: int, d_out: int, scale: str | float = "fan_in",
@@ -73,9 +111,10 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 
 
-def mlp_init(generator: torch.Generator, dims: list[int], dtype=torch.float32,
-             device: str | torch.device | None = None) -> dict:
-    return {f"l{i}": dense_init(generator, dims[i], dims[i + 1], dtype=dtype, device=device)
+def mlp_plan(dims: list[int]) -> dict:
+    """Linear layers ``l0 … l{n-1}`` (`dense_init`'s fan-in scale, zero
+    biases) as a plan."""
+    return {f"l{i}": {"w": Draw((dims[i], dims[i + 1]), std=(1.0 / dims[i]) ** 0.5), "b": Draw((dims[i + 1],), "zeros")}
             for i in range(len(dims) - 1)}
 
 

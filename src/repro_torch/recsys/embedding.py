@@ -4,7 +4,11 @@
                        table (`index_select`),
   * `embedding_bag`  — multi-hot bags: gather + `index_add_` (sum / mean),
   * `hash_ids`       — multiplicative hashing into per-field buckets, so any
-                       raw id stream maps onto the fixed-size tables.
+                       raw id stream maps onto the fixed-size tables,
+  * `sharded_rows`   — a row gather from a table row-sharded over the model
+                       group (the reference's ``P("model", None)``): each
+                       rank gathers the ids in its row range, zeros for the
+                       rest, and the rows are summed over the group.
 
 Ids are indexed as int64, converted once per call (the streams hand out
 int32). One difference from the reference is kept, not emulated: an id out
@@ -17,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["embedding_bag", "field_lookup", "hash_ids"]
+__all__ = ["embedding_bag", "field_lookup", "hash_ids", "sharded_rows"]
 
 _MASK = 0xFFFFFFFF
 _HASH_MULT = 2654435761          # Knuth multiplicative
@@ -44,14 +48,36 @@ def hash_ids(raw_ids: torch.Tensor, bucket_size: int, field_salt: torch.Tensor |
     return (x % bucket_size).to(torch.int32)
 
 
-def field_lookup(table: torch.Tensor, ids: torch.Tensor, field_offsets: torch.Tensor) -> torch.Tensor:
+def owned_rows(table: torch.Tensor, rows: torch.Tensor, policy) -> torch.Tensor:
+    """This rank's share of ``table[rows]`` (int64 ``rows`` of the whole
+    table; the rank holds block ``policy.model_index`` of its rows): the
+    rows it holds, zeros for the others. Summed over the model group it is
+    ``table[rows]``."""
+    n = table.shape[0]
+    local = rows - policy.model_index * n
+    mine = (local >= 0) & (local < n)
+    out = table.index_select(0, local.clamp(0, n - 1))
+    return out * mine.reshape(-1, *([1] * (out.ndim - 1))).to(out.dtype)
+
+
+def sharded_rows(table: torch.Tensor, rows: torch.Tensor, policy=None) -> torch.Tensor:
+    """``table[rows]`` for int64 ``rows`` of the whole table, where this
+    rank holds block ``policy.model_index`` of its rows (all of them
+    without a policy or at a model size of 1)."""
+    if policy is None or policy.n_model == 1:
+        return table.index_select(0, rows)
+    return policy.model_psum(owned_rows(table, rows, policy))
+
+
+def field_lookup(table: torch.Tensor, ids: torch.Tensor, field_offsets: torch.Tensor, policy=None) -> torch.Tensor:
     """ids: (B, F) per-field local ids → (B, F, D) embeddings.
 
     field_offsets: (F,) starting row of each field's sub-table inside the
-    single concatenated table.
+    single concatenated table (row-sharded over the model group under a
+    grid policy: `sharded_rows`).
     """
     flat = (ids.to(torch.int64) + field_offsets.to(torch.int64)[None, :]).reshape(-1)
-    return table.index_select(0, flat).reshape(ids.shape[0], ids.shape[1], table.shape[1])
+    return sharded_rows(table, flat, policy).reshape(ids.shape[0], ids.shape[1], table.shape[1])
 
 
 def embedding_bag(

@@ -15,7 +15,9 @@ arrive/finish asynchronously. The scheduler owns the slot table:
 The slot-position vector is per slot, so the batcher drives
 `decode_multi_pos`, the per-slot variant of `lm_decode_step`.
 
-The cache lives on the parameters' device. Where the reference blends the
+The cache lives on the parameters' device. `ContinuousBatcher` is
+unsharded, as the reference's is; `decode_multi_pos` also takes the
+reference's ``policy``. Where the reference blends the
 new key and value into the cache with a one-hot mask (``ck·(1 − onehot) +
 onehot·k``, rewriting the whole cache in every layer of every step), the
 port writes each slot's row at its position in place: on a finite cache the
@@ -44,46 +46,21 @@ class Request:
     done: bool = False
 
 
-def decode_multi_pos(params, cache, tokens, positions, cfg):
+def decode_multi_pos(params, cache, tokens, positions, cfg, policy=None):
     """One decode step with PER-SLOT positions (continuous batching).
 
-    tokens: (B,) int; positions: (B,) int. Built on the same layer math as
-    `lm_decode_step`, with the cache write and the mask indexed per slot.
-    Returns (logits (B, V) fp32, the cache updated in place)."""
-    from repro_torch.models.transformer_lm import _ffn, _head, _layer
-    from repro_torch.nn.attention import NEG_INF, rope
-    from repro_torch.nn.layers import rms_norm
+    tokens: (B,) int; positions: (B,) int. The same layer math as
+    `lm_decode_step` (`repro_torch.models.transformer_lm.decode_layers`),
+    with the cache write and the mask indexed per slot. Under a grid policy
+    (the reference's ``policy`` argument) each rank holds its block of the
+    cache, as the policy's cache spec says, and the logits are its vocab
+    shard. Returns (logits (B, V) fp32, the cache updated in place)."""
+    from repro_torch.dist.policy import NO_POLICY
+    from repro_torch.models.transformer_lm import decode_layers
 
-    B = tokens.shape[0]
-    acfg = cfg.attn
-    hd, Hk, G = acfg.head_dim, cfg.n_kv_heads, acfg.q_groups
-    Smax = cache["k"].shape[2]
     device = params["embed"].device
-    tokens, positions = tokens.to(device).long(), positions.to(device).long()
-    rows = torch.arange(B, device=device)
-    k_pos = torch.arange(Smax, device=device)[None, :]
-    masked = torch.tensor(NEG_INF, device=device)
-    x = params["embed"][tokens][:, None, :] * (cfg.d_model ** 0.5)
-    for i, win in enumerate(cfg.window_sizes()):
-        lp = _layer(params, i)
-        ck, cv = cache["k"][i], cache["v"][i]
-        h = rms_norm(x, lp["ln1"])
-        q = rope((h @ lp["attn"]["wq"]).reshape(B, 1, cfg.n_heads, hd), positions[:, None], acfg.rope_theta)
-        k = rope((h @ lp["attn"]["wk"]).reshape(B, 1, Hk, hd), positions[:, None], acfg.rope_theta)
-        v = (h @ lp["attn"]["wv"]).reshape(B, 1, Hk, hd)
-        ck[rows, positions] = k[:, 0]          # each slot's row at its own position
-        cv[rows, positions] = v[:, 0]
-        qg = q.reshape(B, Hk, G, hd) * (hd ** -0.5)
-        s = torch.einsum("bhgd,bshd->bhgs", qg, ck).float()
-        valid = (k_pos <= positions[:, None]) & (k_pos > positions[:, None] - int(win))
-        s = torch.where(valid[:, None, None, :], s, masked)
-        w = torch.softmax(s, dim=-1)
-        attn = torch.einsum("bhgs,bshd->bhgd", w.to(cv.dtype), cv).reshape(B, 1, cfg.n_heads * hd)
-        x = x + attn @ lp["attn"]["wo"]
-        f, _ = _ffn(lp, rms_norm(x, lp["ln2"]), cfg)
-        x = x + f
-    x = rms_norm(x, params["final_norm"])
-    return (x[:, 0] @ _head(params, cfg)).float(), cache
+    logits = decode_layers(params, cache, tokens.to(device), positions.to(device).long(), cfg, policy or NO_POLICY)
+    return logits, cache
 
 
 class ContinuousBatcher:

@@ -308,11 +308,19 @@ def test_trainer_trajectory_matches_jax(model):
 
 
 def test_policy_other_than_no_policy_is_refused(model):
+    """Only a halo policy (the GCN's) is refused; a grid policy on one rank
+    (the sharded DeepFM's, 1 × 1: no group needed) computes what NO_POLICY
+    does."""
     from repro_torch.dist.policy import ShardingPolicy
+    from repro_torch.launch.mesh import Grid
+    from repro_torch.launch.shardings import recsys_policy
 
-    with pytest.raises(NotImplementedError, match="later slice"):
-        t_fm.deepfm_forward(model["params_t"], torch.from_numpy(model["batch"]["ids"]), model["cfg_t"],
-                            policy=ShardingPolicy(comm="halo"))
+    ids = torch.from_numpy(model["batch"]["ids"])
+    with pytest.raises(NotImplementedError, match="halo policy"):
+        t_fm.deepfm_forward(model["params_t"], ids, model["cfg_t"], policy=ShardingPolicy(comm="halo"))
+    grid_policy = recsys_policy(Grid(("data", "model"), (1, 1)))
+    assert torch.equal(t_fm.deepfm_forward(model["params_t"], ids, model["cfg_t"], policy=grid_policy),
+                       t_fm.deepfm_forward(model["params_t"], ids, model["cfg_t"]))
 
 
 # ------------------------------------------------------------------------ data

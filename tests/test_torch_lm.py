@@ -194,9 +194,12 @@ def test_lm_forward_can_take_the_plain_attention(lm):
 
 def test_moe_and_policies_are_refused():
     """The MoE config runs (init, forward, loss and decode: the MoE slice
-    lifted its refusal); a policy other than NO_POLICY is still refused, by
-    the LM and by `moe_apply`."""
+    lifted its refusal); a grid policy on one rank (the sharded LM's, 1 × 1:
+    no group needed) computes what NO_POLICY does; only a halo policy (the
+    GCN's) is still refused, by the LM and by `moe_apply`."""
     from repro_torch.dist.policy import ShardingPolicy
+    from repro_torch.launch.mesh import Grid
+    from repro_torch.launch.shardings import lm_policy
     from repro_torch.nn import moe as t_moe
 
     moe = t_lm.LMConfig("m", 2, 32, 4, 4, 48, 67, moe_experts=4, moe_top_k=2)
@@ -206,15 +209,19 @@ def test_moe_and_policies_are_refused():
     logits, aux = t_lm.lm_forward(p, tokens[:, :4], moe)
     assert logits.shape == (1, 4, 67) and torch.isfinite(logits).all() and float(aux) > 0
     assert torch.isfinite(t_lm.lm_loss(p, tokens, moe))
-    with pytest.raises(NotImplementedError, match="NO_POLICY"):
+    grid_policy = lm_policy(Grid(("data", "model"), (1, 1)), moe)
+    assert torch.equal(t_lm.lm_forward(p, tokens[:, :4], moe, policy=grid_policy)[0], logits)
+    with pytest.raises(NotImplementedError, match="halo policy"):
         t_lm.lm_forward(p, tokens, moe, policy=ShardingPolicy(comm="halo"))
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="halo policy"):
         t_moe.moe_apply({k: v[0] for k, v in p["layers"]["moe"].items()}, torch.zeros(4, 32), moe.moe_cfg(),
                         policy=ShardingPolicy(comm="halo"))
     dense = CONFIGS["dense"][1]
     p = t_lm.lm_init(torch.Generator().manual_seed(0), dense, device="cpu")
-    with pytest.raises(NotImplementedError, match="NO_POLICY"):
+    with pytest.raises(NotImplementedError, match="halo policy"):
         t_lm.lm_forward(p, torch.zeros(1, 4, dtype=torch.long), dense, policy=ShardingPolicy(comm="halo"))
+    assert torch.equal(t_lm.lm_loss(p, tokens, dense, policy=lm_policy(Grid(("data", "model"), (1, 1)), dense)),
+                       t_lm.lm_loss(p, tokens, dense))
 
 
 # ------------------------------------------------------------------ batcher
