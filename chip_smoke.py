@@ -34,6 +34,14 @@ graph mutates, and the sharded bsr forward and training follow a mutating
 graph: every rank keeps its own `DeltaPlanner` replica and its own rank
 tables, tile-patched or rebuilt per delta, with K1 and K2 on them.
 
+The other GNN families run next at their configs' full widths, with no
+hand-written kernel on their paths (none exists in the reference's: they
+are segment sums, scatter max / min and matmuls): PNA (4 layers, d 75)
+and EGNN (4 layers, d 64) train on a sampled block of a Reddit-sized
+graph and serve node queries on it through `GraphBatcher`; GraphCast
+(d 512, n_vars 227; depth cut 16 → 8) trains on its R6 icosphere mesh;
+and the three run over Nell's halo plan on 4 ranks.
+
 A fifth path, DeepFM (arXiv:1703.04247) at its full widths (39 fields,
 embed_dim 10, MLP 400-400-400, 1,000,000 rows per field: a 39 M × 10
 table), serves, retrieves and trains with its FM term in the CUDA kernel of
@@ -224,6 +232,41 @@ Phases, one JSON line each; any failed check ends the run with exit code 1:
            relocate_state_tree are bit-exact. Apply, patch, rebuild and
            relocalize ms per rank, forward ms per stage and schedule, step
            ms before and after, peak memory per rank, table host bytes
+  gnn_data  citation_like(232,965, 114,615,892, 602, 41, positions) — the
+           minibatch_lg shape — and NeighborSampler(fanout (15, 10)): one
+           block of 1,024 seeds (≤ 169,984 nodes, 168,960 edges); host s
+  gnn_train  one line a model. pna and egnn at make_config(minibatch_lg)
+           on the block, the loss on the seed rows (`_gnn_loss_fn`,
+           n_loss_nodes), the edge mask passed; graphcast at
+           make_config(None) with n_layers 16 → 8 (reduced) on
+           random_graph at icosphere_sizes(6), positional edge features,
+           a residual target. Each: the forward and first gradient in fp32
+           on the card against the same in float64 on the card (graphcast's
+           with remat) within max(1e-4, 4 × the host's own fp32 error on
+           the same inputs) — pna and egnn also float64 card against
+           float64 host within 1e-6 —; five AdamW steps (lr 1e-3) of a
+           Trainer: finite losses, the last below the first; step ms, the
+           forward / backward / optimizer split, peak memory, the
+           profiler's idle share and top kernels over one step; graphcast
+           also its FLOPs, bound and rate
+  gnn_serve  pna and egnn through GraphBatcher on the gnn_data graph with
+           the serve CLI's defaults (8 seeds, fanout 4, cache off), 256
+           hot_query_stream queries each after one warm-up forward: p50,
+           p99, queries/s, ms a micro-batch, nodes and edges per query,
+           one forward shape; every micro-batch's served rows against the
+           same packed micro-batch through the engine's forward on the
+           host in float64 (the same rule as gnn_train); the profiler's
+           idle share over 32 more queries
+  gnn_halo  the halo phase's Nell plan, 4 ranks (gloo, one card): pna,
+           egnn and graphcast at full width (d_in 5,414, d_out 210,
+           positions seeded per node) with the fp32 and the bf16 wire,
+           against the unsharded forward on the card: fp32 within 1e-3 of
+           max; bf16 pna at 5e-2 max-abs and 1e-2 relative L2 (the
+           reference's gate), egnn and graphcast at 5e-2 of max and 1e-2
+           relative L2; exchanges, wire bytes a layer, forward and
+           exchange ms per rank
+  gnn_launches  K1–K4 counted from zero before gnn_data and read after
+           gnn_halo, in the parent and in every rank: all zero
 
   deepfm_kernels  (d1) K3 against its plain version on the card at the
            recsys shapes serve_p99 (512), train_batch (65,536) and
@@ -495,6 +538,23 @@ DELTA_MAX_BURST = 12
 DELTA_TRAIN_STEPS = (3, 3)     # AdamW steps after the tile-patch delta and after the structural one
 DELTA_LAUNCHES_PER_FORWARD = {"k1_bsr_spmm": 1, "k2_af_layer": 1}      # per schedule, as HALO_LAUNCHES["a_fp32"]
 DELTA_LAUNCHES_PER_STEP = {"k1_bsr_spmm": 2, "k2_af_layer": 1}
+
+GNN_SHAPE = "minibatch_lg"     # gnn_data/_train/_serve: Reddit's size (registry.gnn_shapes), fanout (15, 10)
+GNN_BLOCK_SHAPE = (169_984, 168_960)   # a sampled block of 1,024 seeds: at most these nodes and edges
+GNN_TRAIN_STEPS = 5            # gnn_train: AdamW steps of a Trainer per model
+GNN_LR = 1e-3
+GNN_GRAPHCAST_LAYERS = 8       # gnn_train: graphcast's depth cut 16 → 8 (at R6, 16 layers' fp32 activations
+                               # passed 80 GB: OOM at 75.5 GB allocated in the first forward); widths whole
+GNN_HOLD_RTOL = 1e-4           # gnn_train/_serve: fp32 on the card vs float64, · max |·| (gradients: per leaf) ...
+GNN_HOLD_FACTOR = 4.0          # ... or within 4× the host's own fp32 error on the same inputs, where the model's
+                               # fp32 arithmetic is worse than 1e-4 (PNA's E[x²]−E[x]² std; EGNN): PERF.md §6
+GNN_F64_RTOL = 1e-6            # gnn_train: float64 on the card vs float64 on the host (pna, egnn), · max |·|
+GNN_SERVE_QUERIES = 256        # gnn_serve: hot_query_stream queries per model
+GNN_HALO_REPS = 3              # gnn_halo: timed forwards / exchanges per model, wire and rank
+GNN_HALO_FP32_RTOL = 1e-3      # gnn_halo: fp32 wire vs the unsharded forward, · max |·|
+GNN_HALO_BF16_ABS, GNN_HALO_BF16_REL_L2 = 5e-2, 1e-2   # pna, bf16 wire: tests/test_overlap_halo.py:352-385
+GNN_HALO_BF16_RTOL = 5e-2      # egnn and graphcast, bf16 wire: · max |·| (with the relative L2 1e-2), the gate
+                               # predicted in PERF.md before the first run
 
 
 def emit(phase: str, **fields) -> None:
@@ -2727,6 +2787,438 @@ def deepfm_train(params: dict, cfg, shapes) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ the GNN families
+def gnn_cast(batch: dict, device, dtype=torch.float32) -> dict:
+    """A numpy batch on ``device``: floating arrays in ``dtype``, index
+    arrays as int64."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device, dtype if v.dtype.kind == "f" else torch.int64)
+            for k, v in batch.items()}
+
+
+def gnn_params(arch: str, cfg, device, dtype=torch.float32) -> dict:
+    """The model's parameters from ``torch.Generator().manual_seed(SEED)``
+    (drawn on the host, so every device and dtype gets the same numbers)."""
+    from repro_torch.models import egnn, graphcast, pna
+    from repro_torch.train.tree import tree_map
+
+    init = {"pna": pna.pna_init, "egnn": egnn.egnn_init, "graphcast": graphcast.graphcast_init}[arch]
+    params = init(torch.Generator().manual_seed(SEED), cfg, device="cpu")
+    return tree_map(lambda v: v.to(device, dtype), params)
+
+
+def rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |out − ref| / max |ref| in float64 (NaN counts as infinite)."""
+    err, scale = max_err(out.double().cpu(), ref.double().cpu())
+    return err / scale if scale else (0.0 if err == 0 else float("inf"))
+
+
+def gnn_errors(a: tuple, b: tuple) -> dict:
+    """Forward and per-leaf gradient errors of run ``a`` against run ``b``
+    (each (output, loss, grads)): the forward's, the loss's and the worst
+    leaf's, each relative to the reference's largest entry."""
+    grads_a, grads_b = named_leaves(a[2]), named_leaves(b[2])
+    leaves = {name: rel_err(grads_a[name], g) for name, g in grads_b.items() if float(g.abs().max()) > 0}
+    return dict(forward=rel_err(a[0], b[0]), loss=abs(a[1] - b[1]) / abs(b[1]),
+                grad_worst_leaf=max(leaves.values()), grad_worst_leaf_name=max(leaves, key=leaves.get))
+
+
+def gnn_eval(arch: str, cfg, batch: dict, device, dtype, forward, loss_fn) -> tuple:
+    """(output rows, loss, gradient tree) of the model in ``dtype`` on
+    ``device``, every tensor moved to the host."""
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.train.tree import tree_map
+
+    params, b = gnn_params(arch, cfg, device, dtype), gnn_cast(batch, device, dtype)
+    with torch.no_grad():
+        out = forward(params, b).cpu()
+    loss, grads = value_and_grad(loss_fn, params, b)
+    return out, float(loss), tree_map(lambda g: g.cpu(), grads)
+
+
+def run_gnn_data() -> dict:
+    """gnn_data: one host graph at Reddit's size (minibatch_lg) with
+    positions, a NeighborSampler(fanout (15, 10)) over it, and one sampled
+    block of 1,024 seeds."""
+    from repro_torch.configs.registry import gnn_shapes
+    from repro_torch.graph.generators import citation_like
+    from repro_torch.graph.sampler import NeighborSampler
+
+    shape = gnn_shapes()[GNN_SHAPE]
+    t0 = time.perf_counter()
+    g = citation_like(shape.n_nodes, shape.n_edges, shape.d_feat, shape.n_out, seed=SEED, with_positions=True)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sampler = NeighborSampler(g, shape.fanout, seed=SEED)
+    sampler_s = time.perf_counter() - t0
+    seeds = np.random.default_rng(SEED + 1).choice(g.n_nodes, shape.batch_nodes, replace=False)
+    t0 = time.perf_counter()
+    blk = sampler.sample(seeds)
+    sample_s = time.perf_counter() - t0
+    max_nodes, max_edges = sampler.max_shapes(shape.batch_nodes)
+    checks = dict(
+        graph=g.n_nodes == shape.n_nodes and g.n_edges == shape.n_edges and g.features.shape == (shape.n_nodes, shape.d_feat),
+        block_shape=(blk.max_nodes, blk.max_edges) == (max_nodes, max_edges) == GNN_BLOCK_SHAPE,
+        seeds_first=bool(np.array_equal(blk.node_ids[:shape.batch_nodes], seeds)),
+        edges_inside=bool((blk.senders[:blk.n_edges] < blk.n_nodes).all() and (blk.receivers[:blk.n_edges] < blk.n_nodes).all()),
+        no_padding_edges=blk.n_edges == blk.max_edges,
+    )
+    emit("gnn_data", ok=all(checks.values()), checks=checks, shape=dataclasses.asdict(shape),
+         n_nodes=g.n_nodes, n_edges=g.n_edges, block=dict(seeds=blk.n_seeds, nodes=blk.n_nodes, edges=blk.n_edges,
+                                                         max_nodes=blk.max_nodes, max_edges=blk.max_edges),
+         host_seconds=dict(generator=gen_s, sampler=sampler_s, sample=sample_s),
+         timing="host clock (the card's machine's CPU)")
+    require(all(checks.values()), "gnn_data", f"checks {checks}")
+    return dict(graph=g, shape=shape, block=blk)
+
+
+def gnn_block_batch(data: dict, arch: str, cfg) -> dict:
+    """The sampled block as a numpy batch of ``arch``: the block's features
+    (zero on padding rows), positions for egnn, a seeded regression target
+    on the seed rows, and the edge mask (every edge of this block is real)."""
+    g, blk = data["graph"], data["block"]
+    valid = blk.node_ids[:blk.n_nodes]
+    x = np.zeros((blk.max_nodes, g.features.shape[1]), np.float32)
+    x[:blk.n_nodes] = g.features[valid]
+    batch = dict(feats=x, senders=blk.senders, receivers=blk.receivers, edge_mask=blk.edge_mask.astype(np.float32),
+                 target=(0.1 * np.random.default_rng(SEED + 2).standard_normal((blk.n_seeds, cfg.d_out))).astype(np.float32))
+    if arch == "egnn":
+        pos = np.zeros((blk.max_nodes, 3), np.float32)
+        pos[:blk.n_nodes] = g.positions[valid]
+        batch["pos"] = pos
+    return batch
+
+
+def gnn_mesh_batch(cfg) -> dict:
+    """GraphCast's native processor mesh at R6 (`icosphere_sizes`) as a
+    `random_graph`, seeded node variables and positions, the positional
+    edge features, and a residual target (the variables plus seeded 0.1-scaled noise)."""
+    from repro_torch.graph.generators import random_graph
+    from repro_torch.models.graphcast import icosphere_sizes, relative_edge_feats
+
+    n, e = icosphere_sizes(cfg.mesh_refinement)
+    g = random_graph(n, e, seed=SEED)
+    rng = np.random.default_rng(SEED + 3)
+    x = rng.standard_normal((n, cfg.input_dim)).astype(np.float32)
+    pos = torch.from_numpy(rng.standard_normal((n, 3)).astype(np.float32))
+    s, r = torch.from_numpy(g.edge_index[0]), torch.from_numpy(g.edge_index[1])
+    feats = relative_edge_feats(pos, pos, s, r).numpy()
+    target = (x + 0.1 * rng.standard_normal(x.shape)).astype(np.float32)
+    return dict(feats=x, edge_feats=feats, senders=g.edge_index[0], receivers=g.edge_index[1], target=target)
+
+
+def gnn_train_model(arch: str, cfg, batch: dict, device: torch.device, n_loss: int | None, host_hold: bool) -> dict:
+    """One model: the hold (fp32 on the card against float64 on the card;
+    for PNA and EGNN also float64 on the card against float64 on the host,
+    and the host's fp32 error beside), then GNN_TRAIN_STEPS AdamW steps of a
+    Trainer through `_gnn_loss_fn`, the step split, peak memory, the
+    profile of one step."""
+    from repro_torch.launch.steps import _gnn_loss_fn
+    from repro_torch.models.graphcast import graphcast_forward
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.train.optimizer import adamw
+
+    t0 = time.perf_counter()
+    loss_fn = _gnn_loss_fn(arch, cfg, n_loss_nodes=n_loss)
+    if arch == "graphcast":
+        # float64 at R6 needs the per-layer recompute (remat): the same arithmetic.
+        def forward(p, b, remat=False):
+            return graphcast_forward(p, b["feats"], b["edge_feats"], b["senders"], b["receivers"], cfg, remat=remat)
+
+        def hold_loss(p, b):
+            return (forward(p, b, remat=b["feats"].dtype == torch.float64) - b["target"]).square().mean()
+    else:
+        from repro_torch.launch.gnn_halo import gnn_forward
+
+        def forward(p, b):
+            return gnn_forward(arch, p, cfg, b["feats"], b.get("pos"), b["senders"], b["receivers"],
+                               edge_mask=b["edge_mask"])
+
+        hold_loss = loss_fn
+    runs = {"card_fp32": gnn_eval(arch, cfg, batch, device, torch.float32, forward, hold_loss)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["card_fp64"] = gnn_eval(arch, cfg, batch, device, torch.float64, forward, hold_loss)
+    gc.collect()
+    torch.cuda.empty_cache()
+    hold = {"card_fp32_vs_card_fp64": gnn_errors(runs["card_fp32"], runs["card_fp64"])}
+    card = hold["card_fp32_vs_card_fp64"]
+    if host_hold:
+        cpu = torch.device("cpu")
+        runs["host_fp64"] = gnn_eval(arch, cfg, batch, cpu, torch.float64, forward, hold_loss)
+        runs["host_fp32"] = gnn_eval(arch, cfg, batch, cpu, torch.float32, forward, hold_loss)
+        hold["card_fp64_vs_host_fp64"] = gnn_errors(runs["card_fp64"], runs["host_fp64"])
+        hold["host_fp32_vs_card_fp64"] = gnn_errors(runs["host_fp32"], runs["card_fp64"])
+        intrinsic = hold["host_fp32_vs_card_fp64"]
+        gate = {k: max(GNN_HOLD_RTOL, GNN_HOLD_FACTOR * intrinsic[k]) for k in ("forward", "grad_worst_leaf")}
+        f64 = hold["card_fp64_vs_host_fp64"]
+        hold_ok = dict(fp64_card_vs_host=max(f64["forward"], f64["grad_worst_leaf"]) <= GNN_F64_RTOL)
+    else:
+        gate = {k: GNN_HOLD_RTOL for k in ("forward", "grad_worst_leaf")}
+        hold_ok = {}
+    hold_ok.update(forward=card["forward"] <= gate["forward"], gradient=card["grad_worst_leaf"] <= gate["grad_worst_leaf"])
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    params = gnn_params(arch, cfg, device)
+    b = gnn_cast(batch, device)
+    tr = Trainer(loss_fn, adamw(GNN_LR), params, TrainerConfig(log_every=10**9))
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = timed_fit(tr, b, GNN_TRAIN_STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    split = train_split(tr, loss_fn, b)[0]
+    prof = profile_fit(tr, b, 1)
+    del tr, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = dict(**{f"hold_{k}": v for k, v in hold_ok.items()}, finite_losses=bool(np.isfinite(losses).all()),
+                  loss_falls=losses[-1] < losses[0])
+    return dict(ok=all(checks.values()), checks=checks, config=dataclasses.asdict(cfg), hold=hold, hold_gate=gate,
+                losses=losses, step_ms=step_ms, step_ms_median=statistics.median(step_ms), split=split,
+                peak_memory_gb=peak_gb, profile=prof, seconds=time.perf_counter() - t0)
+
+
+def run_gnn_train(data: dict, device: torch.device) -> None:
+    """gnn_train, one line a model: pna and egnn at make_config(minibatch_lg)
+    on the sampled block, the loss over the seed rows; graphcast at
+    make_config(None), depth cut to GNN_GRAPHCAST_LAYERS, on its R6 mesh.
+    Each: the hold, then GNN_TRAIN_STEPS AdamW steps."""
+    from repro_torch.configs import egnn, graphcast, pna
+
+    shape = data["shape"]
+    full = graphcast.make_config(None)
+    runs = [(arch, mod.make_config(shape), lambda cfg, arch=arch: gnn_block_batch(data, arch, cfg), shape.batch_nodes)
+            for arch, mod in (("pna", pna), ("egnn", egnn))]
+    runs.append(("graphcast", dataclasses.replace(full, n_layers=GNN_GRAPHCAST_LAYERS), gnn_mesh_batch, None))
+    for arch, cfg, make_batch, n_loss in runs:
+        line = gnn_train_model(arch, cfg, make_batch(cfg), device, n_loss, host_hold=arch != "graphcast")
+        reduced = {}
+        if arch == "graphcast":
+            flop = gnn_forward_flops(cfg)
+            line.update(forward_tflop=flop / 1e12, forward_bound_ms=flop / FP32_FLOP_PER_S * 1e3,
+                        step_tflop_per_s=3 * flop / (line["step_ms_median"] / 1e3) / 1e12)
+            if cfg.n_layers != full.n_layers:
+                reduced = {"n_layers": f"{full.n_layers} → {cfg.n_layers} (16 layers' fp32 activations at R6 "
+                                       "passed the card's 80 GB)"}
+        emit("gnn_train", model=arch, reduced=reduced, steps=GNN_TRAIN_STEPS, lr=GNN_LR, **line,
+             hold_rule=f"fp32 vs float64 on the card within max({GNN_HOLD_RTOL}, {GNN_HOLD_FACTOR} × the host's "
+                       "fp32 error against the same float64) of max |·| (forward; gradient: the worst leaf, each "
+                       f"against its own max), and float64 card vs host within {GNN_F64_RTOL}; graphcast: "
+                       f"{GNN_HOLD_RTOL} flat, its float64 gradient with remat (the same arithmetic)",
+             timing="host clock around each Trainer step (ends in the loss's read-back); the split: one more "
+                    "step's forward, backward and update, each ended by a synchronisation; idle share: "
+                    "torch.profiler over one step")
+        require(line["ok"], "gnn_train", f"{arch}: checks {line['checks']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def gnn_forward_flops(cfg) -> float:
+    """GraphCast's useful forward FLOPs on its icosphere mesh (2 × the
+    defining matmuls' MACs): the reference's ``_gnn_flops``
+    (src/repro/launch/steps.py)."""
+    from repro_torch.models.graphcast import icosphere_sizes
+
+    n_nodes, n_edges = icosphere_sizes(cfg.mesh_refinement)
+    d = cfg.d_hidden
+    return 2.0 * cfg.n_layers * (n_edges * 4 * d * d + n_nodes * 3 * d * d)
+
+
+def run_gnn_serve(data: dict, device: torch.device) -> None:
+    """gnn_serve: pna and egnn at make_config(minibatch_lg) through
+    GraphBatcher on the gnn_data graph with the serve CLI's defaults
+    (batch_seeds 8, fanout 4, cache off), GNN_SERVE_QUERIES hot_query_stream
+    queries each; every micro-batch's served rows against the same packed
+    micro-batch through the engine's forward on the host (float64, and the
+    host's fp32 beside for the gate); the profiler's idle share over 32
+    more queries."""
+    import types
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import egnn, pna
+    from repro_torch.obs.trace import device_time_summary
+    from repro_torch.serve.graph import GraphBatcher, hot_query_stream
+    from repro_torch.train.tree import tree_map
+
+    g, shape, lines = data["graph"], data["shape"], {}
+    for arch, mod in (("pna", pna), ("egnn", egnn)):
+        t0 = time.perf_counter()
+        cfg = mod.make_config(shape)
+        eng = GraphBatcher(gnn_params(arch, cfg, device), g, cfg, model=arch, batch_seeds=8, fanout=4,
+                           cache_capacity=0, seed=SEED, device=device)
+        build_s = time.perf_counter() - t0
+        width = shape.d_feat + (3 if arch == "egnn" else 0)
+        ghost = torch.full((eng.max_edges,), eng.max_nodes, dtype=torch.int32, device=device)
+        with torch.inference_mode():          # warm-up at the engine's one shape, outside the stream
+            eng._forward(torch.zeros((eng.max_nodes, width), device=device), ghost, ghost,
+                         torch.zeros(eng.max_edges, device=device), (), ())
+        calls, fwd = [], eng._forward
+
+        def recording(x, s, r, w, masks, vals, fwd=fwd, calls=calls):
+            out = fwd(x, s, r, w, masks, vals)
+            calls.append((x, s, r, w, out[0]))
+            return out
+
+        eng._forward = recording
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for v in hot_query_stream(g, GNN_SERVE_QUERIES, seed=SEED + 1):
+            eng.submit(int(v))
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        stats = eng.stats()
+        eng._forward = fwd
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for v in hot_query_stream(g, 32, seed=SEED + 2):
+                eng.submit(int(v))
+            eng.run_until_drained()
+            torch.cuda.synchronize()
+        idle = device_time_summary(list(prof.events()), 32 // 8)
+        # The hold: each micro-batch's served rows (its distinct seeds lead the block).
+        seeds_of = {}
+        for q in eng.finished[:GNN_SERVE_QUERIES]:
+            seeds_of.setdefault(q.micro_batch, set()).add(q.node)
+        host = {dt: types.SimpleNamespace(model=arch, cfg=cfg, policy=eng.policy, max_nodes=eng.max_nodes,
+                                          params=gnn_params(arch, cfg, "cpu", dt), _signatures=set(), traces=0)
+                for dt in (torch.float32, torch.float64)}
+        worst = dict(card=0.0, host_fp32=0.0)
+        for i, (x, s, r, w, out) in enumerate(calls):
+            k = len(seeds_of[i])
+            args = [t.cpu() for t in (x, s, r, w)]
+            with torch.inference_mode():
+                ref64 = GraphBatcher._forward(host[torch.float64], args[0].double(), args[1], args[2],
+                                              args[3].double(), (), ())[0][:k]
+                host32 = GraphBatcher._forward(host[torch.float32], *args, (), ())[0][:k]
+            worst["card"] = max(worst["card"], rel_err(out[:k], ref64))
+            worst["host_fp32"] = max(worst["host_fp32"], rel_err(host32, ref64))
+        gate = max(GNN_HOLD_RTOL, GNN_HOLD_FACTOR * worst["host_fp32"])
+        checks = dict(served=stats["queries"] == GNN_SERVE_QUERIES, one_shape=stats["traces"] == 1,
+                      hold=worst["card"] <= gate,
+                      finite=all(np.isfinite(q.logits).all() for q in eng.finished))
+        lines[arch] = dict(ok=all(checks.values()), checks=checks, config=dataclasses.asdict(cfg),
+                           hold=dict(worst_rel_err_card_vs_host_fp64=worst["card"],
+                                     worst_rel_err_host_fp32_vs_host_fp64=worst["host_fp32"], gate=gate),
+                           p50_ms=stats["p50_ms"], p99_ms=stats["p99_ms"], queries_per_s=stats["queries"] / seconds,
+                           micro_batches=stats["micro_batches"], ms_per_micro_batch=seconds / stats["micro_batches"] * 1e3,
+                           nodes_per_query=stats["nodes_per_query"],
+                           edges_per_query=stats["edges_per_query"], block=dict(max_nodes=eng.max_nodes,
+                                                                                max_edges=eng.max_edges),
+                           engine_build_s=build_s, idle=idle)
+        del eng, calls, host
+        gc.collect()
+        torch.cuda.empty_cache()
+    ok = all(line["ok"] for line in lines.values())
+    emit("gnn_serve", ok=ok, models=lines, queries=GNN_SERVE_QUERIES, batch_seeds=8, fanout=4, cache="off",
+         hold_rule=f"each micro-batch's served rows within max({GNN_HOLD_RTOL}, {GNN_HOLD_FACTOR} × the host's fp32 "
+                   "error) of max |host float64 rows|, the worst over the stream",
+         timing="latency: host clock from submit to the served rows on the host; idle share: torch.profiler over "
+                "32 more queries (4 micro-batches)")
+    require(ok, "gnn_serve", json.dumps({k: v["checks"] for k, v in lines.items()}))
+
+
+def run_gnn_halo(host: dict, halo: dict, device: torch.device) -> list:
+    """gnn_halo: pna, egnn and graphcast at full width over the halo phase's
+    Nell plan (d_in 5,414, positions seeded per node), each with the fp32
+    and the bf16 wire, on HALO_K ranks sharing the card (gloo), against the
+    unsharded forward on the card. Returns each rank's K1–K4 launches."""
+    from repro_torch.configs import egnn, graphcast, pna
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.dist.halo import restore_node_array
+    from repro_torch.launch.gnn_halo import gnn_forward, gnn_halo_jobs, gnn_halo_rank
+    from repro_torch.launch.mesh import GroupSpec, run_group
+    from repro_torch.train.tree import tree_map
+
+    t0 = time.perf_counter()
+    from repro_torch.graph.generators import TABLE_I
+
+    plan, spec = halo["plan"], TABLE_I[DATASET]
+    shape = ShapeSpec(spec.name, "graph", n_nodes=spec.n_nodes, n_edges=spec.n_edges, d_feat=spec.n_features,
+                      n_out=spec.n_labels)
+    models = [(arch, mod.make_config(shape)) for arch, mod in (("pna", pna), ("egnn", egnn), ("graphcast", graphcast))]
+    pos = np.random.default_rng(SEED + 7).standard_normal((plan.n_nodes, 3)).astype(np.float32)
+    s = torch.from_numpy(host["edge_index"][0]).to(device)
+    r = torch.from_numpy(host["edge_index"][1]).to(device)
+    x = torch.from_numpy(host["features"]).to(device, torch.float32)
+    p = torch.from_numpy(pos).to(device)
+    refs, unsharded_ms, params_np = {}, {}, {}
+    with torch.inference_mode():
+        for arch, cfg in models:
+            params = gnn_params(arch, cfg, device)
+            params_np[arch] = tree_map(lambda v: v.cpu().numpy(), params)
+            refs[arch] = gnn_forward(arch, params, cfg, x, p, s, r).cpu().numpy()
+            unsharded_ms[arch] = cuda_ms(lambda: gnn_forward(arch, params, cfg, x, p, s, r), reps=3, warmup=1)
+            del params
+    del x, p, s, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    jobs = gnn_halo_jobs(plan, host["features"], pos, [(a, c, params_np[a]) for a, c in models],
+                         payloads=(None, "bf16"), time_reps=GNN_HALO_REPS)
+    spec_g = GroupSpec(k=HALO_K, backend="gloo", devices=("cuda:0",), timeout_s=HALO_TIMEOUT_S)
+    results = run_group(spec_g, gnn_halo_rank, jobs)
+    lines, checks = {}, {}
+    for arch, cfg in models:
+        ref = refs[arch]
+        scale = float(np.abs(ref).max())
+        for payload in ("fp32", "bf16"):
+            key = f"{arch}/{payload}"
+            recs = [res[key] for res in results]
+            out = restore_node_array(plan, np.stack([rec["rows"] for rec in recs]))
+            err = float(np.abs(out - ref).max())
+            rel_l2 = float(np.linalg.norm(out - ref) / np.linalg.norm(ref))
+            if payload == "fp32":
+                ok = err <= GNN_HALO_FP32_RTOL * scale
+                gate = dict(max_abs_rel=GNN_HALO_FP32_RTOL)
+            elif arch == "pna":
+                ok = err < GNN_HALO_BF16_ABS and rel_l2 < GNN_HALO_BF16_REL_L2
+                gate = dict(max_abs=GNN_HALO_BF16_ABS, rel_l2=GNN_HALO_BF16_REL_L2)
+            else:
+                ok = err <= GNN_HALO_BF16_RTOL * scale and rel_l2 <= GNN_HALO_BF16_REL_L2
+                gate = dict(max_abs_rel=GNN_HALO_BF16_RTOL, rel_l2=GNN_HALO_BF16_REL_L2)
+            checks[key] = ok and all(rec["finite"] for rec in recs) and all(
+                rec["exchanges"] == cfg.n_layers + (arch == "graphcast") for rec in recs)
+            lines[key] = dict(max_abs_err=err, max_abs_unsharded=scale, rel_l2=rel_l2, gate=gate,
+                              exchange_width=recs[0]["exchange_width"],
+                              wire_bytes_per_layer_per_rank=[rec["wire_bytes_per_layer"] for rec in recs],
+                              wire_bytes_forward_per_rank=[rec["wire_bytes"] for rec in recs],
+                              exchange_ms_per_rank=[rec["exchange_ms"] for rec in recs],
+                              forward_ms_per_rank=[rec["forward_ms"] for rec in recs])
+        lines[f"{arch}/unsharded_ms"] = unsharded_ms[arch]
+    ok = all(checks.values())
+    emit("gnn_halo", ok=ok, checks=checks, ranks=HALO_K, group=spec_g.describe(), plan=dict(
+             k=plan.k, n_local=plan.n_local, s_max=plan.s_max, e_local=plan.e_local,
+             halo_rows_per_rank_per_exchange=plan.halo_rows_per_device),
+         configs={a: dataclasses.asdict(c) for a, c in models}, variants=lines, seconds=time.perf_counter() - t0,
+         timing=f"CUDA events after a group barrier, median of {GNN_HALO_REPS}; {HALO_K} ranks share one card "
+                "(gloo through the host), so these are not multi-card times; unsharded: the parent alone")
+    require(ok, "gnn_halo", f"checks {checks}")
+    return [res["launches"] for res in results]
+
+
+def run_gnn(host: dict, halo: dict, device: torch.device) -> None:
+    """The GNN families' phases, K1–K4's launch counts zeroed just before
+    and read just after (line ``gnn_launches``: none may launch)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    data = run_gnn_data()
+    run_gnn_train(data, device)
+    run_gnn_serve(data, device)
+    del data
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = run_gnn_halo(host, halo, device)
+    parent = launch_counts()
+    ok = not any(parent.values()) and not any(n for r in ranks for n in r.values())
+    emit("gnn_launches", ok=ok, parent=parent, ranks=ranks,
+         note="K1–K4 counted from zero before gnn_data, read after gnn_halo (the ranks: each its own): "
+              "the GNN paths launch no hand-written kernel")
+    require(ok, "gnn_launches", f"parent {parent}, ranks {ranks}")
+
+
 def run_deepfm(device: torch.device) -> tuple[dict, dict, dict]:
     """(d1)–(d4) at the full DeepFM config; returns (K3's launches in the
     serving run, in the training run, the timing rows and worst errors)."""
@@ -3104,7 +3596,7 @@ def train_split(tr, loss_fn, batch) -> tuple[dict, dict, dict]:
     float(loss.detach())
     t1 = time.perf_counter()
     after_forward = dict(k4.LAUNCHES, windows={str(w): n for (_, w), n in k4.WINDOWS.items()})
-    grads = torch.autograd.grad(loss, leaves)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)   # EGNN's last φ_x: unused
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     after_backward = dict(k4.LAUNCHES, windows={str(w): n for (_, w), n in k4.WINDOWS.items()})
@@ -4211,6 +4703,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     delta = run_delta(host, delta_prep)
     del delta_prep
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_gnn(host, halo, device)
     gc.collect()
     torch.cuda.empty_cache()
     fm_serve, fm_train, fm = run_deepfm(device)

@@ -10,7 +10,7 @@ import dataclasses
 import importlib
 from typing import Any, Callable
 
-__all__ = ["ArchSpec", "ShapeSpec", "get_arch", "lm_shapes", "recsys_shapes", "ALL_ARCHS"]
+__all__ = ["ArchSpec", "ShapeSpec", "get_arch", "lm_shapes", "gnn_shapes", "recsys_shapes", "ALL_ARCHS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +27,9 @@ class ShapeSpec:
     n_edges: int | None = None
     d_feat: int | None = None
     n_out: int | None = None
+    batch_nodes: int | None = None
+    fanout: tuple[int, ...] | None = None
+    n_graphs: int | None = None
     # recsys fields
     batch: int | None = None
     n_candidates: int | None = None
@@ -53,6 +56,38 @@ def lm_shapes(sub_quadratic: bool) -> dict[str, ShapeSpec]:
         "decode_32k": ShapeSpec("decode_32k", "decode", seq_len=32768, global_batch=128),
         "long_500k": ShapeSpec(
             "long_500k", "decode", seq_len=524288, global_batch=1, skip_reason=skip
+        ),
+    }
+
+
+def gnn_shapes() -> dict[str, ShapeSpec]:
+    """The GNN shape set (the reference's): Cora at full batch, Reddit's size
+    as sampled blocks, ogbn-products at full batch, and packed molecules."""
+    return {
+        "full_graph_sm": ShapeSpec(
+            "full_graph_sm", "graph", n_nodes=2708, n_edges=10556, d_feat=1433, n_out=7
+        ),
+        "minibatch_lg": ShapeSpec(
+            "minibatch_lg",
+            "graph",
+            n_nodes=232_965,
+            n_edges=114_615_892,
+            d_feat=602,
+            n_out=41,
+            batch_nodes=1024,
+            fanout=(15, 10),
+        ),
+        "ogb_products": ShapeSpec(
+            "ogb_products", "graph", n_nodes=2_449_029, n_edges=61_859_140, d_feat=100, n_out=47
+        ),
+        "molecule": ShapeSpec(
+            "molecule",
+            "graph",
+            n_nodes=30,
+            n_edges=64,
+            d_feat=16,
+            n_out=1,
+            n_graphs=128,
         ),
     }
 
@@ -86,11 +121,14 @@ _MODULES = {
     "gemma3-12b": "repro_torch.configs.gemma3_12b",
     "granite-34b": "repro_torch.configs.granite_34b",
     "stablelm-12b": "repro_torch.configs.stablelm_12b",
+    "egnn": "repro_torch.configs.egnn",
+    "graphcast": "repro_torch.configs.graphcast",
+    "pna": "repro_torch.configs.pna",
     "deepfm": "repro_torch.configs.deepfm",
     "coin_gcn": "repro_torch.configs.coin_gcn",
 }
 # The slice of the port (ROADMAP.md) that brings each architecture not ported yet.
-_WAITING = dict.fromkeys(("egnn", "graphcast", "equiformer-v2", "pna"), "the slice of the other GNN families")
+_WAITING = {"equiformer-v2": "the equiformer-v2 slice (models/equiformer_v2.py, nn/so3.py)"}
 
 
 def get_arch(arch_id: str) -> ArchSpec:

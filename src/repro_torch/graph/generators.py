@@ -12,7 +12,15 @@ import numpy as np
 
 from repro_torch.graph.structure import GraphData
 
-__all__ = ["DatasetSpec", "TABLE_I", "citation_like", "make_dataset"]
+__all__ = [
+    "DatasetSpec",
+    "TABLE_I",
+    "GNN_SHAPES",
+    "citation_like",
+    "random_graph",
+    "molecule_batch",
+    "make_dataset",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +41,17 @@ TABLE_I: dict[str, DatasetSpec] = {
     "pubmed": DatasetSpec("pubmed", 19717, 88651, 500, 3),
     "extcora": DatasetSpec("extcora", 19793, 130622, 8710, 70),
     "nell": DatasetSpec("nell", 65755, 266144, 5414, 210),
+}
+
+
+# The GNN input-shape cells every GNN architecture runs (the reference's).
+GNN_SHAPES: dict[str, dict] = {
+    "full_graph_sm": dict(n_nodes=2708, n_edges=10556, d_feat=1433, kind="full-batch"),
+    "minibatch_lg": dict(
+        n_nodes=232_965, n_edges=114_615_892, batch_nodes=1024, fanout=(15, 10), kind="sampled-training"
+    ),
+    "ogb_products": dict(n_nodes=2_449_029, n_edges=61_859_140, d_feat=100, kind="full-batch-large"),
+    "molecule": dict(n_nodes=30, n_edges=64, batch=128, kind="batched-small-graphs"),
 }
 
 
@@ -105,6 +124,39 @@ def _bow_features(
         mask = rng.random((idx.shape[0], sig)) < 0.75
         x[idx[:, None], np.arange(lo, lo + sig)[None, :]] += mask.astype(dtype)
     return x
+
+
+def random_graph(n_nodes: int, n_edges: int, seed: int = 0) -> GraphData:
+    """Uniform random directed graph (self loops and repeats allowed)."""
+    rng = np.random.default_rng(seed)
+    edge_index = rng.integers(0, n_nodes, size=(2, n_edges)).astype(np.int32)
+    return GraphData(n_nodes=n_nodes, edge_index=edge_index)
+
+
+def molecule_batch(
+    n_graphs: int = 128,
+    nodes_per_graph: int = 30,
+    edges_per_graph: int = 64,
+    d_feat: int = 16,
+    seed: int = 0,
+) -> GraphData:
+    """Batched small graphs (the ``molecule`` cell) packed into one big
+    disconnected graph with 3-D positions — the standard batching for
+    EGNN/Equiformer-style models. No self loops."""
+    rng = np.random.default_rng(seed)
+    n = n_graphs * nodes_per_graph
+    offs = np.repeat(np.arange(n_graphs) * nodes_per_graph, edges_per_graph)
+    src = rng.integers(0, nodes_per_graph, size=n_graphs * edges_per_graph) + offs
+    dst = rng.integers(0, nodes_per_graph, size=n_graphs * edges_per_graph) + offs
+    loops = src == dst
+    dst[loops] = offs[loops] + (dst[loops] - offs[loops] + 1) % nodes_per_graph
+    return GraphData(
+        n_nodes=n,
+        edge_index=np.stack([src, dst]).astype(np.int32),
+        features=rng.standard_normal((n, d_feat)).astype(np.float32),
+        positions=rng.standard_normal((n, 3)).astype(np.float32),
+        labels=np.zeros(n, np.int32),
+    )
 
 
 def make_dataset(name: str, seed: int = 0, reduced: bool = False) -> tuple[DatasetSpec, GraphData]:

@@ -8,6 +8,7 @@ cache.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm --requests 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch coin-gcn --queries 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch pna --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch coin-gcn --device cpu \
         --relocalize-threshold 1.01
 
@@ -19,19 +20,22 @@ for a batch of 4 streams through `lm_decode_step` from seeded first tokens
 and prints the tokens per second. DeepFM scores one batch of 512 examples of
 seeded ids: one warm-up forward, then ``--requests`` forwards, each ended by
 a synchronisation, and prints the median request time and the rate; its FM
-term runs K3 on the card. ``coin-gcn`` serves ``--queries`` degree-weighted
+term runs K3 on the card. ``coin-gcn``, ``pna`` and ``egnn`` serve ``--queries`` degree-weighted
 node queries through `GraphBatcher` on a 2,000-node citation-like graph
 (``--batch-seeds``, ``--fanout``, ``--cache-capacity`` or ``--no-cache``,
-``--parts`` for partition-aligned packing) and prints the reference's
-lines: queries, micro-batches and traces, latency, nodes and edges sampled
-per query, foreign rows and the cache's accounting — every count but the
-times is the reference's, since none depends on the parameters. With
+``--parts`` for partition-aligned packing; pna and egnn serve cache-off,
+egnn on a graph with positions) and print the reference's lines:
+queries, micro-batches and traces, latency, nodes and edges sampled per
+query, foreign rows and the cache's accounting — every count but the
+times is the reference's, since none depends on the parameters.
+``graphcast`` exits with the reference's message (graph serving supports
+coin_gcn/pna/egnn). With
 ``--relocalize-threshold T`` (> 0) a burst of 8 churn deltas hits the
 graph halfway through the stream: each goes to the engine
 (`apply_graph_delta`) and to a mirrored `DeltaPlanner` whose
 `RelocalizePolicy` (patience 2, cooldown 3) may re-localize it; the engine
-then adopts the new partition. The other GNN families come
-with later slices of the port and raise `NotImplementedError` naming them.
+then adopts the new partition. ``equiformer-v2`` comes with a later
+slice of the port and raises `NotImplementedError` naming it.
 """
 from __future__ import annotations
 
@@ -49,7 +53,7 @@ from repro_torch.launch.obsflags import add_obs_args, obs_session
 __all__ = ["serve_lm", "serve_recsys", "build_graph_engine", "serve_graph", "main"]
 
 # The slice of the port (ROADMAP.md) that brings serving for each architecture.
-_WAITING = dict.fromkeys(("egnn", "graphcast", "equiformer-v2", "pna"), "the slice of the other GNN families")
+_WAITING = {"equiformer-v2": "the equiformer-v2 slice (models/equiformer_v2.py, nn/so3.py)"}
 
 
 def _sync(device: torch.device) -> None:
@@ -113,26 +117,50 @@ def build_graph_engine(
     n_nodes: int = 2000,
     n_edges: int = 12000,
 ):
-    """A small serving engine for ``coin_gcn`` on a citation-like graph (the
+    """A small serving engine for a GNN arch on a citation-like graph (the
     reference's ``build_graph_engine``): the reduced config, parameters
     from ``torch.Generator().manual_seed(seed)``, and with ``n_parts`` a
-    BFS partition (refined) for partition-aligned packing. Returns
-    (engine, graph); shared by the CLI and the example twin."""
+    BFS partition (refined) for partition-aligned packing. ``coin_gcn``
+    serves with the hot-neighbor cache; ``pna`` and ``egnn`` (whose graph
+    carries positions) serve cache-off. Returns (engine, graph); shared by
+    the CLI and the example twin."""
     from repro_torch.core.partition import partition_graph
     from repro_torch.graph.generators import citation_like
-    from repro_torch.models.gcn import gcn_init
     from repro_torch.serve.graph import GraphBatcher
 
     cfg = spec.make_reduced()
-    d_in, n_out = cfg.layer_dims[0], cfg.layer_dims[-1]
-    graph = citation_like(n_nodes, n_edges, d_in, n_out, seed=seed)
-    params = gcn_init(torch.Generator().manual_seed(seed), cfg, device=device)
+    gen = torch.Generator().manual_seed(seed)
+    if spec.arch_id == "coin_gcn":
+        from repro_torch.models.gcn import gcn_init
+
+        d_in, n_out = cfg.layer_dims[0], cfg.layer_dims[-1]
+        graph = citation_like(n_nodes, n_edges, d_in, n_out, seed=seed)
+        params = gcn_init(gen, cfg, device=device)
+        model = "gcn"
+    elif spec.arch_id == "pna":
+        from repro_torch.models.pna import pna_init
+
+        graph = citation_like(n_nodes, n_edges, cfg.d_in, 4, seed=seed)
+        params = pna_init(gen, cfg, device=device)
+        model = "pna"
+    elif spec.arch_id == "egnn":
+        from repro_torch.models.egnn import egnn_init
+
+        graph = citation_like(n_nodes, n_edges, cfg.d_in, 4, seed=seed, with_positions=True)
+        params = egnn_init(gen, cfg, device=device)
+        model = "egnn"
+    else:
+        raise SystemExit(f"{spec.arch_id}: graph serving supports coin_gcn/pna/egnn")
     part = None
     if n_parts:
         part = partition_graph(graph.n_nodes, graph.edge_index, n_parts, method="bfs",
                                seed=seed, refine=True)
-    engine = GraphBatcher(params, graph, cfg, batch_seeds=batch_seeds, fanout=fanout,
-                          cache_capacity=cache_capacity, partition=part, seed=seed, device=device)
+    engine = GraphBatcher(
+        params, graph, cfg, model=model, batch_seeds=batch_seeds, fanout=fanout,
+        # Activation injection (the cache's truncation hook) exists only in
+        # the GCN serve forward; other archs serve cache-off.
+        cache_capacity=cache_capacity if model == "gcn" else 0,
+        partition=part, seed=seed, device=device)
     return engine, graph
 
 

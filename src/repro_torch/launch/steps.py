@@ -33,9 +33,11 @@ Step kinds per family (the reference's):
 
 A caller may pass a `ShapeSpec` cut in ``global_batch``, ``seq_len`` or
 ``batch`` (and an `ArchSpec` whose config is cut in depth), never in
-width. The GNN cells come with the dry run: `build_cell` raises for
-them. The reference's ``Cell.lower``, ``cost_cells`` and the dry run's
-cost extrapolation are not here either.
+width. The GNN cells come later (ROADMAP.md queue 1 item 2): `build_cell`
+raises for them; their loss, `_gnn_loss_fn`, is here already, and the
+training CLI and ``chip_smoke.py`` train through it. The reference's
+``Cell.lower``, ``cost_cells`` and the dry run's cost extrapolation are
+not here either.
 """
 from __future__ import annotations
 
@@ -308,6 +310,60 @@ def _recsys_cell(spec: ArchSpec, shape: ShapeSpec, grid: Grid, dtype) -> Cell:
                 model_flops=per_ex * shape.batch, in_specs=(p_specs, bspec + (None,)), out_specs=bspec, **common)
 
 
+# ======================================================================== GNN
+def _gnn_loss_fn(arch_id: str, cfg, policy=None, n_loss_nodes: int | None = None) -> Callable:
+    """The reference's regression loss over a GNN's output (``loss(params,
+    batch)``), sliced to the first ``n_loss_nodes`` rows for sampled
+    blocks — losses are computed on the seed nodes only; ``coin_gcn`` is
+    `gcn_loss`. ``batch`` holds ``feats``, ``senders``, ``receivers``
+    and ``target`` (``pos`` for egnn, ``edge_feats`` for graphcast;
+    ``edge_weight``, ``labels`` and ``label_mask`` for coin_gcn); an
+    ``edge_mask`` entry, when present, goes to the forward (padding edges
+    of a block; the reference's batches have none)."""
+    from repro_torch.dist.policy import NO_POLICY
+
+    policy = NO_POLICY if policy is None else policy
+
+    def _mse(pred, target):
+        if n_loss_nodes is not None:
+            pred = pred[:n_loss_nodes]
+        return (pred - target).square().mean()
+
+    if arch_id == "egnn":
+        from repro_torch.models.egnn import egnn_forward
+
+        def loss(params, batch):
+            pred, _ = egnn_forward(params, batch["feats"], batch["pos"], batch["senders"], batch["receivers"],
+                                   cfg, policy, edge_mask=batch.get("edge_mask"))
+            return _mse(pred, batch["target"])
+    elif arch_id == "graphcast":
+        from repro_torch.models.graphcast import graphcast_forward
+
+        def loss(params, batch):
+            pred = graphcast_forward(params, batch["feats"], batch["edge_feats"], batch["senders"],
+                                     batch["receivers"], cfg, policy, edge_mask=batch.get("edge_mask"))
+            return _mse(pred, batch["target"])
+    elif arch_id == "pna":
+        from repro_torch.models.pna import pna_forward
+
+        def loss(params, batch):
+            pred = pna_forward(params, batch["feats"], batch["senders"], batch["receivers"], cfg, policy,
+                               edge_mask=batch.get("edge_mask"))
+            return _mse(pred, batch["target"])
+    elif arch_id == "coin_gcn":
+        from repro_torch.models.gcn import gcn_loss
+
+        def loss(params, batch):
+            return gcn_loss(params, batch["feats"], batch["senders"], batch["receivers"], batch["edge_weight"],
+                            batch["labels"], batch["label_mask"], cfg, policy)
+    elif arch_id == "equiformer-v2":
+        raise NotImplementedError("equiformer-v2's loss comes with the equiformer-v2 slice "
+                                  "(models/equiformer_v2.py, nn/so3.py)")
+    else:
+        raise KeyError(arch_id)
+    return loss
+
+
 # ==================================================================== factory
 def build_cell(spec: ArchSpec, shape: ShapeSpec, grid: Grid, dtype: torch.dtype | None = None) -> Cell:
     """The cell of ``spec`` at ``shape`` on ``grid``; ``dtype`` of the
@@ -318,6 +374,6 @@ def build_cell(spec: ArchSpec, shape: ShapeSpec, grid: Grid, dtype: torch.dtype 
     if spec.family == "recsys":
         return _recsys_cell(spec, shape, grid, dtype or F32)
     if spec.family == "gnn":
-        raise NotImplementedError("the GNN cells come with the dry run's slice (launch/dryrun.py's compile half, "
-                                  "ROADMAP.md queue 1 item 6)")
+        raise NotImplementedError("the GNN cells come with their own slice of the port (ROADMAP.md queue 1 "
+                                  "item 2); their loss is `_gnn_loss_fn`")
     raise KeyError(spec.family)

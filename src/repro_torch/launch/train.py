@@ -3,6 +3,7 @@ port has reached:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch coin_gcn --steps 50
     PYTHONPATH=src python -m repro_torch.launch.train --arch coin_gcn --steps 50 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch pna --steps 50 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm --steps 50 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b --steps 20 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch coin_gcn --steps 60 --device cpu \
@@ -11,9 +12,13 @@ port has reached:
 Runs the REDUCED config of ``--arch`` on one device (the CUDA card unless
 ``--device`` names another): synthetic data → eager train step → AdamW →
 checkpointing → straggler monitor, resuming from the latest checkpoint
-under ``--ckpt-dir``. For ``coin_gcn`` this is the reference's
-``_gnn_setup`` branch: ``citation_like(256, 1024, seed=0)``, the reduced
-GCN config (segment backend, 4-bit QAT) and `gcn_loss`. For ``deepfm`` it
+under ``--ckpt-dir``. For a GNN (``coin_gcn``, ``pna``, ``egnn``,
+``graphcast``) this is the reference's ``_gnn_setup``:
+``citation_like(256, 1024, seed=0)``, the reduced config, seeded
+``default_rng(0)`` features (then ``pos`` for egnn, random ``edge_feats``
+for graphcast, and a 0.1-scaled regression target), and the loss of
+`repro_torch.launch.steps._gnn_loss_fn` (for coin_gcn `gcn_loss` with the
+segment backend and 4-bit QAT). For ``deepfm`` it
 is ``_recsys_setup``: the reduced DeepFM config (8 fields, MLP 32-32-32),
 batches of 256 from the seeded `click_batch_fn` stream and `deepfm_loss`
 (its FM term runs K3 on the card). For an LM id (gemma3-12b,
@@ -24,13 +29,13 @@ attention runs K4 on the card, its gradient `flash_attention_vjp`; the MoE
 configs add the load-balance loss). Parameters come from a seeded
 `torch.Generator`, so they differ from the reference's.
 
-``--relocalize-threshold T`` (> 0, ``coin_gcn`` only) churns the training
+``--relocalize-threshold T`` (> 0, the GNNs only) churns the training
 graph as the reference does: every 10 steps one delta deletes 1 % of the
 edges and inserts as many among 16 random nodes (E stays fixed), applied
 to a `DeltaPlanner` over a 4-part BFS partition whose `RelocalizePolicy`
 (threshold T, patience 2, cooldown 3) re-localizes online; each fire prints
 the reference's ``relocalize @ step N: executed tiles A → B`` line, and the
-batch takes the planner's current edges and weights.
+batch takes the planner's current edges (and coin_gcn's weights).
 """
 from __future__ import annotations
 
@@ -44,7 +49,8 @@ from repro_torch.configs.registry import ALL_ARCHS, get_arch
 from repro_torch.device import resolve_device
 from repro_torch.graph.generators import citation_like
 from repro_torch.launch.obsflags import add_obs_args, obs_session
-from repro_torch.models.gcn import gcn_init, gcn_loss
+from repro_torch.launch.steps import _gnn_loss_fn
+from repro_torch.models.gcn import gcn_init
 from repro_torch.train.data import ShardedStream, click_batch_fn, token_batch_fn
 from repro_torch.train.loop import Trainer, TrainerConfig
 from repro_torch.train.optimizer import adamw
@@ -52,31 +58,54 @@ from repro_torch.train.optimizer import adamw
 __all__ = ["main"]
 
 # The slice of the port (ROADMAP.md) that brings each architecture not ported yet.
-_WAITING = dict.fromkeys(("egnn", "graphcast", "equiformer-v2", "pna"), "the slice of the other GNN families")
+_WAITING = {"equiformer-v2": "the equiformer-v2 slice (models/equiformer_v2.py, nn/so3.py)"}
 
 
-def _gcn_setup(spec, device: torch.device, relocalize_threshold: float = 0.0):
-    """(params, loss_fn, batches) of the reduced coin_gcn on the reference's
-    synthetic citation graph; churned under a relocalize policy when
-    ``relocalize_threshold`` > 0 (module docstring)."""
+def _init_gnn(arch_id: str, cfg, device: torch.device) -> dict:
+    """The GNN's parameters from ``torch.Generator().manual_seed(0)``."""
+    gen = torch.Generator().manual_seed(0)
+    if arch_id == "pna":
+        from repro_torch.models.pna import pna_init
+
+        return pna_init(gen, cfg, device=device)
+    if arch_id == "egnn":
+        from repro_torch.models.egnn import egnn_init
+
+        return egnn_init(gen, cfg, device=device)
+    if arch_id == "graphcast":
+        from repro_torch.models.graphcast import graphcast_init
+
+        return graphcast_init(gen, cfg, device=device)
+    return gcn_init(gen, cfg, device=device)
+
+
+def _gnn_setup(spec, device: torch.device, relocalize_threshold: float = 0.0):
+    """(params, loss_fn, batches) of a reduced GNN on the reference's
+    synthetic citation graph and seeded inputs; churned under a relocalize
+    policy when ``relocalize_threshold`` > 0 (module docstring)."""
     cfg = spec.make_reduced()
     g = citation_like(256, 1024, seed=0)
     rng = np.random.default_rng(0)
-    feats = rng.standard_normal((g.n_nodes, cfg.layer_dims[0])).astype(np.float32)
+    d_in = cfg.layer_dims[0] if spec.arch_id == "coin_gcn" else (getattr(cfg, "d_in", None) or cfg.input_dim)
     batch = {
-        "feats": torch.from_numpy(feats),
+        "feats": torch.from_numpy(rng.standard_normal((g.n_nodes, d_in)).astype(np.float32)),
         "senders": torch.from_numpy(g.edge_index[0]),
         "receivers": torch.from_numpy(g.edge_index[1]),
-        "edge_weight": torch.ones(g.n_edges),
-        "labels": torch.from_numpy(g.labels),
-        "label_mask": torch.ones(g.n_nodes),
     }
+    if spec.arch_id == "egnn":
+        batch["pos"] = torch.from_numpy(rng.standard_normal((g.n_nodes, 3)).astype(np.float32))
+    if spec.arch_id == "graphcast":
+        batch["edge_feats"] = torch.from_numpy(rng.standard_normal((g.n_edges, cfg.d_edge_in)).astype(np.float32))
+    if spec.arch_id == "coin_gcn":
+        batch["edge_weight"] = torch.ones(g.n_edges)
+        batch["labels"] = torch.from_numpy(g.labels)
+        batch["label_mask"] = torch.ones(g.n_nodes)
+    else:
+        n_out = cfg.n_vars if spec.arch_id == "graphcast" else cfg.d_out
+        batch["target"] = torch.from_numpy((rng.standard_normal((g.n_nodes, n_out)) * 0.1).astype(np.float32))
     batch = {k: v.to(device) for k, v in batch.items()}
-    params = gcn_init(torch.Generator().manual_seed(0), cfg, device=device)
-
-    def loss(params, b):
-        return gcn_loss(params, b["feats"], b["senders"], b["receivers"], b["edge_weight"],
-                        b["labels"], b["label_mask"], cfg)
+    params = _init_gnn(spec.arch_id, cfg, device)
+    loss = _gnn_loss_fn(spec.arch_id, cfg)
 
     if relocalize_threshold <= 0:
         def batches():
@@ -117,7 +146,8 @@ def _gcn_setup(spec, device: torch.device, relocalize_threshold: float = 0.0):
             new_ei = planner.edge_index()
             batch["senders"] = torch.from_numpy(new_ei[0].astype(np.int32)).to(device)
             batch["receivers"] = torch.from_numpy(new_ei[1].astype(np.int32)).to(device)
-            batch["edge_weight"] = torch.from_numpy(planner.edge_weights()).to(device)
+            if "edge_weight" in batch:
+                batch["edge_weight"] = torch.from_numpy(planner.edge_weights()).to(device)
 
     return params, loss, batches
 
@@ -155,7 +185,8 @@ def _lm_setup(spec, device: torch.device, batch: int = 4, seq: int = 64):
     return params, (lambda p, b: lm_loss(p, b, cfg)), batches
 
 
-_SETUPS = {"coin_gcn": _gcn_setup, "deepfm": _recsys_setup,
+_GNN = ("coin_gcn", "pna", "egnn", "graphcast")
+_SETUPS = {**dict.fromkeys(_GNN, _gnn_setup), "deepfm": _recsys_setup,
            **dict.fromkeys(("gemma3-12b", "granite-34b", "stablelm-12b", "moonshot-v1-16b-a3b", "olmoe-1b-7b"),
                            _lm_setup)}
 
@@ -169,7 +200,7 @@ def main(argv=None) -> None:
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--relocalize-threshold", type=float, default=0.0,
                     help="drift ratio beyond which the churned training graph "
-                         "re-localizes online (0 = static graph; coin_gcn only)")
+                         "re-localizes online (0 = static graph; gnn only)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs on the host)")
     add_obs_args(ap)
@@ -186,8 +217,8 @@ def run(args) -> None:
         )
     setup = _SETUPS[args.arch]
     if args.relocalize_threshold > 0:
-        if args.arch != "coin_gcn":
-            raise SystemExit("--relocalize-threshold churns a graph: coin_gcn only")
+        if args.arch not in _GNN:
+            raise SystemExit(f"--relocalize-threshold churns a graph: GNN archs only ({', '.join(_GNN)})")
         setup = functools.partial(setup, relocalize_threshold=args.relocalize_threshold)
     params, loss_fn, batches = setup(get_arch(args.arch), resolve_device(args.device))
     tr = Trainer(

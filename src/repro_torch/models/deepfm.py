@@ -45,12 +45,10 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
 from repro_torch.dist.policy import NO_POLICY, ShardingPolicy
 from repro_torch.kernels import ops
-from repro_torch.nn.layers import Draw, init_tree, mlp_apply, mlp_plan
+from repro_torch.nn.layers import Draw, init_tree, mlp_apply, mlp_plan, params_from_numpy
 from repro_torch.recsys.embedding import field_lookup, owned_rows, sharded_rows
-from repro_torch.train.tree import tree_map
 
 __all__ = ["DeepFMConfig", "deepfm_param_plan", "deepfm_init", "params_from_numpy", "fm_interaction", "deepfm_forward",
            "deepfm_loss", "deepfm_retrieval"]
@@ -93,13 +91,6 @@ def deepfm_init(generator: torch.Generator, cfg: DeepFMConfig, dtype=torch.float
     draws the 39 M-row table of the full config on the card), then moved to
     ``device`` (``None``: the CUDA card)."""
     return init_tree(generator, deepfm_param_plan(cfg), dtype, device)
-
-
-def params_from_numpy(params: dict, device: str | torch.device | None = None) -> dict:
-    """The reference's `deepfm_init` tree (as numpy arrays) as the port's, so
-    that both packages compute the same thing."""
-    device = resolve_device(device)
-    return tree_map(lambda v: torch.from_numpy(np.array(v)).to(device), params)
 
 
 def fm_interaction(emb: torch.Tensor) -> torch.Tensor:

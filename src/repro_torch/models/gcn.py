@@ -45,7 +45,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from repro_torch.core.dataflow import choose_order
@@ -56,6 +55,7 @@ from repro_torch.dist.policy import NO_POLICY, ShardingPolicy
 from repro_torch.graph.ops import aggregate, aggregate_padded
 from repro_torch.graph.structure import BlockedAdjacency
 from repro_torch.kernels.ops import bsr_spmm, fused_gcn_layer
+from repro_torch.nn.layers import params_from_numpy
 
 __all__ = ["GCNConfig", "gcn_init", "params_from_numpy", "gcn_forward", "gcn_loss"]
 
@@ -85,13 +85,6 @@ def gcn_init(generator: torch.Generator, cfg: GCNConfig, dtype=torch.float32,
         params[f"w{i}"] = w.to(device)
         params[f"b{i}"] = torch.zeros((d_out,), dtype=dtype, device=device)
     return params
-
-
-def params_from_numpy(params: dict, device: str | torch.device | None = None) -> dict:
-    """The reference package's parameters (as numpy arrays) as the port's, so
-    that both compute the same thing."""
-    device = resolve_device(device)
-    return {k: torch.from_numpy(np.array(v)).to(device) for k, v in params.items()}
 
 
 def _order(

@@ -54,7 +54,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.dist.policy import NO_POLICY, ShardingPolicy
 from repro_torch.nn.attention import AttentionConfig, attention_apply, attention_decode, attention_init
-from repro_torch.nn.layers import Draw, init_tree, rms_norm, silu
+from repro_torch.nn.layers import Draw, init_tree, params_from_numpy, rms_norm, silu
 from repro_torch.nn.moe import MoEConfig, moe_apply, moe_param_plan
 from repro_torch.train.tree import tree_map
 
@@ -198,13 +198,6 @@ def lm_init(generator: torch.Generator, cfg: LMConfig, dtype=torch.float32,
     draws gemma3-12b's 46.5 GB on the card), then moved to ``device``
     (``None``: the CUDA card)."""
     return init_tree(generator, lm_param_plan(cfg), dtype, device)
-
-
-def params_from_numpy(params: dict, device: str | torch.device | None = None) -> dict:
-    """The reference's `lm_init` tree (as numpy arrays) as the port's, so that
-    both packages compute the same thing."""
-    device = resolve_device(device)
-    return tree_map(lambda v: torch.from_numpy(np.array(v)).to(device), params)
 
 
 def _layer(params: dict, i: int) -> dict:

@@ -19,15 +19,19 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.train.tree import tree_map
 
 __all__ = [
     "Draw",
     "init_tree",
     "dense_init",
+    "dense_plan",
+    "params_from_numpy",
     "linear",
     "rms_norm",
     "layer_norm",
@@ -86,6 +90,18 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int, scale: str | f
     return {"w": w, "b": torch.zeros((d_out,), dtype=dtype, device=w.device)}
 
 
+def dense_plan(d_in: int, d_out: int) -> dict:
+    """One linear layer as a plan: `dense_init`'s fan-in scale, zero bias."""
+    return {"w": Draw((d_in, d_out), std=(1.0 / d_in) ** 0.5), "b": Draw((d_out,), "zeros")}
+
+
+def params_from_numpy(params: dict, device: str | torch.device | None = None) -> dict:
+    """A tree of the reference's parameters (numpy or JAX arrays) as tensors
+    on ``device``, so that both packages compute the same thing."""
+    device = resolve_device(device)
+    return tree_map(lambda v: torch.from_numpy(np.array(v)).to(device), params)
+
+
 def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
     return x @ p["w"] + p["b"]
 
@@ -114,8 +130,7 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 def mlp_plan(dims: list[int]) -> dict:
     """Linear layers ``l0 … l{n-1}`` (`dense_init`'s fan-in scale, zero
     biases) as a plan."""
-    return {f"l{i}": {"w": Draw((dims[i], dims[i + 1]), std=(1.0 / dims[i]) ** 0.5), "b": Draw((dims[i + 1],), "zeros")}
-            for i in range(len(dims) - 1)}
+    return {f"l{i}": dense_plan(dims[i], dims[i + 1]) for i in range(len(dims) - 1)}
 
 
 def mlp_apply(p: dict, x: torch.Tensor, act: Callable = silu, final_act: bool = False) -> torch.Tensor:

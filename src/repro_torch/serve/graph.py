@@ -42,8 +42,15 @@ for every live size — and counts input signatures, not calls.
 Batch packing is partition-aligned (`repro_torch.core.partition`): pending
 queries are grouped by the part owning their seed so a multi-device
 deployment sees micro-batches whose subgraphs stay inside one part; the
-batcher records the foreign-row count per micro-batch. The PNA and EGNN
-serve forwards come with the port's slice of the other GNN families.
+batcher records the foreign-row count per micro-batch.
+
+PNA and EGNN serve through the same batcher, cache-off (only the GCN
+forward has the injection hooks): their forwards run on the packed block
+with ``edge_mask = edge_weight > 0``, EGNN on ``[pos ‖ feats]`` rows. The
+block's padding edges point at the ghost row ``max_nodes``, which JAX
+reads clamped to the last row and drops from every segment sum; here they
+are pointed at the last row outright, where their masked messages add
+exactly nothing, so the served rows are the reference's.
 """
 from __future__ import annotations
 
@@ -59,10 +66,12 @@ from repro_torch.core.partition import Partition
 from repro_torch.device import resolve_device
 from repro_torch.dist.policy import NO_POLICY, ShardingPolicy
 from repro_torch.graph.ops import aggregate_padded
+from repro_torch.graph.sampler import stable_order
 from repro_torch.graph.structure import GraphData
 from repro_torch.models.gcn import GCNConfig
 from repro_torch.obs import metrics as _obs_metrics
 from repro_torch.obs import trace as _obs_trace
+from repro_torch.train.tree import tree_map
 
 __all__ = [
     "GraphQuery",
@@ -74,7 +83,6 @@ __all__ = [
 ]
 
 # The slice of the port (ROADMAP.md) that brings the other serve forwards.
-_WAITING = "the slice of the other GNN families (models/pna.py, models/egnn.py)"
 
 
 def hot_query_stream(graph: GraphData, n: int, seed: int = 1) -> np.ndarray:
@@ -141,10 +149,10 @@ class ServeSampler:
         self.seed = _U64(seed)
         s = graph.edge_index[0].astype(np.int64)
         r = graph.edge_index[1].astype(np.int64)
-        order = np.argsort(r, kind="stable")
+        order = stable_order(r)
         self._nbr = s[order]
         self._indptr = np.zeros(graph.n_nodes + 1, np.int64)
-        np.add.at(self._indptr, r + 1, 1)
+        self._indptr[1:] = np.bincount(r, minlength=graph.n_nodes)
         np.cumsum(self._indptr, out=self._indptr)
         self.in_deg = (self._indptr[1:] - self._indptr[:-1]).astype(np.int64)
         out_deg = np.bincount(s, minlength=graph.n_nodes).astype(np.float64)
@@ -419,11 +427,11 @@ class GraphQuery:
 # --------------------------------------------------------------------- batcher
 class GraphBatcher:
     """Admit node queries, pack fixed-shape micro-batches, serve them through
-    one fixed-shape forward (GCN with activation injection).
+    one fixed-shape forward (GCN with activation injection; PNA/EGNN plain).
 
-    ``model``: "gcn" (hot-neighbor cache supported); "pna" and "egnn" raise
-    `NotImplementedError` until their slice. ``cache_capacity`` > 0 enables
-    the cache. ``partition`` turns on partition-aligned packing. Static
+    ``model``: "gcn" (hot-neighbor cache supported), "pna", or "egnn"
+    (``graph.positions`` needed). ``cache_capacity`` > 0 enables the cache
+    (GCN only). ``partition`` turns on partition-aligned packing. Static
     shapes come from ``(batch_seeds, fanout, n_layers)`` so every
     micro-batch — whatever its live query count — has one shape. ``params``
     (tensors or numpy arrays) go to ``device``: the CUDA card unless
@@ -448,24 +456,29 @@ class GraphBatcher:
     ):
         if model not in ("gcn", "pna", "egnn"):
             raise ValueError(f"unknown serve model {model!r}")
-        if model != "gcn":
-            raise NotImplementedError(
-                f"serving model={model!r} is not ported to PyTorch yet; it comes with {_WAITING} "
-                "(ROADMAP.md)")
+        if model != "gcn" and cache_capacity:
+            raise ValueError("the hot-neighbor cache needs per-layer injection "
+                             "hooks; only the GCN serve forward has them")
         self.device = resolve_device(device)
         self.model = model
         self.params = self._to_device(params)
         self.policy = policy
         self.partition = partition
         self.batch_seeds = int(batch_seeds)
-        assert isinstance(cfg, GCNConfig)
-        if cfg.quant.enabled:
-            # Per-tensor calibration ranges are batch-dependent; serving
-            # must keep per-node purity (module docstring), so fp32 only.
-            cfg = dataclasses.replace(cfg, quant=cfg.quant.replace(enabled=False))
+        if model == "gcn":
+            assert isinstance(cfg, GCNConfig)
+            if cfg.quant.enabled:
+                # Per-tensor calibration ranges are batch-dependent; serving
+                # must keep per-node purity (module docstring), so fp32 only.
+                cfg = dataclasses.replace(cfg, quant=cfg.quant.replace(enabled=False))
         self.cfg = cfg
         assert graph.features is not None, "serving needs node features"
         self.features = np.asarray(graph.features, np.float32)
+        self.positions = (
+            np.asarray(graph.positions, np.float32) if graph.positions is not None else None
+        )
+        if model == "egnn" and self.positions is None:
+            raise ValueError("egnn serving needs graph.positions")
         self.graph = graph
         self._add_self_loops = bool(add_self_loops)
         self._seed = int(seed)
@@ -475,8 +488,9 @@ class GraphBatcher:
         self.cache = (
             HotNeighborCache(cache_capacity, self.sampler.in_deg) if cache_capacity else None
         )
-        # Injectable layers 1..L−1 with their widths.
-        self._inject_dims = {i + 1: cfg.layer_dims[i + 1] for i in range(cfg.n_layers - 1)}
+        # Injectable layers 1..L−1 with their widths (GCN only; empty else).
+        self._inject_dims = (
+            {i + 1: cfg.layer_dims[i + 1] for i in range(cfg.n_layers - 1)} if model == "gcn" else {})
         self.pending: list[GraphQuery] = []
         self.finished: list[GraphQuery] = []
         self._next_qid = 0
@@ -489,20 +503,37 @@ class GraphBatcher:
         self.foreign_rows = 0
 
     def _to_device(self, params: dict) -> dict:
-        return {name: (v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v, np.float32)))
-                .to(self.device, torch.float32) for name, v in params.items()}
+        """``params`` (a tree: flat for the GCN, nested for PNA and EGNN) as
+        fp32 tensors on the engine's device."""
+        return tree_map(lambda v: (v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v, np.float32)))
+                        .to(self.device, torch.float32), params)
 
     # ------------------------------------------------------------ forward pass
     def _forward(self, x, senders, receivers, edge_weight, masks, vals):
-        """The GCN serve forward of the reference (its ``_build_forward``),
-        eager: every layer ``act(Â·h·W + b)`` in the dataflow order COIN's
-        rule picks, then the cached rows injected after each injectable
-        layer. Returns the logits and the injectable layers' outputs."""
+        """The serve forward of the reference (its ``_build_forward``),
+        eager. GCN: every layer ``act(Â·h·W + b)`` in the dataflow order
+        COIN's rule picks, then the cached rows injected after each
+        injectable layer. PNA / EGNN (``x`` = ``[pos ‖ feats]``): the
+        model's forward with ``edge_mask = edge_weight > 0``, the padding
+        edges pointed at the last row (module docstring). Returns the
+        logits and the injectable layers' outputs."""
         sig = tuple(tuple(t.shape) for t in (x, senders, receivers, edge_weight, *masks, *vals))
         if sig not in self._signatures:       # one fixed-shape program per signature
             self._signatures.add(sig)
             self.traces += 1
         cfg, policy, params = self.cfg, self.policy, self.params
+        if self.model != "gcn":
+            edge_mask = (edge_weight > 0).to(x.dtype)
+            last = self.max_nodes - 1
+            senders, receivers = senders.clamp_max(last), receivers.clamp_max(last)
+            if self.model == "pna":
+                from repro_torch.models.pna import pna_forward
+
+                return pna_forward(params, x, senders, receivers, cfg, policy, edge_mask=edge_mask), ()
+            from repro_torch.models.egnn import egnn_forward
+
+            out, _ = egnn_forward(params, x[:, 3:], x[:, :3], senders, receivers, cfg, policy, edge_mask=edge_mask)
+            return out, ()
         n, n_edges = self.max_nodes, self.max_edges
         layers = sorted(self._inject_dims)
         h = x
@@ -591,6 +622,10 @@ class GraphBatcher:
         x = np.zeros((self.max_nodes, self.features.shape[1]), np.float32)
         valid = blk.node_ids[: blk.n_nodes]
         x[: blk.n_nodes] = self.features[valid]
+        if self.model == "egnn":
+            pos = np.zeros((self.max_nodes, 3), np.float32)
+            pos[: blk.n_nodes] = self.positions[valid]
+            x = np.concatenate([pos, x], axis=1)
         layers = sorted(self._inject_dims)
         masks, vals = [], []
         for layer in layers:

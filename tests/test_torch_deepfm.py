@@ -391,10 +391,43 @@ def test_launch_serve_deepfm_cpu(capsys):
     assert out.startswith("deepfm: batch=512 p50≈") and "examples/s" in out
 
 
-@pytest.mark.parametrize("arch,slice_", [("egnn", "other GNN families"), ("graphcast", "other GNN families"),
-                                         ("equiformer-v2", "other GNN families"), ("pna", "other GNN families")])
-def test_launch_serve_names_the_slice_that_brings_it(arch, slice_):
+# The ids are the ones these cases had while the GNN families waited for their slice.
+@pytest.mark.parametrize("arch,slice_", [
+    pytest.param("egnn", None, id="egnn-other GNN families"),
+    pytest.param("graphcast", None, id="graphcast-other GNN families"),
+    pytest.param("equiformer-v2", "the equiformer-v2 slice", id="equiformer-v2-other GNN families"),
+    pytest.param("pna", None, id="pna-other GNN families"),
+])
+def test_launch_serve_names_the_slice_that_brings_it(arch, slice_, capsys):
+    """pna and egnn serve and print the reference CLI's counts (queries,
+    micro-batches, traces, nodes and edges per query, foreign rows);
+    graphcast exits with the reference's message; equiformer-v2 names the
+    slice that brings it."""
+    import re
+
+    from repro.launch import serve as ref_serve
     from repro_torch.launch import serve
 
-    with pytest.raises(NotImplementedError, match=slice_):
-        serve.main(["--arch", arch, "--device", "cpu"])
+    if slice_ is not None:
+        with pytest.raises(NotImplementedError, match=slice_):
+            serve.main(["--arch", arch, "--device", "cpu"])
+        return
+    if arch == "graphcast":
+        with pytest.raises(SystemExit) as ours:
+            serve.main(["--arch", arch, "--device", "cpu"])
+        with pytest.raises(SystemExit) as theirs:
+            ref_serve.main(["--arch", arch])
+        assert str(ours.value) == str(theirs.value) == "graphcast: graph serving supports coin_gcn/pna/egnn"
+        return
+
+    def counts(out):
+        nums = re.findall(r"(\d+) queries in (\d+) micro-batches \((\d+) trace\)|sampled ([\d.]+) nodes/q "
+                          r"([\d.]+) edges/q \| foreign rows (\d+)", out)
+        return [x for m in nums for x in m if x]
+
+    serve.main(["--arch", arch, "--device", "cpu"])
+    mine = capsys.readouterr().out
+    ref_serve.main(["--arch", arch])
+    ref = capsys.readouterr().out
+    assert mine.startswith(f"{arch}: 64 queries in ") and len(counts(mine)) == 6
+    assert counts(mine) == counts(ref)

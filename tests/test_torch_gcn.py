@@ -170,10 +170,20 @@ def test_make_config_matches_jax():
 
 
 def test_registry_ported_and_unported_archs():
+    from repro.configs.registry import get_arch as ref_get_arch
+
     assert get_arch("coin-gcn") is get_arch("coin_gcn")
     assert set(get_arch("coin_gcn").shapes) == {"cora", "citeseer", "pubmed", "extcora", "nell"}
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_arch("pna")
+    for arch in ("pna", "egnn", "graphcast"):
+        ours, theirs = get_arch(arch), ref_get_arch(arch)
+        assert (ours.arch_id, ours.family, ours.source) == (theirs.arch_id, theirs.family, theirs.source)
+        assert dataclasses.asdict(ours.make_reduced()) == dataclasses.asdict(theirs.make_reduced())
+        assert dataclasses.asdict(ours.make_config(None)) == dataclasses.asdict(theirs.make_config(None))
+        for name, shape in theirs.shapes.items():
+            assert dataclasses.asdict(ours.make_config(ours.shapes[name])) == \
+                dataclasses.asdict(theirs.make_config(shape))
+    with pytest.raises(NotImplementedError, match="not ported.*equiformer-v2 slice"):
+        get_arch("equiformer-v2")
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
 

@@ -88,7 +88,7 @@ def test_train_relocalize_lines_match_reference(threshold):
 
 
 def test_train_relocalize_threshold_is_gcn_only():
-    with pytest.raises(SystemExit, match="coin_gcn only"):
+    with pytest.raises(SystemExit, match="GNN archs only"):
         port_train.main(["--arch", "deepfm", "--steps", "1", "--device", "cpu", "--relocalize-threshold", "1.1"])
 
 

@@ -360,13 +360,99 @@ def test_partition_packing_foreign_rows_match():
 
 
 # ------------------------------------------------------------ other models
+def _gnn_engines(model, **kw):
+    """The reference's and the port's PNA or EGNN engines on one graph with
+    positions, with the reference's parameters (the twin of
+    tests/test_serve_graph.py's smoke test, which also serves both)."""
+    from repro.models.egnn import EGNNConfig as RefEGNN
+    from repro.models.egnn import egnn_init
+    from repro.models.pna import PNAConfig as RefPNA
+    from repro.models.pna import pna_init
+    from repro_torch.models import egnn, pna
+
+    g = citation_like(120, 900, 8, 3, seed=0, with_positions=True)
+    if model == "pna":
+        rcfg, cfg = RefPNA(n_layers=2, d_hidden=12, d_in=8, d_out=3), pna.PNAConfig(n_layers=2, d_hidden=12, d_in=8, d_out=3)
+        params = pna_init(jax.random.PRNGKey(0), rcfg)
+    else:
+        rcfg, cfg = RefEGNN(n_layers=2, d_hidden=12, d_in=8, d_out=2), egnn.EGNNConfig(n_layers=2, d_hidden=12, d_in=8, d_out=2)
+        params = egnn_init(jax.random.PRNGKey(0), rcfg)
+    ref = ref_serve.GraphBatcher(params, g, rcfg, model=model, **kw)
+    port = GraphBatcher(pna.params_from_numpy(params, device="cpu"), g, cfg, model=model, device="cpu", **kw)
+    return g, ref, port
+
+
+def _recording(ref):
+    """Wrap the reference engine's compiled forward so that every call's
+    inputs and fp32 output are kept (for a float64 rerun)."""
+    calls, fwd = [], ref._fwd
+
+    def rec(params, *args):
+        out = fwd(params, *args)
+        calls.append((args, np.asarray(out[0])))
+        return out
+
+    ref._fwd = rec
+    return calls
+
+
+def _float64_rows(ref, calls):
+    """Each finished query's logits from the reference's own serve forward
+    rerun in float64 (``jax.enable_x64``) on the same packed micro-batch:
+    the row of the fp32 output equal to the query's logits, in the float64
+    output."""
+    import jax.numpy as jnp
+
+    with jax.enable_x64(True):
+        fwd = ref._build_forward()
+        p64 = jax.tree.map(lambda v: jnp.asarray(np.asarray(v), jnp.float64), ref.params)
+        outs = []
+        for (x, s, r, w, masks, vals), out32 in calls:
+            out64 = np.asarray(fwd(p64, jnp.asarray(np.asarray(x), jnp.float64), s, r,
+                                   jnp.asarray(np.asarray(w), jnp.float64), masks, vals)[0])
+            outs.append((out32, out64))
+    rows = []
+    for q in ref.finished:
+        out32, out64 = outs[q.micro_batch]
+        (hit,) = np.flatnonzero((out32 == q.logits).all(axis=1))[:1]
+        rows.append(out64[hit])
+    return rows
+
+
 @pytest.mark.parametrize("model", ["pna", "egnn"])
 def test_pna_and_egnn_serve_raise_naming_their_slice(model):
-    g, dims, params = _setup()
-    with pytest.raises(NotImplementedError, match="other GNN families"):
-        GraphBatcher(params, g, GCNConfig(layer_dims=dims), model=model, device="cpu")
+    """PNA and EGNN serve (cache-off) through the port's batcher: the same
+    counts as the reference's engine on the same queries, one trace, and
+    the same logits — within 1e-5 for EGNN; PNA's std aggregator is
+    ill-conditioned in fp32 on blocks whose sampled messages repeat (a
+    segment of equal messages has variance 0 ± rounding, and its std's
+    derivative is 1/(2·1e-4)), so there the port's logits (the worst over
+    all queries) hold to the reference's serve forward rerun in float64
+    within 4× the reference's own fp32 error (or 1e-5). Both refuse the hot-neighbor cache, and an
+    unknown model stays a ValueError."""
+    g, ref, port = _gnn_engines(model, batch_seeds=3, fanout=3, seed=0)
+    calls = _recording(ref)
+    waves = ((4, 9, 40, 80), hot_query_stream(g, 30))
+    _serve(ref, waves)
+    _serve(port, waves)
+    _assert_same_counts(ref, port)
+    if model == "egnn":
+        _assert_same_logits(ref, port)
+    else:
+        assert [(q.qid, q.micro_batch) for q in ref.finished] == [(q.qid, q.micro_batch) for q in port.finished]
+        rows64 = np.stack(_float64_rows(ref, calls))
+        intrinsic = float(np.abs(np.stack([q.logits for q in ref.finished]) - rows64).max())
+        err = float(np.abs(np.stack([q.logits for q in port.finished]) - rows64).max())
+        assert err <= max(4 * intrinsic, TOL * np.abs(rows64).max()), (err, intrinsic)
+    assert port.traces == 1 and all(np.isfinite(q.logits).all() for q in port.finished)
+    with pytest.raises(ValueError, match="only the GCN serve forward"):
+        _gnn_engines(model, cache_capacity=8)
+    gd, dims, params = _setup()
     with pytest.raises(ValueError, match="unknown serve model"):
-        GraphBatcher(params, g, GCNConfig(layer_dims=dims), model="gat", device="cpu")
+        GraphBatcher(params, gd, GCNConfig(layer_dims=dims), model="gat", device="cpu")
+    if model == "egnn":
+        with pytest.raises(ValueError, match="needs graph.positions"):
+            GraphBatcher(port.params, gd, port.cfg, model="egnn", device="cpu")
 
 
 def test_quant_forced_off_and_device_none_raises_without_cuda(monkeypatch):
