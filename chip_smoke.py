@@ -62,10 +62,19 @@ every layer, KV-cache decode — and trains with its depth cut to 4 layers.
 Then the sharded LM and DeepFM (`repro_torch.launch.steps.build_cell` on
 a `Grid`, `repro_torch.launch.shardings`): one group of 4 ranks sharing
 the card (gloo) serves gemma3-12b (tensor parallel, 1 × 4) and
-moonshot-v1-16b-a3b (expert parallel; 55.5 GB in bf16, whole on the card
-only when sharded) in bf16 at full depth with K4's bf16 body, decodes
+moonshot-v1-16b-a3b (expert parallel, full width, 12 of its 48 layers)
+in bf16 with K4's bf16 body, decodes
 granite-34b (8 layers) against a sequence-sharded cache, trains gemma3-12b
 (6 layers, fp32) and serves, retrieves and trains DeepFM on 2 × 2.
+Last, the dry run (`repro_torch.launch.dryrun`): two subprocesses with no
+card visible, started once every timed phase has ended, trace one rank of
+each of its cells on meta tensors in a fake process group of the 16 × 16
+and the 2 × 16 × 16 grid; beside them one group of 4 ranks on the card runs a train step
+of twelve GNN cells at full_graph_sm (halo flat with the three wires,
+hierarchical 2 × 1 × 2, broadcast; PNA, EGNN, GraphCast; coin_gcn
+``+opt`` on the bsr backend, whose K1 launches count in the ``kernels``
+line) and holds every FLOP and collective byte it counts against the meta
+run of the same cell.
 
 Phases, one JSON line each; any failed check ends the run with exit code 1:
 
@@ -289,6 +298,10 @@ Phases, one JSON line each; any failed check ends the run with exit code 1:
            on the click_batch_fn stream with the launch counts zeroed just
            before and read just after; step time, peak memory, and the
            device's idle share from torch.profiler over three steps
+  dispatch  the host µs a call of K3 (serve_p99) and of K1 (one block row)
+           costs through its `torch.library` custom op and through the
+           kernel's own module, launched back to back; their difference is
+           what the custom op adds to every main-path call
 
   lm_kernels  (l1) K4 against its plain version on the card at gemma3-12b's
            attention shape for one sequence (16 query heads over 8 kv
@@ -394,6 +407,25 @@ Phases, one JSON line each; any failed check ends the run with exit code 1:
            share over one profiled step, peak memory per rank, and the
            unsharded run's numbers beside
 
+  dryrun   (a) the host subprocesses' sweep: pna × full_graph_sm, molecule,
+           minibatch_lg; coin_gcn × cora (full_graph_sm's graph) +opt and
+           +int8; gemma3-12b × train_4k, decode_32k; moonshot-v1-16b-a3b ×
+           train_4k +opt; deepfm × train_batch, retrieval_cand, each on
+           16 × 16 and 2 × 16 × 16, every record OK (FLOPs, collective bytes
+           by kind, the dominant term, trace seconds); (b) one 4-rank gloo
+           group: each cell's train step, its FLOPs (FlopCounterMode) and
+           collectives by kind (count, bytes in, result bytes) equal to the
+           meta run's of the same cell as the same rank, exactly; (c) each
+           fp32-wire loss, gradient and updated parameter (in fp32 those
+           whose k = 1 gradient is not rounding noise: AdamW's first step
+           moves a parameter by lr·sign(g); in float64 every one) against
+           the same cell at k = 1 on the card within 1e-4 (PNA's gradient
+           and parameters in float64), the
+           bf16 / int8 losses within 1 % of fp32's, halo below broadcast in
+           all-gather and total bytes; (d) the meta counts of the lm_tp
+           prefill and of the deepfm_sharded cells equal to what those
+           phases counted (per kind; STATS' count and bytes)
+
 then the card's name and power limit (nvidia-smi), the ``{"kernels": [...]}``
 line, and as the last line ``{"ok": true, "device": {...}}``. A kernel's
 ``launches`` there is its count over the main-path runs (inference
@@ -404,12 +436,14 @@ K4 the LM prefills, the batcher's decode steps, gemma3's training steps
 (``launches_lm_train``) and olmoe's prefills, decode and training steps
 (``launches_moe``), and the 4 ranks' counted runs of the sharded phases
 (``launches_lm_tp``, ``launches_moe_ep``, ``launches_lm_seq``,
-``launches_lm_tp_train``; K3's ``launches_deepfm_sharded``)), each counted
+``launches_lm_tp_train``; K3's ``launches_deepfm_sharded``); K1's also
+the dry run's 4-rank steps, ``launches_dryrun``), each counted
 with the counts zeroed just before and read just after. K4's counts are forward launches only: its backward,
 `flash_attention_vjp`, launches no K4.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import gc
 import json
@@ -551,14 +585,20 @@ GNN_HOLD_FACTOR = 4.0          # ... or within 4× the host's own fp32 error on 
 GNN_F64_RTOL = 1e-6            # gnn_train: float64 on the card vs float64 on the host (pna, egnn), · max |·|
 GNN_SERVE_QUERIES = 256        # gnn_serve: hot_query_stream queries per model
 GNN_HALO_REPS = 3              # gnn_halo: timed forwards / exchanges per model, wire and rank
+GNN_HALO_GRAPHCAST_LAYERS = 4  # gnn_halo: graphcast's depth cut 16 → 4 (17 exchanges of 76.5 MB through gloo made
+                               # a forward 2.7 s a rank; the script's time limit), widths whole
 GNN_HALO_FP32_RTOL = 1e-3      # gnn_halo: fp32 wire vs the unsharded forward, · max |·|
 GNN_HALO_BF16_ABS, GNN_HALO_BF16_REL_L2 = 5e-2, 1e-2   # pna, bf16 wire: tests/test_overlap_halo.py:352-385
 GNN_HALO_BF16_RTOL = 5e-2      # egnn and graphcast, bf16 wire: · max |·| (with the relative L2 1e-2), the gate
                                # predicted in PERF.md before the first run
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line; ``t_s``: the script's seconds when it ends."""
+    print(json.dumps({"phase": phase, **fields, "t_s": round(time.perf_counter() - _T0, 1)}), flush=True)
 
 
 def require(ok: bool, phase: str, what: str) -> None:
@@ -1290,7 +1330,7 @@ def time_everything(data: dict, ops: dict, main: dict, train: dict) -> tuple[dic
     from repro_torch.core.quant import fake_quant
     from repro_torch.kernels import bsr_spmm as k1
     from repro_torch.kernels import fused_gcn as fg
-    from repro_torch.kernels.ops import _bsr_t_apply, _tile_mask
+    from repro_torch.kernels.ops import _bsr_t_apply
 
     vals, cols, lens = data["vals"], data["cols"], data["lens"]
     nnz = int(lens.sum())
@@ -1338,14 +1378,15 @@ def time_everything(data: dict, ops: dict, main: dict, train: dict) -> tuple[dic
         # The backward's torch parts at Nell's shapes: both layers' blocked
         # transposes take a 16-wide cotangent (layer 1's dpre, layer 2's
         # dm = g·W2ᵀ), and layer 1's dw = Xᵀ·dz is the one large matmul.
-        pairs = _tile_mask(cols, lens).nonzero(as_tuple=True)
+        # Each apply finds the valid tiles itself (since PR 27, as in the
+        # backward), so its time includes that `nonzero`.
         g1, g2 = torch.randn_like(h1), torch.randn_like(h1)
         backward = dict(
-            bsr_t_apply_layer1_ms=cuda_ms(lambda: _bsr_t_apply(vals, cols, pairs, g1, M)),
-            bsr_t_apply_layer2_ms=cuda_ms(lambda: _bsr_t_apply(vals, cols, pairs, g2, M)),
+            bsr_t_apply_layer1_ms=cuda_ms(lambda: _bsr_t_apply(vals, cols, lens, g1, M)),
+            bsr_t_apply_layer2_ms=cuda_ms(lambda: _bsr_t_apply(vals, cols, lens, g2, M)),
             dw_xt_dz_ms=cuda_ms(lambda: x.T @ g1),
         )
-        del pairs, g1, g2
+        del g1, g2
         forward, cfg = main["forward"], main["cfg"]
         seg = dataclasses.replace(cfg, backend="segment")
         torch.cuda.reset_peak_memory_stats()
@@ -3139,6 +3180,7 @@ def run_gnn_halo(host: dict, halo: dict, device: torch.device) -> list:
     shape = ShapeSpec(spec.name, "graph", n_nodes=spec.n_nodes, n_edges=spec.n_edges, d_feat=spec.n_features,
                       n_out=spec.n_labels)
     models = [(arch, mod.make_config(shape)) for arch, mod in (("pna", pna), ("egnn", egnn), ("graphcast", graphcast))]
+    models[2] = ("graphcast", dataclasses.replace(models[2][1], n_layers=GNN_HALO_GRAPHCAST_LAYERS))
     pos = np.random.default_rng(SEED + 7).standard_normal((plan.n_nodes, 3)).astype(np.float32)
     s = torch.from_numpy(host["edge_index"][0]).to(device)
     r = torch.from_numpy(host["edge_index"][1]).to(device)
@@ -3239,6 +3281,53 @@ def run_deepfm(device: torch.device) -> tuple[dict, dict, dict]:
     emit("deepfm", ok=True, config=dataclasses.asdict(FULL), table_rows=FULL.total_rows,
          table_gb=FULL.total_rows * FULL.embed_dim * 4 / 1e9, init_s=init_s, seconds=time.perf_counter() - t0)
     return serve, train, dict(rows=rows, worst=worst)
+
+
+DISPATCH_CALLS, DISPATCH_REPS = 200, 7      # dispatch: back-to-back calls a repetition; repetitions, median
+
+
+def measure_dispatch(device: torch.device) -> dict:
+    """The host cost of a kernel's custom op (`repro_torch.kernels.ops`):
+    microseconds a call of K3 at serve_p99 (512 × 39 × 10) and of K1 on a
+    one-block-row table (128 × 64), launched back to back (one
+    synchronisation after DISPATCH_CALLS calls, so the host's cost is what
+    is timed), through ``torch.ops.repro_torch.*`` and through the kernel's
+    own module; the median of DISPATCH_REPS alternating repetitions."""
+    from repro_torch.graph.structure import blocked_adjacency
+    from repro_torch.kernels import bsr_spmm as k1
+    from repro_torch.kernels import fm_interaction as k3
+
+    r = np.random.default_rng(SEED)
+    emb = torch.from_numpy(r.standard_normal((512, 39, 10)).astype(np.float32)).to(device)
+    ei = r.integers(0, 128, size=(2, 1024)).astype(np.int32)
+    vals, cols, lens = blocked_adjacency(128, ei, r.standard_normal(1024).astype(np.float32)).arrays(device=device)
+    z = torch.from_numpy(r.standard_normal((128, 64)).astype(np.float32)).to(device)
+    calls = {"k3_fm_interaction": (lambda: torch.ops.repro_torch.k3_fm_interaction(emb),
+                                   lambda: k3.fm_interaction(emb)),
+             "k1_bsr_spmm": (lambda: torch.ops.repro_torch.k1_bsr_spmm(vals, cols, lens, z),
+                             lambda: k1.bsr_spmm(vals, cols, lens, z))}
+
+    def per_call_us(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DISPATCH_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / DISPATCH_CALLS * 1e6
+
+    out = {}
+    with torch.no_grad():
+        for name, (op, raw) in calls.items():
+            op(), raw()                                     # warm-up
+            times = {"custom_op_us": [], "module_us": []}
+            for _ in range(DISPATCH_REPS):
+                times["custom_op_us"].append(per_call_us(op))
+                times["module_us"].append(per_call_us(raw))
+            med = {k: statistics.median(v) for k, v in times.items()}
+            out[name] = dict(med, overhead_us=med["custom_op_us"] - med["module_us"])
+    emit("dispatch", ok=True, per_call=out, calls=DISPATCH_CALLS, reps=DISPATCH_REPS,
+         timing="host clock over back-to-back calls, one synchronisation at the end; median of the repetitions")
+    return out
 
 
 def valid_pairs(S: int, window: int, causal: bool = True) -> int:
@@ -3888,6 +3977,7 @@ SHARDED_DECODE_STEPS = 8
 SHARDED_PREFILLS = 1             # counted prefills a rank (gloo makes each ~8 s); a decode step is profiled
 LM_SEQ_CACHE = 32_768            # lm_seq: granite-34b's cache, sharded by sequence (4 slices of 8,192)
 LM_SEQ_LAYERS = 8                # lm_seq: granite-34b's depth cut 88 → 8 (93.9 GB bf16 whole fits no card)
+MOE_EP_LAYERS = 12               # moe_ep: moonshot-v1-16b-a3b's depth cut 48 → 12 (the script's time limit; widths whole)
 SHARDED_LOGIT_RTOL = 5e-2        # bf16 sharded vs unsharded logits, · max |logit| (the parity contract)
 SHARDED_TRAIN_STEPS = 3          # lm_tp_train: AdamW steps (the cell's lr 3e-4)
 SHARDED_GRAD_RTOL = 1e-4         # lm_tp_train, deepfm_sharded: first gradients vs unsharded, · max per leaf
@@ -3901,13 +3991,31 @@ MOE_LAYER_SHARED = 0.3           # moe_ep: the weight of one direction every tok
 DEEPFM_SHARDED_STEPS = 5         # deepfm_sharded: AdamW steps at train_batch (the cell's lr 1e-3)
 
 
+# ------------------------------------------------------------------ the dry run
+DRYRUN_SWEEP = (("pna", "full_graph_sm", {}), ("pna", "molecule", {}), ("pna", "minibatch_lg", {}),
+                ("coin_gcn", "cora", {"optimized": True}), ("coin_gcn", "cora", {"payload": "int8"}),
+                ("gemma3-12b", "train_4k", {}), ("gemma3-12b", "decode_32k", {}),
+                ("moonshot-v1-16b-a3b", "train_4k", {"optimized": True}),
+                ("deepfm", "train_batch", {}), ("deepfm", "retrieval_cand", {}))   # (a), on 16 × 16 and 2 × 16 × 16
+DRYRUN_K = 4                     # (b): one gloo group of 4 ranks on the card
+DRYRUN_TIMEOUT_S = 480.0
+DRYRUN_LOSS_RTOL = 1e-4          # (c): fp32-wire 4-rank loss vs the k = 1 cell's, relative
+DRYRUN_HOLD_RTOL = 1e-4          # (c): each gradient leaf, and each parameter leaf after the AdamW step, · max |·|
+DRYRUN_SIGN_FLOOR = {"float32": 1e-4, "float64": 0.0}
+                                 # (c): a parameter is held where its k = 1 gradient is ≥ this · the leaf's max |g|:
+                                 #      a first AdamW step moves each parameter by lr·sign(g), so an fp32 gradient
+                                 #      that is rounding noise (|g| ≈ 1e-7 of the leaf's max) may step the other way;
+                                 #      float64 (PNA's cells) holds every parameter
+DRYRUN_WIRE_LOSS_RTOL = 1e-2     # (c): bf16 / int8 wire losses vs fp32, relative (tests/test_overlap_halo.py's 1 % L2)
+
+
 def sharded_phases() -> list[dict]:
     """The five phases of the 4-rank group, as picklable descriptions."""
     return [
         dict(name="lm_tp", family="lm", arch="gemma3-12b", layers=None, dtype="bfloat16", grid=(1, 4),
              prefill=True, cache=SHARDED_CACHE),
-        dict(name="moe_ep", family="lm", arch="moonshot-v1-16b-a3b", layers=None, dtype="bfloat16", grid=(1, 4),
-             prefill=True, cache=SHARDED_CACHE),
+        dict(name="moe_ep", family="lm", arch="moonshot-v1-16b-a3b", layers=MOE_EP_LAYERS, dtype="bfloat16",
+             grid=(1, 4), prefill=True, cache=SHARDED_CACHE),
         dict(name="lm_seq", family="lm", arch="granite-34b", layers=LM_SEQ_LAYERS, dtype="bfloat16", grid=(1, 4),
              prefill=False, cache=LM_SEQ_CACHE),
         dict(name="lm_tp_train", family="lm_train", arch="gemma3-12b", layers=LM_TRAIN_LAYERS, dtype="float32",
@@ -4035,11 +4143,12 @@ def run_lm_serve(cells: dict, phase: dict, device: torch.device, policy=None) ->
             moe.RECORD, pol.STATS, ms = [], {}, []
             for _ in range(SHARDED_PREFILLS):
                 moe.RECORD = []
-                pol.STATS = {}
+                pol.STATS, pol.COLLECTIVES = {}, {}
                 logits, t = _timed(lambda: fn(params, tokens), device)
                 ms.append(t)
-            stats, record = pol.STATS, moe.RECORD
-            moe.RECORD = pol.STATS = None
+            stats, record, by_kind = pol.STATS, moe.RECORD, pol.COLLECTIVES
+            moe.RECORD = pol.STATS = pol.COLLECTIVES = None
+            out["prefill_by_kind"] = by_kind
             out["prefill_launches"] = dict(k4.LAUNCHES)
             out["prefill_windows"] = {str(w): n for (_, w), n in k4.WINDOWS.items()}
             out["prefill_ms"] = ms
@@ -4205,22 +4314,26 @@ def run_deepfm_cells(cells: dict, device: torch.device, policy=None) -> dict:
         fn(params, ids)
         ms = []
         for _ in range(DEEPFM_REQUESTS):
-            pol.STATS = {}
+            pol.STATS, pol.COLLECTIVES = {}, {}
             logits, t = _timed(lambda: fn(params, ids), device)
             ms.append(t)
-        out.update(serve_ms=ms, serve_collectives=pol.STATS, serve_logits=logits.cpu().numpy())
+        out.update(serve_ms=ms, serve_collectives=pol.STATS, serve_by_kind=pol.COLLECTIVES,
+                   serve_logits=logits.cpu().numpy())
         _, bulk_ids = cells["bulk"].make_inputs(SEED, device, params=params)
-        pol.STATS = {}
+        pol.STATS, pol.COLLECTIVES = {}, {}
         logits, t = _timed(lambda: cells["bulk"].fn(params, bulk_ids), device)
-        out.update(bulk_ms=t, bulk_collectives=pol.STATS, bulk_logits=logits.cpu().numpy())
+        out.update(bulk_ms=t, bulk_collectives=pol.STATS, bulk_by_kind=pol.COLLECTIVES,
+                   bulk_logits=logits.cpu().numpy())
         del bulk_ids, logits
         _, user, cands = cells["retrieval"].make_inputs(SEED, device, params=params)
-        pol.STATS = {}
+        pol.STATS, pol.COLLECTIVES = {}, {}
         scores, t = _timed(lambda: cells["retrieval"].fn(params, user, cands), device)
-        out.update(retrieval_ms=t, retrieval_collectives=pol.STATS,
-                   retrieval_scores=gather(scores, 1).cpu().numpy())
+        # The call's own collectives: the scores gathered whole for the check come after.
+        out.update(retrieval_ms=t, retrieval_collectives=pol.STATS, retrieval_by_kind=pol.COLLECTIVES)
+        pol.STATS = pol.COLLECTIVES = None
+        out["retrieval_scores"] = gather(scores, 1).cpu().numpy()
         del user, cands, scores
-    pol.STATS = None
+    pol.STATS = pol.COLLECTIVES = None
     out["serve_launches"] = dict(k3.LAUNCHES)
     cell = cells["train"]
     _, state, ids, labels = cell.make_inputs(SEED, device, params=params)
@@ -4232,9 +4345,9 @@ def run_deepfm_cells(cells: dict, device: torch.device, policy=None) -> dict:
     del grads
     fn = cell.fn
     k3.reset_launch_counts()
-    losses, ms, stats = [], [], []
+    losses, ms, stats, by_kind = [], [], [], []
     for step in range(DEEPFM_SHARDED_STEPS):
-        pol.STATS = {}
+        pol.STATS, pol.COLLECTIVES = {}, {}
         if step == DEEPFM_SHARDED_STEPS - 1:
             with profile(activities=[ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda"
                                                               else [])) as prof:
@@ -4243,10 +4356,12 @@ def run_deepfm_cells(cells: dict, device: torch.device, policy=None) -> dict:
         else:
             (params, state, loss), t = _timed(lambda: fn(params, state, ids, labels), device)
         stats.append(pol.STATS)
-        pol.STATS = None
+        by_kind.append(pol.COLLECTIVES)
+        pol.STATS = pol.COLLECTIVES = None
         losses.append(float(loss))
         ms.append(t)
     out.update(train_launches=dict(k3.LAUNCHES), losses=losses, step_ms=ms, train_collectives=stats[0],
+               train_by_kind=by_kind[0],
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None)
     del params, state, ids, labels
     return out
@@ -4636,7 +4751,234 @@ def run_sharded(device: torch.device) -> dict:
         require(ok, name, f"checks {checks}")
     emit("sharded", ok=True, group=spec.describe(), group_seconds=group_times, seconds=time.perf_counter() - t0,
          phases=[p["name"] for p in sharded_phases()])
-    return dict(launches=launches, worst=worst, rows=rows)
+    measured = {"lm_tp/prefill": (results[0]["lm_tp"]["prefill_collectives"], results[0]["lm_tp"]["prefill_by_kind"])}
+    for role in ("serve", "bulk", "retrieval", "train"):
+        res0 = results[0]["deepfm_sharded"]
+        measured[f"deepfm_sharded/{role}"] = (res0[f"{role}_collectives"], res0[f"{role}_by_kind"])
+    return dict(launches=launches, worst=worst, rows=rows, measured=measured)
+
+
+def dryrun_jobs() -> list:
+    """(b): the GNN cells one 4-rank group runs for a train step each, at
+    full_graph_sm (Cora's size; coin_gcn's ``cora`` is the same 2,708 ×
+    10,556 graph and widths), full width; ``keep`` ones return their loss,
+    updated parameters and gradient for (c)."""
+    from repro_torch.launch.dryrun import StepJob
+
+    flat, pods = dict(axes=("data", "model"), sizes=(1, DRYRUN_K)), dict(axes=("pod", "data", "model"), sizes=(2, 1, 2))
+    shape = "full_graph_sm"
+    return [
+        StepJob("pna", shape, **flat), StepJob("pna", shape, **flat, payload="bf16"),
+        StepJob("pna", shape, **flat, payload="int8"), StepJob("pna", shape, **pods),
+        StepJob("pna", shape, **flat, comm="broadcast"),
+        StepJob("egnn", shape, **flat), StepJob("graphcast", shape, **flat),
+        StepJob("coin_gcn", "cora", **flat, optimized=True, keep=False),
+        # (c)'s holds: coin_gcn with its per-rank 4-bit calibration off, PNA's gradient in float64.
+        StepJob("coin_gcn", "cora", **flat, optimized=True, quant_off=True),
+        StepJob("pna", shape, **flat, dtype="float64"), StepJob("pna", shape, **pods, dtype="float64"),
+        StepJob("pna", shape, **flat, comm="broadcast", dtype="float64"),
+    ]
+
+
+def dryrun_unsharded(job):
+    """The same cell at k = 1 (a 1 × 1 grid: the reference's k = 1 cell)."""
+    return dataclasses.replace(job, axes=("data", "model"), sizes=(1, 1))
+
+
+DRYRUN_HOST_PARTS = 2            # (a): the sweep's records split over this many host subprocesses
+
+
+def dryrun_host(out_path: str, part: int, parts: int) -> None:
+    """The dry run's host half (subprocesses that never touch the card, so
+    their fake process groups never meet the card's groups): (a) every
+    ``parts``-th record of the sweep on 16 × 16 and 2 × 16 × 16, from
+    ``part`` on; part 0 also (b) the meta counts of `dryrun_jobs` and (d)
+    the meta counts of the lm_tp prefill and the deepfm_sharded cells on
+    their grids. Writes one JSON file."""
+    from repro_torch.launch.dryrun import count_step, meta_steps, run_cell
+    from repro_torch.launch.mesh import Grid, fake_group
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    sweep = []
+    records = [(arch, shape, kw, multi) for arch, shape, kw in DRYRUN_SWEEP for multi in (False, True)]
+    for arch, shape, kw, multi in records[part::parts]:
+        rec = run_cell(arch, shape, multi, verbose=False, **kw)
+        sweep.append({k: v for k, v in rec.items() if k != "trace"} | (
+            {"trace": rec["trace"]} if rec["status"] == "FAIL" else {}))
+    out = dict(sweep=sweep, sweep_seconds=time.perf_counter() - t0)
+    if part == 0:
+        t1 = time.perf_counter()
+        out.update(meta=meta_steps(dryrun_jobs()), meta_seconds=time.perf_counter() - t1)
+        t2 = time.perf_counter()
+        sharded = {}
+        for phase in sharded_phases():
+            if phase["name"] not in ("lm_tp", "deepfm_sharded"):
+                continue
+            grid = Grid(("data", "model"), phase["grid"])
+            with fake_group(grid, 0):
+                cells = {role: c.bind() for role, c in phase_cells(phase, grid).items()}
+                roles = ("prefill",) if phase["family"] == "lm" else ("serve", "bulk", "retrieval", "train")
+                for role in roles:
+                    sharded[f"{phase['name']}/{role}"] = count_step(cells[role].fn, cells[role].abstract_inputs())[
+                        "collectives"]
+        out.update(sharded=sharded, sharded_seconds=time.perf_counter() - t2)
+    with open(out_path, "w") as f:
+        json.dump(out, f, default=str)
+
+
+def start_dryrun_host() -> list:
+    """Start `dryrun_host` in DRYRUN_HOST_PARTS subprocesses with no card
+    visible; they run on the host beside the dry run's 4-rank group, after
+    every timed phase of the script has ended."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC))
+    procs = []
+    for part in range(DRYRUN_HOST_PARTS):
+        out = tempfile.NamedTemporaryFile(prefix="chip_smoke_dryrun_", suffix=".json", delete=False).name
+        proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-host", out, str(part),
+                                 str(DRYRUN_HOST_PARTS)], env=env,
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        atexit.register(lambda proc=proc: proc.poll() is None and proc.kill())   # a failed phase leaves nothing
+        procs.append((proc, out))
+    return procs
+
+
+def wait_dryrun_host(procs: list) -> dict:
+    """The host parts' results merged: the sweep's records of every part,
+    the rest from part 0; ``sweep_seconds`` per part."""
+    host = {"sweep": [], "sweep_seconds": []}
+    for proc, out_path in procs:
+        text, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        require(proc.returncode == 0, "dryrun", f"the host sweep exited {proc.returncode}: {text[-3000:]}")
+        with open(out_path) as f:
+            part = json.load(f)
+        os.unlink(out_path)
+        host["sweep"] += part.pop("sweep")
+        host["sweep_seconds"].append(part.pop("sweep_seconds"))
+        host.update(part)
+    return host
+
+
+def _leaf_map(tree, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        return {k: v for key in sorted(tree) for k, v in _leaf_map(tree[key], f"{prefix}/{key}").items()}
+    return {prefix: tree}
+
+
+def _hold(got: dict, want: dict, dtype: str) -> dict:
+    """(c): the loss, each gradient leaf and each held parameter leaf of a
+    4-rank step against the k = 1 step (``dtype``: the cell's)."""
+    g_got, g_want = _leaf_map(got["grads"]), _leaf_map(want["grads"])
+    p_got, p_want = _leaf_map(got["params"]), _leaf_map(want["params"])
+    grad = max(float(np.abs(g_got[k] - v).max()) / max(float(np.abs(v).max()), 1e-30) for k, v in g_want.items())
+    param, unheld, total = 0.0, 0, 0
+    for k, v in p_want.items():
+        sel = np.abs(g_want[k]) >= DRYRUN_SIGN_FLOOR[dtype] * float(np.abs(g_want[k]).max())
+        diff = np.abs(p_got[k] - v)
+        param = max(param, (float(diff[sel].max()) if sel.any() else 0.0) / max(float(np.abs(v).max()), 1e-30))
+        unheld, total = unheld + int((~sel).sum()), total + int(v.size)
+    loss = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    return dict(loss=got["loss"], k1_loss=want["loss"], loss_rel_err=loss, grad_rel_err=grad, param_rel_err=param,
+                params_unheld=unheld, params=total,
+                ok=loss <= DRYRUN_LOSS_RTOL and grad <= DRYRUN_HOLD_RTOL and param <= DRYRUN_HOLD_RTOL)
+
+
+def run_dryrun(measured: dict, device: torch.device) -> dict:
+    """The dry run's line: (a) the host sweep's records (its subprocesses
+    start here, after every timed phase); (b) one train step
+    of each `dryrun_jobs` cell on DRYRUN_K ranks sharing the card (gloo),
+    its count by kind, bytes in and out and FLOPs equal to the meta run's
+    of the same cell; (c) the fp32-wire losses, gradients and updated
+    parameters against the k = 1 cells on the card (PNA's gradient and
+    parameters in float64), the bf16 / int8 wire losses against fp32, and
+    halo below broadcast; (d) the lm_tp prefill's and the deepfm_sharded
+    cells' meta counts equal to what those phases measured. Returns the
+    group's K1–K4 launches."""
+    from repro_torch.launch.dryrun import real_steps
+    from repro_torch.launch.mesh import GroupSpec, run_group
+
+    t0 = time.perf_counter()
+    host_procs = start_dryrun_host()
+    jobs = dryrun_jobs()
+    spec = GroupSpec(k=DRYRUN_K, backend="gloo", devices=("cuda:0",) if device.type == "cuda" else ("cpu",),
+                     timeout_s=DRYRUN_TIMEOUT_S)
+    results = run_group(spec, real_steps, [jobs] * DRYRUN_K)
+    group_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    refs = {job.tag(): real_steps(0, 1, device, [dryrun_unsharded(job)])[dryrun_unsharded(job).tag()]
+            for job in jobs if job.keep}
+    k1_s = time.perf_counter() - t1
+    host = wait_dryrun_host(host_procs)
+    host_wait_s = time.perf_counter() - t1 - k1_s
+    checks, line = {}, {}
+    # (a) the sweep
+    sweep = {f"{r['arch']}/{r['shape']}/{r['mesh']}": (
+        dict(status=r["status"], flops=r.get("flops_per_device"), collective_bytes=r.get("collective_bytes_per_device"),
+             dominant=(r.get("roofline") or {}).get("dominant"), trace_s=r.get("lower_s"),
+             hbm_bytes=r.get("hbm_bytes_per_device"), peak_bytes=(r.get("memory") or {}).get("peak_bytes"))
+        if r["status"] == "OK" else dict(status=r["status"], error=r.get("error"))) for r in host["sweep"]}
+    checks["a_sweep_ok"] = all(v["status"] == "OK" for v in sweep.values()) and len(sweep) == 2 * len(DRYRUN_SWEEP)
+    # (b) meta against the card, exactly
+    counts = {}
+    for job in jobs:
+        tag, meta = job.tag(), host["meta"][job.tag()]
+        same = [res[tag]["flops"] == meta["flops"] and res[tag]["collectives"] == meta["collectives"]
+                for res in results]
+        checks[f"b_{tag}"] = all(same)
+        counts[tag] = dict(flops=results[0][tag]["flops"], meta_flops=meta["flops"],
+                           collectives=results[0][tag]["collectives"], equal_per_rank=same,
+                           op_bytes=results[0][tag]["op_bytes"], meta_op_bytes=meta["op_bytes"],
+                           step_s_per_rank=[res[tag]["seconds"] for res in results])
+    # (c) sharded against unsharded
+    holds = {}
+    for job in jobs:
+        if not job.keep or job.payload:
+            continue
+        tag = job.tag()
+        holds[tag] = _hold(results[0][tag], refs[tag], job.dtype)
+        if job.dtype == "float32" and job.arch == "pna":     # PNA: the loss in fp32, the rest in float64
+            holds[tag]["ok"] = holds[tag]["loss_rel_err"] <= DRYRUN_LOSS_RTOL
+        checks[f"c_{tag}"] = holds[tag]["ok"] and all(
+            abs(res[tag]["loss"] - results[0][tag]["loss"]) == 0.0 for res in results)
+    fp32 = results[0][dryrun_jobs()[0].tag()]["loss"]
+    for job in jobs:
+        if job.payload:
+            got = results[0][job.tag()]["loss"]
+            holds[job.tag()] = dict(loss=got, fp32_loss=fp32, rel_err=abs(got - fp32) / abs(fp32),
+                                    gate=DRYRUN_WIRE_LOSS_RTOL)
+            checks[f"c_{job.tag()}"] = abs(got - fp32) <= DRYRUN_WIRE_LOSS_RTOL * abs(fp32)
+    halo = results[0][jobs[0].tag()]["collectives"]
+    bcast = results[0][next(j for j in jobs if j.comm == "broadcast").tag()]["collectives"]
+    checks["c_halo_below_broadcast"] = (halo["all-gather"]["bytes_out"] < bcast["all-gather"]["bytes_out"]
+                                        and halo["total"]["bytes_out"] < bcast["total"]["bytes_out"])
+    # (d) the dry run of PR 25's phases against what they measured
+    sharded = {}
+    for key, (stats, by_kind) in measured.items():
+        meta = host["sharded"][key]
+        same = {kind: meta[kind] == by_kind.get(kind, {"count": 0, "bytes_in": 0, "bytes_out": 0})
+                for kind in meta}
+        stats_same = stats.get("count", 0) == meta["total"]["count"] and stats.get("bytes", 0) == meta["total"]["bytes_in"]
+        sharded[key] = dict(meta=meta, measured=by_kind, measured_stats={k: stats.get(k) for k in ("count", "bytes")},
+                            equal=all(same.values()) and stats_same)
+        checks[f"d_{key}"] = sharded[key]["equal"]
+    launches = {name: sum(res["launches"][name] for res in results) for name in results[0]["launches"]}
+    checks["b_k1_launched"] = launches.get("k1_bsr_spmm", 0) > 0
+    ok = all(checks.values())
+    emit("dryrun", ok=ok, checks=checks, sweep=sweep, sweep_seconds=host["sweep_seconds"],
+         meta_seconds=host["meta_seconds"], sharded_meta_seconds=host["sharded_seconds"],
+         host_wait_seconds=host_wait_s,
+         group=spec.describe(), group_seconds=group_s, unsharded_seconds=k1_s, counts=counts, holds=holds,
+         sharded=sharded, launches_per_group=launches, seconds=time.perf_counter() - t0,
+         note="(a) one rank of each cell traced on meta tensors in a fake group, on 16 × 16 and 2 × 16 × 16; "
+              "(b) rank r's real train step on the card and the meta step of the same cell as rank r: FLOPs "
+              "(FlopCounterMode) and collectives by kind (count, bytes handed in, result bytes) equal; "
+              "(c) the 4-rank step against the same cell at k = 1 on the card (gradient: AdamW's first moment "
+              "/ (1 − b1); parameters where the k = 1 gradient is ≥ DRYRUN_SIGN_FLOOR of its leaf's max in "
+              "fp32, every parameter in float64; PNA in float64, its fp32 loss beside); (d) the meta count of the lm_tp prefill and deepfm_sharded "
+              "cells against the same cells' counts in the sharded phases")
+    require(ok, "dryrun", f"checks {checks}")
+    return launches
+
 
 
 def main() -> int:
@@ -4709,6 +5051,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     fm_serve, fm_train, fm = run_deepfm(device)
+    measure_dispatch(device)
     gc.collect()
     torch.cuda.empty_cache()
     lm_prefill_run, lm_decode_run, lm = run_lm(device)
@@ -4728,6 +5071,9 @@ def main() -> int:
                 rows_of["worst"][name] = max(rows_of["worst"][name], err)
     shard_launches = {phase: shard_run["launches"].get(phase, {}) for phase in
                       ("lm_tp", "moe_ep", "lm_seq", "lm_tp_train", "deepfm_sharded")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry = run_dryrun(shard_run["measured"], device)
 
     worst = {name: max(err, delta["kernel_errs"].get(name, 0.0)) for name, err in worst.items()}
     print(card_line(), flush=True)
@@ -4736,13 +5082,14 @@ def main() -> int:
              replaces=REPLACES[name],
              launches=inference[name] + train[name] + sharded[name] + sharded_train[name]
              + hier["launches"][name] + hier["train_launches"][name] + tuned[name] + delta["launches"][name]
-             + delta["train_launches"][name],
+             + delta["train_launches"][name] + dry[name],
              launches_inference=inference[name], launches_train=train[name],
              launches_per_train_step=train[name] / TRAIN_STEPS, launches_halo=sharded[name],
              launches_halo_train=sharded_train[name], launches_hier=hier["launches"][name],
              launches_hier_train=hier["train_launches"][name], launches_autotune=tuned[name],
              launches_delta=delta["launches"][name],
-             launches_delta_train=delta["train_launches"][name], max_abs_err=worst[name], ms=row["ms"],
+             launches_delta_train=delta["train_launches"][name], launches_dryrun=dry[name],
+             max_abs_err=worst[name], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound"][0], bound_by=row["bound"][1],
              library_ms=row["library_ms"],
              **({"composition_ms": row["composition_ms"]} if "composition_ms" in row else {}),
@@ -4794,4 +5141,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dryrun-host"]:       # the dry run's host half, started by main() itself
+        sys.path.insert(0, str(SRC))
+        dryrun_host(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
+        sys.exit(0)
     sys.exit(main())

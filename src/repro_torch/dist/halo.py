@@ -58,6 +58,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.quant import dequantize_payload, payload_bits, quantize_payload
+from repro_torch.dist.policy import _nbytes, note_collective
 from repro_torch.device import resolve_device
 from repro_torch.graph.ops import aggregate
 from repro_torch.graph.structure import BlockedAdjacency, blocked_adjacency
@@ -1108,8 +1109,10 @@ def plan_split_blocked_shape(plan: HaloPlan, block: int = 128) -> dict:
 # ======================================================= device collectives
 def _wire_on_host(t: torch.Tensor, group) -> bool:
     """Whether ``t`` must go through the host to cross ``group``: gloo
-    carries CPU tensors only."""
-    return t.device.type != "cpu" and dist.get_backend(group) == "gloo"
+    carries CPU tensors only. A meta tensor (the dry run's fake group)
+    never does."""
+    return t.device.type not in ("cpu", "meta") and dist.get_backend(group) == "gloo"
+
 
 
 def _ring_peer(group, r: int) -> int:
@@ -1126,6 +1129,7 @@ def _gather_start(wire: torch.Tensor, group, via: str) -> Callable[[], torch.Ten
     if via == "all_gather":
         blocks = [torch.empty_like(wire) for _ in range(k)]
         work = dist.all_gather(blocks, wire, group=group, async_op=True)
+        note_collective("all-gather", _nbytes(wire), k * _nbytes(wire))
 
         def finish() -> torch.Tensor:
             work.wait()
@@ -1139,6 +1143,7 @@ def _gather_start(wire: torch.Tensor, group, via: str) -> Callable[[], torch.Ten
         nxt = torch.empty_like(ring[-1])
         reqs = [dist.isend(ring[-1], _ring_peer(group, (i - 1) % k), group=group),
                 dist.irecv(nxt, _ring_peer(group, (i + 1) % k), group=group)]
+        note_collective("collective-permute", _nbytes(ring[-1]), _nbytes(nxt))
         return nxt, reqs
 
     pending = step() if k > 1 else None
@@ -1177,6 +1182,7 @@ def _gather_transpose(ct: torch.Tensor, group, via: str) -> torch.Tensor:
         # reduce_scatter_single is the newer name of reduce_scatter_tensor.
         reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
         reduce_scatter(out, ct, op=dist.ReduceOp.SUM, group=group)
+        note_collective("reduce-scatter", _nbytes(ct), _nbytes(out))
         return out
     i = dist.get_rank(group)
     # g[t] (the cotangent of ring[t] on rank i) = slot (i+t) of ct
@@ -1186,6 +1192,7 @@ def _gather_transpose(ct: torch.Tensor, group, via: str) -> torch.Tensor:
         prev = torch.empty_like(acc)
         reqs = [dist.isend(acc, _ring_peer(group, (i + 1) % k), group=group),
                 dist.irecv(prev, _ring_peer(group, (i - 1) % k), group=group)]
+        note_collective("collective-permute", _nbytes(acc), _nbytes(prev))
         for req in reqs:
             req.wait()
         acc = blocks[(i + t) % k] + prev

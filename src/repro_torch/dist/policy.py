@@ -2,9 +2,13 @@
 
 A :class:`ShardingPolicy` carries the GNN **communication mode**:
 
-* ``comm="broadcast"`` — the paper's Fig. 5c schedule. In the port there is
-  no mesh that could insert the layer-output all-gathers, so this mode is
-  the unsharded forward: ``neighbor_table`` is the identity.
+* ``comm="broadcast"`` — the paper's Fig. 5c schedule. Unbound, its
+  ``neighbor_table`` is the identity (the unsharded forward, every
+  existing caller). Bound (`ShardingPolicy.bind` of a full-graph cell on
+  a grid), each rank holds its block of the nodes and the edges whose
+  receivers it owns, and
+  ``neighbor_table(h)`` all-gathers the whole node table over the group
+  every layer; the backward of that all-gather is a reduce-scatter.
 * ``comm="halo"`` — the sharded full-graph schedule: each rank of a
   `torch.distributed` group runs the model on its block of a
   :class:`~repro_torch.dist.halo.HaloPlan` layout, and
@@ -18,21 +22,24 @@ every sender-side gather and work identically under both modes (and under
 export rows with ``bind_halo``: a flat plan's ``send_idx``, or a
 hierarchical plan's ``send_loc``/``send_rem`` pair, whose two-phase
 exchange runs over ``halo_groups``, the rank's (pod, model) subgroups
-(`repro_torch.launch.mesh.halo_groups`; the reference's ``halo_axes``).
-``constrain`` is the identity: there is no mesh to place activations on,
-and the call keeps the model code in step with the reference.
+(`repro_torch.launch.mesh.halo_groups`, or `Grid.halo_groups` on a grid;
+the reference's ``halo_axes``). ``constrain`` is the identity: there is
+no mesh to place activations on, and the call keeps the model code in step
+with the reference.
 
-Training under halo needs two more pieces of the reference's ``shard_map``
-(`replicate` and `psum`, and the policy's methods of those names). There
-the parameters are closed over, so the transpose of their broadcast sums
-each device's gradient over the mesh axis; and the loss is
-``psum(wsum) / psum(wcnt)``, whose ``psum`` (under ``check_vma=False``)
-hands each device's cotangent back to its own term. `replicate` is the
-identity with an all-reduce (sum) over the group as its backward, `psum`
-an all-reduce (sum) whose backward is the identity: together every rank
-gets the unsharded gradient, and no other gradient all-reduce is needed.
-Both run over ``group``, the whole group, under the hierarchical exchange
-too: the reference's ``psum`` over both the pod and the model axis.
+Training under halo (and under a bound broadcast) needs two more pieces of
+the reference's ``shard_map`` (`replicate` and `psum`, and the policy's
+methods of those names). There the parameters are closed over, so the
+transpose of their broadcast sums each device's gradient over the mesh
+axis; and the loss is ``psum(wsum) / psum(wcnt)``, whose ``psum`` (under
+``check_vma=False``) hands each device's cotangent back to its own term.
+`replicate` is the identity with an all-reduce (sum) over the group as its
+backward, `psum` an all-reduce (sum) whose backward is the identity:
+together every rank gets the unsharded gradient, and no other gradient
+all-reduce is needed. Both run over ``group``, the whole group, under the
+hierarchical exchange too: the reference's ``psum`` over both the pod and
+the model axis. A process that runs alone (no process group: a cell on a
+1 × 1 grid) is a group of one, where both are the identity.
 
 The sharded LM and DeepFM (`repro_torch.launch.shardings`, the cells of
 `repro_torch.launch.steps`) take a policy of the other kind: ``grid``
@@ -49,9 +56,19 @@ logsumexp's shift) and `all_gather` (the sharded logits gathered whole,
 the MoE's expert ids over the data group). ``cache`` is the KV cache's
 spec (`repro_torch.launch.shardings.cache_spec`): its kv-head entry or
 its sequence entry names the axes the decode path splits it over.
+
+Every collective of this module and of `repro_torch.dist.halo` reports to
+one counting point, `note_collective`: `STATS` (count, bytes handed in,
+host seconds of the synchronous calls) and `COLLECTIVES` (by the
+reference's five kinds — ``all-gather``, ``all-reduce``,
+``reduce-scatter``, ``all-to-all``, ``collective-permute`` for the ring's
+send/recv steps — and ``total``: the count, the bytes the rank hands in,
+and the bytes of the result, the reference's ``collective_bytes``). The
+dry run (`repro_torch.launch.dryrun`) reads `COLLECTIVES` over one step.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any
@@ -60,21 +77,57 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["ShardingPolicy", "NO_POLICY", "replicate", "psum", "reduce_scatter", "all_reduce_max", "all_gather",
-           "STATS"]
+           "STATS", "COLLECTIVES", "KINDS", "note_collective", "counting_collectives"]
 
-#: When a dict, every collective of this module adds to its ``count``,
-#: ``bytes`` (what the rank hands the collective: the whole tensor of an
-#: all-reduce, the rank's block of an all-gather, the blocks bound for the
-#: other ranks of an all-to-all) and ``seconds`` (host clock around the
-#: call, the staging through the host included).
+#: When a dict, every collective adds to its ``count``, ``bytes`` (what the
+#: rank hands the collective: the whole tensor of an all-reduce, the rank's
+#: block of an all-gather, the blocks bound for the other ranks of an
+#: all-to-all) and ``seconds`` (host clock around a synchronous call, the
+#: staging through the host included; the halo exchange's calls add none).
 STATS: dict | None = None
 
+#: The reference's collective kinds (`repro.launch.dryrun`'s HLO names).
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
 
-def _note(t: torch.Tensor, t0: float, nbytes: int | None = None) -> None:
+#: When a dict, every collective adds to ``COLLECTIVES[kind]`` and
+#: ``COLLECTIVES["total"]`` its ``count``, ``bytes_in`` (`STATS`' bytes) and
+#: ``bytes_out`` (the bytes of its result on this rank).
+COLLECTIVES: dict | None = None
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def note_collective(kind: str, bytes_in: int, bytes_out: int, t0: float | None = None) -> None:
+    """The one counting point of every collective call site."""
     if STATS is not None:
         STATS["count"] = STATS.get("count", 0) + 1
-        STATS["bytes"] = STATS.get("bytes", 0) + (t.numel() * t.element_size() if nbytes is None else nbytes)
-        STATS["seconds"] = STATS.get("seconds", 0.0) + time.perf_counter() - t0
+        STATS["bytes"] = STATS.get("bytes", 0) + bytes_in
+        STATS["seconds"] = STATS.get("seconds", 0.0) + (0.0 if t0 is None else time.perf_counter() - t0)
+    if COLLECTIVES is not None:
+        for key in (kind, "total"):
+            rec = COLLECTIVES.setdefault(key, {"count": 0, "bytes_in": 0, "bytes_out": 0})
+            rec["count"] += 1
+            rec["bytes_in"] += int(bytes_in)
+            rec["bytes_out"] += int(bytes_out)
+
+
+@contextlib.contextmanager
+def counting_collectives():
+    """``COLLECTIVES`` set to a fresh dict (every kind and ``total`` at zero)
+    for the block, yielded, and restored after it."""
+    global COLLECTIVES
+    saved, COLLECTIVES = COLLECTIVES, {k: {"count": 0, "bytes_in": 0, "bytes_out": 0} for k in (*KINDS, "total")}
+    try:
+        yield COLLECTIVES
+    finally:
+        COLLECTIVES = saved
+
+
+def _alone(group) -> bool:
+    """A process with no process group: a group of one."""
+    return group is None and not (dist.is_available() and dist.is_initialized())
 
 
 def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
@@ -87,7 +140,7 @@ def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     out = (x.detach().cpu() if on_host else x.detach()).clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, op=op, group=group)
     out = out.to(x.device) if on_host else out
-    _note(out, t0)
+    note_collective("all-reduce", _nbytes(out), _nbytes(out), t0)
     return out
 
 
@@ -110,7 +163,7 @@ def all_gather(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
     dist.all_gather(parts, src, group=group)
     out = torch.cat(parts, dim=dim)
     out = out.to(x.device) if on_host else out
-    _note(src, t0)
+    note_collective("all-gather", _nbytes(src), _nbytes(out), t0)
     return out
 
 
@@ -130,7 +183,7 @@ def _reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     dist.all_to_all_single(got, src, group=group)
     out = got.reshape(k, src.shape[0] // k, *src.shape[1:]).sum(0).movedim(0, dim)
     out = out.to(x.device) if on_host else out
-    _note(src, t0, src.numel() * src.element_size() * (k - 1) // k)
+    note_collective("reduce-scatter", _nbytes(src) * (k - 1) // k, _nbytes(out), t0)
     return out
 
 
@@ -211,6 +264,8 @@ class ShardingPolicy:
     halo_groups: Any = None            # hierarchical: this rank's (pod group, model group)
     halo_send_loc: Any = None          # hierarchical (s_loc,) intra-pod export rows
     halo_send_rem: Any = None          # hierarchical (s_rem,) inter-pod export rows
+    graph: bool = False                # a full-graph GNN cell's policy: `bind` binds the graph groups
+    bcast_bound: bool = False          # broadcast, bound: the node table is all-gathered over ``group``
 
     def constrain(self, x: torch.Tensor, name: str) -> torch.Tensor:
         """The identity: each rank already holds its block of every named
@@ -233,7 +288,22 @@ class ShardingPolicy:
     def bind(self) -> "ShardingPolicy":
         """Copy with this rank's data and model groups and its index in each
         (inside a rank of a group of ``grid.size`` ranks; every rank calls
-        it alike, since it may build the groups)."""
+        it alike, since it may build the groups). A full-graph GNN policy
+        (``graph``) binds the graph's groups instead (`Grid.halo_groups`):
+        ``group``, the ranks that share the graph (the reference's
+        ``halo_axes``), and under a pod axis wider than one the (pod,
+        model) pair of the hierarchical exchange; a broadcast one takes its
+        model group and all-gathers the node table over it. On a 1 × 1
+        grid in a process alone nothing is built: every collective is the
+        identity there."""
+        if self.graph:
+            bcast = self.comm == "broadcast"
+            if self.grid.size == 1 and not dist.is_initialized():
+                return dataclasses.replace(self, bcast_bound=bcast)
+            whole, pod, model = self.grid.halo_groups()
+            if bcast:                          # the reference shards the node table over `model` only
+                return dataclasses.replace(self, group=model, bcast_bound=True)
+            return dataclasses.replace(self, group=whole, halo_groups=None if pod is None else (pod, model))
         data_group, model_group = self.grid.groups()
         rank = dist.get_rank()
         return dataclasses.replace(self, data_group=data_group, model_group=model_group,
@@ -331,30 +401,55 @@ class ShardingPolicy:
             self, halo_send_idx=send_idx, halo_send_loc=send_loc, halo_send_rem=send_rem
         )
 
+    @property
+    def is_broadcast(self) -> bool:
+        """True for a bound broadcast policy: every rank holds its block of
+        ``n_pad / k`` nodes and ``neighbor_table`` all-gathers the whole
+        table over ``group``."""
+        return self.comm == "broadcast" and self.bcast_bound
+
     def neighbor_table(self, x: torch.Tensor) -> torch.Tensor:
         """The table sender indices gather from.
 
-        Broadcast / NO_POLICY / unbound halo: ``x`` itself (senders are
-        global rows). Armed flat halo: ``[x ‖ halo_exchange(x)]`` of shape
+        NO_POLICY / unbound broadcast / unbound halo: ``x`` itself (senders
+        are global rows). Bound broadcast: the ranks' blocks all-gathered
+        in rank order, ``(k·n_local, d)`` (global rows of the padded
+        graph; backward a reduce-scatter). Armed flat halo: ``[x ‖ halo_exchange(x)]`` of shape
         ``(n_local + k·s_max, d)``; armed hierarchical halo: ``[x ‖
         hier_halo_exchange(x)]`` of shape ``(n_local + k_model·(s_loc +
         n_pods·s_rem), d)``. Either way the plan's re-localized senders
         index it, and its column space is exactly that of the per-rank
         blocked tables of `repro_torch.dist.halo.plan_blocked_rank`."""
+        if self.is_broadcast:
+            if _alone(self.group):
+                return x
+            from repro_torch.dist.halo import _axis_gather
+
+            return _axis_gather(x, self.group)
         if not self.is_halo:
             return x
         return torch.cat([x, self.halo_block(x)])
 
-    def replicate(self, params: dict) -> dict:
-        """``params`` as the parameters every rank holds alike (armed halo:
-        :func:`replicate` of each; otherwise themselves)."""
-        if not self.is_halo:
+    def _sharded(self) -> bool:
+        return (self.is_halo or self.is_broadcast) and not _alone(self.group)
+
+    def replicate(self, params: Any) -> Any:
+        """``params`` (a tree of dicts) as the parameters every rank holds
+        alike: under an armed halo or a bound broadcast, :func:`replicate`
+        of each leaf over the group, as the reference's closed-over
+        parameters are replicated leaf by leaf; otherwise themselves."""
+        if not self._sharded():
             return params
-        return {name: replicate(p, self.group) for name, p in params.items()}
+
+        def walk(p):
+            return {name: walk(v) for name, v in p.items()} if isinstance(p, dict) else replicate(p, self.group)
+
+        return walk(params)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
-        """:func:`psum` over the group (armed halo; otherwise ``x``)."""
-        return psum(x, self.group) if self.is_halo else x
+        """:func:`psum` over the group (armed halo or bound broadcast;
+        otherwise ``x``)."""
+        return psum(x, self.group) if self._sharded() else x
 
     def halo_block(self, x: torch.Tensor) -> torch.Tensor:
         """Just the exchanged halo rows of :meth:`neighbor_table` (armed

@@ -54,14 +54,40 @@ k and v may have BH / G rows for G query heads per key/value head
 (grouped-query attention, no copy per group). The kernel takes any S, so
 the reference's ``bq`` / ``bk`` tile arguments and its ``interpret`` flag
 have no counterpart.
+
+Each kernel's entry is a `torch.library` custom op (``repro_torch::k1_bsr_spmm``,
+``k2_fused_gcn_layer``, ``k3_fm_interaction``, ``k4_flash_attention``), as
+are the blocked-transpose backward's two tile products
+(``repro_torch::bsr_t_apply``, ``bsr_dvals``). Each has a fake (meta)
+implementation, so the dry run (`repro_torch.launch.dryrun`) traces a
+step on the meta device, and a FLOP formula
+(`torch.utils.flop_counter.register_flop_formula`) that counts what the
+kernel executes over its table's shape (every tile of a (R, T) table, valid
+or not; for an attention, every (query, key) pair of the k-tiles K4 visits,
+`repro_torch.kernels.flash_attention.k_tiles`, which skips the tiles that
+the causal mask or the window leaves empty), so that
+``FlopCounterMode`` counts the same work on the meta device and on the
+card. A CPU tensor still takes the plain version and a CUDA tensor the
+kernel or an exception; under ``FlopCounterMode`` a custom op is one
+operation, whichever runs inside it.
 """
 from __future__ import annotations
 
 import torch
 
+from typing import Optional
+
+from torch.utils.flop_counter import register_flop_formula
+
 from repro_torch.kernels.bsr_spmm import bsr_spmm as bsr_spmm_cuda
 from repro_torch.kernels.flash_attention import flash_attention as flash_attention_cuda
-from repro_torch.kernels.flash_attention import flash_attention_plain, flash_attention_vjp
+from repro_torch.kernels.flash_attention import (
+    K4_BLOCK_ROWS,
+    K4_TILE_KEYS,
+    flash_attention_plain,
+    flash_attention_vjp,
+    k_tiles,
+)
 from repro_torch.kernels.fm_interaction import fm_interaction as fm_interaction_cuda
 from repro_torch.kernels.fm_interaction import fm_interaction_plain
 from repro_torch.kernels.bsr_spmm import bsr_spmm_plain, k1_name
@@ -72,25 +98,140 @@ from repro_torch.kernels.fused_gcn import (
     operand_suffix,
 )
 
-__all__ = ["bsr_spmm", "fused_gcn_layer", "fm_interaction", "flash_attention"]
+__all__ = ["bsr_spmm", "fused_gcn_layer", "fm_interaction", "flash_attention", "kernel_flops"]
 
 _ORDERS = ("feature_first", "aggregation_first")
 
 
 def _pad_rows(z: torch.Tensor, block: int) -> torch.Tensor:
-    """Row-pad a dense operand to the block grid (zero rows)."""
-    pad = (-z.shape[0]) % block
+    """Row-pad a dense operand to the block grid (zero rows); an empty one
+    (a k = 1 rank's halo block) to one block, the one column block its
+    table has."""
+    pad = (-z.shape[0]) % block or (block if z.shape[0] == 0 else 0)
     return torch.cat([z, z.new_zeros((pad,) + tuple(z.shape[1:]))]) if pad else z.contiguous()
 
 
 def _on_device(kernel: str, plain, cuda, *args, **kw) -> torch.Tensor:
-    """The plain version on CPU tensors, the kernel on CUDA tensors."""
+    """The plain version on CPU tensors, the kernel on CUDA tensors (the
+    meta device takes each custom op's fake implementation instead)."""
     device = args[0].device
     if device.type == "cpu":
         return plain(*args, **kw)
     if device.type != "cuda":
         raise ValueError(f"{kernel} has no kernel for device {device}")
     return cuda(*args, **kw)
+
+
+# ------------------------------------------------------------- custom ops
+def _prod(shape) -> int:
+    out = 1
+    for n in shape:
+        out *= int(n)
+    return out
+
+
+def _k4_pairs(S: int, window: Optional[int], causal: bool, dtype: torch.dtype) -> int:
+    """The (query, key) pairs of one head that K4's body computes: for each
+    q-tile, its rows times the keys of the k-tiles it visits (`k_tiles`),
+    rows and keys past S not counted. The bf16 body's tiles for bf16, the
+    fp32 body's for any other dtype (``k4::block_rows``)."""
+    body = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
+    bq, bk = K4_BLOCK_ROWS[body], K4_TILE_KEYS[body]
+    window = S if window is None else int(window)
+    pairs = 0
+    for q0 in range(0, S, bq):
+        kt = k_tiles(q0, S, window, causal, body)
+        pairs += min(bq, S - q0) * (min(kt.stop * bk, S) - kt.start * bk)
+    return pairs
+
+
+def kernel_flops(name: str, *shapes, order: str = "feature_first", window: Optional[int] = None,
+                 causal: bool = True, dtype: torch.dtype = torch.float32) -> int:
+    """The FLOP formula of a kernel's custom op over its operands' shapes
+    (what ``FlopCounterMode`` adds for one call): ``k1_bsr_spmm`` (vals,
+    z), ``k2_fused_gcn_layer`` (vals, x, w) with ``order``,
+    ``k3_fm_interaction`` (emb), ``k4_flash_attention`` (q) with
+    ``window``, ``causal`` and q's ``dtype``, and the backward's
+    ``bsr_t_apply`` / ``bsr_dvals`` (vals, the row cotangent)."""
+    if name in ("k1_bsr_spmm", "bsr_t_apply", "bsr_dvals"):
+        (R, T, B, _), z = shapes
+        return 2 * R * T * B * B * int(z[-1])                 # every tile of the table: a B×B by B×F product
+    if name == "k2_fused_gcn_layer":
+        (R, T, B, _), x, w = shapes
+        f_in, f_out = int(w[0]), int(w[1])
+        if order == "feature_first":                          # Z = X·W over X's padded rows, then Ã·Z
+            return 2 * int(x[0]) * f_in * f_out + 2 * R * T * B * B * f_out
+        return 2 * R * T * B * B * f_in + 2 * R * B * f_in * f_out
+    if name == "k3_fm_interaction":
+        Bt, F, D = (int(n) for n in shapes[0])
+        return 3 * Bt * F * D + 3 * Bt * D                    # Σe and Σe² over fields, then ½(s² − q) over D
+    if name == "k4_flash_attention":
+        bh, S, d = (int(n) for n in shapes[0])
+        return 4 * bh * d * _k4_pairs(S, window, causal, dtype)   # Q·Kᵀ and P·V over the visited pairs
+    raise KeyError(name)
+
+
+@torch.library.custom_op("repro_torch::k1_bsr_spmm", mutates_args=())
+def _k1_op(vals: torch.Tensor, cols: torch.Tensor, lens: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    return _on_device("bsr_spmm", bsr_spmm_plain, bsr_spmm_cuda, vals, cols, lens, z)
+
+
+@_k1_op.register_fake
+def _(vals, cols, lens, z):
+    return z.new_empty((vals.shape[0] * vals.shape[2], z.shape[1]))
+
+
+@register_flop_formula(torch.ops.repro_torch.k1_bsr_spmm)
+def _(vals, cols, lens, z, *args, out_shape=None, **kwargs) -> int:
+    return kernel_flops("k1_bsr_spmm", vals, z)
+
+
+@torch.library.custom_op("repro_torch::k2_fused_gcn_layer", mutates_args=())
+def _k2_op(vals: torch.Tensor, cols: torch.Tensor, lens: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+           b: torch.Tensor, order: str, relu: bool) -> torch.Tensor:
+    return _on_device("fused_gcn_layer", fused_gcn_layer_plain, fused_gcn_layer_cuda,
+                      vals, cols, lens, x, w, b, order=order, relu=relu)
+
+
+@_k2_op.register_fake
+def _(vals, cols, lens, x, w, b, order, relu):
+    return x.new_empty((vals.shape[0] * vals.shape[2], w.shape[1]))
+
+
+@register_flop_formula(torch.ops.repro_torch.k2_fused_gcn_layer)
+def _(vals, cols, lens, x, w, b, order, relu, *args, out_shape=None, **kwargs) -> int:
+    return kernel_flops("k2_fused_gcn_layer", vals, x, w, order=order)
+
+
+@torch.library.custom_op("repro_torch::k3_fm_interaction", mutates_args=())
+def _k3_op(emb: torch.Tensor) -> torch.Tensor:
+    return _on_device("fm_interaction", fm_interaction_plain, fm_interaction_cuda, emb)
+
+
+@_k3_op.register_fake
+def _(emb):
+    return emb.new_empty((emb.shape[0],))
+
+
+@register_flop_formula(torch.ops.repro_torch.k3_fm_interaction)
+def _(emb, *args, out_shape=None, **kwargs) -> int:
+    return kernel_flops("k3_fm_interaction", emb)
+
+
+@torch.library.custom_op("repro_torch::k4_flash_attention", mutates_args=())
+def _k4_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[int], causal: bool) -> torch.Tensor:
+    return _on_device("flash_attention", flash_attention_plain, flash_attention_cuda, q, k, v,
+                      window=window, causal=causal)
+
+
+@_k4_op.register_fake
+def _(q, k, v, window, causal):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.k4_flash_attention, get_raw=True)
+def _(q, k, v, window, causal, *args, out_val=None, **kwargs) -> int:
+    return kernel_flops("k4_flash_attention", q.shape, window=window, causal=causal, dtype=q.dtype)
 
 
 def _check_devices(kernel: str, cols, lens, tensors: dict) -> None:
@@ -105,13 +246,15 @@ def _tile_mask(cols: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     return torch.arange(cols.shape[1], device=cols.device)[None, :] < lens[:, None]
 
 
-def _bsr_t_apply(vals, cols, pairs, g: torch.Tensor, n_z_rows: int) -> torch.Tensor:
+@torch.library.custom_op("repro_torch::bsr_t_apply", mutates_args=())
+def _bsr_t_apply(vals: torch.Tensor, cols: torch.Tensor, lens: torch.Tensor, g: torch.Tensor,
+                 n_z_rows: int) -> torch.Tensor:
     """Blocked-transpose apply: dZ[c] = Σ_{(r,t): cols[r,t]=c} vals[r,t]ᵀ·g[r].
 
-    ``pairs`` are the (r, t) indices of the valid tiles; ``g`` is (R·B, F)
-    row-cotangents. Returns (n_z_rows, F). Only valid tiles are read.
+    ``g`` is (R·B, F) row-cotangents. Returns (n_z_rows, F). Only valid
+    tiles (``t < lens[r]``) are read.
     """
-    r_idx, t_idx = pairs
+    r_idx, t_idx = _tile_mask(cols, lens).nonzero(as_tuple=True)
     R, _, B, _ = vals.shape
     F = g.shape[-1]
     contrib = torch.bmm(vals[r_idx, t_idx].float().transpose(1, 2), g.reshape(R, B, F)[r_idx])
@@ -119,21 +262,43 @@ def _bsr_t_apply(vals, cols, pairs, g: torch.Tensor, n_z_rows: int) -> torch.Ten
     return dz.reshape(n_z_rows, F)
 
 
-def _bsr_dvals(shape, cols, pairs, g: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """dvals[r,t] = g[r] · Z[cols[r,t]]ᵀ on valid tiles, zero on padding;
-    ``shape`` is vals' (R, T, B, B)."""
-    r_idx, t_idx = pairs
-    R, _, B, _ = shape
+@_bsr_t_apply.register_fake
+def _(vals, cols, lens, g, n_z_rows):
+    return g.new_empty((n_z_rows, g.shape[-1]))
+
+
+@register_flop_formula(torch.ops.repro_torch.bsr_t_apply)
+def _(vals, cols, lens, g, n_z_rows, *args, out_shape=None, **kwargs) -> int:
+    return kernel_flops("bsr_t_apply", vals, g)
+
+
+@torch.library.custom_op("repro_torch::bsr_dvals", mutates_args=())
+def _bsr_dvals(vals: torch.Tensor, cols: torch.Tensor, lens: torch.Tensor, g: torch.Tensor,
+               z: torch.Tensor) -> torch.Tensor:
+    """dvals[r,t] = g[r] · Z[cols[r,t]]ᵀ on valid tiles, zero on padding,
+    in fp32 of vals' (R, T, B, B) shape."""
+    r_idx, t_idx = _tile_mask(cols, lens).nonzero(as_tuple=True)
+    R, T, B, _ = vals.shape
     F = z.shape[-1]
     zb = z.reshape(-1, B, F)[cols[r_idx, t_idx].long()].float()
-    dvals = g.new_zeros(shape)
+    dvals = g.new_zeros((R, T, B, B))
     dvals[r_idx, t_idx] = torch.bmm(g.reshape(R, B, F)[r_idx], zb.transpose(1, 2))
     return dvals
 
 
+@_bsr_dvals.register_fake
+def _(vals, cols, lens, g, z):
+    return g.new_empty(tuple(vals.shape))
+
+
+@register_flop_formula(torch.ops.repro_torch.bsr_dvals)
+def _(vals, cols, lens, g, z, *args, out_shape=None, **kwargs) -> int:
+    return kernel_flops("bsr_dvals", vals, g)
+
+
 # --------------------------------------------------------- bsr_spmm (+ VJP)
 def _bsr_forward(vals, cols, lens, z) -> torch.Tensor:
-    return _on_device("bsr_spmm", bsr_spmm_plain, bsr_spmm_cuda, vals, cols, lens, z)
+    return _k1_op(vals, cols, lens, z)
 
 
 class _BsrSpmm(torch.autograd.Function):
@@ -147,10 +312,9 @@ class _BsrSpmm(torch.autograd.Function):
         """`_bsr_diff_bwd` of the reference, for the operands that ask."""
         vals, cols, lens, z = ctx.saved_tensors
         need_vals, need_z = ctx.needs_input_grad[0], ctx.needs_input_grad[3]
-        pairs = _tile_mask(cols, lens).nonzero(as_tuple=True)
         g = g.float()
-        dvals = _bsr_dvals(vals.shape, cols, pairs, g, z).to(vals.dtype) if need_vals else None
-        dz = _bsr_t_apply(vals, cols, pairs, g, z.shape[0]).to(z.dtype) if need_z else None
+        dvals = _bsr_dvals(vals, cols, lens, g, z).to(vals.dtype) if need_vals else None
+        dz = _bsr_t_apply(vals, cols, lens, g, z.shape[0]).to(z.dtype) if need_z else None
         return dvals, None, None, dz
 
 
@@ -175,8 +339,7 @@ def bsr_spmm(vals, cols, z, lens=None) -> torch.Tensor:
 class _FusedGcnLayer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, vals, cols, lens, x, w, b, order, relu):
-        out = _on_device("fused_gcn_layer", fused_gcn_layer_plain, fused_gcn_layer_cuda,
-                         vals, cols, lens, x, w, b.float(), order=order, relu=relu)
+        out = _k2_op(vals, cols, lens, x, w, b.float(), order, relu)
         ctx.order, ctx.relu = order, relu
         ctx.save_for_backward(vals, cols, lens, x, w, out)
         return out
@@ -189,7 +352,6 @@ class _FusedGcnLayer(torch.autograd.Function):
         the `bsr_spmm` forward. Each gradient leaves in its operand's dtype."""
         vals, cols, lens, x, w, out = ctx.saved_tensors
         need_vals, _, _, need_x, need_w, need_b = ctx.needs_input_grad[:6]
-        pairs = _tile_mask(cols, lens).nonzero(as_tuple=True)
         g = g.float()
         if ctx.relu:
             g = g * (out > 0)       # act' from the saved output: relu(pre) > 0 ⇔ pre > 0
@@ -200,9 +362,9 @@ class _FusedGcnLayer(torch.autograd.Function):
             # pre = Ã·(x@w) + b
             if need_vals:
                 z = (x.float() @ wf).to(x.dtype)                         # recompute Z
-                dvals = _bsr_dvals(vals.shape, cols, pairs, g, z)
+                dvals = _bsr_dvals(vals, cols, lens, g, z)
             if need_w or need_x:
-                dz = _bsr_t_apply(vals, cols, pairs, g, x.shape[0])      # Ãᵀ·dpre
+                dz = _bsr_t_apply(vals, cols, lens, g, x.shape[0])       # Ãᵀ·dpre
                 dw = x.float().T @ dz if need_w else None
                 dx = dz @ wf.T if need_x else None
         else:
@@ -213,8 +375,8 @@ class _FusedGcnLayer(torch.autograd.Function):
                 dw = _bsr_forward(vals, cols, lens, x).float().T @ g
             if need_vals or need_x:
                 dm = g @ wf.T                                            # (R·B, F_in)
-                dvals = _bsr_dvals(vals.shape, cols, pairs, dm, x) if need_vals else None
-                dx = _bsr_t_apply(vals, cols, pairs, dm, x.shape[0]) if need_x else None
+                dvals = _bsr_dvals(vals, cols, lens, dm, x) if need_vals else None
+                dx = _bsr_t_apply(vals, cols, lens, dm, x.shape[0]) if need_x else None
         return (
             None if dvals is None else dvals.to(vals.dtype), None, None,
             None if dx is None else dx.to(x.dtype), None if dw is None else dw.to(w.dtype),
@@ -251,7 +413,7 @@ class _FmInteraction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, emb):
         ctx.save_for_backward(emb)
-        return _on_device("fm_interaction", fm_interaction_plain, fm_interaction_cuda, emb)
+        return _k3_op(emb)
 
     @staticmethod
     def backward(ctx, g):
@@ -277,8 +439,7 @@ def fm_interaction(emb: torch.Tensor) -> torch.Tensor:
 
 # ---------------------------------------------------- flash_attention (+ VJP)
 def _flash_forward(q, k, v, window, causal) -> torch.Tensor:
-    return _on_device("flash_attention", flash_attention_plain, flash_attention_cuda, q, k, v,
-                      window=window, causal=causal)
+    return _k4_op(q, k, v, window, causal)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -190,6 +190,8 @@ def _print_report(rec: dict) -> None:
         print("calibration: every shared predicted field matches measured exactly")
     pods, payload = cfg["pods"], cfg["payload"] or "fp32"
     print("hand-off:")
+    print("  dryrun: PYTHONPATH=src python -m repro_torch.launch.dryrun --arch coin_gcn "
+          "--autotune-config <out.json>")
     print(f"  train : PYTHONPATH=src python -m repro_torch.launch.distributed_gcn --pods {pods} "
           f"--payload {payload} --backend {cfg['backend']}" + ("" if cfg["overlap"] else " --no-overlap"))
     print(f"  serve : PYTHONPATH=src python -m repro_torch.launch.serve --arch coin-gcn "

@@ -29,6 +29,14 @@ the axes, as ``jax.make_mesh`` ravels its devices), and, inside a rank,
 the data axes' product as the outer size). The sharded LM and DeepFM of
 `repro_torch.launch.steps` run on it.
 
+`production_grid` is the reference's ``make_production_mesh`` (16 × 16
+``(data, model)``, or 2 × 16 × 16 ``(pod, data, model)``), `halo_axes`
+its ``halo_axes``, and `fake_group` starts a `torch.distributed` group of
+the ``fake`` backend at a grid's size in this one process (one rank of the
+grid: every collective returns at once, on meta tensors too) and
+destroys it on exit — the dry run's stand-in for the reference's
+compile-only mesh (`repro_torch.launch.dryrun`).
+
 Inside a rank, `halo_groups` gives the subgroups of the hierarchical
 (pod, model) halo exchange — the counterpart of the reference's
 ``make_halo_mesh`` and ``halo_axes``: ranks are raveled pod-major, as the
@@ -38,8 +46,10 @@ reference's ``(pod, model)`` mesh ravels its devices and as
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
+import itertools
 import math
 import multiprocessing
 import os
@@ -53,7 +63,8 @@ from typing import Any, Callable
 import torch
 import torch.distributed as dist
 
-__all__ = ["GroupSpec", "run_group", "grid_groups", "halo_groups", "Grid", "data_axes"]
+__all__ = ["GroupSpec", "run_group", "grid_groups", "halo_groups", "Grid", "data_axes", "halo_axes",
+           "production_grid", "fake_group"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +115,7 @@ def _rank_main(rank: int, spec: GroupSpec, init_file: str, fn: Callable, arg: An
             out = fn(rank, spec.k, device, arg)
         finally:
             _GRID_GROUPS.clear()
+            _HALO_GROUPS.clear()
             dist.destroy_process_group()
         results.put((rank, True, out))
         released.wait(spec.timeout_s)
@@ -269,6 +281,84 @@ class Grid:
         if dist.get_world_size() != self.size:
             raise ValueError(f"the group has {dist.get_world_size()} ranks; the grid {self.shape} needs {self.size}")
         return grid_groups(self.n_data)
+
+    def halo_groups(self) -> tuple:
+        """This rank's groups of a full-graph GNN cell (the reference's
+        ``halo_axes``): ``(whole, pod, model)``. ``whole`` holds the ranks
+        that share its index on every axis but the halo axes (the graph is
+        sharded over them; the other axes replicate it), ``model`` those of
+        its own pod along ``model``, and ``pod`` those with its member index
+        across pods — ``None`` unless the pod axis is wider than one, when
+        ``whole`` is the flat schedule's group and ``model`` is ``whole``.
+        Built once per grid, every rank building every group in the same
+        order (`dist.new_group` needs all ranks)."""
+        if dist.get_world_size() != self.size:
+            raise ValueError(f"the group has {dist.get_world_size()} ranks; the grid {self.shape} needs {self.size}")
+        key = (self.axes, self.sizes)
+        if key not in _HALO_GROUPS:
+            hier = halo_axes(self) == ("pod", "model")
+            shard = ("pod", "model") if hier else ("model",)
+            rank = dist.get_rank()
+
+            def groups_over(axes):
+                """Every group of the ranks that differ only on ``axes``, in
+                a fixed order; the caller's own one."""
+                rest = [a for a in self.axes if a not in axes]
+                mine = None
+                for fixed in itertools.product(*(range(self.shape[a]) for a in rest)):
+                    members = [g for g in range(self.size)
+                               if all(self.coords(g)[a][0] == i for a, i in zip(rest, fixed))]
+                    group = dist.new_group(members)
+                    if rank in members:
+                        mine = group
+                return mine
+
+            whole = groups_over(shard)
+            if hier:
+                _HALO_GROUPS[key] = (whole, groups_over(("pod",)), groups_over(("model",)))
+            else:
+                _HALO_GROUPS[key] = (whole, None, whole)
+        return _HALO_GROUPS[key]
+
+
+# (axes, sizes) → this rank's (whole, pod, model) groups of `Grid.halo_groups`.
+_HALO_GROUPS: dict[tuple, tuple] = {}
+
+
+def halo_axes(grid: Grid) -> tuple[str, ...]:
+    """The axes a full-graph halo exchange runs over: ``("pod", "model")``
+    when the grid has a pod axis wider than one (the hierarchical
+    two-phase schedule), else ``("model",)`` (a pod axis of width 1 is no
+    hierarchy)."""
+    if "pod" in grid.axis_names and grid.shape["pod"] > 1:
+        return ("pod", "model")
+    return ("model",)
+
+
+def production_grid(multi_pod: bool = False) -> Grid:
+    """The reference's production mesh as a grid: 16 × 16 ``(data,
+    model)``, or 2 × 16 × 16 ``(pod, data, model)``."""
+    if multi_pod:
+        return Grid(("pod", "data", "model"), (2, 16, 16))
+    return Grid(("data", "model"), (16, 16))
+
+
+@contextlib.contextmanager
+def fake_group(grid: Grid, rank: int = 0):
+    """A process group of the ``fake`` backend of ``grid.size`` ranks in
+    this process, which plays rank ``rank``; destroyed (with every cached
+    subgroup) on exit. Refuses to start inside another group."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_group: this process already belongs to a process group")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=grid.size)
+    try:
+        yield grid
+    finally:
+        _GRID_GROUPS.clear()
+        _HALO_GROUPS.clear()
+        dist.destroy_process_group()
 
 
 def data_axes(grid: Grid) -> tuple[str, ...]:

@@ -139,8 +139,9 @@ def gnn_policy(grid: Grid, batched: bool, comm: str = "halo", halo_payload: str 
     binds the hierarchical pair and sets ``halo_groups``
     (`repro_torch.launch.mesh.halo_groups`), the reference's
     ``halo_axes=("pod", "model")``; ``"broadcast"`` carries the
-    reference's node specs (unsharded in the port: its neighbor table is
-    the identity)."""
+    reference's node specs, and a rank that binds it (`ShardingPolicy.bind`)
+    all-gathers the node table over its model group every layer (the
+    neighbor table of an unbound one is the identity)."""
     da = data_axes(grid)
     if batched:
         return ShardingPolicy(grid=grid, specs={
@@ -151,8 +152,9 @@ def gnn_policy(grid: Grid, batched: bool, comm: str = "halo", halo_payload: str 
     if comm not in ("halo", "broadcast"):
         raise ValueError(f"unknown comm mode {comm!r} (expected 'halo' or 'broadcast')")
     if comm == "halo":
-        return ShardingPolicy(grid=grid, comm="halo", halo_payload=halo_payload, halo_overlap=halo_overlap)
-    return ShardingPolicy(grid=grid, specs={
+        return ShardingPolicy(grid=grid, comm="halo", halo_payload=halo_payload, halo_overlap=halo_overlap,
+                              graph=True)
+    return ShardingPolicy(grid=grid, graph=True, specs={
         "node_hidden": spec("model", None),
         "edge_hidden": spec("model", None),
         "irrep_hidden": spec("model", None, None),

@@ -55,9 +55,9 @@ from repro_torch.dist.policy import NO_POLICY, ShardingPolicy
 from repro_torch.graph.ops import aggregate, aggregate_padded
 from repro_torch.graph.structure import BlockedAdjacency
 from repro_torch.kernels.ops import bsr_spmm, fused_gcn_layer
-from repro_torch.nn.layers import params_from_numpy
+from repro_torch.nn.layers import Draw, params_from_numpy
 
-__all__ = ["GCNConfig", "gcn_init", "params_from_numpy", "gcn_forward", "gcn_loss"]
+__all__ = ["GCNConfig", "gcn_param_plan", "gcn_init", "params_from_numpy", "gcn_forward", "gcn_loss"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +70,16 @@ class GCNConfig:
     @property
     def n_layers(self) -> int:
         return len(self.layer_dims) - 1
+
+
+def gcn_param_plan(cfg: GCNConfig) -> dict:
+    """`gcn_init`'s leaves as a plan (`repro_torch.nn.layers.Draw`):
+    Glorot-normal weights, zero biases."""
+    plan = {}
+    for i, (d_in, d_out) in enumerate(zip(cfg.layer_dims[:-1], cfg.layer_dims[1:])):
+        plan[f"w{i}"] = Draw((d_in, d_out), std=(2.0 / (d_in + d_out)) ** 0.5)
+        plan[f"b{i}"] = Draw((d_out,), "zeros")
+    return plan
 
 
 def gcn_init(generator: torch.Generator, cfg: GCNConfig, dtype=torch.float32,
@@ -130,7 +140,10 @@ def _normalize_adjacency(adjacency, device: torch.device):
                 f"cols (R, T); got shapes {getattr(vals, 'shape', None)} and "
                 f"{getattr(cols, 'shape', None)}"
             )
-        nnz = None if lens is None else int(lens.sum())
+        # A meta tensor (the dry run) has no count to read: it takes the
+        # reference's Tracer branch (nnz None), whose chooser falls back to
+        # the edge model.
+        nnz = None if lens is None or lens.device.type == "meta" else int(lens.sum())
         return vals, cols, lens, nnz, int(vals.shape[-1])
     raise ValueError(
         "backend='bsr' requires adjacency=BlockedAdjacency or its "
@@ -231,6 +244,10 @@ def gcn_forward(
                 return split_halo_aggregate(
                     z, policy.halo_block(z), senders, receivers, edge_weight
                 )
+            return aggregate(policy.neighbor_table(z), senders, receivers, n_nodes, edge_weight)
+        if policy.is_broadcast:
+            # Fig. 5c: senders index the all-gathered node table; padding
+            # edges carry weight 0.
             return aggregate(policy.neighbor_table(z), senders, receivers, n_nodes, edge_weight)
         if cfg.backend == "segment":
             return aggregate_padded(z, senders, receivers, n_nodes, edge_weight)

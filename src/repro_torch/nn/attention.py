@@ -235,10 +235,12 @@ def attention_decode(
     if kv_sharded:
         k, v = policy.model_gather(k, dim=2), policy.model_gather(v, dim=2)
     start = r * Smax
-    mine = (positions >= start) & (positions < start + Smax)
+    mine = ((positions >= start) & (positions < start + Smax))[:, None, None]
     at = (positions - start).clamp(0, Smax - 1)
-    ck[rows[mine], at[mine]] = k[mine, 0]
-    cv[rows[mine], at[mine]] = v[mine, 0]
+    # Only the rows whose position falls in this slice write; the others
+    # write back what they read (no mask-sized index: the same on every device).
+    ck[rows, at] = torch.where(mine, k[:, 0], ck[rows, at])
+    cv[rows, at] = torch.where(mine, v[:, 0], cv[rows, at])
     Hk = cfg.n_kv_heads
     qg = q_all.reshape(B, Hk, cfg.q_groups, hd) * (hd ** -0.5)
     s = torch.einsum("bhgd,bshd->bhgs", qg, ck).float()

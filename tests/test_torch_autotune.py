@@ -288,7 +288,8 @@ def test_cli_main_prints_the_ports_commands_and_exits_on_a_mismatch(monkeypatch,
     text = out.getvalue()
     assert rc == 0 and "calibration: every shared predicted field matches measured exactly" in text
     assert "python -m repro_torch.launch.distributed_gcn --pods 2" in text and "repro.launch" not in text
-    assert "dryrun" not in text and (tmp_path / "cfg.json").is_file()
+    assert ("PYTHONPATH=src python -m repro_torch.launch.dryrun --arch coin_gcn --autotune-config <out.json>"
+            in text and (tmp_path / "cfg.json").is_file())
     real = tla.run_autotune
     monkeypatch.setattr(tla, "run_autotune", lambda **kw: {**real(**kw), "calibration_mismatches": {"x": (1, 2)}})
     with contextlib.redirect_stdout(io.StringIO()):
