@@ -1,9 +1,5 @@
 """Registry mapping --arch ids to model configs and their input shapes —
-twin of `repro.configs.registry` for the architectures the port has reached.
-
-Every id the reference knows is known here; an id whose model the port has
-not reached yet raises `NotImplementedError` instead of a config.
-"""
+twin of `repro.configs.registry`: every id the reference knows."""
 from __future__ import annotations
 
 import dataclasses
@@ -124,11 +120,10 @@ _MODULES = {
     "egnn": "repro_torch.configs.egnn",
     "graphcast": "repro_torch.configs.graphcast",
     "pna": "repro_torch.configs.pna",
+    "equiformer-v2": "repro_torch.configs.equiformer_v2",
     "deepfm": "repro_torch.configs.deepfm",
     "coin_gcn": "repro_torch.configs.coin_gcn",
 }
-# The slice of the port (ROADMAP.md) that brings each architecture not ported yet.
-_WAITING = {"equiformer-v2": "the equiformer-v2 slice (models/equiformer_v2.py, nn/so3.py)"}
 
 
 def get_arch(arch_id: str) -> ArchSpec:
@@ -137,9 +132,4 @@ def get_arch(arch_id: str) -> ArchSpec:
         arch_id = arch_id.replace("-", "_")
     if arch_id not in ALL_ARCHS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ALL_ARCHS)}")
-    if arch_id not in _MODULES:
-        then = f"; it comes with {_WAITING[arch_id]}" if arch_id in _WAITING else ""
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported to PyTorch yet{then}; ported: {sorted(_MODULES)}"
-        )
     return importlib.import_module(_MODULES[arch_id]).SPEC

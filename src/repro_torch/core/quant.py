@@ -129,8 +129,10 @@ def dequantize_payload(
     """Decode gathered wire rows back to ``dtype``.
 
     For int8, ``scale`` holds one row per gathered export block — shape
-    (n_blocks, 1) against wire (n_blocks·s, d) — and each block is rescaled
-    by its sender's amax/127.
+    (n_blocks, 1) against wire (n_blocks·s, ...) — and each block is
+    rescaled by its sender's amax/127. The wire's trailing shape is kept:
+    an (n_blocks·s, K, C) table (EquiformerV2's irreps) decodes to that
+    shape, where the reference's reshape to (rows, -1) would flatten it.
     """
     if scale is None:
         return wire.to(dtype)
@@ -138,5 +140,5 @@ def dequantize_payload(
     rows = wire.shape[0]
     if n_blocks > 1 and rows:
         per = rows // n_blocks
-        return (wire.to(dtype).reshape(n_blocks, per, -1) * scale[:, :, None]).reshape(rows, -1)
+        return (wire.to(dtype).reshape(n_blocks, per, -1) * scale[:, :, None]).reshape(wire.shape)
     return wire.to(dtype) * scale[0]

@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import math
 import time
 from typing import Callable
 
@@ -1301,7 +1302,8 @@ def halo_exchange(
     """Exchange boundary rows across the ranks of ``group`` (the default
     group when None), called by every rank of it.
 
-    h        — (n_local, d) this rank's block.
+    h        — (n_local, d) this rank's block, or (n_local, K, C): a row
+               is everything past the first axis, and keeps its shape.
     send_idx — (s_max,) local rows this rank exports.
     payload  — wire format (`repro_torch.core.quant.quantize_payload`):
                None/"fp32" ships raw rows; "bf16"/"int8" quantize the export
@@ -1312,15 +1314,16 @@ def halo_exchange(
     are redundant but keep the indexing uniform).
 
     With metrics on (`repro_torch.obs.metrics`), counts the rows and bytes
-    this rank received (``halo.wire_rows``, ``halo.wire_bytes``) and the
-    exchanges (``halo.exchanges_run``).
+    this rank received (``halo.wire_rows``; ``halo.wire_bytes``, whole
+    rows: ``prod(h.shape[1:])`` elements each) and the exchanges
+    (``halo.exchanges_run``).
     """
     halo = _quantized_gather(h[send_idx.long()], group, via, payload)
     if _obs_metrics.enabled():
         rows = int(halo.shape[0])
         _obs_metrics.inc("halo.exchanges_run")
         _obs_metrics.inc("halo.wire_rows", rows)
-        _obs_metrics.inc("halo.wire_bytes", rows * int(h.shape[1]) * payload_bits(payload) / 8)
+        _obs_metrics.inc("halo.wire_bytes", rows * math.prod(h.shape[1:]) * payload_bits(payload) / 8)
     return halo
 
 
@@ -1366,7 +1369,7 @@ def hier_halo_exchange(
     inter = _hier_phase1_start(h, send_rem, pod_group, via, payload)()
     halo = _hier_phase2(h, send_loc, inter, model_group, via, payload)
     if _obs_metrics.enabled():
-        bytes_per_row = int(h.shape[1]) * payload_bits(payload) / 8
+        bytes_per_row = math.prod(h.shape[1:]) * payload_bits(payload) / 8
         _obs_metrics.inc("halo.exchanges_run")
         for phase, rows in (("inter_pod", int(inter.shape[0])), ("intra_pod", int(halo.shape[0]))):
             _obs_metrics.inc("halo.wire_rows", rows)

@@ -434,7 +434,7 @@ class ShardingPolicy:
         return (self.is_halo or self.is_broadcast) and not _alone(self.group)
 
     def replicate(self, params: Any) -> Any:
-        """``params`` (a tree of dicts) as the parameters every rank holds
+        """``params`` (a tree of dicts and lists) as the parameters every rank holds
         alike: under an armed halo or a bound broadcast, :func:`replicate`
         of each leaf over the group, as the reference's closed-over
         parameters are replicated leaf by leaf; otherwise themselves."""
@@ -442,7 +442,9 @@ class ShardingPolicy:
             return params
 
         def walk(p):
-            return {name: walk(v) for name, v in p.items()} if isinstance(p, dict) else replicate(p, self.group)
+            if isinstance(p, dict):
+                return {name: walk(v) for name, v in p.items()}
+            return [walk(v) for v in p] if isinstance(p, list) else replicate(p, self.group)
 
         return walk(params)
 

@@ -17,6 +17,7 @@ from repro_torch.graph.ops import (
     multi_aggregate_edges,
     segment_max,
     segment_min,
+    segment_softmax,
     segment_sum,
     sym_norm_edge_weights,
 )
@@ -48,6 +49,7 @@ __all__ = [
     "segment_sum",
     "segment_max",
     "segment_min",
+    "segment_softmax",
     "multi_aggregate",
     "multi_aggregate_edges",
     "sym_norm_edge_weights",

@@ -26,6 +26,7 @@ __all__ = [
     "segment_min",
     "multi_aggregate",
     "multi_aggregate_edges",
+    "segment_softmax",
 ]
 
 
@@ -184,3 +185,15 @@ def multi_aggregate_edges(
         "min": _zero_nonfinite(segment_min(mmin, receivers, num_nodes)),
         "std": _std(sqsum, mean, cnt),
     }
+
+
+def segment_softmax(logits: torch.Tensor, receivers: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    """Numerically-stable per-destination softmax over incoming edges (GAT):
+    each segment's max (from −inf; a non-finite max, an empty segment's or
+    one whose logits are all −inf, becomes 0) is subtracted before the
+    exponential, and the sum is floored at 1e-16."""
+    r = receivers.long()
+    seg_max = _zero_nonfinite(segment_max(logits, r, num_nodes))
+    expd = torch.exp(logits - seg_max.index_select(0, r))
+    denom = segment_sum(expd, r, num_nodes)
+    return expd / denom.index_select(0, r).clamp_min(1e-16)

@@ -258,7 +258,7 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool, verbose: bool = Tru
     """One cell's record for rank 0 of ``grid`` (by default the production
     grid, `repro_torch.launch.mesh.production_grid`): ``OK`` with the
     step's counts, ``SKIP`` for a shape with a ``skip_reason``, or ``FAIL``
-    with the exception's message (equiformer-v2 names its slice). Runs
+    with the exception's message. Runs
     inside a fake group of the grid's size, so the caller must not be in a
     process group."""
     from repro_torch.configs.registry import get_arch
@@ -444,7 +444,7 @@ def _save(path: str, records: list[dict]) -> None:
 
 
 def main(argv=None) -> int:
-    from repro_torch.configs.registry import ALL_ARCHS, get_arch, gnn_shapes
+    from repro_torch.configs.registry import ALL_ARCHS, get_arch
     from repro_torch.launch.mesh import production_grid
 
     ap = argparse.ArgumentParser(description="The port's dry run: one rank of each cell, traced on meta tensors.")
@@ -481,10 +481,7 @@ def main(argv=None) -> int:
     failures = 0
     with obs_session(args):
         for arch_id in archs:
-            try:
-                shapes = [args.shape] if args.shape else list(get_arch(arch_id).shapes)
-            except NotImplementedError:
-                shapes = [args.shape] if args.shape else list(gnn_shapes())
+            shapes = [args.shape] if args.shape else list(get_arch(arch_id).shapes)
             for shape_name in shapes:
                 for multi in meshes:
                     key = (arch_id, shape_name, mesh_tag(production_grid(multi), args.optimized, comm, payload))

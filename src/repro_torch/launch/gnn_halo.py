@@ -1,7 +1,8 @@
-"""Sharded (halo) forwards of PNA, EGNN and GraphCast over a k-rank
-`torch.distributed` group — the halo branches of the reference's
-``pna_forward`` / ``egnn_forward`` / ``graphcast_forward``, run the way
-tests/test_overlap_halo.py runs PNA's inside ``shard_map``.
+"""Sharded (halo) forwards of PNA, EGNN, GraphCast and EquiformerV2 over a
+k-rank `torch.distributed` group — the halo branches of the reference's
+``pna_forward`` / ``egnn_forward`` / ``graphcast_forward`` /
+``equiformer_forward``, run the way tests/test_overlap_halo.py runs PNA's
+inside ``shard_map``.
 
 Every rank holds its block of the nodes (`repro_torch.dist.halo.
 relocate_node_array`) and its slice of the plan's edges; each layer's
@@ -12,7 +13,10 @@ GraphCast's edge features are the endpoints' relative positions
 (`repro_torch.models.graphcast.relative_edge_feats`), computed on each
 rank from one exchange of the positions (always fp32: they are inputs,
 exchanged once, not activations), so the sharded and unsharded runs see
-the same features with no edge permutation.
+the same features with no edge permutation. EquiformerV2 exchanges its
+positions once a forward and its normed (n, (l_max+1)², C) irrep table
+every layer, both through ``policy.neighbor_table`` in the policy's wire
+format, as the reference's model does.
 
 `gnn_halo_rank` is the rank body (`repro_torch.launch.mesh.run_group`),
 shared by tests/test_torch_gnn_halo.py and ``chip_smoke.py``: it runs one
@@ -52,8 +56,10 @@ class GNNHaloJob:
 
 
 def exchange_width(arch: str, cfg) -> int:
-    """The width of one layer's exchanged rows: h (pna, graphcast) or
-    ``[x ‖ h]`` (egnn)."""
+    """The elements of one layer's exchanged row: h (pna, graphcast),
+    ``[x ‖ h]`` (egnn) or the (l_max+1)² × C irreps (equiformer-v2)."""
+    if arch == "equiformer-v2":
+        return cfg.k_comps * cfg.d_hidden
     return cfg.d_hidden + 3 if arch == "egnn" else cfg.d_hidden
 
 
@@ -75,6 +81,10 @@ def gnn_forward(arch: str, params: dict, cfg, x: torch.Tensor, pos: torch.Tensor
         pos_table = dataclasses.replace(policy, halo_payload=None).neighbor_table(pos)
         feats = relative_edge_feats(pos_table, pos, senders, receivers)
         return graphcast_forward(params, x, feats, senders, receivers, cfg, policy, edge_mask=edge_mask)
+    if arch == "equiformer-v2":
+        from repro_torch.models.equiformer_v2 import equiformer_forward
+
+        return equiformer_forward(params, x, pos, senders, receivers, cfg, policy, edge_mask=edge_mask)
     raise KeyError(arch)
 
 

@@ -34,8 +34,8 @@ coin_gcn/pna/egnn). With
 graph halfway through the stream: each goes to the engine
 (`apply_graph_delta`) and to a mirrored `DeltaPlanner` whose
 `RelocalizePolicy` (patience 2, cooldown 3) may re-localize it; the engine
-then adopts the new partition. ``equiformer-v2`` comes with a later
-slice of the port and raises `NotImplementedError` naming it.
+then adopts the new partition. ``equiformer-v2`` exits with the
+reference's message too: the reference serves no equiformer-v2.
 """
 from __future__ import annotations
 
@@ -51,9 +51,6 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.obsflags import add_obs_args, obs_session
 
 __all__ = ["serve_lm", "serve_recsys", "build_graph_engine", "serve_graph", "main"]
-
-# The slice of the port (ROADMAP.md) that brings serving for each architecture.
-_WAITING = {"equiformer-v2": "the equiformer-v2 slice (models/equiformer_v2.py, nn/so3.py)"}
 
 
 def _sync(device: torch.device) -> None:
@@ -288,12 +285,7 @@ def main(argv=None) -> None:
 
 
 def run(args) -> None:
-    arch = args.arch.replace("-", "_") if args.arch.replace("-", "_") in ALL_ARCHS else args.arch
-    if arch in _WAITING:
-        raise NotImplementedError(
-            f"serving --arch {args.arch} is not ported to PyTorch yet; it comes with {_WAITING[arch]} "
-            "(ROADMAP.md)")
-    spec = get_arch(arch)
+    spec = get_arch(args.arch)
     if spec.family == "gnn":
         serve_graph(spec, args.queries, resolve_device(args.device), batch_seeds=args.batch_seeds,
                     fanout=args.fanout, cache_capacity=0 if args.no_cache else args.cache_capacity,

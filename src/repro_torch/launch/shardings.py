@@ -64,6 +64,8 @@ def spec(*entries) -> tuple:
 def _map_with_path(fn, tree, path=()):
     if isinstance(tree, dict):
         return {k: _map_with_path(fn, tree[k], (*path, k)) for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [_map_with_path(fn, v, (*path, i)) for i, v in enumerate(tree)]
     return fn(path, tree)
 
 
@@ -210,4 +212,6 @@ def shard_tree(tree: Any, specs: Any, coords: dict) -> Any:
 
     if isinstance(tree, dict):
         return {k: shard_tree(tree[k], specs[k], coords) for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [shard_tree(v, s, coords) for v, s in zip(tree, specs, strict=True)]
     return cut(tree, specs)

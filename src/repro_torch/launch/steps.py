@@ -48,10 +48,10 @@ the dry run's `exchange_accounting` reads.
 
 A caller may pass a `ShapeSpec` cut in ``global_batch``, ``seq_len`` or
 ``batch`` (and an `ArchSpec` whose config is cut in depth), never in
-width. equiformer-v2's cells raise, naming its slice (ROADMAP.md queue 1
-item 4). The reference's ``Cell.lower``, ``cost_cells`` and the dry run's
-cost extrapolation have no counterpart: the port traces every layer
-eagerly, so no rolled loop body needs its count corrected.
+width. The reference's ``Cell.lower``, ``cost_cells`` and the dry run's
+cost extrapolation have no counterpart: the port traces every layer (and
+every edge chunk of equiformer-v2) eagerly, so no rolled loop body needs
+its count corrected.
 """
 from __future__ import annotations
 
@@ -115,6 +115,8 @@ def draw_tree(seed: int, plan: Any, dtype, device, specs: Any = None, coords: di
     def walk(p, s, path):
         if isinstance(p, dict):
             return {k: walk(p[k], None if s is None else s[k], f"{path}/{k}") for k in sorted(p)}
+        if isinstance(p, list):
+            return [walk(v, None if s is None else s[i], f"{path}/{i}") for i, v in enumerate(p)]
         block = None if s is None else sh.shard_slices(p.shape, s, coords or {})
         return draw_leaf(seed, path, p, dtype, device, block)
 
@@ -386,7 +388,7 @@ def _gnn_loss_fn(arch_id: str, cfg, policy=None, n_loss_nodes: int | None = None
     batch)``), sliced to the first ``n_loss_nodes`` rows for sampled
     blocks — losses are computed on the seed nodes only; ``coin_gcn`` is
     `gcn_loss`. ``batch`` holds ``feats``, ``senders``, ``receivers``
-    and ``target`` (``pos`` for egnn, ``edge_feats`` for graphcast;
+    and ``target`` (``pos`` for egnn and equiformer-v2, ``edge_feats`` for graphcast;
     ``edge_weight``, ``labels`` and ``label_mask`` for coin_gcn); an
     ``edge_mask`` entry, when present, goes to the forward (padding edges
     of a block; the reference's batches have none)."""
@@ -427,8 +429,12 @@ def _gnn_loss_fn(arch_id: str, cfg, policy=None, n_loss_nodes: int | None = None
             return gcn_loss(params, batch["feats"], batch["senders"], batch["receivers"], batch["edge_weight"],
                             batch["labels"], batch["label_mask"], cfg, policy)
     elif arch_id == "equiformer-v2":
-        raise NotImplementedError("equiformer-v2's loss comes with the equiformer-v2 slice "
-                                  "(models/equiformer_v2.py, nn/so3.py)")
+        from repro_torch.models.equiformer_v2 import equiformer_forward
+
+        def loss(params, batch):
+            pred = equiformer_forward(params, batch["feats"], batch["pos"], batch["senders"], batch["receivers"],
+                                      cfg, policy, edge_mask=batch.get("edge_mask"))
+            return _mse(pred, batch["target"])
     else:
         raise KeyError(arch_id)
     return loss
@@ -455,12 +461,10 @@ def _gnn_params(arch_id: str, cfg) -> dict:
 
         return gcn_param_plan(cfg)
     if arch_id == "equiformer-v2":
-        raise NotImplementedError(_EQUIFORMER)
+        from repro_torch.models.equiformer_v2 import equiformer_param_plan
+
+        return equiformer_param_plan(cfg)
     raise KeyError(arch_id)
-
-
-_EQUIFORMER = ("equiformer-v2's cells come with the equiformer-v2 slice (ROADMAP.md queue 1 item 4: "
-               "models/equiformer_v2.py, nn/so3.py)")
 
 
 def _pad_to(x: int, mult: int) -> int:
@@ -489,6 +493,13 @@ def _gnn_flops(arch_id: str, shape: ShapeSpec, cfg, bsr_stats: dict | None = Non
     blocked cost model (nnz_blocks·B²·F)."""
     n, e = float(shape.n_nodes), float(shape.n_edges)
     L = cfg.n_layers
+    if arch_id == "equiformer-v2":
+        C, lmax, mmax = cfg.d_hidden, cfg.l_max, cfg.m_max
+        so2 = ((lmax + 1) * C) ** 2 + 2 * sum(2 * ((lmax + 1 - m) * C) ** 2 for m in range(1, mmax + 1))
+        rot = 2 * sum((2 * l + 1) ** 2 for l in range(lmax + 1)) * C   # D + Dᵀ apply
+        attn = (2 * C + cfg.n_rbf) * C + C * cfg.n_heads
+        ffn_n = C * 2 * C + 2 * C * C + lmax * C * C                   # scalar MLP + per-l mix
+        return 2.0 * L * (e * (so2 + rot + attn) + n * ffn_n)
     if arch_id == "egnn":
         d = cfg.d_hidden
         per_e = (2 * d + 1) * d + d * d + (d * d + d)                  # φ_e (2-layer) + φ_x
@@ -515,8 +526,6 @@ def _gnn_flops(arch_id: str, shape: ShapeSpec, cfg, bsr_stats: dict | None = Non
             else:
                 total += n * d_in * d_out + e * d_out                  # feature-first
         return 2.0 * total
-    if arch_id == "equiformer-v2":
-        raise NotImplementedError(_EQUIFORMER)
     d = getattr(cfg, "d_hidden", 512)
     return 2.0 * L * (n * d * d + e * d)
 
@@ -633,6 +642,11 @@ def _gnn_device_loss(arch_id: str, cfg) -> Callable:
 
             pred = graphcast_forward(params, b["feats"], b["edge_feats"], b["senders"], b["receivers"], cfg, pol,
                                      edge_mask=edge_mask)
+        elif arch_id == "equiformer-v2":
+            from repro_torch.models.equiformer_v2 import equiformer_forward
+
+            pred = equiformer_forward(params, b["feats"], b["pos"], b["senders"], b["receivers"], cfg, pol,
+                                      edge_mask=edge_mask)
         else:
             raise KeyError(arch_id)
         sq = (pred.float() - b["target"]).square().sum(dim=-1)
@@ -718,7 +732,7 @@ def _gnn_halo_cell(spec: ArchSpec, shape: ShapeSpec, grid: Grid, cfg, dtype, pay
               else {"send_idx": ((plan.s_max,), i32)})
     shapes.update(feats=((n_local, shape.d_feat), f32), senders=((e_local,), i32), receivers=((e_local,), i32),
                   edge_w=((e_local,), f32))
-    if arch == "egnn":
+    if arch in ("egnn", "equiformer-v2"):
         shapes["pos"] = ((n_local, 3), f32)
     if arch == "graphcast":
         shapes["edge_feats"] = ((e_local, cfg.d_edge_in), f32)
@@ -829,7 +843,7 @@ def _gnn_broadcast_cell(spec: ArchSpec, shape: ShapeSpec, grid: Grid, cfg, dtype
     f32, i32 = _float_dtype(dtype), torch.int32
     shapes = dict(feats=((n_local, shape.d_feat), f32), senders=((e_local,), i32), receivers=((e_local,), i32),
                   edge_w=((e_local,), f32))
-    if arch == "egnn":
+    if arch in ("egnn", "equiformer-v2"):
         shapes["pos"] = ((n_local, 3), f32)
     if arch == "graphcast":
         shapes["edge_feats"] = ((e_local, cfg.d_edge_in), f32)
@@ -903,7 +917,7 @@ def _gnn_sampled_cell(spec: ArchSpec, shape: ShapeSpec, grid: Grid, cfg, dtype) 
     f32, i32 = _float_dtype(dtype), torch.int32
     n_out = cfg.n_vars if arch == "graphcast" else getattr(cfg, "d_out", None)
     shapes = dict(feats=((n, shape.d_feat), f32), senders=((e,), i32), receivers=((e,), i32))
-    if arch == "egnn":
+    if arch in ("egnn", "equiformer-v2"):
         shapes["pos"] = ((n, 3), f32)
     if arch == "graphcast":
         shapes["edge_feats"] = ((e, cfg.d_edge_in), f32)
@@ -935,9 +949,9 @@ def _gnn_sampled_cell(spec: ArchSpec, shape: ShapeSpec, grid: Grid, cfg, dtype) 
         senders, receivers = _sampled_block(shape)
         arrays = dict(feats=rng.standard_normal((n, shape.d_feat), dtype=np.float32), senders=senders,
                       receivers=receivers)
-        if arch in ("egnn", "graphcast"):
+        if arch in ("egnn", "equiformer-v2", "graphcast"):
             pos = rng.standard_normal((n, 3), dtype=np.float32)
-            if arch == "egnn":
+            if arch != "graphcast":
                 arrays["pos"] = pos
             else:
                 arrays["edge_feats"] = _edge_feats(pos, senders, receivers)
@@ -965,10 +979,14 @@ def _gnn_cell(spec: ArchSpec, shape: ShapeSpec, grid: Grid, dtype, comm: str | N
     """The reference's `_gnn_cell`: sampled shapes take the sampled-block
     cell, full graphs the halo schedule (``comm`` None or ``"halo"``) or
     the broadcast one; ``optimized`` turns a full-graph coin_gcn halo cell
-    to ``backend="bsr"`` (K1 on each rank's split blocked tables)."""
-    if spec.arch_id == "equiformer-v2":
-        raise NotImplementedError(_EQUIFORMER)
+    to ``backend="bsr"`` (K1 on each rank's split blocked tables); an
+    equiformer-v2 cell over more than 2,000,000 edges (the shape's, as the
+    reference counts them) runs its messages in 64 chunks of
+    ``ceil(n_edges / 64)`` edges."""
     cfg = spec.make_config(shape)
+    if spec.arch_id == "equiformer-v2" and (shape.n_edges or 0) > 2_000_000 and cfg.edge_chunk is None:
+        # The reference's big-edge rule: 64 chunks bound the (chunk, K, C) irrep tensor.
+        cfg = dataclasses.replace(cfg, edge_chunk=-(-shape.n_edges // 64))
     sampled = shape.batch_nodes is not None
     if optimized and spec.arch_id == "coin_gcn" and not sampled and comm != "broadcast":
         cfg = dataclasses.replace(cfg, backend="bsr")

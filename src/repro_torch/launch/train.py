@@ -13,10 +13,11 @@ Runs the REDUCED config of ``--arch`` on one device (the CUDA card unless
 ``--device`` names another): synthetic data → eager train step → AdamW →
 checkpointing → straggler monitor, resuming from the latest checkpoint
 under ``--ckpt-dir``. For a GNN (``coin_gcn``, ``pna``, ``egnn``,
-``graphcast``) this is the reference's ``_gnn_setup``:
+``graphcast``, ``equiformer-v2``) this is the reference's ``_gnn_setup``:
 ``citation_like(256, 1024, seed=0)``, the reduced config, seeded
-``default_rng(0)`` features (then ``pos`` for egnn, random ``edge_feats``
-for graphcast, and a 0.1-scaled regression target), and the loss of
+``default_rng(0)`` features (then ``pos`` for egnn and equiformer-v2,
+random ``edge_feats`` for graphcast, and a 0.1-scaled regression target),
+and the loss of
 `repro_torch.launch.steps._gnn_loss_fn` (for coin_gcn `gcn_loss` with the
 segment backend and 4-bit QAT). For ``deepfm`` it
 is ``_recsys_setup``: the reduced DeepFM config (8 fields, MLP 32-32-32),
@@ -57,9 +58,6 @@ from repro_torch.train.optimizer import adamw
 
 __all__ = ["main"]
 
-# The slice of the port (ROADMAP.md) that brings each architecture not ported yet.
-_WAITING = {"equiformer-v2": "the equiformer-v2 slice (models/equiformer_v2.py, nn/so3.py)"}
-
 
 def _init_gnn(arch_id: str, cfg, device: torch.device) -> dict:
     """The GNN's parameters from ``torch.Generator().manual_seed(0)``."""
@@ -76,6 +74,10 @@ def _init_gnn(arch_id: str, cfg, device: torch.device) -> dict:
         from repro_torch.models.graphcast import graphcast_init
 
         return graphcast_init(gen, cfg, device=device)
+    if arch_id == "equiformer-v2":
+        from repro_torch.models.equiformer_v2 import equiformer_init
+
+        return equiformer_init(gen, cfg, device=device)
     return gcn_init(gen, cfg, device=device)
 
 
@@ -92,7 +94,7 @@ def _gnn_setup(spec, device: torch.device, relocalize_threshold: float = 0.0):
         "senders": torch.from_numpy(g.edge_index[0]),
         "receivers": torch.from_numpy(g.edge_index[1]),
     }
-    if spec.arch_id == "egnn":
+    if spec.arch_id in ("egnn", "equiformer-v2"):
         batch["pos"] = torch.from_numpy(rng.standard_normal((g.n_nodes, 3)).astype(np.float32))
     if spec.arch_id == "graphcast":
         batch["edge_feats"] = torch.from_numpy(rng.standard_normal((g.n_edges, cfg.d_edge_in)).astype(np.float32))
@@ -185,7 +187,7 @@ def _lm_setup(spec, device: torch.device, batch: int = 4, seq: int = 64):
     return params, (lambda p, b: lm_loss(p, b, cfg)), batches
 
 
-_GNN = ("coin_gcn", "pna", "egnn", "graphcast")
+_GNN = ("coin_gcn", "pna", "egnn", "graphcast", "equiformer-v2")
 _SETUPS = {**dict.fromkeys(_GNN, _gnn_setup), "deepfm": _recsys_setup,
            **dict.fromkeys(("gemma3-12b", "granite-34b", "stablelm-12b", "moonshot-v1-16b-a3b", "olmoe-1b-7b"),
                            _lm_setup)}
@@ -210,11 +212,6 @@ def main(argv=None) -> None:
 
 
 def run(args) -> None:
-    if args.arch not in _SETUPS:
-        raise NotImplementedError(
-            f"--arch {args.arch} is not ported to PyTorch yet; it comes with {_WAITING[args.arch]} "
-            "(ROADMAP.md)"
-        )
     setup = _SETUPS[args.arch]
     if args.relocalize_threshold > 0:
         if args.arch not in _GNN:

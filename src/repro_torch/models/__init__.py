@@ -1,7 +1,13 @@
-"""Models: the paper's GCN, the GNN families (PNA, EGNN, GraphCast), DeepFM
-and the decoder-only LM (dense and MoE)."""
+"""Models: the paper's GCN, the GNN families (PNA, EGNN, GraphCast,
+EquiformerV2), DeepFM and the decoder-only LM (dense and MoE)."""
 
 from repro_torch.models.egnn import EGNNConfig, egnn_forward, egnn_init, egnn_loss
+from repro_torch.models.equiformer_v2 import (
+    EquiformerV2Config,
+    equiformer_forward,
+    equiformer_init,
+    equiformer_loss,
+)
 from repro_torch.models.gcn import GCNConfig, gcn_forward, gcn_init, gcn_loss
 from repro_torch.models.graphcast import (
     GraphCastConfig,
@@ -39,6 +45,10 @@ __all__ = [
     "graphcast_forward",
     "graphcast_loss",
     "icosphere_sizes",
+    "EquiformerV2Config",
+    "equiformer_init",
+    "equiformer_forward",
+    "equiformer_loss",
     "LMConfig",
     "lm_init",
     "lm_forward",

@@ -64,13 +64,15 @@ class Draw:
 
 def init_tree(generator: torch.Generator, plan: dict, dtype=torch.float32,
               device: str | torch.device | None = None) -> dict:
-    """The parameters ``plan`` describes, every normal leaf drawn whole from
-    ``generator`` in the plan's order."""
+    """The parameters ``plan`` (dicts and lists of `Draw` leaves) describes,
+    every normal leaf drawn whole from ``generator`` in the plan's order."""
     device = resolve_device(device)
 
     def walk(p):
         if isinstance(p, dict):
             return {k: walk(v) for k, v in p.items()}
+        if isinstance(p, list):
+            return [walk(v) for v in p]
         if p.kind == "normal":
             return normal(generator, p.shape, dtype, device).mul_(p.std)
         return (torch.ones if p.kind == "ones" else torch.zeros)(p.shape, dtype=dtype, device=device)

@@ -1,6 +1,6 @@
 """The rank bodies of the process groups of tests/test_torch_halo.py,
-tests/test_torch_halo_train.py, tests/test_torch_hier_halo.py and
-tests/test_torch_delta_group.py.
+tests/test_torch_halo_train.py, tests/test_torch_hier_halo.py,
+tests/test_torch_delta_group.py and tests/test_torch_equiformer.py.
 
 The spawned ranks import this module by name (the test directory is on
 their path), so it imports neither JAX nor `repro`: only torch, numpy and
@@ -189,4 +189,43 @@ def delta_group(rank: int, k: int, device: torch.device, job) -> dict:
 
     out = delta_rank(rank, k, device, job)
     out["pod_groups"] = [dist.get_process_group_ranks(g) for g in halo_groups(job.pods)]
+    return out
+
+
+def rank3_exchange(rank: int, k: int, device: torch.device, job: dict) -> dict:
+    """tests/test_torch_equiformer.py's rank body: this rank's (n_local, K, C)
+    block of ``job["tables"]`` through `halo_exchange` per (wire format,
+    lowering) — the halo block, the rows and bytes its forward counted, and
+    for fp32 and bf16 the pull-back of a ones cotangent with the bytes the
+    backward counted — and through `hier_halo_exchange` on ``job["pods"]``
+    pods (fp32): the block's shape, its bytes and its inter-pod rows."""
+    from repro_torch.dist.halo import hier_halo_exchange
+    from repro_torch.launch.mesh import halo_groups
+    from repro_torch.obs import metrics
+
+    send_idx = torch.from_numpy(job["send_idx"][rank]).to(device)
+    out = {}
+    for payload in PAYLOADS:
+        for via in VIAS:
+            h = torch.from_numpy(job["tables"][rank]).to(device).requires_grad_(True)
+            registry = metrics.enable(metrics.MetricsRegistry())
+            try:
+                halo = halo_exchange(h, send_idx, via=via, payload=payload)
+                rec = dict(halo=halo.detach().numpy(), wire_rows=registry.counter("halo.wire_rows").value,
+                           wire_bytes=registry.counter("halo.wire_bytes").value)
+                if payload != "int8":
+                    rec["grad"] = torch.autograd.grad(halo, h, torch.ones_like(halo))[0].numpy()
+                    rec["backward_wire_bytes"] = registry.counter("halo.wire_bytes").value - rec["wire_bytes"]
+            finally:
+                metrics.disable()
+            out[payload, via] = rec
+    groups = halo_groups(job["pods"])
+    send_loc, send_rem = (torch.from_numpy(job[name][rank]).to(device) for name in ("send_loc", "send_rem"))
+    registry = metrics.enable(metrics.MetricsRegistry())
+    try:
+        halo = hier_halo_exchange(torch.from_numpy(job["tables"][rank]).to(device), send_loc, send_rem, groups)
+        out["hier"] = dict(shape=tuple(halo.shape), wire_bytes=registry.counter("halo.wire_bytes").value,
+                           inter_pod_rows=registry.counter("halo.wire_rows", (("phase", "inter_pod"),)).value)
+    finally:
+        metrics.disable()
     return out

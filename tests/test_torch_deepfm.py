@@ -392,32 +392,28 @@ def test_launch_serve_deepfm_cpu(capsys):
 
 
 # The ids are the ones these cases had while the GNN families waited for their slice.
-@pytest.mark.parametrize("arch,slice_", [
-    pytest.param("egnn", None, id="egnn-other GNN families"),
-    pytest.param("graphcast", None, id="graphcast-other GNN families"),
-    pytest.param("equiformer-v2", "the equiformer-v2 slice", id="equiformer-v2-other GNN families"),
-    pytest.param("pna", None, id="pna-other GNN families"),
+@pytest.mark.parametrize("arch", [
+    pytest.param("egnn", id="egnn-other GNN families"),
+    pytest.param("graphcast", id="graphcast-other GNN families"),
+    pytest.param("equiformer-v2", id="equiformer-v2-other GNN families"),
+    pytest.param("pna", id="pna-other GNN families"),
 ])
-def test_launch_serve_names_the_slice_that_brings_it(arch, slice_, capsys):
+def test_launch_serve_names_the_slice_that_brings_it(arch, capsys):
     """pna and egnn serve and print the reference CLI's counts (queries,
     micro-batches, traces, nodes and edges per query, foreign rows);
-    graphcast exits with the reference's message; equiformer-v2 names the
-    slice that brings it."""
+    graphcast and equiformer-v2, which the reference does not serve, exit
+    with the reference's message."""
     import re
 
     from repro.launch import serve as ref_serve
     from repro_torch.launch import serve
 
-    if slice_ is not None:
-        with pytest.raises(NotImplementedError, match=slice_):
-            serve.main(["--arch", arch, "--device", "cpu"])
-        return
-    if arch == "graphcast":
+    if arch in ("graphcast", "equiformer-v2"):
         with pytest.raises(SystemExit) as ours:
             serve.main(["--arch", arch, "--device", "cpu"])
         with pytest.raises(SystemExit) as theirs:
             ref_serve.main(["--arch", arch])
-        assert str(ours.value) == str(theirs.value) == "graphcast: graph serving supports coin_gcn/pna/egnn"
+        assert str(ours.value) == str(theirs.value) == f"{arch}: graph serving supports coin_gcn/pna/egnn"
         return
 
     def counts(out):

@@ -11,9 +11,10 @@
 * Every GNN cell's kind, comm, note, model_flops, plan arrays, batch and
   parameter shapes and `exchange_accounting` record equal the reference's
   `build_cell` on the same mesh (one JAX subprocess with 8 host devices),
-  for coin_gcn (``cora``: full_graph_sm's graph), pna, egnn and graphcast
-  × full_graph_sm, molecule and minibatch_lg, with and without
-  ``optimized`` and a wire payload; ogb_products through `_gnn_flops`.
+  for coin_gcn (``cora``: full_graph_sm's graph), pna, egnn, graphcast and
+  equiformer-v2 × full_graph_sm, molecule and minibatch_lg, with and
+  without ``optimized`` and a wire payload; ogb_products through
+  `_gnn_flops`, and equiformer-v2's big-edge ``edge_chunk``.
 * One 4-rank gloo group on the CPU: the pna halo, hierarchical and
   broadcast cells' real train step counts exactly what their meta run
   counts (collectives by kind, bytes in and out, FLOPs), and each loss
@@ -22,8 +23,8 @@
   cell's on ``make_local_mesh()`` fed the same numpy inputs (PNA in
   float64, as tests/test_torch_gnn_models.py holds its gradient).
 * The CLI: schema-2 records with the reference's keys, the cached-cell
-  skip, the mesh tags, ``--autotune-config``, equiformer-v2 as a FAIL that
-  names its slice, and exit code 1.
+  skip, the mesh tags, ``--autotune-config``, equiformer-v2 recorded OK,
+  an unknown shape as a FAIL with its error, and exit code 1.
 """
 import dataclasses
 import json
@@ -45,8 +46,8 @@ from repro_torch.launch.mesh import GroupSpec, Grid, halo_axes, run_group
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 FLAT, PODS = (("data", "model"), (1, 8)), (("pod", "data", "model"), (2, 1, 4))
-CASES = [(arch, shape) for arch in ("pna", "egnn", "graphcast") for shape in ("full_graph_sm", "molecule",
-                                                                              "minibatch_lg")]
+CASES = [(arch, shape) for arch in ("pna", "egnn", "graphcast", "equiformer-v2")
+         for shape in ("full_graph_sm", "molecule", "minibatch_lg")]
 CASES += [("coin_gcn", "cora")]
 VARIANTS = [dict(), dict(optimized=True), dict(payload="bf16"), dict(payload="int8"), dict(comm="broadcast"),
             dict(optimized=True, payload="int8")]
@@ -123,16 +124,25 @@ import jax
 jax.devices()                       # the device count is set before repro.launch.dryrun's import asks for 512
 import numpy as np
 from repro.configs import get_arch
+import repro.launch.steps as ref_steps
 from repro.launch.steps import build_cell, _gnn_flops
 from repro.launch.dryrun import exchange_accounting
 cases, variants, meshes, fields = pickle.loads(bytes.fromhex(sys.argv[2]))
 out = {}
+chunks = []                         # the edge_chunk each equiformer-v2 cell's loss closes over
+_loss_fn = ref_steps._gnn_loss_fn
+def _recording_loss_fn(arch_id, cfg, *a, **kw):
+    if arch_id == "equiformer-v2":
+        chunks.append(cfg.edge_chunk)
+    return _loss_fn(arch_id, cfg, *a, **kw)
+ref_steps._gnn_loss_fn = _recording_loss_fn
 for mname, (axes, sizes) in meshes.items():
     mesh = jax.make_mesh(sizes, axes, axis_types=(jax.sharding.AxisType.Auto,) * len(axes))
     for arch, sname in cases:
         spec = get_arch(arch)
         shape = spec.shapes[sname]
         for vi, kw in enumerate(variants):
+            chunks.clear()
             cell = build_cell(spec, shape, mesh, **kw)
             plan = cell.halo_plan
             batch = cell.abstract_args[2]
@@ -141,14 +151,15 @@ for mname, (axes, sizes) in meshes.items():
                        exchange=exchange_accounting(cell, shape),
                        batch={k: (tuple(v.shape), str(v.dtype)) for k, v in batch.items()},
                        params={"/".join(str(getattr(p, "key", p)) for p in path): tuple(l.shape)
-                               for path, l in jax.tree_util.tree_flatten_with_path(cell.abstract_args[0])[0]})
+                               for path, l in jax.tree_util.tree_flatten_with_path(cell.abstract_args[0])[0]},
+                       edge_chunk=chunks[-1] if chunks else None)
             if plan is not None:
                 rec["plan"] = {f: (np.asarray(getattr(plan, f)) if getattr(plan, f) is not None else None)
                                for f in fields}
             out[(mname, arch, sname, vi)] = rec
 spec = get_arch("pna")
 out["ogb"] = {a: _gnn_flops(a, get_arch(a).shapes["ogb_products"], get_arch(a).make_config(
-    get_arch(a).shapes["ogb_products"])) for a in ("pna", "egnn", "graphcast")}
+    get_arch(a).shapes["ogb_products"])) for a in ("pna", "egnn", "graphcast", "equiformer-v2")}
 sys.stdout.buffer.write(pickle.dumps(out))
 """
 
@@ -193,6 +204,7 @@ def test_gnn_cells_equal_the_reference(reference_cells, monkeypatch, mesh, arch,
                    bsr_stats=cell.bsr_stats, halo_payload=cell.halo_payload, halo_overlap=cell.halo_overlap,
                    exchange=tdr.exchange_accounting(cell, spec.shapes[shape]))
         _same(got, {k: ref[k] for k in got}, f"{mesh}/{arch}/{shape}/{kw}")
+        assert getattr(cell.cfg, "edge_chunk", None) == ref["edge_chunk"]
         params, _, batch = cell.abstract_inputs()
         flat_params = {k.strip("/"): tuple(v.shape) for k, v in tdr_leaves(params).items()}
         assert flat_params == ref["params"]
@@ -215,11 +227,14 @@ def test_gnn_cells_equal_the_reference(reference_cells, monkeypatch, mesh, arch,
 
 
 def tdr_leaves(tree, prefix=""):
+    """Leaves by path; a list's entries as ``[i]``, as JAX names a sequence key."""
     if isinstance(tree, dict):
         out = {}
         for k in sorted(tree):
             out.update(tdr_leaves(tree[k], f"{prefix}/{k}"))
         return out
+    if isinstance(tree, list):
+        return {k: v for i, x in enumerate(tree) for k, v in tdr_leaves(x, f"{prefix}/[{i}]").items()}
     return {prefix: tree}
 
 
@@ -228,9 +243,16 @@ def test_ogb_products_flops_and_equiformer(reference_cells):
         spec = get_arch(arch)
         shape = spec.shapes["ogb_products"]
         assert tsteps._gnn_flops(arch, shape, spec.make_config(shape)) == want
-    with pytest.raises(NotImplementedError, match="equiformer-v2 slice"):
-        tsteps._gnn_cell(dataclasses.replace(get_arch("pna"), arch_id="equiformer-v2"), gnn_shapes()["full_graph_sm"],
-                         _grid(*FLAT), torch.float32)
+    assert set(reference_cells["ogb"]) == {"pna", "egnn", "graphcast", "equiformer-v2"}
+    # equiformer-v2's big-edge rule: more than 2,000,000 edges (the shape's) run 64 chunks of ceil(E / 64).
+    spec = get_arch("equiformer-v2")
+    for mesh in ("flat", "pods"):
+        want = reference_cells[(mesh, "equiformer-v2", "minibatch_lg", 0)]["edge_chunk"]
+        cell = tsteps._gnn_cell(spec, gnn_shapes()["minibatch_lg"], _grid(*(FLAT if mesh == "flat" else PODS)),
+                                torch.float32)
+        assert cell.cfg.edge_chunk == want == -(-114_615_892 // 64)
+        small = tsteps._gnn_cell(spec, gnn_shapes()["full_graph_sm"], _grid(*FLAT), torch.float32)
+        assert small.cfg.edge_chunk is None
 
 
 # --------------------------------------------- a real 4-rank step against meta
@@ -352,7 +374,10 @@ def test_cli_records_cache_tags_and_failures(tmp_path, capsys):
     assert tdr.main(["--arch", "pna", "--shape", "molecule", "--comm", "broadcast", "--out", out]) == 0
     tags = {(r["arch"], r["mesh"]) for r in tdr.load_results(out)}
     assert {("coin_gcn", "2x16x16+opt+int8"), ("pna", "16x16+broadcast")} <= tags
-    assert tdr.main(["--arch", "equiformer-v2", "--shape", "full_graph_sm", "--out", out]) == 1
-    fail = [r for r in tdr.load_results(out) if r["arch"] == "equiformer-v2"]
-    assert fail[0]["status"] == "FAIL" and "equiformer-v2 slice" in fail[0]["error"]
+    assert tdr.main(["--arch", "equiformer-v2", "--shape", "molecule", "--out", out]) == 0
+    eq = [r for r in tdr.load_results(out) if r["arch"] == "equiformer-v2"]
+    assert eq[0]["status"] == "OK" and eq[0]["flops_per_device"] > 0
+    assert tdr.main(["--arch", "pna", "--shape", "no_such_shape", "--out", out]) == 1
+    fail = [r for r in tdr.load_results(out) if r["shape"] == "no_such_shape"]
+    assert fail[0]["status"] == "FAIL" and "no_such_shape" in fail[0]["error"]
     assert tdr.RESULTS_PATH == "results/dryrun_torch.json"

@@ -174,7 +174,7 @@ def test_registry_ported_and_unported_archs():
 
     assert get_arch("coin-gcn") is get_arch("coin_gcn")
     assert set(get_arch("coin_gcn").shapes) == {"cora", "citeseer", "pubmed", "extcora", "nell"}
-    for arch in ("pna", "egnn", "graphcast"):
+    for arch in ("pna", "egnn", "graphcast", "equiformer-v2"):
         ours, theirs = get_arch(arch), ref_get_arch(arch)
         assert (ours.arch_id, ours.family, ours.source) == (theirs.arch_id, theirs.family, theirs.source)
         assert dataclasses.asdict(ours.make_reduced()) == dataclasses.asdict(theirs.make_reduced())
@@ -182,8 +182,9 @@ def test_registry_ported_and_unported_archs():
         for name, shape in theirs.shapes.items():
             assert dataclasses.asdict(ours.make_config(ours.shapes[name])) == \
                 dataclasses.asdict(theirs.make_config(shape))
-    with pytest.raises(NotImplementedError, match="not ported.*equiformer-v2 slice"):
-        get_arch("equiformer-v2")
+    from repro_torch.configs.registry import ALL_ARCHS
+
+    assert all(get_arch(a).arch_id == a for a in ALL_ARCHS)      # every id is ported
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
 

@@ -1,4 +1,5 @@
-"""The halo branches of PNA, EGNN and GraphCast on a 4-rank gloo group.
+"""The halo branches of PNA, EGNN, GraphCast and EquiformerV2 on a 4-rank
+gloo group.
 
 One group (`repro_torch.launch.mesh.run_group`, spawned once for the
 module) runs `repro_torch.launch.gnn_halo.gnn_halo_rank` on every rank:
@@ -9,7 +10,9 @@ wire at the reference's own gate (tests/test_overlap_halo.py:352-385:
 5e-2 max-abs and 1e-2 relative L2) — and the unsharded forwards hold
 against the JAX package's within 1e-5 of max. Each rank's wire
 accounting equals the plan's: one exchange a layer of ``k·s_max`` rows
-(GraphCast adds one of the positions).
+(GraphCast and EquiformerV2 add one of the positions, GraphCast's always
+fp32, EquiformerV2's in the wire format as the reference's model sends
+it); EquiformerV2's rows are its whole (l_max+1)² × C irreps.
 """
 import dataclasses
 
@@ -20,6 +23,7 @@ import pytest
 import torch
 
 from repro.models import egnn as ref_egnn
+from repro.models import equiformer_v2 as ref_eq
 from repro.models import graphcast as ref_gc
 from repro.models import pna as ref_pna
 from repro_torch.core.partition import partition_graph
@@ -27,7 +31,7 @@ from repro_torch.dist.halo import build_halo_plan, restore_node_array
 from repro_torch.graph.generators import citation_like
 from repro_torch.launch.gnn_halo import gnn_forward, gnn_halo_jobs, gnn_halo_rank
 from repro_torch.launch.mesh import GroupSpec, run_group
-from repro_torch.models import egnn, graphcast, pna
+from repro_torch.models import egnn, equiformer_v2, graphcast, pna
 from repro_torch.nn.layers import params_from_numpy
 
 K = 4
@@ -41,6 +45,8 @@ CONFIGS = {
              ref_egnn.egnn_init),
     "graphcast": (graphcast.GraphCastConfig(n_layers=2, d_hidden=32, n_vars=3, mesh_refinement=1, d_in=D_IN),
                   ref_gc.GraphCastConfig, ref_gc.graphcast_init),
+    "equiformer-v2": (equiformer_v2.EquiformerV2Config(n_layers=2, d_hidden=8, l_max=2, m_max=1, n_heads=2, d_in=D_IN,
+                                                       d_out=3), ref_eq.EquiformerV2Config, ref_eq.equiformer_init),
 }
 
 
@@ -88,6 +94,8 @@ def test_unsharded_forward_matches_jax(run, arch):
         theirs = ref_pna.pna_forward(jp, jnp.asarray(x), s, r, rcfg)
     elif arch == "egnn":
         theirs = ref_egnn.egnn_forward(jp, jnp.asarray(x), jnp.asarray(pos), s, r, rcfg)[0]
+    elif arch == "equiformer-v2":
+        theirs = ref_eq.equiformer_forward(jp, jnp.asarray(x), jnp.asarray(pos), s, r, rcfg)
     else:
         rel = pos[g.edge_index[1]] - pos[g.edge_index[0]]
         ef = np.concatenate([rel, np.linalg.norm(rel, axis=1, keepdims=True)], 1).astype(np.float32)
@@ -122,7 +130,9 @@ def test_wire_accounting_per_rank(run, arch):
     _, _, _, _, plan, results = run
     cfg = CONFIGS[arch][0]
     rows = plan.k * plan.s_max
-    extra = 1 if arch == "graphcast" else 0
+    extra = 1 if arch in ("graphcast", "equiformer-v2") else 0
+    if arch == "equiformer-v2":
+        assert results[0][f"{arch}/fp32"]["exchange_width"] == (cfg.l_max + 1) ** 2 * cfg.d_hidden
     for res in results:
         fp32, bf16 = res[f"{arch}/fp32"], res[f"{arch}/bf16"]
         assert fp32["exchanges"] == bf16["exchanges"] == cfg.n_layers + extra
@@ -130,5 +140,6 @@ def test_wire_accounting_per_rank(run, arch):
         width = fp32["exchange_width"]
         pos_bytes = extra * rows * 3 * 4
         assert fp32["wire_bytes"] == rows * width * 4 * cfg.n_layers + pos_bytes
-        assert bf16["wire_bytes"] == rows * width * 2 * cfg.n_layers + pos_bytes
+        bf16_pos = pos_bytes / 2 if arch == "equiformer-v2" else pos_bytes
+        assert bf16["wire_bytes"] == rows * width * 2 * cfg.n_layers + bf16_pos
         assert fp32["wire_bytes_per_layer"] == rows * width * 4 == 2 * bf16["wire_bytes_per_layer"]
