@@ -71,14 +71,23 @@ in bf16 with K4's bf16 body, decodes
 granite-34b (8 layers) against a sequence-sharded cache, trains gemma3-12b
 (6 layers, fp32) and serves, retrieves and trains DeepFM on 2 × 2.
 Last, the dry run (`repro_torch.launch.dryrun`): two subprocesses with no
-card visible, started once every timed phase has ended, trace one rank of
+card visible, started beside the sharded phase's group, trace one rank of
 each of its cells on meta tensors in a fake process group of the 16 × 16
 and the 2 × 16 × 16 grid; beside them one group of 4 ranks on the card runs a train step
 of fourteen GNN cells at full_graph_sm (halo flat with the three wires,
 hierarchical 2 × 1 × 2, broadcast; PNA, EGNN, GraphCast, EquiformerV2; coin_gcn
 ``+opt`` on the bsr backend, whose K1 launches count in the ``kernels``
 line) and holds every FLOP and collective byte it counts against the meta
-run of the same cell.
+run of the same cell. The same group then runs the hand-built cells of the
+§Perf hillclimb (`repro_torch.launch.hillclimb`): granite-34b's eight
+accumulated micro-batches (2 of 88 layers, 8 × 4,096, bf16, K4 on the
+forward), PNA's halo cell in fp32, bf16 compute, bf16 wire and float64 at
+full_graph_sm, and gemma3-12b's uniform and two-stack decodes (12 of 48
+layers, a 32,768-slot cache split by sequence); its host records (the
+four targets on 16 × 16) run in subprocesses started when the delta
+phase ends, beside the GNN, DeepFM and LM phases. Work of the GNN phases
+that needs no card time (their graph, gnn_train's host runs, gnn_serve's
+engines) runs in a thread beside the delta phase's group.
 
 Phases, one JSON line each; any failed check ends the run with exit code 1:
 
@@ -395,8 +404,9 @@ Phases, one JSON line each; any failed check ends the run with exit code 1:
   sharded_kernels  K4 (fp32 and bf16) and K3 against their plain versions
            at the shapes one rank of the group gives them (gemma3's 4 / 2
            heads × 4,096 × 240 bf16 at both windows, moonshot's 4 / 4 × 4,096
-           × 128 bf16, the training rank's 8 / 4 × 2,048 × 240 fp32, K3 at
-           256 / 32,768 / 131,072 × 39 × 10), with K4's, the plain version's
+           × 128 bf16, the training rank's 8 / 4 × 2,048 × 240 fp32, the
+           hillclimb's granite-34b micro-batch, 12 / 1 (MQA) × 4,096 × 128
+           bf16, K3 at 256 / 32,768 / 131,072 × 39 × 10), with K4's, the plain version's
            and SDPA's times beside the bound (the parent alone on the card)
   lm_tp, moe_ep, lm_seq, lm_tp_train, deepfm_sharded  first every phase's
            unsharded counterpart alone (the same cells on a 1 × 1 grid, the
@@ -459,6 +469,22 @@ Phases, one JSON line each; any failed check ends the run with exit code 1:
            all-gather and total bytes; (d) the meta counts of the lm_tp
            prefill and of the deepfm_sharded cells equal to what those
            phases counted (per kind; STATS' count and bytes)
+  hillclimb the hillclimb's cells on the dry run's 4 ranks (1 × 4): (a)
+           each cell's FLOPs and collectives by kind equal to the meta
+           run's as the same rank, exactly; (b) t2-b's loss within 1e-2
+           and each gradient leaf within 5e-2 of its max against one step
+           of the remat cell on the same 8 rows; (c) t4-a's and t4-b's
+           logits within 5e-2 of the max and with the same argmax as the
+           uniform decode of the same cache and token, t4-b's ring slot
+           pos mod W of the first local layer equal bit for bit to the
+           uniform cache's new k / v at pos (the others within 5e-2); (d)
+           t3-b's and t3-c's losses within 1 % of the fp32 cell's, the
+           float64 cell's loss and gradient within 1e-4 of its four
+           blocks run in one process on the card; (e) t3-c's halo
+           all-gather result bytes half the fp32 cell's; every host record
+           OK (t1, t2, t4 at production shapes, t3 at full_graph_sm, on
+           16 × 16), t3-a above t3-baseline in collective bytes, t2-a
+           below t2-baseline in peak bytes, t2-c equal to t2-a
 
 then the card's name and power limit (nvidia-smi), the ``{"kernels": [...]}``
 line, and as the last line ``{"ok": true, "device": {...}}``. A kernel's
@@ -470,7 +496,9 @@ K4 the LM prefills, the batcher's decode steps, gemma3's training steps
 (``launches_lm_train``) and olmoe's prefills, decode and training steps
 (``launches_moe``), and the 4 ranks' counted runs of the sharded phases
 (``launches_lm_tp``, ``launches_moe_ep``, ``launches_lm_seq``,
-``launches_lm_tp_train``; K3's ``launches_deepfm_sharded``); K1's also
+``launches_lm_tp_train``; K3's ``launches_deepfm_sharded``), and the
+hillclimb's cells on the dry run's 4 ranks (``launches_hillclimb``: the
+granite forwards, remat's recompute included); K1's also
 the dry run's 4-rank steps, ``launches_dryrun``), each counted
 with the counts zeroed just before and read just after. K4's counts are forward launches only: its backward,
 `flash_attention_vjp`, launches no K4.
@@ -508,6 +536,8 @@ ARGMAX_AGREEMENT = 0.999       # quant on: a 4-bit bucket may flip on a rounding
                                # ties within LOGIT_RTOL count as agreement
 BF16_KERNEL_RTOL = 1e-2        # a bf16 output: max |diff| ≤ 1e-2 · max |plain|
 SPIN_CYCLES, SPIN_MS = 10_000_000, 5.0   # device_ms's spin: 10 M cycles, at least 5 ms at the H100's ≤ 1.98 GHz
+SPIN_TRIES = 3                 # device_ms: spins, each longer than the last, before the host is judged too slow
+PROFILE_TRIES = 3              # obs: profiler traces of K1 and K2 taken before one that names no card kernel fails
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12        # H100 SXM data sheet, fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12       # H100 SXM data sheet, dense bf16 tensor cores
@@ -612,6 +642,7 @@ DELTA_LAUNCHES_PER_STEP = {"k1_bsr_spmm": 2, "k2_af_layer": 1}
 GNN_SHAPE = "minibatch_lg"     # gnn_data/_train/_serve: Reddit's size (registry.gnn_shapes), fanout (15, 10)
 GNN_BLOCK_SHAPE = (169_984, 168_960)   # a sampled block of 1,024 seeds: at most these nodes and edges
 GNN_TRAIN_STEPS = 5            # gnn_train: AdamW steps of a Trainer per model
+GNN_HOST_THREADS = 4           # gnn_train's host runs beside the delta group (its 4 ranks take a thread each)
 GNN_LR = 1e-3
 GNN_GRAPHCAST_LAYERS = 8       # gnn_train: graphcast's depth cut 16 → 8 (at R6, 16 layers' fp32 activations
                                # passed 80 GB: OOM at 75.5 GB allocated in the first forward); widths whole
@@ -685,22 +716,30 @@ def device_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     elapsed time over ``reps`` (a kernel's time and its launch gap). Unlike
     `cuda_ms`, whose events also hold the host's time to reach the launch
     (some 20 µs through a wrapper), this reads a short kernel's own time.
-    Fails if the host did not queue the calls within the spin."""
+    A reading counts only if the host queued the calls within 0.8 of the
+    spin; if it did not, the spin is lengthened to cover twice the queueing
+    seen and the calls are timed again, SPIN_TRIES times in all, and then
+    the phase fails."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SPIN_CYCLES)
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    queued_ms = (time.perf_counter() - t0) * 1e3
-    end.synchronize()
-    require(queued_ms < 0.8 * SPIN_MS, "times", f"queueing {reps} calls took {queued_ms:.2f} ms, past the spin's "
-                                                f"{SPIN_MS} ms: the card may have waited for the host")
-    return start.elapsed_time(end) / reps
+    cycles = SPIN_CYCLES
+    for _ in range(SPIN_TRIES):
+        spin_ms = SPIN_MS * cycles / SPIN_CYCLES
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        if queued_ms < 0.8 * spin_ms:
+            return start.elapsed_time(end) / reps
+        cycles = int(cycles * max(2.0, 2.0 * queued_ms / spin_ms))
+    require(False, "times", f"queueing {reps} calls took {queued_ms:.2f} ms, past 0.8 of the spin's {spin_ms:.1f} ms "
+                            f"after {SPIN_TRIES} spins: the card may have waited for the host")
 
 
 def wall_ms(fn, reps: int = 5, warmup: int = 2) -> float:
@@ -2549,7 +2588,10 @@ def run_delta(host: dict, prep: dict) -> dict:
 
 def profile_kernels(data: dict, ops: dict) -> dict:
     """`torch_profiler_trace` around one launch of K1 and of each K2 body
-    on Nell's shapes: the trace file it writes, and which kernels it names."""
+    on Nell's shapes: the trace file it writes, and which kernels it names.
+    A trace that names no kernel on the card at all is taken again, up to
+    PROFILE_TRIES traces in all (CUPTI has once left a trace's kernel
+    records out: PERF.md §7); ``attempts`` says how many were taken."""
     import glob
     import os
     import shutil
@@ -2560,25 +2602,29 @@ def profile_kernels(data: dict, ops: dict) -> dict:
     from repro_torch.obs.trace import torch_profiler_trace
 
     vals, cols, lens = data["vals"], data["cols"], data["lens"]
-    log_dir = tempfile.mkdtemp(prefix="chip_smoke_profile_")
-    try:
-        with torch.inference_mode(), torch_profiler_trace(log_dir):
-            z = fg.ff_transform(ops["x"], ops["w1"])
-            fg.ff_aggregate(vals, cols, lens, z, ops["b1"], True)
-            fg.af_layer(vals, cols, lens, ops["h1"], ops["w2"], ops["b2"], True)
-            k1.bsr_spmm(vals, cols, lens, ops["h1"])
+    for attempt in range(1, PROFILE_TRIES + 1):
+        log_dir = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+        try:
             torch.cuda.synchronize()
-        files = glob.glob(os.path.join(log_dir, "*.json"))
-        names = set()
-        for f in files:
-            with open(f) as fh:
-                names.update(str(e.get("name", "")) for e in json.load(fh)["traceEvents"] if e.get("cat") == "kernel")
-    finally:
-        shutil.rmtree(log_dir, ignore_errors=True)
+            with torch.inference_mode(), torch_profiler_trace(log_dir):
+                z = fg.ff_transform(ops["x"], ops["w1"])
+                fg.ff_aggregate(vals, cols, lens, z, ops["b1"], True)
+                fg.af_layer(vals, cols, lens, ops["h1"], ops["w2"], ops["b2"], True)
+                k1.bsr_spmm(vals, cols, lens, ops["h1"])
+                torch.cuda.synchronize()
+            files = glob.glob(os.path.join(log_dir, "*.json"))
+            names = set()
+            for f in files:
+                with open(f) as fh:
+                    names.update(str(e.get("name", "")) for e in json.load(fh)["traceEvents"] if e.get("cat") == "kernel")
+        finally:
+            shutil.rmtree(log_dir, ignore_errors=True)
+        if names:
+            break
     found = {kernel: any(key in name for name in names) for kernel, key in (
         ("k2_ff_transform", "xw_kernel"), ("k2_ff_aggregate", "ragged_layer_kernel<0"),
         ("k2_af_layer", "ragged_layer_kernel<1"), ("k1_bsr_spmm", "ragged_layer_kernel<2"))}
-    return dict(files=len(files), device_kernels=len(names), names=found)
+    return dict(files=len(files), device_kernels=len(names), names=found, attempts=attempt)
 
 
 def run_obs(flat_tracer, hier_tracer, profile: dict) -> None:
@@ -2973,9 +3019,48 @@ def build_gnn_data() -> dict:
                 host_seconds=dict(generator=gen_s, sampler=sampler_s, sample=sample_s))
 
 
+def gnn_host_work(device: torch.device) -> dict:
+    """The GNN phases' host work, which needs no card time: `build_gnn_data`,
+    then side by side gnn_train's host runs of PNA and EGNN
+    (`gnn_host_runs`, on GNN_HOST_THREADS threads) and gnn_serve's two
+    `GraphBatcher`s (their samplers over the graph's edges are host work;
+    only the small parameters go to the card). main() runs it in a thread
+    beside the delta phase's group, whose ranks take one thread each."""
+    from repro_torch.configs import egnn, pna
+    from repro_torch.serve.graph import GraphBatcher
+
+    data = build_gnn_data()
+    shape = data["shape"]
+    cfgs = {"pna": pna.make_config(shape), "egnn": egnn.make_config(shape)}
+
+    def host_runs():
+        torch.set_num_threads(GNN_HOST_THREADS)
+        t0 = time.perf_counter()
+        runs = {arch: gnn_host_runs(arch, cfg, gnn_block_batch(data, arch, cfg), shape.batch_nodes)
+                for arch, cfg in cfgs.items()}
+        return runs, time.perf_counter() - t0
+
+    def engines():
+        out = {}
+        for arch, cfg in cfgs.items():
+            t0 = time.perf_counter()
+            eng = GraphBatcher(gnn_params(arch, cfg, device), data["graph"], cfg, model=arch, batch_seeds=8,
+                               fanout=4, cache_capacity=0, seed=SEED, device=device)
+            out[arch] = (eng, time.perf_counter() - t0)
+        return out
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        runs, built = pool.submit(host_runs), pool.submit(engines)
+        data["host_runs"], data["host_seconds"]["train_host_runs"] = runs.result()
+        data["engines"] = built.result()
+    data["host_seconds"]["serve_engines"] = {arch: s for arch, (_, s) in data["engines"].items()}
+    return data
+
+
 def run_gnn_data(built: dict | None = None) -> dict:
-    """gnn_data's line: `build_gnn_data`'s result (``built``, when main()
-    built it in a thread beside the delta phase's group, or built here)."""
+    """gnn_data's line: `build_gnn_data`'s result (``built``: `gnn_host_work`'s,
+    when main() ran it in a thread beside the delta phase's group, or built
+    here)."""
     data = built or build_gnn_data()
     g, blk, shape, checks = data["graph"], data["block"], data["shape"], data["checks"]
     emit("gnn_data", ok=all(checks.values()), checks=checks, shape=dataclasses.asdict(shape),
@@ -2983,9 +3068,10 @@ def run_gnn_data(built: dict | None = None) -> dict:
                                                          max_nodes=blk.max_nodes, max_edges=blk.max_edges),
          host_seconds=data["host_seconds"], built_beside_delta=built is not None,
          timing="host clock (the card's machine's CPU); built beside the delta phase's group when "
-                "built_beside_delta, so those seconds share the host with its ranks")
+                "built_beside_delta, so those seconds share the host with its ranks; with it, gnn_train's host "
+                f"runs (train_host_runs, {GNN_HOST_THREADS} threads) beside gnn_serve's engines (serve_engines)")
     require(all(checks.values()), "gnn_data", f"checks {checks}")
-    return dict(graph=g, shape=shape, block=blk)
+    return dict(graph=g, shape=shape, block=blk, **{k: data.pop(k) for k in ("host_runs", "engines") if k in data})
 
 
 def gnn_block_batch(data: dict, arch: str, cfg) -> dict:
@@ -3023,37 +3109,54 @@ def gnn_mesh_batch(cfg) -> dict:
     return dict(feats=x, edge_feats=feats, senders=g.edge_index[0], receivers=g.edge_index[1], target=target)
 
 
-def gnn_train_model(arch: str, cfg, batch: dict, device: torch.device, n_loss: int | None, host_hold: bool,
-                    host_batch: dict | None = None, cancelled: tuple = ()) -> dict:
-    """One model: the hold (fp32 on the card against float64 on the card;
-    for PNA and EGNN also float64 on the card against float64 on the host,
-    and the host's fp32 error beside; with ``host_batch``, a slice of the
-    batch, all of that on the slice only, the first loss held too), then
-    GNN_TRAIN_STEPS AdamW steps of a Trainer through `_gnn_loss_fn`, the
-    step split, peak memory, the profile of one step. ``cancelled``:
-    `gnn_errors`'s leaves whose gradient the model cancels."""
+def gnn_hold_fns(arch: str, cfg, n_loss: int | None) -> tuple:
+    """(the training loss `_gnn_loss_fn`, the forward, the hold's loss) of
+    ``arch``: GraphCast's hold runs float64 with the per-layer recompute
+    (remat, the same arithmetic: float64 at R6 needs it)."""
     from repro_torch.launch.steps import _gnn_loss_fn
     from repro_torch.models.graphcast import graphcast_forward
-    from repro_torch.train.loop import Trainer, TrainerConfig
-    from repro_torch.train.optimizer import adamw
 
-    t0 = time.perf_counter()
     loss_fn = _gnn_loss_fn(arch, cfg, n_loss_nodes=n_loss)
     if arch == "graphcast":
-        # float64 at R6 needs the per-layer recompute (remat): the same arithmetic.
         def forward(p, b, remat=False):
             return graphcast_forward(p, b["feats"], b["edge_feats"], b["senders"], b["receivers"], cfg, remat=remat)
 
         def hold_loss(p, b):
             return (forward(p, b, remat=b["feats"].dtype == torch.float64) - b["target"]).square().mean()
-    else:
-        from repro_torch.launch.gnn_halo import gnn_forward
+        return loss_fn, forward, hold_loss
+    from repro_torch.launch.gnn_halo import gnn_forward
 
-        def forward(p, b):
-            return gnn_forward(arch, p, cfg, b["feats"], b.get("pos"), b["senders"], b["receivers"],
-                               edge_mask=b.get("edge_mask"))
+    def forward(p, b):
+        return gnn_forward(arch, p, cfg, b["feats"], b.get("pos"), b["senders"], b["receivers"],
+                           edge_mask=b.get("edge_mask"))
 
-        hold_loss = loss_fn
+    return loss_fn, forward, loss_fn
+
+
+def gnn_host_runs(arch: str, cfg, batch: dict, n_loss: int | None) -> dict:
+    """The host's half of gnn_train's hold of ``arch`` (PNA, EGNN): the
+    model in float64 and in fp32 on the host (`gnn_eval`)."""
+    _, forward, hold_loss = gnn_hold_fns(arch, cfg, n_loss)
+    cpu = torch.device("cpu")
+    return {"host_fp64": gnn_eval(arch, cfg, batch, cpu, torch.float64, forward, hold_loss),
+            "host_fp32": gnn_eval(arch, cfg, batch, cpu, torch.float32, forward, hold_loss)}
+
+
+def gnn_train_model(arch: str, cfg, batch: dict, device: torch.device, n_loss: int | None, host_hold: bool,
+                    host_batch: dict | None = None, cancelled: tuple = (), host_runs: dict | None = None) -> dict:
+    """One model: the hold (fp32 on the card against float64 on the card;
+    for PNA and EGNN also float64 on the card against float64 on the host,
+    and the host's fp32 error beside, from ``host_runs`` where main() made
+    them already (`gnn_host_runs`); with ``host_batch``, a slice of the
+    batch, all of that on the slice only, the first loss held too), then
+    GNN_TRAIN_STEPS AdamW steps of a Trainer through `_gnn_loss_fn`, the
+    step split, peak memory, the profile of one step. ``cancelled``:
+    `gnn_errors`'s leaves whose gradient the model cancels."""
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.train.optimizer import adamw
+
+    t0 = time.perf_counter()
+    loss_fn, forward, hold_loss = gnn_hold_fns(arch, cfg, n_loss)
     if host_batch is not None:
         # The whole hold on the slice, where the host's runs are affordable.
         cpu = torch.device("cpu")
@@ -3079,9 +3182,7 @@ def gnn_train_model(arch: str, cfg, batch: dict, device: torch.device, n_loss: i
         hold = {"card_fp32_vs_card_fp64": gnn_errors(runs["card_fp32"], runs["card_fp64"], cancelled)}
         card = hold["card_fp32_vs_card_fp64"]
         if host_hold:
-            cpu = torch.device("cpu")
-            runs["host_fp64"] = gnn_eval(arch, cfg, batch, cpu, torch.float64, forward, hold_loss)
-            runs["host_fp32"] = gnn_eval(arch, cfg, batch, cpu, torch.float32, forward, hold_loss)
+            runs.update(host_runs or gnn_host_runs(arch, cfg, batch, n_loss))
             hold["card_fp64_vs_host_fp64"] = gnn_errors(runs["card_fp64"], runs["host_fp64"])
             hold["host_fp32_vs_card_fp64"] = gnn_errors(runs["host_fp32"], runs["card_fp64"])
             intrinsic = hold["host_fp32_vs_card_fp64"]
@@ -3124,13 +3225,14 @@ def run_gnn_train(data: dict, device: torch.device) -> None:
     Each: the hold, then GNN_TRAIN_STEPS AdamW steps."""
     from repro_torch.configs import egnn, graphcast, pna
 
-    shape = data["shape"]
+    shape, host_runs = data["shape"], data.pop("host_runs", {})
     full = graphcast.make_config(None)
     runs = [(arch, mod.make_config(shape), lambda cfg, arch=arch: gnn_block_batch(data, arch, cfg), shape.batch_nodes)
             for arch, mod in (("pna", pna), ("egnn", egnn))]
     runs.append(("graphcast", dataclasses.replace(full, n_layers=GNN_GRAPHCAST_LAYERS), gnn_mesh_batch, None))
     for arch, cfg, make_batch, n_loss in runs:
-        line = gnn_train_model(arch, cfg, make_batch(cfg), device, n_loss, host_hold=arch != "graphcast")
+        line = gnn_train_model(arch, cfg, make_batch(cfg), device, n_loss, host_hold=arch != "graphcast",
+                               host_runs=host_runs.pop(arch, None))
         reduced = {}
         if arch == "graphcast":
             flop = gnn_forward_flops(cfg)
@@ -3356,12 +3458,16 @@ def run_gnn_serve(data: dict, device: torch.device) -> None:
     from repro_torch.train.tree import tree_map
 
     g, shape, lines = data["graph"], data["shape"], {}
+    engines = data.pop("engines", {})          # built beside the delta phase's group (`gnn_host_work`)
+    beside = set(engines)
     for arch, mod in (("pna", pna), ("egnn", egnn)):
         t0 = time.perf_counter()
         cfg = mod.make_config(shape)
-        eng = GraphBatcher(gnn_params(arch, cfg, device), g, cfg, model=arch, batch_seeds=8, fanout=4,
-                           cache_capacity=0, seed=SEED, device=device)
-        build_s = time.perf_counter() - t0
+        eng, build_s = engines.pop(arch, (None, None))
+        if eng is None:
+            eng = GraphBatcher(gnn_params(arch, cfg, device), g, cfg, model=arch, batch_seeds=8, fanout=4,
+                               cache_capacity=0, seed=SEED, device=device)
+            build_s = time.perf_counter() - t0
         width = shape.d_feat + (3 if arch == "egnn" else 0)
         ghost = torch.full((eng.max_edges,), eng.max_nodes, dtype=torch.int32, device=device)
         with torch.inference_mode():          # warm-up at the engine's one shape, outside the stream
@@ -3419,7 +3525,7 @@ def run_gnn_serve(data: dict, device: torch.device) -> None:
                            nodes_per_query=stats["nodes_per_query"],
                            edges_per_query=stats["edges_per_query"], block=dict(max_nodes=eng.max_nodes,
                                                                                 max_edges=eng.max_edges),
-                           engine_build_s=build_s, idle=idle)
+                           engine_build_s=build_s, engine_built_beside_delta=arch in beside, idle=idle)
         del eng, calls, host
         gc.collect()
         torch.cuda.empty_cache()
@@ -3647,6 +3753,37 @@ def sdpa_ms(q, k, v, window: int) -> tuple[float, float]:
     return cuda_ms(fn, reps=5), err
 
 
+def sdpa_long(q, k, v, window: int, k4_out) -> dict:
+    """SDPA at a length where the math backend's S × S scores do not fit (at
+    S = 32,768 they take ≈ 69 GB in fp32): pinned to the memory-efficient
+    backend (`torch.nn.attention.sdpa_kernel`), which streams the keys, with
+    k and v expanded per group and K4's mask; one call after one warm-up, as
+    K4 is timed there. Returns its ms, the backend's name and max |SDPA −
+    K4|, or, where the backend refuses the shape, its error."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    G, S = q.shape[0] // k.shape[0], q.shape[1]
+    qh, kh, vh = q[None], k.repeat_interleave(G, 0)[None], v.repeat_interleave(G, 0)[None]
+    if window >= S:
+        kw = dict(is_causal=True)
+    else:
+        pos = torch.arange(S, device=q.device)
+        kw = dict(attn_mask=(pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window))
+    backend = SDPBackend.EFFICIENT_ATTENTION
+    fn = lambda: F.scaled_dot_product_attention(qh, kh, vh, **kw)
+    try:
+        with sdpa_kernel(backend):
+            diff = float((fn()[0] - k4_out).abs().max())
+            ms = cuda_ms(fn, reps=1, warmup=1)
+        return dict(library_ms=ms, library_backend=backend.name, library_max_abs_diff_vs_k4=diff)
+    except RuntimeError as e:           # a refusal (or out of memory) is the row's finding, not a silent None
+        return dict(library_ms=None, library_backend=backend.name, library_error=f"{type(e).__name__}: {e}"[:600])
+    finally:
+        del qh, kh, vh, kw
+        torch.cuda.empty_cache()
+
+
 def global_window() -> int:
     """The LM's window of a global layer (2³⁰)."""
     from repro_torch.models.transformer_lm import GLOBAL_WINDOW
@@ -3739,7 +3876,8 @@ def check_k4(cfg, device: torch.device) -> tuple[dict, dict]:
             rows[f"{tag}_{LM_LONG_SEQ}"] = dict(
                 S=LM_LONG_SEQ, window=window, ms=cuda_ms(lambda: k4.flash_attention(q, k, v, window=window),
                                                          reps=1, warmup=1),
-                plain_ms=None, library_ms=None, bound=k4_bound(H, Hk, LM_LONG_SEQ, d, window, 4))
+                plain_ms=None, bound=k4_bound(H, Hk, LM_LONG_SEQ, d, window, 4))
+            rows[f"{tag}_{LM_LONG_SEQ}"].update(sdpa_long(q, k, v, window, k4.flash_attention(q, k, v, window=window)))
         del q, k, v
     torch.cuda.empty_cache()
     compiler = {name: k4.kernel_attributes(dtype, d) for dtype, name in
@@ -3752,7 +3890,8 @@ def check_k4(cfg, device: torch.device) -> tuple[dict, dict]:
          compiler=compiler, spills=sum(c["local_bytes"] for c in compiler.values()),
          compiler_bf16_widest=widest,
          timing=f"CUDA events, median of 10 (K4) or 5 (plain, SDPA) after 2 warm-ups; S={LM_LONG_SEQ}: one launch "
-                "after one warm-up, K4 only", library="torch.nn.functional.scaled_dot_product_attention with k and "
+                "after one warm-up, K4 and SDPA (pinned to the memory-efficient backend; no plain version: its "
+                "S × S scores take ≈ 69 GB)", library="torch.nn.functional.scaled_dot_product_attention with k and "
                 "v expanded per group and the same mask (is_causal for the global window)")
     require(ok, "lm_kernels", "K4 disagrees with its plain version")
     main_row = rows[f"global_{LM_SEQ}"]
@@ -4286,7 +4425,7 @@ DRYRUN_SWEEP = (("pna", "full_graph_sm", {}), ("pna", "molecule", {}), ("pna", "
                 ("moonshot-v1-16b-a3b", "train_4k", {"optimized": True}),
                 ("deepfm", "train_batch", {}), ("deepfm", "retrieval_cand", {}))   # (a), on 16 × 16 and 2 × 16 × 16
 DRYRUN_K = 4                     # (b): one gloo group of 4 ranks on the card
-DRYRUN_TIMEOUT_S = 480.0
+DRYRUN_TIMEOUT_S = 720.0        # the group (its GNN steps, then the hillclimb's cells) and each host part
 DRYRUN_LOSS_RTOL = 1e-4          # (c): fp32-wire 4-rank loss vs the k = 1 cell's, relative
 DRYRUN_HOLD_RTOL = 1e-4          # (c): each gradient leaf, and each parameter leaf after the AdamW step, · max |·|
 DRYRUN_SIGN_FLOOR = {"float32": 1e-4, "float64": 0.0}
@@ -4799,9 +4938,11 @@ def _grad_hold(results: list, ref: dict, phase: dict, cells: dict, grid) -> dict
 
 def check_sharded_kernels(device: torch.device) -> tuple[dict, dict]:
     """K4 (fp32 and bf16) and K3 against their plain versions at the shapes
-    the group's ranks give them, with times, the plain version's, SDPA's
-    and the bound beside (the parent alone on the card)."""
+    the group's ranks give them (and the dry run's group, t2-b's granite-34b
+    micro-batch in the hillclimb's cells), with times, the plain version's,
+    SDPA's and the bound beside (the parent alone on the card)."""
     from repro_torch.configs.gemma3_12b import FULL as gemma
+    from repro_torch.configs.granite_34b import FULL as granite
     from repro_torch.configs.moonshot_v1_16b_a3b import FULL as moonshot
     from repro_torch.kernels import flash_attention as k4
     from repro_torch.kernels import fm_interaction as k3
@@ -4815,7 +4956,9 @@ def check_sharded_kernels(device: torch.device) -> tuple[dict, dict]:
                moonshot.attn.head_dim, (("global", glob),), torch.bfloat16),
               ("lm_tp_train", "k4_flash_attention", LM_TRAIN_BATCH * gemma.n_heads // 4,
                LM_TRAIN_BATCH * gemma.n_kv_heads // 4, LM_TRAIN_SEQ, gemma.attn.head_dim,
-               (("local", gemma.window), ("global", glob)), torch.float32)]
+               (("local", gemma.window), ("global", glob)), torch.float32),
+              ("hillclimb", "k4_flash_attention_bf16", granite.n_heads // 4, granite.n_kv_heads, HILL_GRANITE_SEQ,
+               granite.attn.head_dim, (("global", glob),), torch.bfloat16)]
     with torch.inference_mode():
         for phase, name, h, hk, S, d, windows, dtype in shapes:
             q, k, v = (torch.randn((n, S, d), generator=gen, device=device).to(dtype) for n in (h, hk, hk))
@@ -4866,13 +5009,15 @@ def check_sharded_kernels(device: torch.device) -> tuple[dict, dict]:
     return worst, rows
 
 
-def run_sharded(device: torch.device) -> dict:
+def run_sharded(device: torch.device, beside=None) -> dict:
     """The five phases of the sharded LM and DeepFM: every unsharded
     counterpart alone first (host copies of what the checks need), the
     kernels at a rank's shapes, then one group of SHARDED_K ranks sharing
     the card (gloo) running every phase's cells; one line per phase.
     Returns each phase's kernel launches summed over the ranks' counted
-    runs, and the kernels' worst errors and timing rows."""
+    runs, and the kernels' worst errors and timing rows; ``beside`` (a
+    call that starts host work) is called just before the group starts,
+    and what it returns comes back under ``beside``."""
     from repro_torch.launch.mesh import Grid, GroupSpec, run_group
 
     t0 = time.perf_counter()
@@ -4887,6 +5032,7 @@ def run_sharded(device: torch.device) -> dict:
     # Four caching allocators share the card: segments that grow in place leave less of it stranded.
     alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    started = beside() if beside is not None else None
     try:
         results = run_group(spec, sharded_rank, [sharded_phases()] * SHARDED_K)
     finally:
@@ -5052,7 +5198,7 @@ def run_sharded(device: torch.device) -> dict:
     for role in ("serve", "bulk", "retrieval", "train"):
         res0 = results[0]["deepfm_sharded"]
         measured[f"deepfm_sharded/{role}"] = (res0[f"{role}_collectives"], res0[f"{role}_by_kind"])
-    return dict(launches=launches, worst=worst, rows=rows, measured=measured)
+    return dict(launches=launches, worst=worst, rows=rows, measured=measured, beside=started)
 
 
 def dryrun_jobs() -> list:
@@ -5127,36 +5273,40 @@ def dryrun_host(out_path: str, part: int, parts: int) -> None:
         json.dump(out, f, default=str)
 
 
-def start_dryrun_host() -> list:
-    """Start `dryrun_host` in DRYRUN_HOST_PARTS subprocesses with no card
-    visible; they run on the host beside the dry run's 4-rank group, after
-    every timed phase of the script has ended."""
+def start_host(flag: str, parts: int) -> list:
+    """Start a host half (``flag`` names it in `HOST_MODES`) in ``parts``
+    subprocesses with no card visible, so their fake process groups never
+    meet the card's groups; they run on the host beside a rank group or
+    a phase of the parent. What a part prints goes to a temporary file (a
+    pipe, read only at the end, could fill and stall it)."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC))
     procs = []
-    for part in range(DRYRUN_HOST_PARTS):
-        out = tempfile.NamedTemporaryFile(prefix="chip_smoke_dryrun_", suffix=".json", delete=False).name
-        proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-host", out, str(part),
-                                 str(DRYRUN_HOST_PARTS)], env=env,
-                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for part in range(parts):
+        out = tempfile.NamedTemporaryFile(prefix=f"chip_smoke{flag.replace('-', '_')}_", suffix=".json",
+                                          delete=False).name
+        said = tempfile.TemporaryFile(mode="w+")
+        proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), flag, out, str(part), str(parts)],
+                                env=env, stdout=said, stderr=subprocess.STDOUT, text=True)
         atexit.register(lambda proc=proc: proc.poll() is None and proc.kill())   # a failed phase leaves nothing
-        procs.append((proc, out))
+        procs.append((proc, out, said, time.perf_counter()))
     return procs
 
 
-def wait_dryrun_host(procs: list) -> dict:
-    """The host parts' results merged: the sweep's records of every part,
-    the rest from part 0; ``sweep_seconds`` per part."""
-    host = {"sweep": [], "sweep_seconds": []}
-    for proc, out_path in procs:
-        text, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
-        require(proc.returncode == 0, "dryrun", f"the host sweep exited {proc.returncode}: {text[-3000:]}")
+def wait_host(procs: list, line: str) -> list[dict]:
+    """Each host part's JSON, in the order of the parts, with ``seconds``
+    from its start until it was seen to end; ``line`` fails if a part
+    exited with another code than 0."""
+    parts = []
+    for proc, out_path, said, t0 in procs:
+        proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        said.seek(0)
+        text = said.read()
+        said.close()
+        require(proc.returncode == 0, line, f"a host part exited {proc.returncode}: {text[-3000:]}")
         with open(out_path) as f:
-            part = json.load(f)
+            parts.append(json.load(f) | {"seconds": time.perf_counter() - t0})
         os.unlink(out_path)
-        host["sweep"] += part.pop("sweep")
-        host["sweep_seconds"].append(part.pop("sweep_seconds"))
-        host.update(part)
-    return host
+    return parts
 
 
 def _leaf_map(tree, prefix: str = "") -> dict:
@@ -5202,9 +5352,343 @@ def _hold(got: dict, want: dict, dtype: str) -> dict:
                 ok=not nonfinite and loss <= DRYRUN_LOSS_RTOL and grad <= DRYRUN_HOLD_RTOL and param <= DRYRUN_HOLD_RTOL)
 
 
-def run_dryrun(measured: dict, device: torch.device) -> dict:
-    """The dry run's line: (a) the host sweep's records (its subprocesses
-    start here, after every timed phase); (b) one train step
+# ------------------------------------------------------------------ the hillclimb
+HILL_GRANITE_LAYERS = 2          # t2-b: granite-34b's depth cut 88 → 2 (4 ranks on one card, gloo through the host)
+HILL_GRANITE_BATCH = 8           # t2-b: train_4k's 256 × 4,096 → 8 × 4,096: 8 micro-batches of 1 row (16 rows:
+                                 #       the remat cell's vocab-parallel cross entropy took ≈ 17 GB a rank)
+HILL_GRANITE_SEQ = 4096          # t2-b: train_4k's sequence, whole
+HILL_GEMMA_LAYERS = 12           # t4: gemma3-12b's depth cut 48 → 12 (two groups of 5 local + 1 global)
+HILL_GEMMA_CACHE = 32_768        # t4: long_500k's 524,288-slot cache → 32,768, split by sequence (8,192 a rank)
+HILL_POS = 8192 + 511            # t4: past rank 0's slice; the local window [7,680, 8,703] crosses into it
+HILL_ACC_LOSS_RTOL = 1e-2        # (b): t2-b's loss vs one step of the remat cell on the same rows, relative
+HILL_ACC_GRAD_RTOL = 5e-2        # (b): each gradient leaf, · its max (the parity contract's bf16 rule)
+HILL_DECODE_RTOL = 5e-2          # (c): t4-a / t4-b logits vs the uniform decode's, · max |logit|
+HILL_PNA_LOSS_RTOL = 1e-2        # (d): t3-b / t3-c losses vs the fp32 cell's, relative
+HILL_PNA_F64_RTOL = 1e-4         # (d): float64 cell vs its k blocks in one process: loss relative, gradient · leaf max
+HILL_ROLES = ("pna_fp32", "t3b", "t3c", "pna_float64", "t4_uniform", "t4a", "t4b", "t2b", "t2a")
+HILL_HOST_PARTS = (("target2_granite",), ("target1_moe", "target3_pna", "target4_gemma_cache"))
+HILL_REDUCED = {
+    "t2-b": {"n_layers": f"88 → {HILL_GRANITE_LAYERS} (4 ranks share one card through gloo); widths whole",
+             "batch": f"train_4k's 256 × 4,096 → {HILL_GRANITE_BATCH} × 4,096 ({HILL_GRANITE_BATCH // 8} row a "
+                      "micro-batch; at 16 rows the remat cell's vocab-parallel cross entropy needs ≈ 17 GB a rank: "
+                      "4 ranks overflow the card)"},
+    "t3-b, t3-c": {"shape": "ogb_products → full_graph_sm (2,708 × 10,556, Cora's size: the ogb_products plan "
+                            "alone takes minutes of host BFS); widths whole (1,433 → 4 × 75 → 7)"},
+    "t4": {"n_layers": f"48 → {HILL_GEMMA_LAYERS} (two groups of 5 local + 1 global); widths whole",
+           "cache": f"long_500k's 524,288 slots → {HILL_GEMMA_CACHE:,}, split by sequence over 4 ranks; B 1",
+           "pos": f"{HILL_POS} (past rank 0's slice: the window crosses a slice edge)"},
+}
+
+
+def hill_cell(role: str, grid):
+    """One hand-built (or baseline) cell of `repro_torch.launch.hillclimb`
+    at the card's size on ``grid``: (the cell, the position a decode cell
+    runs at, or None)."""
+    from repro_torch.configs.registry import ShapeSpec, get_arch
+    from repro_torch.launch import hillclimb as hc
+    from repro_torch.launch.steps import _shape_halo_plan, build_cell
+
+    if role.startswith(("pna", "t3")):
+        spec = get_arch("pna")
+        shape = spec.shapes["full_graph_sm"]
+        plan = _shape_halo_plan(shape.n_nodes, shape.n_edges, grid.shape["model"])
+        kw = {"t3b": dict(compute_dtype=torch.bfloat16), "t3c": dict(payload="bf16"),
+              "pna_float64": dict(compute_dtype=torch.float64)}.get(role, {})
+        return hc._pna_halo_cell(grid, plan, spec.make_config(shape), shape, **kw), None
+    if role.startswith("t4"):
+        spec = get_arch("gemma3-12b")
+        cfg = dataclasses.replace(spec.make_config(), n_layers=HILL_GEMMA_LAYERS)
+        spec = dataclasses.replace(spec, make_config=lambda shape=None, c=cfg: c)
+        shape = ShapeSpec("long_500k", "decode", seq_len=HILL_GEMMA_CACHE, global_batch=1)
+        if role == "t4_uniform":
+            return build_cell(spec, shape, grid), HILL_POS
+        return hc._gemma_twostack_cell(grid, spec, shape, ring=role == "t4b", pos=HILL_POS), None
+    spec = get_arch("granite-34b")
+    cfg = dataclasses.replace(spec.make_config(), n_layers=HILL_GRANITE_LAYERS, remat=True)
+    spec = dataclasses.replace(spec, make_config=lambda shape=None, c=cfg: c)
+    shape = ShapeSpec("train_4k", "train", seq_len=HILL_GRANITE_SEQ, global_batch=HILL_GRANITE_BATCH)
+    base = build_cell(spec, shape, grid)
+    return (hc._granite_accum_cell(base) if role == "t2b" else base), None
+
+
+def _hill_args(cell, pos, seed: int, device, params=None) -> tuple:
+    """The cell's seeded inputs on ``device`` (meta: `Cell.abstract_inputs`),
+    a decode cell's position replaced by ``pos``."""
+    args = cell.abstract_inputs() if device == "meta" else cell.make_inputs(seed, device, params)
+    return args if pos is None else (*args[:3], pos)
+
+
+def hill_rank(rank: int, k: int, device: torch.device) -> dict:
+    """Every `HILL_ROLES` cell's step on this rank of 1 × k, each under
+    `count_step` (FLOPs and collectives for (a)); the holds' numbers are
+    made here (the granite gradients stay on the rank): (b) t2-b's loss and
+    first AdamW moment per leaf against the remat cell's; (c) the two-stack
+    logits against the uniform decode's (the rank's vocab shard, returned)
+    and t4-b's written ring slots against the uniform cache at ``pos``;
+    (d) the PNA losses and rank 0's float64 gradient; K1–K4 launches."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.dryrun import count_step
+    from repro_torch.launch.mesh import Grid
+
+    grid = Grid(("data", "model"), (1, k))
+    reset_launch_counts()
+    out, keep, params = {"launches_by_role": {}}, {}, None
+    for role in HILL_ROLES:
+        before = launch_counts()
+        cell, pos = hill_cell(role, grid)
+        cell = cell.bind()
+        if role in ("t4a", "t4b") and params is not None:
+            args = _hill_args(cell, pos, SEED, device, params)
+        else:
+            args = _hill_args(cell, pos, SEED, device)
+        if role == "t4_uniform":
+            params, keep["uniform_split"] = args[0], cell.policy.cache_split()[0]
+        t0 = time.perf_counter()
+        run = count_step(cell.fn, args)
+        _sync(device)
+        rec = dict(flops=run["flops"], collectives=run["collectives"], seconds=time.perf_counter() - t0)
+        after = launch_counts()
+        out["launches_by_role"][role] = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+        if cell.kind == "train_step":
+            _, opt_state, loss = run["out"]
+            rec["loss"] = float(loss)
+            if role == "pna_float64" and rank == 0:
+                rec["grads"] = _host_tree({k_: v / (1 - 0.9) for k_, v in named_leaves(opt_state["m"]).items()})
+            if role in ("t2b", "t2a"):
+                keep[role] = named_leaves(opt_state["m"])
+        else:
+            logits, cache = run["out"]
+            rec["logits"] = logits.float().cpu()
+            keep[role] = cache
+        out[role] = rec
+        del run, args, cell
+        if role == "t4b":
+            out.update(hill_decode_holds(keep, rank))
+            keep.clear()
+            params = None
+        _free(device)
+    a, b = keep["t2b"], keep["t2a"]
+    out["accum_grad_rel_err"] = max(float((a[n].float() - b[n].float()).abs().max())
+                                    / max(float(b[n].float().abs().max()), 1e-30) for n in b)
+    out["accum_leaves"] = len(b)
+    del keep
+    _free(device)
+    out["launches"] = launch_counts()
+    return out
+
+
+def hill_decode_holds(keep: dict, r: int) -> dict:
+    """(c) on rank ``r``: t4-b's ring slot ``pos mod W`` of each local layer
+    against the uniform cache's new k / v at ``pos`` (the rank's kv heads
+    of a head split; under a sequence split, the rank that holds ``pos``):
+    the first local layer, whose inputs are the same bits in both, bit for
+    bit; every other within HILL_DECODE_RTOL of the layer's max."""
+    from repro_torch.configs.registry import get_arch
+
+    cfg = get_arch("gemma3-12b").make_config()
+    period, W = cfg.global_every, cfg.window
+    uni, ring = keep["t4_uniform"], keep["t4b"]
+    if keep["uniform_split"] == "heads":                      # the rank's kv heads, every position
+        hk = uni["k"].shape[3]
+        at, heads = HILL_POS, slice(hk * r, hk * (r + 1))
+    else:                                                    # by sequence: the rank whose slice holds pos
+        s_loc = uni["k"].shape[2]
+        if HILL_POS // s_loc != r:
+            return {"ring_slot": None}
+        at, heads = HILL_POS - r * s_loc, slice(None)
+    slot = {"exact_first_layer": True, "rel_err_other_layers": 0.0}
+    for name in ("k", "v"):
+        for g in range(HILL_GEMMA_LAYERS // period):
+            for j in range(period - 1):
+                want = uni[name][g * period + j][:, at].float()
+                got = ring["r" + name][g, j][:, HILL_POS % W, heads].float()
+                if g == j == 0:
+                    slot["exact_first_layer"] &= bool(torch.equal(got, want))
+                else:
+                    err = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+                    slot["rel_err_other_layers"] = max(slot["rel_err_other_layers"], err)
+    return {"ring_slot": slot}
+
+
+def dryrun_rank(rank: int, k: int, device: torch.device, jobs: list) -> dict:
+    """The dry run's 4-rank group: `repro_torch.launch.dryrun.real_steps` of
+    the GNN jobs, then the hillclimb's cells (`hill_rank`)."""
+    from repro_torch.launch.dryrun import real_steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = real_steps(rank, k, device, jobs)
+    _free(device)
+    out["hillclimb"] = hill_rank(rank, k, device)
+    return out
+
+
+def hill_meta(k: int) -> dict:
+    """(a)'s meta side: each `HILL_ROLES` cell's FLOPs and collectives as
+    every rank of 1 × k, on meta tensors in a fake group."""
+    from repro_torch.launch.dryrun import count_step
+    from repro_torch.launch.mesh import Grid, fake_group
+
+    grid, out = Grid(("data", "model"), (1, k)), {}
+    for rank in range(k):
+        with fake_group(grid, rank):
+            for role in HILL_ROLES:
+                cell, pos = hill_cell(role, grid)
+                cell = cell.bind()
+                run = count_step(cell.fn, _hill_args(cell, pos, SEED, "meta"))
+                out[f"{role}/{rank}"] = dict(flops=run["flops"], collectives=run["collectives"])
+                del run, cell
+    return out
+
+
+def hillclimb_host(out_path: str, part: int, parts: int) -> None:
+    """The hillclimb's host records (a subprocess that never touches the
+    card): `HILL_HOST_PARTS[part]`'s targets of
+    `repro_torch.launch.hillclimb` on 16 × 16, t1, t2 and t4 at their
+    production shapes, t3 at full_graph_sm, each target's records with a
+    status, in a temporary working directory (t3 writes its plan there);
+    the last part also `hill_meta`. Writes one JSON file."""
+    import contextlib
+    import io
+    import traceback
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import hillclimb as hc
+
+    torch.set_num_threads(1)
+    out = {"targets": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_hillclimb_") as tmp:
+        os.chdir(tmp)
+        for name in HILL_HOST_PARTS[part]:
+            t0 = time.perf_counter()
+            kw = {"shape": get_arch("pna").shapes["full_graph_sm"]} if name == "target3_pna" else {}
+            try:
+                with contextlib.redirect_stdout(io.StringIO()) as said:
+                    recs = getattr(hc, name)(**kw)
+                out["targets"][name] = dict(status="OK", records=recs, printed=said.getvalue()[-4000:])
+            except Exception as e:  # noqa: BLE001 — recorded; the line fails on it
+                out["targets"][name] = dict(status="FAIL", error=f"{type(e).__name__}: {e}",
+                                            trace=traceback.format_exc()[-2000:])
+            out["targets"][name]["seconds"] = time.perf_counter() - t0
+        os.chdir(ROOT)
+    if part == parts - 1:
+        t0 = time.perf_counter()
+        out["meta"] = hill_meta(DRYRUN_K)
+        out["meta_seconds"] = time.perf_counter() - t0
+    with open(out_path, "w") as f:
+        json.dump(out, f, default=str)
+
+
+def run_hillclimb_line(results: list, host: dict, device: torch.device, group_s: float) -> dict:
+    """The ``hillclimb`` line from the dry run's group (each rank's
+    `hill_rank`) and the host parts: (a) every cell's FLOPs and collectives
+    by kind equal to the meta run's as the same rank; (b) t2-b against
+    the remat cell; (c) the two-stack decodes against the uniform one, and
+    the ring slots; (d) t3-b / t3-c losses against the fp32 cell's, and
+    the float64 cell's loss and gradient against its k blocks in one
+    process on the card (`repro_torch.launch.hillclimb.pna_halo_lockstep_loss`);
+    (e) t3-c's halo all-gather result bytes half the fp32 cell's; and the
+    host records, each target OK, t3-a above t3-baseline in collective
+    bytes, t2-a below t2-baseline in peak bytes, t2-c equal to t2-a.
+    Returns the group's K1–K4 launches of these cells."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import hillclimb as hc
+    from repro_torch.launch.mesh import Grid
+    from repro_torch.launch.steps import _gnn_params, draw_tree
+    from repro_torch.train.loop import value_and_grad
+
+    hill = [r["hillclimb"] for r in results]
+    k = len(hill)
+    checks, line = {}, {}
+    # (a)
+    counts = {}
+    for role in HILL_ROLES:
+        same = [h[role]["flops"] == host["meta"][f"{role}/{r}"]["flops"]
+                and h[role]["collectives"] == host["meta"][f"{role}/{r}"]["collectives"] for r, h in enumerate(hill)]
+        checks[f"a_{role}"] = all(same)
+        counts[role] = dict(flops_per_rank=[h[role]["flops"] for h in hill], equal_per_rank=same,
+                            collectives_rank0={kind: v for kind, v in hill[0][role]["collectives"].items()
+                                               if v["count"]},
+                            seconds_per_rank=[round(h[role]["seconds"], 3) for h in hill])
+    # (b)
+    loss_b, loss_a = hill[0]["t2b"]["loss"], hill[0]["t2a"]["loss"]
+    accum = dict(loss=loss_b, remat_loss=loss_a, loss_rel_err=abs(loss_b - loss_a) / abs(loss_a),
+                 grad_rel_err_per_rank=[h["accum_grad_rel_err"] for h in hill], leaves=hill[0]["accum_leaves"],
+                 loss_rtol=HILL_ACC_LOSS_RTOL, grad_rtol=HILL_ACC_GRAD_RTOL)
+    checks["b_accum"] = (accum["loss_rel_err"] <= HILL_ACC_LOSS_RTOL
+                         and max(accum["grad_rel_err_per_rank"]) <= HILL_ACC_GRAD_RTOL)
+    # (c)
+    whole = {role: torch.cat([h[role]["logits"] for h in hill], dim=-1) for role in ("t4_uniform", "t4a", "t4b")}
+    decode = {}
+    scale = float(whole["t4_uniform"].abs().max())
+    for role in ("t4a", "t4b"):
+        err = float((whole[role] - whole["t4_uniform"]).abs().max()) / scale
+        agree = float((whole[role].argmax(-1) == whole["t4_uniform"].argmax(-1)).float().mean())
+        decode[role] = dict(logits_rel_err=err, argmax_agreement=agree, rtol=HILL_DECODE_RTOL)
+        checks[f"c_{role}"] = err <= HILL_DECODE_RTOL and agree == 1.0
+    decode["t4b_ring_slot"] = [h["ring_slot"] for h in hill]          # None: the uniform cache's pos is elsewhere
+    held = [s for s in decode["t4b_ring_slot"] if s is not None]
+    checks["c_ring_slot"] = bool(held) and all(s["exact_first_layer"] and s["rel_err_other_layers"] <= HILL_DECODE_RTOL
+                                               for s in held)
+    # (d)
+    fp32 = hill[0]["pna_fp32"]["loss"]
+    pna = {role: dict(loss=hill[0][role]["loss"], rel_err=abs(hill[0][role]["loss"] - fp32) / abs(fp32))
+           for role in ("t3b", "t3c")}
+    for role in ("t3b", "t3c"):
+        checks[f"d_{role}_loss"] = pna[role]["rel_err"] <= HILL_PNA_LOSS_RTOL
+    spec = get_arch("pna")
+    shape = spec.shapes["full_graph_sm"]
+    cfg = spec.make_config(shape)
+    plan = hill_cell("pna_fp32", Grid(("data", "model"), (1, k)))[0].halo_plan
+    params = draw_tree(SEED, _gnn_params("pna", cfg), torch.float32, device)
+    blocks = [hc.pna_halo_batch(plan, cfg, shape, SEED, r, device) for r in range(k)]
+    loss, grads = value_and_grad(lambda p, b: hc.pna_halo_lockstep_loss(p, b, cfg, torch.float64), params, blocks)
+    want, got = _host_tree(grads), hill[0]["pna_float64"]["grads"]
+    g_err = max(float((got[n] - v).abs().max()) / max(float(v.abs().max()), 1e-30) for n, v in want.items())
+    l_err = abs(hill[0]["pna_float64"]["loss"] - float(loss)) / abs(float(loss))
+    pna["float64"] = dict(loss=hill[0]["pna_float64"]["loss"], lockstep_loss=float(loss), loss_rel_err=l_err,
+                          grad_rel_err=g_err, rtol=HILL_PNA_F64_RTOL,
+                          note="the k-block plan's function (padding rows in the loss, padding edges in the "
+                               "aggregates) in one process: a one-block plan is another function")
+    checks["d_float64"] = l_err <= HILL_PNA_F64_RTOL and g_err <= HILL_PNA_F64_RTOL
+    del params, blocks, grads
+    # (e)
+    wire = {role: [h[role]["collectives"]["all-gather"]["bytes_out"] for h in hill] for role in ("pna_fp32", "t3c")}
+    checks["e_bf16_wire_half"] = all(2 * c == f for c, f in zip(wire["t3c"], wire["pna_fp32"]))
+    # the host records
+    fields = ("tag", "compute_s", "memory_s", "collective_s", "collective_by_type", "peak_bytes", "model_flops",
+              "plan", "exchange_model", "counted_wire", "note")
+    records = {}
+    for name, t in host["targets"].items():
+        checks[f"host_{name}"] = t["status"] == "OK"
+        if t["status"] == "OK":
+            records[name] = dict(status="OK", seconds=t["seconds"], records=[
+                dict(status="OK", **{k_: r[k_] for k_ in fields if k_ in r}) for r in t["records"]])
+        else:
+            records[name] = {k_: t[k_] for k_ in ("status", "seconds", "error", "trace")}
+    by_tag = {r["tag"].split()[0]: r for t in records.values() for r in t.get("records", [])}
+    if all(checks[f"host_{n}"] for n in host["targets"]):
+        checks["host_t3a_above_baseline"] = (by_tag["t3-a"]["collective_by_type"]["total"]
+                                             > by_tag["t3-baseline"]["collective_by_type"]["total"])
+        checks["host_t2a_peak_below_baseline"] = by_tag["t2-a"]["peak_bytes"] < by_tag["t2-baseline"]["peak_bytes"]
+        checks["host_t2c_is_t2a"] = all(by_tag["t2-c"][k_] == by_tag["t2-a"][k_] for k_ in
+                                        ("compute_s", "memory_s", "collective_s", "collective_by_type", "peak_bytes"))
+    launches = {name: sum(h["launches"][name] for h in hill) for name in hill[0]["launches"]}
+    ok = all(checks.values())
+    emit("hillclimb", ok=ok, checks=checks, reduced=HILL_REDUCED, counts=counts, accum=accum, decode=decode, pna=pna,
+         wire_all_gather_bytes_per_rank=wire, records=records, host_part_seconds=host["part_seconds"],
+         meta_seconds=host.get("meta_seconds"), group_seconds=group_s, launches_per_group=launches,
+         launches_by_role_rank0=hill[0]["launches_by_role"],
+         note="the hand-built cells of repro_torch.launch.hillclimb on the dry run's 4 ranks (1 × 4, gloo); "
+              "(a) rank r's real step against the meta step as rank r; the host records: t1, t2, t4 at their "
+              "production shapes, t3 at full_graph_sm, all on 16 × 16, traced on meta tensors (the data-sheet "
+              "rates: roofline terms, not measurements)")
+    require(ok, "hillclimb", f"checks {checks}")
+    return launches
+
+
+def run_dryrun(measured: dict, device: torch.device, host_procs: list, hill_procs: list) -> tuple[dict, dict]:
+    """The dry run's line: (a) the host sweep's records (``host_procs``:
+    its subprocesses, started beside the sharded phase's group); (b) one train step
     of each `dryrun_jobs` cell on DRYRUN_K ranks sharing the card (gloo),
     its count by kind, bytes in and out and FLOPs equal to the meta run's
     of the same cell; (c) the fp32-wire losses, gradients and updated
@@ -5212,18 +5696,20 @@ def run_dryrun(measured: dict, device: torch.device) -> dict:
     EquiformerV2's gradient and parameters in float64), the bf16 / int8
     wire losses against fp32, and
     halo below broadcast; (d) the lm_tp prefill's and the deepfm_sharded
-    cells' meta counts equal to what those phases measured. Returns the
-    group's K1–K4 launches."""
+    cells' meta counts equal to what those phases measured. The same group
+    then runs the hillclimb's cells (`hill_rank`), whose line
+    (`run_hillclimb_line`) also reads ``hill_procs``, the host parts
+    started before the GNN phases. Returns the group's K1–K4 launches:
+    the dry run's, and the hillclimb's."""
     from repro_torch.launch.dryrun import real_steps
     from repro_torch.launch.mesh import GroupSpec, run_group
 
     t0 = time.perf_counter()
-    host_procs = start_dryrun_host()
     jobs = dryrun_jobs()
     spec = GroupSpec(k=DRYRUN_K, backend="gloo", devices=("cuda:0",) if device.type == "cuda" else ("cpu",),
                      timeout_s=DRYRUN_TIMEOUT_S)
 
-    results = run_group(spec, real_steps, [jobs] * DRYRUN_K)
+    results = run_group(spec, dryrun_rank, [jobs] * DRYRUN_K)
     group_s = time.perf_counter() - t0
     t1 = time.perf_counter()
     refs, by_cell = {}, {}          # jobs that differ only in their grid share one k = 1 cell
@@ -5234,7 +5720,12 @@ def run_dryrun(measured: dict, device: torch.device) -> dict:
         if job.keep:
             refs[job.tag()] = by_cell[one.tag()]
     k1_s = time.perf_counter() - t1
-    host = wait_dryrun_host(host_procs)
+    host = {"sweep": [], "sweep_seconds": []}      # the sweep's records of every part, the rest from part 0
+    for part in wait_host(host_procs, "dryrun"):
+        host["sweep"] += part.pop("sweep")
+        host["sweep_seconds"].append(part.pop("sweep_seconds"))
+        part.pop("seconds")
+        host.update(part)
     host_wait_s = time.perf_counter() - t1 - k1_s
     checks, line = {}, {}
     # (a) the sweep
@@ -5304,8 +5795,17 @@ def run_dryrun(measured: dict, device: torch.device) -> dict:
               "(d) the meta count of the lm_tp prefill and deepfm_sharded "
               "cells against the same cells' counts in the sharded phases")
     require(ok, "dryrun", f"checks {checks}")
-    return launches
+    hill_host = {"targets": {}, "part_seconds": []}
+    for part in wait_host(hill_procs, "hillclimb"):
+        hill_host["targets"].update(part.pop("targets"))
+        hill_host["part_seconds"].append(part.pop("seconds"))
+        hill_host.update(part)
+    hill = run_hillclimb_line(results, hill_host, device, group_s)
+    return launches, hill
 
+
+
+HOST_MODES = {"--dryrun-host": dryrun_host, "--hillclimb-host": hillclimb_host}
 
 
 def main() -> int:
@@ -5377,14 +5877,20 @@ def main() -> int:
     run_serve_graph(host, device)
     gc.collect()
     torch.cuda.empty_cache()
-    # The next phase's host graph (numpy only, no card) is built in a thread while the delta group runs.
+    # The GNN phases' host work (their graph, gnn_train's host runs, gnn_serve's engines) is done in a thread
+    # while the delta group runs.
+    threads = torch.get_num_threads()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        gnn_built = pool.submit(build_gnn_data)
+        gnn_built = pool.submit(gnn_host_work, device)
         delta = run_delta(host, delta_prep)
         gnn_built = gnn_built.result()
+    torch.set_num_threads(threads)
     del delta_prep
     gc.collect()
     torch.cuda.empty_cache()
+    # The hillclimb's host records (no card) run in subprocesses beside the GNN, DeepFM and LM phases; the
+    # dry run's line reads them.
+    hill_procs = start_host("--hillclimb-host", len(HILL_HOST_PARTS))
     run_gnn(host, halo, device, gnn_built)
     del gnn_built
     gc.collect()
@@ -5403,7 +5909,7 @@ def main() -> int:
     lm["worst"]["k4_flash_attention"] = max(lm["worst"]["k4_flash_attention"], lm_train_err, moe_err)
     gc.collect()
     torch.cuda.empty_cache()
-    shard_run = run_sharded(device)
+    shard_run = run_sharded(device, beside=lambda: start_host("--dryrun-host", DRYRUN_HOST_PARTS))
     for name, err in shard_run["worst"].items():
         for rows_of in (lm, fm):
             if name in rows_of["worst"]:
@@ -5412,7 +5918,7 @@ def main() -> int:
                       ("lm_tp", "moe_ep", "lm_seq", "lm_tp_train", "deepfm_sharded")}
     gc.collect()
     torch.cuda.empty_cache()
-    dry = run_dryrun(shard_run["measured"], device)
+    dry, hill = run_dryrun(shard_run["measured"], device, shard_run["beside"], hill_procs)
 
     worst = {name: max(err, delta["kernel_errs"].get(name, 0.0)) for name, err in worst.items()}
     print(card_line(), flush=True)
@@ -5452,13 +5958,13 @@ def main() -> int:
     ] + [
         dict(name=name, route="cuda", source=K4_SOURCE, replaces=REPLACES[name],
              launches=lm_prefill_run[name] + lm_decode_run[name] + lm_train_run[name] + moe_run[name]
-             + sum(shard_launches[p][name] for p in ("lm_tp", "moe_ep", "lm_seq", "lm_tp_train")),
+             + sum(shard_launches[p][name] for p in ("lm_tp", "moe_ep", "lm_seq", "lm_tp_train")) + hill[name],
              launches_lm_prefill=lm_prefill_run[name],
              launches_per_prefill=lm_prefill_run[name] / (1 + LM_PREFILL_REPS),
              launches_lm_decode=lm_decode_run[name], launches_lm_train=lm_train_run[name],
              launches_moe=moe_run[name], launches_lm_tp=shard_launches["lm_tp"][name],
              launches_moe_ep=shard_launches["moe_ep"][name], launches_lm_seq=shard_launches["lm_seq"][name],
-             launches_lm_tp_train=shard_launches["lm_tp_train"][name],
+             launches_lm_tp_train=shard_launches["lm_tp_train"][name], launches_hillclimb=hill[name],
              by_shape_sharded={k: dict(heads=v["heads"], S=v["S"], d=v["d"], window=v["window"], ms=v["ms"],
                                        plain_ms=v["plain_ms"], library_ms=v["library_ms"], bound_ms=v["bound"][0],
                                        bound_by=v["bound"][1])
@@ -5480,8 +5986,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--dryrun-host"]:       # the dry run's host half, started by main() itself
+    if sys.argv[1:2] and sys.argv[1] in HOST_MODES:      # a host half, started by main() itself (`start_host`)
         sys.path.insert(0, str(SRC))
-        dryrun_host(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
+        HOST_MODES[sys.argv[1]](sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
         sys.exit(0)
     sys.exit(main())

@@ -75,7 +75,7 @@ from repro_torch.obs import metrics as _obs_metrics
 from repro_torch.obs import trace as _obs_trace
 from repro_torch.obs.instrument import record_blocked, record_exchange
 
-__all__ = ["run_cell", "collective_bytes", "count_step", "exchange_accounting", "load_results", "main",
+__all__ = ["run_cell", "collective_bytes", "count_step", "step_terms", "exchange_accounting", "load_results", "main",
            "mesh_tag", "RESULTS_PATH", "StepJob", "real_steps", "meta_steps"]
 
 RESULTS_PATH = "results/dryrun_torch.json"
@@ -245,6 +245,40 @@ def count_step(fn, args: tuple) -> dict:
                 op_bytes=float(ops.bytes), peak_bytes=float(ops.peak), seconds=time.perf_counter() - t0)
 
 
+def step_terms(fn, args: tuple) -> dict:
+    """One step's counts and roofline terms: ``fn(*args)`` traced once
+    under `count_step` (on a bound cell's meta inputs, in a fake group, for
+    the dry run). Returns ``flops``, ``hbm_bytes`` (the unfused program's
+    operand bytes), ``collective_bytes`` (`collective_bytes`: result bytes
+    by kind and ``total``), ``collectives`` (count, bytes in and out by
+    kind), ``memory`` (argument and output bytes; ``peak_bytes`` = the
+    arguments + the live storages the step made at their peak), and
+    ``roofline``: the three terms at the data-sheet `RATES` — the compute
+    rate is bf16's when a leaf of ``args[0]`` (the parameters) is bf16 —,
+    the dominant one; and ``out``, the step's output. `run_cell` and
+    `repro_torch.launch.hillclimb` both read their records from here."""
+    run = count_step(fn, args)
+    arg_bytes = sum(_nbytes(t) for t in tree_leaves(args) if isinstance(t, torch.Tensor))
+    out_bytes = sum(_nbytes(t) for t in tree_leaves(run["out"]) if isinstance(t, torch.Tensor))
+    coll = collective_bytes(run["collectives"])
+    flops, bytes_hbm = run["flops"], run["op_bytes"]
+    bf16 = any(t.dtype == torch.bfloat16 for t in tree_leaves(args[0]) if isinstance(t, torch.Tensor))
+    peak = RATES["bf16_flops_per_s"] if bf16 else RATES["fp32_flops_per_s"]
+    compute_s = flops / peak
+    memory_s = bytes_hbm / RATES["hbm_bytes_per_s"]
+    collective_s = coll["total"] / RATES["link_bytes_per_s"]
+    dominant = max(("compute", compute_s), ("memory", memory_s), ("collective", collective_s),
+                   key=lambda kv: kv[1])[0]
+    return dict(
+        out=run["out"], flops=flops, hbm_bytes=bytes_hbm, collective_bytes=coll, collectives=run["collectives"],
+        memory={"argument_bytes": arg_bytes, "output_bytes": out_bytes, "temp_bytes": None,
+                "peak_bytes": arg_bytes + run["peak_bytes"]},
+        roofline={"compute_s": compute_s, "memory_s": memory_s, "collective_s": collective_s,
+                  "dominant": dominant, "flops_per_s": peak, "dtype": "bf16" if bf16 else "fp32",
+                  "rates": RATES, "measured": False},
+        seconds=run["seconds"])
+
+
 # ------------------------------------------------------------ one record
 def mesh_tag(grid, optimized: bool = False, comm: str | None = None, payload: str | None = None) -> str:
     """``16x16`` / ``2x16x16`` (the grid's sizes) with ``+opt``,
@@ -279,23 +313,13 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool, verbose: bool = Tru
             cell = build_cell(spec, shape, grid, optimized=optimized, comm=comm, payload=payload)
             with _obs_trace.span("dryrun.lower", args={"arch": arch_id, "shape": shape_name}):
                 bound = cell.bind()
-                args = bound.abstract_inputs()
-                run = count_step(bound.fn, args)
+                terms = step_terms(bound.fn, bound.abstract_inputs())
         t_lower = time.perf_counter() - t0
         if _obs_metrics.enabled():
             _obs_metrics.observe("dryrun.lower_s", t_lower)
             _obs_metrics.inc("dryrun.cells")
-        arg_bytes = sum(_nbytes(t) for t in tree_leaves(args) if isinstance(t, torch.Tensor))
-        out_bytes = sum(_nbytes(t) for t in tree_leaves(run["out"]) if isinstance(t, torch.Tensor))
-        coll = collective_bytes(run["collectives"])
-        flops, bytes_hbm = run["flops"], run["op_bytes"]
-        bf16 = any(t.dtype == torch.bfloat16 for t in tree_leaves(args[0]) if isinstance(t, torch.Tensor))
-        peak = RATES["bf16_flops_per_s"] if bf16 else RATES["fp32_flops_per_s"]
-        compute_s = flops / peak
-        memory_s = bytes_hbm / RATES["hbm_bytes_per_s"]
-        collective_s = coll["total"] / RATES["link_bytes_per_s"]
-        dominant = max(("compute", compute_s), ("memory", memory_s), ("collective", collective_s),
-                       key=lambda kv: kv[1])[0]
+        flops, bytes_hbm, coll = terms["flops"], terms["hbm_bytes"], terms["collective_bytes"]
+        dominant = terms["roofline"]["dominant"]
         rec.update(
             status="OK",
             kind=cell.kind,
@@ -307,12 +331,9 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool, verbose: bool = Tru
             hbm_bytes_per_device=bytes_hbm,
             hbm_bytes_note="the bytes of every operation's inputs and outputs (the unfused program)",
             collective_bytes_per_device=coll,
-            collectives_per_device=run["collectives"],
-            memory={"argument_bytes": arg_bytes, "output_bytes": out_bytes, "temp_bytes": None,
-                    "peak_bytes": arg_bytes + run["peak_bytes"]},
-            roofline={"compute_s": compute_s, "memory_s": memory_s, "collective_s": collective_s,
-                      "dominant": dominant, "flops_per_s": peak, "dtype": "bf16" if bf16 else "fp32",
-                      "rates": RATES, "measured": False},
+            collectives_per_device=terms["collectives"],
+            memory=terms["memory"],
+            roofline=terms["roofline"],
             model_flops=cell.model_flops,
             useful_flops_ratio=(cell.model_flops / (flops * grid.size)) if flops else None,
             note=cell.note,

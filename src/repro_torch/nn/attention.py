@@ -197,9 +197,15 @@ def attention_decode(
     cfg: AttentionConfig,
     window: int | None = None,
     policy: ShardingPolicy = NO_POLICY,
+    span: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """One decode step against a per-layer KV cache; returns (out, cache),
-    the cache updated in place at each row's position."""
+    the cache updated in place at each row's position.
+
+    On a sequence-split cache, ``span=(lo, hi)`` scores only the keys at
+    global positions ``[lo, hi)``: a rank scores the part of its slice
+    inside them, and a rank whose slice misses them gives the empty
+    partial."""
     B = x.shape[0]
     hd = cfg.head_dim
     ck, cv = layer_cache["k"], layer_cache["v"]
@@ -214,6 +220,8 @@ def attention_decode(
     if kind == "none" and policy.n_model > 1:
         raise ValueError("a decode under a model size above 1 needs the policy's cache spec "
                          "(launch.shardings.cache_spec)")
+    if span is not None and kind != "seq":
+        raise ValueError("a span is taken on a sequence-split cache (the policy's cache spec)")
     if kind != "seq":
         ck[rows, positions] = k[:, 0]
         cv[rows, positions] = v[:, 0]
@@ -242,11 +250,17 @@ def attention_decode(
     ck[rows, at] = torch.where(mine, k[:, 0], ck[rows, at])
     cv[rows, at] = torch.where(mine, v[:, 0], cv[rows, at])
     Hk = cfg.n_kv_heads
+    span_lo, span_hi = (start, start + Smax) if span is None else span
+    keys = slice(min(max(span_lo - start, 0), Smax), max(min(span_hi - start, Smax), 0))
+    k_pos = start + torch.arange(keys.start, max(keys.stop, keys.start), device=x.device)[None, :]
     qg = q_all.reshape(B, Hk, cfg.q_groups, hd) * (hd ** -0.5)
-    s = torch.einsum("bhgd,bshd->bhgs", qg, ck).float()
-    k_pos = start + torch.arange(Smax, device=x.device)[None, :]
-    valid = ((k_pos <= positions[:, None]) & (k_pos > positions[:, None] - win))[:, None, None, :]
-    m, l, acc = _partial_softmax(s, valid, cv)
+    if keys.stop > keys.start:
+        s = torch.einsum("bhgd,bshd->bhgs", qg, ck[:, keys]).float()
+        valid = ((k_pos <= positions[:, None]) & (k_pos > positions[:, None] - win))[:, None, None, :]
+        m, l, acc = _partial_softmax(s, valid, cv[:, keys])
+    else:                                                          # the slice misses the span: the empty partial
+        m = torch.full((B, Hk, cfg.q_groups), float("-inf"), device=x.device)
+        l, acc = torch.zeros_like(m), torch.zeros((B, Hk, cfg.q_groups, hd), device=x.device)
     if n > 1:
         scale = torch.exp(m - all_reduce_max(m, group))
         l, acc = psum(l * scale, group), psum(acc * scale[..., None], group)
