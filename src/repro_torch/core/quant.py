@@ -13,6 +13,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.obs import trace as _obs_trace
 from repro_torch.train.tree import tree_map
 
 __all__ = [
@@ -49,19 +50,20 @@ def fake_quant(x: torch.Tensor, bits: int, percentile: float | None = None) -> t
     """
     if bits >= 32 or bits <= 0:
         return x
-    qmax = float(2 ** (bits - 1) - 1)
-    mag = x.detach().abs()
-    if percentile is None:
-        amax = mag.max()
-    else:
-        flat = mag.reshape(-1)
-        n = int(flat.shape[0])
-        k = min(n, max(1, n - math.ceil(percentile / 100.0 * n) + 1))
-        amax = torch.topk(flat, k).values[-1]
-    scale = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
-    q = torch.clamp(torch.round(x / scale), -qmax - 1, qmax) * scale
-    # Straight-through estimator: forward q, backward identity.
-    return x + (q - x).detach()
+    with _obs_trace.span("quant.fake_quant"):
+        qmax = float(2 ** (bits - 1) - 1)
+        mag = x.detach().abs()
+        if percentile is None:
+            amax = mag.max()
+        else:
+            flat = mag.reshape(-1)
+            n = int(flat.shape[0])
+            k = min(n, max(1, n - math.ceil(percentile / 100.0 * n) + 1))
+            amax = torch.topk(flat, k).values[-1]
+        scale = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
+        q = torch.clamp(torch.round(x / scale), -qmax - 1, qmax) * scale
+        # Straight-through estimator: forward q, backward identity.
+        return x + (q - x).detach()
 
 
 def quantize_tree(params: Any, bits: int, percentile: float | None = None) -> Any:

@@ -97,6 +97,7 @@ from repro_torch.kernels.fused_gcn import (
     fused_gcn_layer_plain,
     operand_suffix,
 )
+from repro_torch.obs import trace as _obs_trace
 
 __all__ = ["bsr_spmm", "fused_gcn_layer", "fm_interaction", "flash_attention", "kernel_flops"]
 
@@ -108,7 +109,10 @@ def _pad_rows(z: torch.Tensor, block: int) -> torch.Tensor:
     (a k = 1 rank's halo block) to one block, the one column block its
     table has."""
     pad = (-z.shape[0]) % block or (block if z.shape[0] == 0 else 0)
-    return torch.cat([z, z.new_zeros((pad,) + tuple(z.shape[1:]))]) if pad else z.contiguous()
+    if not pad:
+        return z.contiguous()
+    with _obs_trace.span("kernels.pad_rows"):
+        return torch.cat([z, z.new_zeros((pad,) + tuple(z.shape[1:]))])
 
 
 def _on_device(kernel: str, plain, cuda, *args, **kw) -> torch.Tensor:
@@ -254,7 +258,8 @@ def _bsr_t_apply(vals: torch.Tensor, cols: torch.Tensor, lens: torch.Tensor, g: 
     ``g`` is (R·B, F) row-cotangents. Returns (n_z_rows, F). Only valid
     tiles (``t < lens[r]``) are read.
     """
-    r_idx, t_idx = _tile_mask(cols, lens).nonzero(as_tuple=True)
+    with _obs_trace.span("sync.tile_index"):
+        r_idx, t_idx = _tile_mask(cols, lens).nonzero(as_tuple=True)
     R, _, B, _ = vals.shape
     F = g.shape[-1]
     contrib = torch.bmm(vals[r_idx, t_idx].float().transpose(1, 2), g.reshape(R, B, F)[r_idx])
@@ -277,7 +282,8 @@ def _bsr_dvals(vals: torch.Tensor, cols: torch.Tensor, lens: torch.Tensor, g: to
                z: torch.Tensor) -> torch.Tensor:
     """dvals[r,t] = g[r] · Z[cols[r,t]]ᵀ on valid tiles, zero on padding,
     in fp32 of vals' (R, T, B, B) shape."""
-    r_idx, t_idx = _tile_mask(cols, lens).nonzero(as_tuple=True)
+    with _obs_trace.span("sync.tile_index"):
+        r_idx, t_idx = _tile_mask(cols, lens).nonzero(as_tuple=True)
     R, T, B, _ = vals.shape
     F = z.shape[-1]
     zb = z.reshape(-1, B, F)[cols[r_idx, t_idx].long()].float()

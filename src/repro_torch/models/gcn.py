@@ -56,6 +56,7 @@ from repro_torch.graph.ops import aggregate, aggregate_padded
 from repro_torch.graph.structure import BlockedAdjacency
 from repro_torch.kernels.ops import bsr_spmm, fused_gcn_layer
 from repro_torch.nn.layers import Draw, params_from_numpy
+from repro_torch.obs import trace as _obs_trace
 
 __all__ = ["GCNConfig", "gcn_param_plan", "gcn_init", "params_from_numpy", "gcn_forward", "gcn_loss"]
 
@@ -143,7 +144,10 @@ def _normalize_adjacency(adjacency, device: torch.device):
         # A meta tensor (the dry run) has no count to read: it takes the
         # reference's Tracer branch (nnz None), whose chooser falls back to
         # the edge model.
-        nnz = None if lens is None or lens.device.type == "meta" else int(lens.sum())
+        nnz = None
+        if lens is not None and lens.device.type != "meta":
+            with _obs_trace.span("sync.nnz_blocks"):
+                nnz = int(lens.sum())
         return vals, cols, lens, nnz, int(vals.shape[-1])
     raise ValueError(
         "backend='bsr' requires adjacency=BlockedAdjacency or its "

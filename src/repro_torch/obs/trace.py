@@ -1,42 +1,53 @@
 """Span tracing with Chrome trace-event export (Perfetto-loadable) — twin of
-`repro.obs.trace`.
+`repro.obs.trace`, and a bridge to `torch.profiler`.
 
-A :class:`TraceRecorder` collects *complete* events (``ph == "X"``) with
-microsecond timestamps relative to the recorder's creation, plus counter
-(``"C"``), instant (``"i"``) and metadata (``"M"``) events. The export
-format is the Chrome trace-event JSON object form::
+A span goes to whatever is listening while its block runs:
 
-    {"traceEvents": [...], "displayTimeUnit": "ms"}
+* a :class:`TraceRecorder` installed as the process-global tracer
+  (`enable_tracing`, or ``--trace OUT.json`` through
+  `repro_torch.launch.obsflags`) collects *complete* events (``ph == "X"``)
+  with microsecond timestamps relative to the recorder's creation, plus
+  instant (``"i"``) and metadata (``"M"``) events, exported in the Chrome
+  trace-event JSON object form::
 
-which chrome://tracing and https://ui.perfetto.dev load directly.
+      {"traceEvents": [...], "displayTimeUnit": "ms"}
 
-Two honesty mechanisms for the card's asynchronous launches:
+  which chrome://tracing and https://ui.perfetto.dev load directly;
+* a running `torch.profiler` (or `torch.autograd.profiler`) session gets a
+  `torch.profiler.record_function` over the block: the profiler stamps the
+  span on its own clock, beside the kernels and the launch calls, on
+  whichever thread opened it (the autograd engine's device thread
+  included);
+* both, or neither: with no recorder and no profiler, `span` returns one
+  shared no-op context (two global reads, no allocation).
+
+Two honesty mechanisms for the recorder under the card's asynchronous
+launches:
 
 * **Sync points at span edges** — ``span(..., sync=x)`` (or setting
   ``handle.sync`` inside the block) calls ``torch.cuda.synchronize`` before
   recording the span end when ``x`` holds a CUDA tensor, so a span around
   launched work measures device work, not just Python dispatch time. Off
-  by default: un-synced spans measure dispatch.
+  by default: un-synced spans measure dispatch. A profiler needs no such
+  wait (it records the device's own timestamps), so a span seen only by a
+  profiler never waits.
 * **Raw complete events** — :meth:`TraceRecorder.complete` records a span
   from explicit start/duration, for work timed elsewhere.
 
 Thread-safe: several threads may record concurrently. Each OS thread gets a small stable ``tid`` plus a
 ``thread_name`` metadata event; logical tracks (e.g. ``wire``) get their
 own tids the same way. Span names follow ``layer.operation`` —
-see docs/observability.md for the catalog.
-
-When tracing is disabled the module-level helpers are no-ops on the same
-fast-path contract as `repro_torch.obs.metrics`.
+see docs/observability_torch.md for the catalog.
 """
 from __future__ import annotations
 
 import contextlib
-import functools
 import json
 import threading
 import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 __all__ = [
     "TraceRecorder",
@@ -47,9 +58,7 @@ __all__ = [
     "enable_tracing",
     "disable_tracing",
     "span",
-    "traced",
     "instant",
-    "counter",
     "export",
     "device_time_summary",
     "torch_profiler_trace",
@@ -153,13 +162,6 @@ class TraceRecorder:
         with self._lock:
             self._events.append(ev)
 
-    def counter(self, name: str, values: dict) -> None:
-        """Counter ("C") event — renders as a stacked area track."""
-        ev = {"name": name, "ph": "C", "ts": self.now_us(), "pid": self.pid,
-              "tid": 0, "args": {k: float(v) for k, v in values.items()}}
-        with self._lock:
-            self._events.append(ev)
-
     @contextlib.contextmanager
     def span(self, name: str, sync=None, args: dict | None = None,
              track: str | None = None):
@@ -167,36 +169,20 @@ class TraceRecorder:
 
         ``sync`` (or ``handle.sync`` set inside) is waited for on the card
         before the end timestamp, attributing device time to the span. ``track`` places the span on a named
-        logical track instead of the calling thread's row."""
+        logical track instead of the calling thread's row. A running
+        profiler also records the span (`record_function`)."""
         handle = SpanHandle(sync=sync, args=args)
-        t_start = self.now_us()
-        try:
-            yield handle
-        finally:
-            if handle.sync is not None:
-                _block(handle.sync)
-            t_end = self.now_us()
-            tid = self.track_tid(track) if track else self._thread_tid()
-            self.complete(name, t_start, t_end - t_start, tid=tid,
-                          args=handle.args or None)
-
-    def traced(self, name: str | None = None, sync_result: bool = False):
-        """Decorator form of :meth:`span`. ``sync_result=True`` blocks on
-        the wrapped function's return value before closing the span."""
-        def deco(fn):
-            label = name or fn.__qualname__
-
-            @functools.wraps(fn)
-            def wrapper(*a, **kw):
-                with self.span(label) as h:
-                    out = fn(*a, **kw)
-                    if sync_result:
-                        h.sync = out
-                    return out
-
-            return wrapper
-
-        return deco
+        with _profiled(name):
+            t_start = self.now_us()
+            try:
+                yield handle
+            finally:
+                if handle.sync is not None:
+                    _block(handle.sync)
+                t_end = self.now_us()
+                tid = self.track_tid(track) if track else self._thread_tid()
+                self.complete(name, t_start, t_end - t_start, tid=tid,
+                              args=handle.args or None)
 
     # --------------------------------------------------------------- export
     def events(self) -> list[dict]:
@@ -279,42 +265,34 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
+def _profiled(name: str):
+    """`record_function(name)` while a profiler session runs, else a
+    no-op context."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def _profiler_span(name: str):
+    with torch.profiler.record_function(name):
+        yield SpanHandle()
+
+
 def span(name: str, sync=None, args: dict | None = None, track: str | None = None):
-    if _DEFAULT is None:
-        return _NULL_SPAN
-    return _DEFAULT.span(name, sync=sync, args=args, track=track)
-
-
-def traced(name: str | None = None, sync_result: bool = False):
-    """Decorator that records through whatever tracer is installed at call
-    time (so enabling tracing after import still takes effect)."""
-    def deco(fn):
-        label = name or fn.__qualname__
-
-        @functools.wraps(fn)
-        def wrapper(*a, **kw):
-            tr = _DEFAULT
-            if tr is None:
-                return fn(*a, **kw)
-            with tr.span(label) as h:
-                out = fn(*a, **kw)
-                if sync_result:
-                    h.sync = out
-                return out
-
-        return wrapper
-
-    return deco
+    """A span over the block for the installed recorder and a running
+    profiler (see the module docstring); the shared no-op context when
+    neither listens. Yields a :class:`SpanHandle` either way."""
+    if _DEFAULT is not None:
+        return _DEFAULT.span(name, sync=sync, args=args, track=track)
+    if _autograd_profiler._is_profiler_enabled:
+        return _profiler_span(name)
+    return _NULL_SPAN
 
 
 def instant(name: str, args: dict | None = None) -> None:
     if _DEFAULT is not None:
         _DEFAULT.instant(name, args)
-
-
-def counter(name: str, values: dict) -> None:
-    if _DEFAULT is not None:
-        _DEFAULT.counter(name, values)
 
 
 def export(path: str) -> bool:
@@ -331,13 +309,14 @@ def device_time_summary(events, steps: int = 1, top: int = 20) -> dict:
 
     The device's busy time is the union of its kernels' intervals (the
     ``ProfilerStep#`` marks a scheduled profile also puts on the device
-    timeline are not kernels and are left out); the window spans every
+    timeline, and the device-side copies of `record_function` annotations
+    such as `span`'s, are not kernels and are left out); the window spans every
     recorded event, host and device. Returns per-step window and busy ms,
     the idle share (``"not measured"`` when no device event was recorded),
     the device-event count, and the ``top`` kernels by device time with
     their launches per step."""
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith("ProfilerStep")]
+               and not e.name.startswith("ProfilerStep") and not getattr(e, "is_user_annotation", False)]
     busy, last = 0.0, float("-inf")
     for start, end in sorted((e.time_range.start, e.time_range.end) for e in kernels):
         busy += max(0.0, end - max(start, last))

@@ -59,7 +59,8 @@ def value_and_grad(loss_fn: Callable, params: Any, batch: Any) -> tuple[torch.Te
     not reach the loss)."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     loss = loss_fn(tree_unflatten(params, leaves), batch)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with _obs_trace.span("train.backward"):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     return loss.detach(), tree_unflatten(params, grads)
 
@@ -105,7 +106,7 @@ class Trainer:
 
     def _train_step(self, params, opt_state, residual, batch):
         loss, grads = self._grads(params, batch)
-        with torch.no_grad():
+        with torch.no_grad(), _obs_trace.span("train.optimizer"):
             if self.cfg.compress_grads:
                 grads, residual = error_feedback_update(grads, residual, _int8_channel)
             new_params, new_opt = self.opt.update(grads, opt_state, params)

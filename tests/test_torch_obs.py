@@ -14,10 +14,18 @@ JAX package's, on the CPU.
   encloses an ``overlap.interior_compute`` span, and its snapshot has the
   wire-bytes identity of tests/test_obs_integration.py:203-240.
 * `torch_profiler_trace` writes a trace file into its directory.
+* `trace.span` with no listener is the shared no-op context and allocates
+  nothing; under a running `torch.profiler` the program's spans
+  (``quant.fake_quant``, ``kernels.pad_rows``, ``sync.*``,
+  ``train.backward``, ``train.optimizer``) are profiler events around the
+  aten ops they enclose; with the recorder on as well, its Chrome export
+  holds the same names.
 """
 import argparse
+import dataclasses
 import json
 import pickle
+import tracemalloc
 
 import numpy as np
 import pytest
@@ -155,6 +163,130 @@ def test_torch_profiler_trace_writes_a_trace(tmp_path):
     assert len(files) == 1
     events = json.loads(files[0].read_text())["traceEvents"]
     assert any("mm" in str(e.get("name", "")) for e in events)
+
+
+# ------------------------------------------------ spans on the profiler's clock
+FORWARD_SPANS = {"quant.fake_quant", "kernels.pad_rows", "sync.nnz_blocks"}
+STEP_SPANS = FORWARD_SPANS | {"train.step", "train.backward", "train.optimizer", "sync.tile_index"}
+
+
+@pytest.fixture
+def no_recorder():
+    old = trace.set_default_tracer(None)
+    yield
+    trace.set_default_tracer(old)
+
+
+@pytest.fixture(scope="module")
+def tiny_gcn():
+    """The reduced 4-bit coin_gcn (64 → 16 → 7, activations calibrated at
+    the 99.9th percentile, so through `torch.topk`) on 300 nodes with the
+    bsr backend, the tile tables handed over as tensors (whose tile count
+    the forward reads back): X's 300 rows are padded to the 128-row grid by
+    a copy.
+    Returns ``(loss_fn, forward, params, batch)``."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.graph.generators import citation_like
+    from repro_torch.graph.structure import blocked_adjacency
+    from repro_torch.models.gcn import gcn_forward, gcn_init, gcn_loss
+
+    cfg = dataclasses.replace(get_arch("coin_gcn").make_reduced(), backend="bsr")
+    g = citation_like(300, 1200, seed=0)
+    ones = np.ones(g.n_edges, np.float32)
+    adj = blocked_adjacency(g.n_nodes, g.edge_index, ones).arrays(device="cpu")   # (vals, cols, lens), as served
+    senders, receivers = (torch.from_numpy(g.edge_index[i]) for i in range(2))
+    weight = torch.from_numpy(ones)
+    params = gcn_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    batch = dict(x=torch.randn(g.n_nodes, 64, generator=torch.Generator().manual_seed(1)),
+                 labels=torch.from_numpy(g.labels), mask=torch.ones(g.n_nodes))
+
+    def loss_fn(p, b):
+        return gcn_loss(p, b["x"], senders, receivers, weight, b["labels"], b["mask"], cfg, adjacency=adj)
+
+    def forward(p, b):
+        return gcn_forward(p, b["x"], senders, receivers, weight, cfg, adjacency=adj)
+
+    return loss_fn, forward, params, batch
+
+
+def _profiled(fn):
+    """``fn()`` under a CPU `torch.profiler`; its events by name, each
+    ``(start, end)`` on the profiler's clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    out: dict[str, list] = {}
+    for e in prof.events():
+        out.setdefault(e.name, []).append((e.time_range.start, e.time_range.end))
+    return out
+
+
+def _inside(a, spans) -> bool:
+    return any(s[0] <= a[0] and a[1] <= s[1] for s in spans)
+
+
+def _one_step(loss_fn, params, batch):
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.train.optimizer import adamw
+
+    tr = Trainer(loss_fn, adamw(1e-3), params, TrainerConfig(log_every=1 << 30))
+    return tr.fit(iter(lambda: batch, None), max_steps=1)
+
+
+def test_span_with_no_listener_is_the_shared_null_span(no_recorder):
+    assert not torch.autograd.profiler._is_profiler_enabled
+    assert trace.span("quant.fake_quant") is trace._NULL_SPAN
+    names = ["quant.fake_quant"] * 10_000
+    for name in names[:100]:
+        with trace.span(name):
+            pass
+    tracemalloc.start()
+    try:
+        tracemalloc.reset_peak()
+        base = tracemalloc.get_traced_memory()[0]
+        for name in names:
+            with trace.span(name) as h:
+                h.sync = None
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    # A few hundred bytes of fixed cost; one small object a call would be ≥ 160 KB.
+    assert peak - base < 1024, f"the idle span path allocated {peak - base} bytes over 10,000 calls"
+
+
+def test_forward_spans_under_the_profiler(no_recorder, tiny_gcn):
+    _, forward, params, batch = tiny_gcn
+    with torch.no_grad():
+        ev = _profiled(lambda: forward(params, batch))
+    assert FORWARD_SPANS <= set(ev)
+    assert len(ev["quant.fake_quant"]) == 4           # w and h of each layer
+    assert ev["aten::topk"] and all(_inside(t, ev["quant.fake_quant"]) for t in ev["aten::topk"])
+    assert all(_inside(c, ev["kernels.pad_rows"]) for c in ev["aten::cat"])
+    assert any(_inside(s, ev["sync.nnz_blocks"]) for s in ev["aten::sum"])
+
+
+def test_step_spans_under_the_profiler(no_recorder, tiny_gcn):
+    loss_fn, _, params, batch = tiny_gcn
+    ev = _profiled(lambda: _one_step(loss_fn, params, batch))
+    assert STEP_SPANS <= set(ev)
+    (step,), (bwd,), (opt,) = ev["train.step"], ev["train.backward"], ev["train.optimizer"]
+    assert _inside(bwd, [step]) and _inside(opt, [step]) and bwd[1] <= opt[0]
+    assert ev["sync.tile_index"] and all(_inside(s, [bwd]) for s in ev["sync.tile_index"])
+    assert all(_inside(q, [step]) and q[1] <= bwd[0] for q in ev["quant.fake_quant"])
+
+
+def test_recorder_and_profiler_see_the_same_spans(tiny_gcn):
+    loss_fn, _, params, batch = tiny_gcn
+    rec = trace.TraceRecorder()
+    old = trace.set_default_tracer(rec)
+    try:
+        ev = _profiled(lambda: _one_step(loss_fn, params, batch))
+    finally:
+        trace.set_default_tracer(old)
+    exported = {e["name"] for e in rec.to_chrome()["traceEvents"] if e["ph"] == "X"}
+    assert exported == STEP_SPANS
+    assert STEP_SPANS <= set(ev)
 
 
 @pytest.fixture(scope="module")
