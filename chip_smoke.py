@@ -552,6 +552,9 @@ REPLACES = {
 REPLACES.update({f"{k}{sfx}": REPLACES[k] for sfx in ("_bf16", "_bf16_all") for k in list(REPLACES)})
 K2 = ("k2_ff_transform", "k2_ff_aggregate", "k2_af_layer")
 FP32_KERNELS = K2 + ("k1_bsr_spmm",)
+# Fake quant's launches in one 4-bit GCN forward (quant on, fp32 h): per layer, the weights' max pass, the
+# activations' three digit passes (99.9th percentile) and a quantize pass each. Training's backward adds none.
+FQ_LAUNCHES_PER_FORWARD = {"fq_select_pass": 6, "fq_max_pass": 2, "fq_quantize": 4}
 # (vals, x, w) dtypes of K2's bf16 instantiations, by launch-name suffix.
 BF16_COMBOS = {"_bf16": (torch.float32, torch.bfloat16, torch.float32),
                "_bf16_all": (torch.bfloat16, torch.bfloat16, torch.bfloat16)}
@@ -792,16 +795,19 @@ def card_line() -> str:
 
 def build_kernels() -> None:
     from repro_torch.kernels import _build
+    from repro_torch.kernels import fake_quant as fqk
     from repro_torch.kernels import flash_attention as k4
     from repro_torch.kernels import fm_interaction as k3
     from repro_torch.kernels import fused_gcn as fg
 
     t0 = time.perf_counter()
-    reports = _build.build(["fused_gcn", "fm_interaction", "flash_attention"])   # one nvcc per source, side by side
+    reports = _build.build(["fused_gcn", "fm_interaction", "flash_attention", "fake_quant"])   # one nvcc per source, side by side
     lib = fg._lib()          # binds every launcher of LAUNCHES: a missing symbol raises
     lib3 = k3._lib()
     lib4 = k4._lib()
+    lib5 = fqk._lib()
     seconds = time.perf_counter() - t0
+    fq_ok = (lib5.fq_passes(4), lib5.fq_passes(2)) == (fqk.digit_passes(31), fqk.digit_passes(15))
     smem_ok = all(lib.k2_layer_smem_bytes(f, dt.itemsize) == fg.layer_smem_bytes(f, dt)
                   for f in (7, 16, 50, 210, fg.AF_MAX_F_IN) for dt in (torch.float32, torch.bfloat16))
     tile_ok = all((lib3.k3_tile_examples(b, f, d, dt.itemsize), bool(lib3.k3_tile_staged(b, f, d, dt.itemsize)))
@@ -827,7 +833,7 @@ def build_kernels() -> None:
                                                     "xw_kernelIfff"))
     xw_mma_ok = (min(xw_mma["xw_kernelI13__nv_bfloat16S1_S1_"]) > 0 and xw_mma["xw_kernelI13__nv_bfloat16ff"] == [0]
                  and xw_mma["xw_kernelIfff"] == [0])
-    emit("build", ok=smem_ok and tile_ok and xw_ok and k4_ok and mma_ok and xw_mma_ok, seconds=seconds,
+    emit("build", ok=smem_ok and tile_ok and xw_ok and k4_ok and mma_ok and xw_mma_ok and fq_ok, seconds=seconds,
          built=sorted(reports), ptxas=ptxas,
          k3_tile_39x10={str(b): k3.fm_tile(b, 39, 10) for b in (512, 65_536, 262_144)},
          k2_xw_blocks={"nell": fg.xw_blocks(65_792, torch.float32),
@@ -844,6 +850,7 @@ def build_kernels() -> None:
     require(xw_mma_ok, "build", f"the all-bf16 transform must run mma and the other two none: {xw_mma}")
     require(k4_ok, "build", "K4's tiles or shared memory in the .cuh and in the wrapper disagree")
     require(mma_ok, "build", f"K4's bf16 body must run mma and its fp32 body none: {k4_mma}")
+    require(fq_ok, "build", "fake quant's digit passes in the .cuh and in the wrapper disagree")
 
 
 def tensor_core_instructions(library: str, bodies: tuple) -> dict:
@@ -1281,10 +1288,48 @@ def check_k1_bf16(rank: dict, hold, cases: list) -> None:
         del rv
 
 
+def run_fake_quant(data: dict, ops: dict) -> None:
+    """The `fake_quant` line: the fake-quant kernels
+    (`repro_torch.kernels.fake_quant`) against their plain version, the
+    PyTorch ops, at Nell's X and at H = relu(X·W1 + b1) with percentile
+    99.9, at W1 and W2 with the max, and at X and H in bf16 (the halo's
+    bf16 wire): the same bits (max |difference| 0), the device ms of a call
+    (`device_ms`) beside the plain version's and the bound (x read once
+    and the output written once: 2 · bytes at the HBM rate), and the
+    launches a call."""
+    from repro_torch.kernels import fake_quant as fqk
+
+    t0 = time.perf_counter()
+    h = torch.relu(data["x"] @ ops["w1"] + ops["b1"])
+    cases = {"x": (data["x"], 99.9), "h": (h, 99.9), "w1": (ops["w1"], None), "w2": (ops["w2"], None),
+             "x_bf16": (data["x"].to(torch.bfloat16), 99.9), "h_bf16": (h.to(torch.bfloat16), 99.9)}
+    rows, ok = {}, True
+    for name, (t, percentile) in cases.items():
+        before = dict(fqk.LAUNCHES)
+        out = fqk.fake_quant(t, 4, percentile)
+        launches = {k: n - before[k] for k, n in fqk.LAUNCHES.items() if n != before[k]}
+        ref = fqk.fake_quant_plain(t, 4, percentile)
+        nan = torch.isnan(ref)
+        same = bool(torch.equal(torch.isnan(out), nan)) and bool(torch.equal(out[~nan], ref[~nan]))
+        diff = float((out.float() - ref.float()).abs().nan_to_num(float("inf")).max())
+        ok &= same
+        rows[name] = dict(shape=list(t.shape), dtype=str(t.dtype).replace("torch.", ""), percentile=percentile,
+                          same_bits=same, max_abs_diff=diff,
+                          ms=device_ms(lambda: fqk.fake_quant(t, 4, percentile)),
+                          plain_ms=device_ms(lambda: fqk.fake_quant_plain(t, 4, percentile), reps=5),
+                          bound_ms=bound(2 * t.numel() * t.element_size(), 0)[0], launches_a_call=launches)
+        del out, ref, nan
+    del cases, h
+    torch.cuda.empty_cache()
+    emit("fake_quant", ok=ok, rows=rows, seconds=time.perf_counter() - t0,
+         note="kernel and plain: device ms of one call (device_ms); bound: 2 × bytes at 3.35 TB/s")
+    require(ok, "fake_quant", f"the kernels' bits differ from the ops': {rows}")
+
+
 def run_main_path(data: dict) -> dict:
     from repro_torch.configs.coin_gcn import make_config
     from repro_torch.core.quant import QuantConfig
-    from repro_torch.kernels import fused_gcn as fg
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.gcn import gcn_forward, gcn_init
 
     device = data["x"].device
@@ -1299,16 +1344,17 @@ def run_main_path(data: dict) -> dict:
 
     with torch.inference_mode():
         torch.cuda.synchronize()
-        fg.reset_launch_counts()
+        reset_launch_counts()
         for _ in range(PASSES):
             logits = forward(cfg)
         torch.cuda.synchronize()
-        launches = dict(fg.LAUNCHES)
+        launches = launch_counts()
         quant_off = dataclasses.replace(cfg, quant=QuantConfig(enabled=False))
         logits_off = forward(quant_off)
         err, scale = max_err(logits_off, forward(dataclasses.replace(quant_off, backend="segment")))
         ref_q = forward(dataclasses.replace(cfg, backend="segment"))
-    expected = {name: PASSES if name in K2 else 0 for name in fg.LAUNCHES}   # K1 runs in training only
+    expected = {name: PASSES if name in K2 else 0 for name in launches}   # K1 runs in training only
+    expected.update({name: PASSES * n for name, n in FQ_LAUNCHES_PER_FORWARD.items()})
     # Agreement up to ties: a node agrees when the class the kernel path
     # picks is a top logit of the plain path within the logit tolerance.
     agree, raw_agree, tied = argmax_agreement(logits, ref_q, LOGIT_RTOL)
@@ -1333,11 +1379,12 @@ def run_main_path(data: dict) -> dict:
 
 def run_training(data: dict) -> dict:
     """The training path: one quant-off gradient on each backend, five
-    quant-on AdamW steps of a `Trainer` with the launch counts zeroed just
-    before and read just after, five quant-off steps on each backend."""
+    quant-on AdamW steps of a `Trainer` with the launch counts (K1, K2 and
+    fake quant) zeroed just before and read just after, five quant-off
+    steps on each backend."""
     from repro_torch.configs.coin_gcn import make_config
     from repro_torch.core.quant import QuantConfig
-    from repro_torch.kernels import fused_gcn as fg
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.gcn import gcn_forward, gcn_init, gcn_loss
     from repro_torch.train.loop import Trainer, TrainerConfig, value_and_grad
     from repro_torch.train.optimizer import adamw
@@ -1389,15 +1436,16 @@ def run_training(data: dict) -> dict:
 
     tr = trainer(cfg)
     torch.cuda.synchronize()
-    fg.reset_launch_counts()
+    reset_launch_counts()
     losses = fit(tr)
     torch.cuda.synchronize()
-    launches = dict(fg.LAUNCHES)
+    launches = launch_counts()
     del tr
 
     trajectory = {b: fit(trainer(dataclasses.replace(quant_off, backend=b))) for b in ("bsr", "segment")}
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(trajectory["bsr"], trajectory["segment"])]
-    expected = {name: TRAIN_STEPS if name in FP32_KERNELS else 0 for name in fg.LAUNCHES}
+    expected = {name: TRAIN_STEPS if name in FP32_KERNELS else 0 for name in launches}
+    expected.update({name: TRAIN_STEPS * n for name, n in FQ_LAUNCHES_PER_FORWARD.items()})
     checks = dict(
         launches=launches == expected,
         gradients=all(err <= GRAD_RTOL * scale for err, scale in grad_err.values()),
@@ -1663,13 +1711,15 @@ def halo_variants():
 # interior and the boundary table; layer 2 (16 → 210, aggregation-first)
 # is one K2 launch over the combined table (bf16 table under the bf16
 # wire), or K1 twice and X·W on the split pair. The segment path runs none.
+# Quant on, either backend runs fake quant's (FQ_LAUNCHES_PER_FORWARD: each
+# rank calibrates on its own fp32 block).
 HALO_LAUNCHES = {
     "a_fp32": {"k1_bsr_spmm": 1, "k2_af_layer": 1},
     "b_bf16": {"k1_bsr_spmm": 1, "k2_af_layer_bf16": 1},
     "c_split_fp32": {"k1_bsr_spmm": 4},
     "d_int8": {"k1_bsr_spmm": 1, "k2_af_layer": 1},
-    "e_bsr_quant_bf16": {"k1_bsr_spmm": 1, "k2_af_layer_bf16": 1},
-    "e_segment_quant_bf16": {},
+    "e_bsr_quant_bf16": {"k1_bsr_spmm": 1, "k2_af_layer_bf16": 1, **FQ_LAUNCHES_PER_FORWARD},
+    "e_segment_quant_bf16": dict(FQ_LAUNCHES_PER_FORWARD),
 }
 
 
@@ -1689,8 +1739,9 @@ HALO_TRAIN_LAUNCHES = {
     "t1_fp32": {"k1_bsr_spmm": 2, "k2_af_layer": 1},
     "t2_bf16": {"k1_bsr_spmm": 1, "k2_af_layer_bf16": 1, "k1_bsr_spmm_bf16": 1},
     "t3_split_fp32": {"k1_bsr_spmm": 4},
-    "t4_bsr_quant_bf16": {"k1_bsr_spmm": 1, "k2_af_layer_bf16": 1, "k1_bsr_spmm_bf16": 1},
-    "t4_segment_quant_bf16": {},
+    "t4_bsr_quant_bf16": {"k1_bsr_spmm": 1, "k2_af_layer_bf16": 1, "k1_bsr_spmm_bf16": 1,
+                          **FQ_LAUNCHES_PER_FORWARD},
+    "t4_segment_quant_bf16": dict(FQ_LAUNCHES_PER_FORWARD),
 }
 
 
@@ -1705,7 +1756,7 @@ def run_halo(host: dict, halo: dict, main: dict, train: dict) -> dict:
     from repro_torch.configs.coin_gcn import make_config
     from repro_torch.dist.halo import restore_node_array
     from repro_torch.graph.structure import restore_rows
-    from repro_torch.kernels import fused_gcn as fg
+    from repro_torch.kernels import launch_counts
     from repro_torch.launch.distributed_gcn import halo_rank, rank_jobs
     from repro_torch.launch.mesh import GroupSpec, run_group
     from repro_torch.models.gcn import gcn_init
@@ -1726,7 +1777,7 @@ def run_halo(host: dict, halo: dict, main: dict, train: dict) -> dict:
     ref = restore_rows(host["perm"], main["logits_quant_off"])        # unsharded bsr, global node order
     ref_scale = float(np.abs(ref).max())
     per_variant, checks = {}, {}
-    launches = {name: 0 for name in fg.LAUNCHES}
+    launches = dict.fromkeys(launch_counts(), 0)
     logits = {}
     for v in variants:
         recs = [r["variants"][v.name] for r in results]
@@ -1782,13 +1833,13 @@ def run_halo(host: dict, halo: dict, main: dict, train: dict) -> dict:
 def check_halo_train(results: list, plan, cfg, train: dict, seconds: float) -> dict:
     """The `halo_train` line: every training variant's checks on every
     rank; returns each kernel's launches over all ranks' training steps."""
-    from repro_torch.kernels import fused_gcn as fg
+    from repro_torch.kernels import launch_counts
 
     variants = halo_train_variants()
     ref_losses = train["losses_bsr_quant_off"]
     rows_per_step = 2 * cfg.n_layers * plan.halo_rows_per_device     # forward and backward exchanges
     checks, per_variant = {}, {}
-    launches = {name: 0 for name in fg.LAUNCHES}
+    launches = dict.fromkeys(launch_counts(), 0)
 
     def grad_errs(recs, ref):
         return {n: max(float(np.abs(rec["grads"][n] - ref[n]).max()) for rec in recs) / float(np.abs(ref[n]).max())
@@ -1898,7 +1949,7 @@ def run_hier(host: dict, halo: dict, flat: dict, train: dict, ckpt_dir: str, tun
     and per-phase exchange ms, and the unsharded reference."""
     from repro_torch.configs.coin_gcn import make_config
     from repro_torch.dist.halo import get_halo_plan, restore_node_array
-    from repro_torch.kernels import fused_gcn as fg
+    from repro_torch.kernels import launch_counts
     from repro_torch.launch.distributed_gcn import HaloVariant, halo_ranks, rank_jobs
     from repro_torch.launch.mesh import GroupSpec, run_group
     from repro_torch.models.gcn import gcn_init
@@ -1922,8 +1973,8 @@ def run_hier(host: dict, halo: dict, flat: dict, train: dict, ckpt_dir: str, tun
     ref, ref_scale = flat["ref"], float(np.abs(flat["ref"]).max())
     n_layers = cfg.n_layers
     checks, per_variant, restored = {}, {}, {}
-    launches = {name: 0 for name in fg.LAUNCHES}
-    train_launches = {name: 0 for name in fg.LAUNCHES}
+    launches = dict.fromkeys(launch_counts(), 0)
+    train_launches = dict.fromkeys(launch_counts(), 0)
     for v in variants:
         recs = [r["variants"][v.name] for r in results]
         logits = restore_node_array(plan, np.stack([rec["logits"] for rec in recs]))
@@ -2138,7 +2189,7 @@ def run_autotune_line(tune: dict, hier: dict, engines: dict) -> dict:
     ranks share one card and gloo has no slow tier: no gate); (d) from
     `measure_engines`. Returns each kernel's launches in (c), all ranks."""
     from repro_torch.dist.halo import restore_node_array
-    from repro_torch.kernels import fused_gcn as fg
+    from repro_torch.kernels import launch_counts
 
     plan, cli, nell = tune["plan"], tune["cli"], tune["nell"]
     results = hier["tuned"]
@@ -2148,7 +2199,7 @@ def run_autotune_line(tune: dict, hier: dict, engines: dict) -> dict:
     scale = float(np.abs(ref).max())
     err_default, err_unsharded = float(np.abs(logits - default).max()), float(np.abs(logits - ref).max())
     n_layers = hier["n_layers"]
-    launches = {name: 0 for name in fg.LAUNCHES}
+    launches = dict.fromkeys(launch_counts(), 0)
     for rec in recs:
         for name, n in rec["launches"].items():
             launches[name] += n
@@ -2467,7 +2518,7 @@ def run_delta(host: dict, prep: dict) -> dict:
     forwards and over the training steps of all ranks."""
     from repro_torch.configs.coin_gcn import make_config
     from repro_torch.dist.halo import node_mask, relocate_node_array, restore_node_array
-    from repro_torch.kernels import fused_gcn as fg
+    from repro_torch.kernels import launch_counts
     from repro_torch.launch.distributed_gcn import DeltaJob, array_checksum, delta_rank
     from repro_torch.launch.mesh import GroupSpec, run_group
     from repro_torch.models.gcn import gcn_init
@@ -2493,8 +2544,8 @@ def run_delta(host: dict, prep: dict) -> dict:
     seconds = time.perf_counter() - t0
     names = [s["name"] for s in results[0]["stages"]]
     checks, per_stage = {}, {}
-    launches = {name: 0 for name in fg.LAUNCHES}
-    train_launches = {name: 0 for name in fg.LAUNCHES}
+    launches = dict.fromkeys(launch_counts(), 0)
+    train_launches = dict.fromkeys(launch_counts(), 0)
     for name in names:
         recs = [next(s for s in r["stages"] if s["name"] == name) for r in results]
         st, ref = stages[name], prep["refs"][name]
@@ -5833,6 +5884,7 @@ def main() -> int:
     worst = check_kernels(data, ops, rank, halo)
     del rank                 # kept off the card while the unsharded paths run and measure their peak
     torch.cuda.empty_cache()
+    run_fake_quant(data, ops)
     main_run = run_main_path(data)
     train_run = run_training(data)
     rows, totals = time_everything(data, ops, main_run, train_run)

@@ -8,11 +8,11 @@ parameter tree), and the wire payload codecs of the halo exchange
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any
 
 import torch
 
+from repro_torch.kernels import fake_quant as fq_kernel
 from repro_torch.obs import trace as _obs_trace
 from repro_torch.train.tree import tree_map
 
@@ -38,32 +38,37 @@ class QuantConfig:
         return dataclasses.replace(self, **kw)
 
 
+class _FakeQuant(torch.autograd.Function):
+    """The kernel forward, the straight-through backward (identity)."""
+
+    @staticmethod
+    def forward(ctx, x, bits, percentile):
+        return fq_kernel.fake_quant(x, bits, percentile)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
 def fake_quant(x: torch.Tensor, bits: int, percentile: float | None = None) -> torch.Tensor:
     """Symmetric per-tensor fake quantization with a straight-through grad.
 
     bits ≥ 32 (or ≤ 0) is a no-op. The scale is amax-based by default;
     ``percentile`` takes the nearest-rank percentile of the magnitudes
     instead: the ceil(p·n/100)-th smallest, i.e. the
-    (n − ceil(p·n/100) + 1)-th largest, found with `torch.topk`. The
-    calibration statistic carries no gradient. Rounding is half-to-even and
-    the clip is [-qmax-1, qmax], as in the reference.
+    (n − ceil(p·n/100) + 1)-th largest. The calibration statistic carries
+    no gradient. Rounding is half-to-even and the clip is [-qmax-1, qmax],
+    as in the reference. CUDA tensors (fp32, bf16) take the hand-written
+    kernels (`repro_torch.kernels.fake_quant`: an exact radix select, then
+    one quantize pass), which give the same bits as the PyTorch ops there;
+    CPU and meta tensors take the ops (`fake_quant_plain`, with `torch.topk`).
     """
     if bits >= 32 or bits <= 0:
         return x
     with _obs_trace.span("quant.fake_quant"):
-        qmax = float(2 ** (bits - 1) - 1)
-        mag = x.detach().abs()
-        if percentile is None:
-            amax = mag.max()
-        else:
-            flat = mag.reshape(-1)
-            n = int(flat.shape[0])
-            k = min(n, max(1, n - math.ceil(percentile / 100.0 * n) + 1))
-            amax = torch.topk(flat, k).values[-1]
-        scale = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
-        q = torch.clamp(torch.round(x / scale), -qmax - 1, qmax) * scale
-        # Straight-through estimator: forward q, backward identity.
-        return x + (q - x).detach()
+        if x.device.type == "cuda":
+            return _FakeQuant.apply(x, bits, percentile)
+        return fq_kernel.fake_quant_plain(x, bits, percentile)
 
 
 def quantize_tree(params: Any, bits: int, percentile: float | None = None) -> Any:

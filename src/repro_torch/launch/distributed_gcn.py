@@ -259,9 +259,9 @@ class _Rank:
 
 
 def _launches() -> dict:
-    from repro_torch.kernels import fused_gcn as fg
+    from repro_torch.kernels import launch_counts
 
-    return {name: n for name, n in fg.LAUNCHES.items() if n}
+    return {name: n for name, n in launch_counts().items() if n}
 
 
 @contextlib.contextmanager
@@ -320,8 +320,8 @@ def halo_rank(rank: int, k: int, device: torch.device, job: RankJob) -> dict:
 
     Per variant: the logits (fp32 numpy, ``n_local`` rows) and their
     dtype, the launches of each kernel in that forward
-    (`repro_torch.kernels.fused_gcn.LAUNCHES`), and the rows and bytes this
-    rank received over the wire (``halo.wire_rows``). With
+    (`repro_torch.kernels.launch_counts`: K1, K2 and fake quant), and the
+    rows and bytes this rank received over the wire (``halo.wire_rows``). With
     ``job.time_reps``: each variant's forward ms, each payload's exchange ms
     on a block of the hidden width (what both layers of a 2-layer GCN
     exchange under the COIN order), a `torch.profiler` summary of one
@@ -330,7 +330,7 @@ def halo_rank(rank: int, k: int, device: torch.device, job: RankJob) -> dict:
     ``job.train_variants``, then also `halo_train_rank`'s report under
     ``"train"``, on the same tables.
     """
-    from repro_torch.kernels import fused_gcn as fg
+    from repro_torch.kernels import reset_launch_counts
 
     _obs_start(rank, job)
     r = _Rank(rank, device, job)
@@ -346,7 +346,7 @@ def halo_rank(rank: int, k: int, device: torch.device, job: RankJob) -> dict:
 
             with torch.inference_mode():
                 r.sync()
-                fg.reset_launch_counts()
+                reset_launch_counts()
                 before = wire()
                 logits = forward()
                 r.sync()
@@ -439,7 +439,7 @@ def _train_variants(r: _Rank) -> dict:
     one exchange's backward per payload (a block of the hidden width, the
     width both layers exchange), and this rank's peak device memory over
     the training runs."""
-    from repro_torch.kernels import fused_gcn as fg
+    from repro_torch.kernels import reset_launch_counts
 
     job, device, b = r.job, r.device, r.batch
     if job.labels is None:
@@ -463,7 +463,7 @@ def _train_variants(r: _Rank) -> dict:
         with _wire_counter() as counts:
             before = counts()
             r.sync()
-            fg.reset_launch_counts()
+            reset_launch_counts()
             step0 = tr.step
             losses = tr.fit(iter(lambda: b, None), max_steps=job.steps, log=log)
             r.sync()
@@ -812,7 +812,7 @@ def delta_rank(rank: int, k: int, device: torch.device, job: DeltaJob) -> dict:
     after `compact`, and the rank's peak device memory."""
     from repro_torch.dist.delta import DeltaPlanner, RelocalizePolicy
     from repro_torch.dist.halo import plan_layout
-    from repro_torch.kernels import fused_gcn as fg
+    from repro_torch.kernels import reset_launch_counts
     from repro_torch.train.elastic import relocate_state_tree
 
     cuda = device.type == "cuda"
@@ -869,7 +869,7 @@ def delta_rank(rank: int, k: int, device: torch.device, job: DeltaJob) -> dict:
                "logits": {}}
         with torch.inference_mode():
             sync()
-            fg.reset_launch_counts()
+            reset_launch_counts()
             for n, b in batches.items():
                 rec["logits"][n] = forward(b).float().cpu().numpy()
             sync()
@@ -927,7 +927,7 @@ def delta_rank(rank: int, k: int, device: torch.device, job: DeltaJob) -> dict:
         steps = job.train_steps[i] if i < len(job.train_steps) else 0
         if steps:
             sync()
-            fg.reset_launch_counts()
+            reset_launch_counts()
             losses = trainer.fit(iter(lambda: batches["flat"], None), max_steps=trainer.step + steps)
             sync()
             out["train"].append({"after": f"delta{i + 1}", "losses": losses, "launches": _launches()})

@@ -124,8 +124,20 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
 }
 inline std::uint16_t __bfloat16_as_ushort(__nv_bfloat16 h) { return h.bits; }
 
-// A product rounded on its own (never contracted into a fused multiply-add).
+// A product rounded on its own (never contracted into a fused multiply-add),
+// and the other correctly rounded fp32 operations (the host compiler here
+// emits no fused multiply-add: no -march).
 inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline __nv_bfloat16 __ushort_as_bfloat16(unsigned short u) { return {u}; }
+
+struct alignas(16) uint4 {
+    unsigned x, y, z, w;
+};
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return {x, y, z, w}; }
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
 
 // The bits of a float as an unsigned int, and back.
 inline unsigned __float_as_uint(float f) {
@@ -164,9 +176,18 @@ inline int __syncthreads_or(int pred) {
 // block order may be permuted (emu_block_order_seed) to show that a result
 // does not depend on it.
 inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
+inline unsigned atomicAdd(unsigned* p, unsigned v) { return std::atomic_ref<unsigned>(*p).fetch_add(v); }
+inline unsigned atomicMax(unsigned* p, unsigned v) {
+    std::atomic_ref<unsigned> a(*p);
+    unsigned old = a.load();
+    while (old < v && !a.compare_exchange_weak(old, v)) {
+    }
+    return old;
+}
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 inline float __ldcg(const float* p) { return *p; }
 inline float4 __ldcg(const float4* p) { return *p; }
+inline unsigned __ldcg(const unsigned* p) { return std::atomic_ref<const unsigned>(*p).load(); }
 
 // Warps: the block's threads in groups of 32, each with a barrier and one
 // exchange slot per thread, for the warp-collective stand-ins.
@@ -197,6 +218,43 @@ inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
     std::memcpy(&r, slots[emu_lane() ^ lane_mask].bytes, sizeof(T));
     __syncwarp();
     return r;
+}
+
+template <typename T>
+inline T __shfl_sync(unsigned, T v, int src_lane) {
+    const EmuSlot* slots = emu_warp_publish(v);
+    T r;
+    std::memcpy(&r, slots[src_lane].bytes, sizeof(T));
+    __syncwarp();
+    return r;
+}
+
+// The lanes of this warp (32, or fewer in a block's last warp).
+inline int emu_warp_lanes() { return std::min(32, int(blockDim.x) - 32 * emu_warp()); }
+
+// Every lane of the warp calls these (the port's kernels call them in
+// converged code only); the mask argument is not read.
+inline unsigned __ballot_sync(unsigned, int pred) {
+    const EmuSlot* slots = emu_warp_publish(int(pred != 0));
+    unsigned m = 0;
+    for (int l = 0; l < emu_warp_lanes(); ++l) {
+        int v;
+        std::memcpy(&v, slots[l].bytes, sizeof(int));
+        if (v) m |= 1u << l;
+    }
+    __syncwarp();
+    return m;
+}
+inline unsigned __match_any_sync(unsigned, unsigned value) {
+    const EmuSlot* slots = emu_warp_publish(value);
+    unsigned m = 0;
+    for (int l = 0; l < emu_warp_lanes(); ++l) {
+        unsigned v;
+        std::memcpy(&v, slots[l].bytes, sizeof(unsigned));
+        if (v == value) m |= 1u << l;
+    }
+    __syncwarp();
+    return m;
 }
 
 // The asynchronous copy primitives of <cuda_pipeline.h>. A copy lands only
@@ -1577,3 +1635,219 @@ def test_emulated_flash_attention_bf16_groups_kv_heads(emu_k4, window):
     expanded = _flash(emu_k4, q, k.repeat_interleave(2, 0), v.repeat_interleave(2, 0), window, True)
     assert torch.equal(out, expanded)
     _bf16_rule(out, flash_attention_plain(q, k, v, window=window))
+
+
+# ----------------------------------------------------------------- fake quant
+# The fake-quant kernels compiled through SHIM, with the launch sequence of
+# fake_quant.cu on a grid of a given number of blocks and a scratch buffer
+# of a given capacity.
+FQ_HARNESS = r"""
+// The GCN's fake quantization (src/repro_torch/kernels/csrc/fake_quant_kernels.cuh)
+// compiled by the host compiler through shim.h, with the launch sequence of
+// fake_quant.cu, behind a C interface for ctypes. Returns 0, or 2 for
+// arguments the launcher refuses.
+#include "shim.h"
+
+#include "fake_quant_kernels.cuh"
+
+#include <cstdint>
+
+namespace fq {
+alignas(16) unsigned fq_smem[smem_bytes<__nv_bfloat16>() / 4];
+}
+
+template <typename T>
+int emu_fq(const void* xp, void* outp, long long n, float qmax, float lo, float hi, long long k, unsigned* state,
+           unsigned* scratch, long long cap, int blocks) {
+    if (n < 1 || k < 0 || k > n || cap < 0 || cap > n || blocks < 1) return 2;
+    const T* x = (const T*)xp;
+    T* out = (T*)outp;
+    fq::State* st = reinterpret_cast<fq::State*>(state);
+    const int vec = reinterpret_cast<std::uintptr_t>(x) % 16 == 0 ? 1 : 0;
+    if (k == 0) {
+        emu_launch(dim3(blocks), fq::THREADS, [&] { fq::max_pass<T>(x, n, vec, st); });
+    } else {
+        for (int p = 0; p < fq::digit_passes(fq::Elem<T>::KEY_BITS); ++p)
+            emu_launch(dim3(blocks), fq::THREADS,
+                       [&] { fq::select_pass<T>(x, n, vec, scratch, (unsigned)cap, st, p, (unsigned)k); });
+    }
+    emu_launch(dim3(blocks), fq::THREADS,
+               [&] { fq::quantize<T>(x, out, n, vec, st, qmax, lo, hi, scratch, (unsigned)cap, k > 0 ? 1 : 0); });
+    return 0;
+}
+
+extern "C" {
+int emu_fake_quant(const void* x, void* out, long long n, float qmax, float lo, float hi, long long k,
+                   unsigned* state, unsigned* scratch, long long cap, int blocks) {
+    return emu_fq<float>(x, out, n, qmax, lo, hi, k, state, scratch, cap, blocks);
+}
+int emu_fake_quant_bf16(const void* x, void* out, long long n, float qmax, float lo, float hi, long long k,
+                        unsigned* state, unsigned* scratch, long long cap, int blocks) {
+    return emu_fq<__nv_bfloat16>(x, out, n, qmax, lo, hi, k, state, scratch, cap, blocks);
+}
+long long emu_fq_state_words() { return (long long)(sizeof(fq::State) / 4); }
+int emu_fq_passes(int elem) { return fq::digit_passes(elem == 2 ? 15 : 31); }
+int emu_fq_digit(int kb, int p, int which) { return which ? fq::digit_width(kb, p) : fq::digit_shift(kb, p); }
+}  // extern "C"
+"""
+
+
+@pytest.fixture(scope="module")
+def emu_fq(tmp_path_factory):
+    lib = _compile(tmp_path_factory, "fake_quant_emu", FQ_HARNESS)
+    P, L, F, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float, ctypes.c_int
+    for name in ("emu_fake_quant", "emu_fake_quant_bf16"):
+        getattr(lib, name).argtypes = [P, P, L, F, F, F, L, P, P, L, I]
+    lib.emu_fq_state_words.restype = L
+    lib.emu_fq_passes.argtypes = [I]
+    lib.emu_fq_digit.argtypes = [I, I, I]
+    return lib
+
+
+def _emu_fake_quant(lib, x, bits, percentile, blocks=3, cap=None, offset=0, fill=None):
+    """(out, the statistic's key, the scale) of the emulated kernels on x
+    (flat from element ``offset`` of its storage: 1 makes a start that is
+    not 16-byte aligned); ``fill``: the output's values before the call, in
+    place of the wrapper's (zeros for the percentile)."""
+    from repro_torch.kernels import fake_quant as fqk
+
+    base = torch.zeros(x.numel() + 8, dtype=x.dtype)
+    base[offset:offset + x.numel()] = x.reshape(-1)
+    xs = base[offset:offset + x.numel()]
+    n = xs.numel()
+    k = 0 if percentile is None else fqk.rank_k(n, percentile)
+    cap = fqk.scratch_capacity(n) if cap is None else cap
+    state = torch.zeros(lib.emu_fq_state_words(), dtype=torch.int32)
+    scratch = torch.full((max(2 * cap, 1),), -1, dtype=torch.int32)
+    out = torch.zeros_like(xs) if k else torch.full_like(xs, float("nan"))   # as the wrapper allocates it
+    if fill is not None:
+        out.fill_(fill)
+    qmax = float(2 ** (bits - 1) - 1)
+    name = "emu_fake_quant" if x.dtype == F32 else "emu_fake_quant_bf16"
+    assert getattr(lib, name)(xs.data_ptr(), out.data_ptr(), n, qmax, -qmax - 1, qmax, k, state.data_ptr(),
+                              scratch.data_ptr(), cap, blocks) == 0
+    words = state.view(torch.int64 if False else torch.int32).numpy().view(np.uint32)
+    return out.reshape(x.shape), int(words[0]), int(words[1])
+
+
+def _card_ops(x, bits, percentile):
+    """The plain version's ops as the card runs them, on the CPU: the scale
+    is amax times the fp32 reciprocal of qmax (PyTorch's CUDA division by a
+    host scalar), where the CPU's division is a true one."""
+    from repro_torch.kernels import fake_quant as fqk
+
+    qmax = float(2 ** (bits - 1) - 1)
+    mag = x.abs()
+    flat = mag.reshape(-1)
+    amax = mag.max() if percentile is None else torch.topk(flat, fqk.rank_k(flat.numel(), percentile)).values[-1]
+    inv = torch.tensor(1.0, dtype=F32) / torch.tensor(qmax, dtype=F32)
+    scale = torch.where(amax > 0, (amax.float() * inv).to(x.dtype), torch.ones_like(amax))
+    q = torch.clamp(torch.round(x / scale), -qmax - 1, qmax) * scale
+    return x + (q - x), amax, scale
+
+
+def _bits_equal(out, ref):
+    """The same bits wherever ref is not NaN, and NaN where it is."""
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(out), nan)
+    view = torch.int32 if out.dtype == F32 else torch.int16
+    assert torch.equal(out[~nan].view(view), ref[~nan].view(view))
+
+
+def _fq_cases():
+    r = np.random.default_rng(7)
+    sparse = np.zeros((40, 300), np.float32)                        # Nell-like rows: 32 ones each
+    for row in sparse:
+        row[r.choice(300, 32, replace=False)] = 1.0
+    sparse[3, :5] = [0.5, 2.0, 0.25, 3.0, 1.5]
+    special = r.standard_normal(700).astype(np.float32)
+    special[:8] = [0.0, -0.0, np.inf, -np.inf, 1e-40, -3e-42, 1.2e-38, -7.5]
+    special[100:106] = np.nan
+    return {
+        "sparse": sparse,
+        "relu": np.maximum(r.standard_normal((257, 16)), 0).astype(np.float32),
+        "weights": (0.1 * r.standard_normal((50, 7))).astype(np.float32),
+        "ties": np.where(r.random(3000) < 0.7, 1.0, -1.0).astype(np.float32),
+        "zeros": np.zeros(999, np.float32),
+        "small": r.standard_normal(37).astype(np.float32),
+        "special": special,
+        "tiny": np.array([1.4e-45, 0.0, -1.4e-45, 0.0, -0.0, 2.8e-45, 0.0, 0.0, 0.0], np.float32),
+    }
+
+
+FQ_CASES = _fq_cases()
+
+
+@pytest.mark.parametrize("percentile", [None, 99.9, 90.0, 0.0])
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("name", sorted(FQ_CASES))
+def test_emulated_fake_quant_matches_card_ops(emu_fq, name, dtype, percentile):
+    """The kernels' output equals the plain ops (with the card's scale) bit
+    for bit, and their statistic and scale are the ops' — k = 1 (n < 1,000
+    at 99.9), k = n (percentile 0), zeros, ties, NaN, inf, subnormals, a
+    scale that rounds to 0 (tiny)."""
+    x = torch.from_numpy(FQ_CASES[name]).to(dtype)
+    out, key, scale_bits = _emu_fake_quant(emu_fq, x, 4, percentile)
+    ref, amax, scale = _card_ops(x, 4, percentile)
+    _bits_equal(out, ref)
+    if dtype == F32:
+        assert key == int(amax.view(torch.int32)) & 0x7FFFFFFF or (torch.isnan(amax) and key > 0x7F800000)
+        assert scale_bits == int(scale.view(torch.int32)) & 0xFFFFFFFF
+    else:
+        assert key == int(amax.view(torch.int16)) & 0x7FFF or (torch.isnan(amax) and key > 0x7F80)
+        assert scale_bits == int(scale.view(torch.int16)) & 0xFFFF
+
+
+@pytest.mark.parametrize("cap", [0, 40, 200, 2_000])
+@pytest.mark.parametrize("blocks", [1, 4, 9])
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["fp32", "bf16"])
+def test_emulated_fake_quant_any_grid_and_capacity(emu_fq, dtype, blocks, cap):
+    """The same bits on any grid and with a scratch buffer too small for the
+    first pass's keys (40, 200: the next pass reads x again) or for any
+    (0), on the sparse case at 99.9 and at 50."""
+    x = torch.from_numpy(FQ_CASES["sparse"]).to(dtype)
+    for percentile in (99.9, 50.0):
+        out, _, _ = _emu_fake_quant(emu_fq, x, 4, percentile, blocks=blocks, cap=min(cap, x.numel()))
+        _bits_equal(out, _card_ops(x, 4, percentile)[0])
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["fp32", "bf16"])
+def test_emulated_fake_quant_writes_only_the_nonzeros_where_they_fit(emu_fq, dtype):
+    """With every nonzero element in the buffer the quantize kernel writes
+    only those (an output filled with 5.0 keeps it at the zeros); with too
+    small a buffer, or a scale that rounds to 0, it writes every element."""
+    x = torch.from_numpy(FQ_CASES["sparse"]).to(dtype)
+    nz = x != 0
+    ref = _card_ops(x, 4, 99.9)[0]
+    out, _, _ = _emu_fake_quant(emu_fq, x, 4, 99.9, fill=5.0)
+    assert torch.equal(out[nz], ref[nz]) and bool((out[~nz] == 5.0).all())
+    out, _, _ = _emu_fake_quant(emu_fq, x, 4, 99.9, cap=int(nz.sum()) - 1, fill=5.0)
+    _bits_equal(out, ref)
+    if dtype == F32:
+        tiny = torch.from_numpy(FQ_CASES["tiny"])
+        out, _, _ = _emu_fake_quant(emu_fq, tiny, 4, 99.9, fill=5.0)
+        _bits_equal(out, _card_ops(tiny, 4, 99.9)[0])
+
+
+@pytest.mark.parametrize("bits", [2, 8])
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["fp32", "bf16"])
+def test_emulated_fake_quant_unaligned_start_and_bits(emu_fq, dtype, bits):
+    """A start that is not 16-byte aligned reads element by element, with
+    the same bits; 2 and 8 bits."""
+    x = torch.from_numpy(FQ_CASES["relu"][:101]).to(dtype)
+    for percentile in (None, 99.0):
+        out, _, _ = _emu_fake_quant(emu_fq, x, bits, percentile, offset=1)
+        _bits_equal(out, _card_ops(x, bits, percentile)[0])
+
+
+def test_emulated_fake_quant_schedule_matches_python(emu_fq):
+    """The digit schedule of the .cuh (shifts, widths, passes) is the
+    wrapper's and the numpy mirror's (tests/_fake_quant_mirror.py)."""
+    import _fake_quant_mirror as mirror
+    from repro_torch.kernels import fake_quant as fqk
+
+    assert (emu_fq.emu_fq_passes(4), emu_fq.emu_fq_passes(2)) == (fqk.digit_passes(31), fqk.digit_passes(15)) == (3, 2)
+    for kb in (31, 15):
+        for p in range(fqk.digit_passes(kb)):
+            assert emu_fq.emu_fq_digit(kb, p, 0) == mirror.digit_shift(kb, p)
+            assert emu_fq.emu_fq_digit(kb, p, 1) == mirror.digit_width(kb, p)

@@ -41,6 +41,23 @@ def test_fake_quant_matches_jax(bits, percentile, name):
     np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("percentile", [None, 99.9])
+@pytest.mark.parametrize("name", ["outliers", "ties", "relu_like"])
+def test_fake_quant_on_cpu_takes_the_plain_ops_and_matches_jax(name, percentile):
+    """A CPU tensor takes the PyTorch ops (`fake_quant_plain`, bit for bit),
+    launches none of the card's kernels, and equals the reference."""
+    from repro_torch.kernels import fake_quant as fq_kernel
+    from repro_torch.kernels import launch_counts
+
+    x = torch.from_numpy(INPUTS[name])
+    before = launch_counts()
+    out = fake_quant(x, 4, percentile=percentile)
+    assert launch_counts() == before
+    assert torch.equal(out, fq_kernel.fake_quant_plain(x, 4, percentile))
+    ref = np.asarray(j_fake_quant(jnp.asarray(INPUTS[name]), 4, percentile=percentile))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("bits", [0, 32, 64])
 def test_fake_quant_off_is_identity(bits):
     x = torch.from_numpy(INPUTS["normal"])
